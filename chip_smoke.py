@@ -22,7 +22,20 @@ Phases, in order; any failure raises and exits non-zero:
      which kernels the serving path ran. Three decode dispatches and three
      512-token prefills are then traced with torch.profiler: device time
      by kernel, the device idle share within each traced call's device
-     window, and exactly one device-to-host copy per decode dispatch.
+     window, and exactly one device-to-host copy per decode dispatch;
+  6. paged serving: the same model and traffic through the page pool
+     (page_size 16), dense on the slab and paged, weight-only w4 and w8a8
+     paged. Paged tokens equal slab tokens (or the first divergent step's
+     top-2 logit gap is below 1e-3), each spec launches only its own GEMM,
+     the page-table attention kernel runs 24 times per micro-step, the
+     prefix index is off (windowed arch), one device-to-host copy per
+     traced dispatch, and the non-GEMM device ms per micro-step, slab
+     against paged;
+  7. prefix and conversation reuse: nemotron-4-340b at full width, depth
+     cut to 1 layer, f32: a shared 512-token system prompt under 8
+     requests, then 2 follow-up turns of finished conversations, through
+     the paged engine with the prefix index, against a slab engine over
+     the same model.
 The last lines are the kernels JSON line, the card line and
 {"ok": true, "device": {...}}. Per-case numbers go to
 chiprun_out/chip_smoke.json. Without a CUDA device it exits 2.
@@ -30,6 +43,7 @@ chiprun_out/chip_smoke.json. Without a CUDA device it exits 2.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -42,7 +56,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12                                # H100 SXM data sheet
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}      # dense, no sparsity
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12,      # dense, no sparsity
+              "int8": 1979e12}
 GEMM_SHAPES = [(2560, 2560), (2560, 640), (2560, 6912), (6912, 2560)]
 GEMM_ROWS = [1, 8, 77, 512]
 BITS = [8, 4, 2, 1]
@@ -62,17 +77,33 @@ HEADLINE = {
     "bsr_matmul": ("bsr_matmul", "float32", 8, (2560, 6912), 0.5, None),
     "bsr_quant_matmul": ("bsr_quant_matmul", "float32", 8, (2560, 6912),
                          0.5, 8),
-    "flash_attention": ("flash_attention", "float32", 512, None, None)}
+    "flash_attention": ("flash_attention", "float32", 512, None, None, 80),
+    "quant_matmul": ("quant_matmul", "float32", 8, (2560, 6912), 4),
+    "quant_matmul_w8a8": ("quant_matmul_w8a8", "float32", 8, (2560, 6912)),
+    # one h2o-danube layer's decode attention: 8 slots, 34 pages of 16
+    "paged_flash_attention": ("paged_flash_attention", "float32", 80, 1,
+                              None, None)}
 SOURCES = {
     "dense_matmul": ("src/repro_torch/csrc/dense_matmul.cu",
                      "src/repro/kernels/dense_matmul.py:38"),
     "bsr_matmul": ("src/repro_torch/csrc/bsr_matmul.cu",
                    "src/repro/kernels/bsr_matmul.py:47"),
+    "quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
+                     "src/repro/kernels/quant_matmul.py:73"),
+    "quant_matmul_w8a8": ("src/repro_torch/csrc/quant_matmul.cu",
+                          "src/repro/kernels/quant_matmul.py:135"),
     "bsr_quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
                          "src/repro/kernels/quant_matmul.py:200"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:91"),
+    "paged_flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                              "src/repro/kernels/flash_attention.py:213"),
 }
+GEMM_KERNELS = ("dense_matmul", "bsr_matmul", "quant_matmul",
+                "quant_matmul_w8a8", "bsr_quant_matmul")
+# a divergent greedy token is accepted only at a near-tie of the top two
+# logits (f32 kernels and plain versions sum in different orders)
+TOP2_GAP = 1e-3
 
 
 def sh(cmd):
@@ -115,6 +146,18 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+# device-kernel name fragments of the port's kernels; the first two are
+# the projection GEMMs
+KERNEL_FAMILIES = ("gemm_tile_kernel", "w8a8_kernel", "fa_kernel",
+                   "paged_kernel")
+
+
+def non_gemm_ms(call):
+    """Device ms of a traced call outside the port's projection GEMMs."""
+    return sum(v for f, v in call["device_ms_by_kernel"].items()
+               if f not in KERNEL_FAMILIES[:2])
+
+
 def profile_calls(torch, fn, n):
     """Trace `n` calls of `fn` (each closed by a device sync), one
     torch.profiler session of device activity per call. For each call: the
@@ -142,9 +185,9 @@ def profile_calls(torch, fn, n):
         for s, e, name in device:
             busy += max(0.0, e - max(s, end))
             end = max(end, e)
-            fam = ("gemm_tile_kernel" if "gemm_tile_kernel" in name else
-                   "fa_kernel" if "fa_kernel" in name else
-                   "memcpy_memset" if "mem" in name.lower() else "other")
+            fam = next((f for f in KERNEL_FAMILIES if f in name),
+                       "memcpy_memset" if "mem" in name.lower() else
+                       "library_gemm" if "gemm" in name.lower() else "other")
             by_kernel[fam] = by_kernel.get(fam, 0.0) + (e - s) / 1e3
             dtoh += "DtoH" in name
         calls.append(dict(window_ms=(t1 - t0) / 1e3, busy_ms=busy / 1e3,
@@ -166,11 +209,11 @@ def phase_kernels(torch, timer):
     cases = []
 
     def record(kernel, dtype, got, want, tol, key, n_bytes, flops, run,
-               plain, library, **shape):
+               plain, library, peak=None, **shape):
         err = (got.float() - want.float()).abs()
         atol, rtol = tol
         ok = bool((err <= atol + rtol * want.float().abs()).all())
-        b_ms, b_by = bound_ms(n_bytes, flops, dtype)
+        b_ms, b_by = bound_ms(n_bytes, flops, peak or dtype)
         case = dict(kernel=kernel, dtype=dtype, **shape,
                     max_abs_err=float(err.max()), atol=atol, rtol=rtol,
                     ms=timer(run), plain_ms=timer(plain, iters=5),
@@ -238,42 +281,141 @@ def phase_kernels(torch, timer):
                                lambda: torch.matmul(x, w_deq),
                                m=m, n=n, p=p, sparsity=s, bits=bits)
 
-    # flash attention: h2o-danube prefill heads (32 q over 8 kv, d = 80)
+    # weight-only and w8a8 GEMMs on the same shapes and rows
+    for dtype in DTYPES:
+        dt = getattr(torch, dtype)
+        tol8 = (1e-5, 1e-5) if dtype == "float32" else TOL[dtype]
+        for n, p in GEMM_SHAPES:
+            w32 = torch.randn((n, p), generator=gen, device=dev) * n ** -0.5
+            qts = {bits: qz.quantize(w32, bits) for bits in BITS}
+            w_deq = {bits: qz.dequantize(qt, dt) for bits, qt in qts.items()}
+            for m in GEMM_ROWS:
+                x = torch.randn((m, n), generator=gen, device=dev).to(dt)
+                y = torch.empty((m, p), dtype=dt, device=dev)
+                for bits, qt in qts.items():
+                    record("quant_matmul", dtype, ops.quant_matmul(x, qt),
+                           ref.quant_matmul_ref(x, qt), TOL[dtype],
+                           ("quant_matmul", dtype, m, (n, p), bits),
+                           nbytes(x, qt.data, qt.scale, y), 2 * m * n * p,
+                           lambda: ops.quant_matmul(x, qt),
+                           lambda: ref.quant_matmul_ref(x, qt),
+                           lambda: torch.matmul(x, w_deq[bits]),
+                           m=m, n=n, p=p, bits=bits)
+                qt = qts[8]
+                # the kernel's int32 sums are exact, like the plain
+                # version's float64 ones: only the f32 dequant can differ
+                record("quant_matmul_w8a8", dtype,
+                       ops.quant_matmul_w8a8(x, qt),
+                       ref.quant_matmul_w8a8_ref(x, qt), tol8,
+                       ("quant_matmul_w8a8", dtype, m, (n, p)),
+                       nbytes(x, qt.data, qt.scale, y), 2 * m * n * p,
+                       lambda: ops.quant_matmul_w8a8(x, qt),
+                       lambda: ref.quant_matmul_w8a8_ref(x, qt),
+                       lambda: torch.matmul(x, w_deq[8]),
+                       m=m, n=n, p=p, peak="int8")
+
+    # flash attention: h2o-danube prefill heads (32 q over 8 kv, d = 80),
+    # and nemotron-4-340b's (96 q over 8 kv, d = 192)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for dtype in DTYPES:
         dt = getattr(torch, dtype)
-        for sq in (16, 77, 512):
-            q = torch.randn((1, 32, sq, 80), generator=gen, device=dev).to(dt)
-            k = torch.randn((1, 8, sq, 80), generator=gen, device=dev).to(dt)
-            v = torch.randn((1, 8, sq, 80), generator=gen, device=dev).to(dt)
-            qf, kf, vf = q[0], k[0], v[0]
-            pos = np.arange(sq)
-            for window in (None, 64):
-                live = pos[None, :] <= pos[:, None]
-                if window is not None:
-                    live &= pos[None, :] > pos[:, None] - window
-                mask = torch.as_tensor(live, device=dev)
-                for cap in (None, 50.0):
-                    kw = dict(window=window, softcap=cap)
-                    if cap is not None:
-                        library = None
-                    elif window is None:
-                        library = lambda: sdpa(q, k, v, is_causal=True,
-                                               enable_gqa=True)
-                    else:
-                        library = lambda: sdpa(q, k, v, attn_mask=mask,
-                                               enable_gqa=True)
-                    record("flash_attention", dtype,
-                           ops.flash_attention(q, k, v, **kw),
-                           flash_attention_plain(qf, kf, vf, **kw)[None],
-                           FA_TOL[dtype],
-                           ("flash_attention", dtype, sq, window, cap),
-                           nbytes(q, k, v, q),
-                           4 * 80 * int(live.sum()) * 32,
-                           lambda: ops.flash_attention(q, k, v, **kw),
-                           lambda: flash_attention_plain(qf, kf, vf, **kw),
-                           library, sq=sq, heads=32, kv_heads=8, d=80,
-                           window=window, softcap=cap)
+        for heads, d, sqs, caps in ((32, 80, (16, 77, 512), (None, 50.0)),
+                                    (96, 192, (77, 512), (None,))):
+            for sq in sqs:
+                q = torch.randn((1, heads, sq, d), generator=gen,
+                                device=dev).to(dt)
+                k = torch.randn((1, 8, sq, d), generator=gen, device=dev).to(dt)
+                v = torch.randn((1, 8, sq, d), generator=gen, device=dev).to(dt)
+                qf, kf, vf = q[0], k[0], v[0]
+                pos = np.arange(sq)
+                for window in (None, 64):
+                    live = pos[None, :] <= pos[:, None]
+                    if window is not None:
+                        live &= pos[None, :] > pos[:, None] - window
+                    mask = torch.as_tensor(live, device=dev)
+                    for cap in caps:
+                        kw = dict(window=window, softcap=cap)
+                        if cap is not None:
+                            library = None
+                        elif window is None:
+                            library = lambda: sdpa(q, k, v, is_causal=True,
+                                                   enable_gqa=True)
+                        else:
+                            library = lambda: sdpa(q, k, v, attn_mask=mask,
+                                                   enable_gqa=True)
+                        record("flash_attention", dtype,
+                               ops.flash_attention(q, k, v, **kw),
+                               flash_attention_plain(qf, kf, vf, **kw)[None],
+                               FA_TOL[dtype],
+                               ("flash_attention", dtype, sq, window, cap, d),
+                               nbytes(q, k, v, q),
+                               4 * d * int(live.sum()) * heads,
+                               lambda: ops.flash_attention(q, k, v, **kw),
+                               lambda: flash_attention_plain(qf, kf, vf, **kw),
+                               library, sq=sq, heads=heads, kv_heads=8, d=d,
+                               window=window, softcap=cap)
+
+    # paged decode attention: 8 slots with random clocks over a shuffled
+    # page pool, slot 3 idle on the sink page; h2o-danube (32/8 heads,
+    # d = 80, 34 pages of 16 = 544 positions) and nemotron-4-340b (96/8,
+    # d = 192, 48 pages = 768 positions)
+    b, page = 8, 16
+    for dtype in DTYPES:
+        dt = getattr(torch, dtype)
+        for heads, d, pp in ((32, 80, 34), (96, 192, 48)):
+            n_pages = b * pp + 1
+            kp = torch.randn((n_pages, 8, page, d), generator=gen,
+                             device=dev).to(dt)
+            vp = torch.randn((n_pages, 8, page, d), generator=gen,
+                             device=dev).to(dt)
+            perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+            table = perm.reshape(b, pp).to(torch.int32)
+            table[3] = 0
+            last = torch.randint(pp * page // 4, pp * page, (b,),
+                                 generator=gen, device=dev).to(torch.int32)
+            last_np, table_np = last.cpu().numpy(), table.cpu().numpy()
+            kview = ref.paged_view(kp, table)
+            vview = ref.paged_view(vp, table)
+            for sq in (1, 3):
+                q = torch.randn((b, heads, sq, d), generator=gen,
+                                device=dev).to(dt)
+                kpos = np.arange(pp * page)
+                qpos = last_np[:, None] - (sq - 1) + np.arange(sq)[None, :]
+                for window in (None, 64):
+                    live = kpos[None, None, :] <= qpos[:, :, None]
+                    if window is not None:
+                        live &= kpos[None, None, :] > qpos[:, :, None] - window
+                    # bytes: q, out, table, clocks and every distinct live
+                    # K/V page once
+                    first = np.zeros(b, np.int64) if window is None else \
+                        np.maximum(0, (last_np - (sq - 1) - window - page
+                                       + 1) // page + 1)
+                    pages_read = set()
+                    for bb in range(b):
+                        pages_read.update(
+                            table_np[bb, first[bb]:last_np[bb] // page + 1])
+                    kv_bytes = len(pages_read) * 2 * 8 * page * d \
+                        * kp.element_size()
+                    mask = torch.as_tensor(live, device=dev)[:, None]
+                    for cap in (None, 50.0):
+                        kw = dict(window=window, softcap=cap)
+                        library = None if cap is not None else (
+                            lambda: sdpa(q, kview, vview, attn_mask=mask,
+                                         enable_gqa=True))
+                        args = (q, kp, vp, table, last)
+                        record("paged_flash_attention", dtype,
+                               ops.paged_attention(*args, **kw),
+                               ref.paged_attention_ref(*args, **kw),
+                               FA_TOL[dtype],
+                               ("paged_flash_attention", dtype, d, sq, window,
+                                cap),
+                               kv_bytes + nbytes(q, q, table, last),
+                               4 * d * heads * int(live.sum()),
+                               lambda: ops.paged_attention(*args, **kw),
+                               lambda: ref.paged_attention_ref(*args, **kw),
+                               library, slots=b, heads=heads, kv_heads=8,
+                               d=d, page=page, pages_per_slot=pp, sq=sq,
+                               window=window, softcap=cap)
     torch.cuda.synchronize()
     return cases
 
@@ -322,23 +464,36 @@ def phase_parity(torch):
     torch.cuda.empty_cache()
 
 
-def phase_serving(torch, card):
+DANUBE = "h2o-danube-1.8b"
+N_SLOTS, GEN_LEN, CHUNK = 8, 32, 4
+
+
+def danube_traffic():
+    """Phases 5 and 6: 16 prompts of 32-512 tokens from the seed."""
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(32, 513, 16)
+    return [rng.integers(0, 32000, int(s)).astype(np.int32) for s in lens]
+
+
+def init_danube(torch):
     from repro_torch import configs as C
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    params = T.init(C.get_config(DANUBE), seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  init full-width {DANUBE} (f32): {time.perf_counter() - t0:.1f} "
+          "s", flush=True)
+    return params
+
+
+def phase_serving(torch, card, params):
     from repro_torch.core import kratos as kr
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer as T
     from repro_torch.serve import EngineConfig, InferenceEngine, ModelRegistry
 
-    arch, n_slots, n_req, gen_len, k = "h2o-danube-1.8b", 8, 16, 32, 4
-    t0 = time.perf_counter()
+    arch, n_slots, gen_len, k = DANUBE, N_SLOTS, GEN_LEN, CHUNK
     reg = ModelRegistry()
-    params = T.init(C.get_config(arch), seed=SEED, device="cuda")
-    torch.cuda.synchronize()
-    print(f"  init full-width {arch} (f32): {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    rng = np.random.default_rng(SEED)
-    lens = rng.integers(32, 513, n_req)
-    prompts = [rng.integers(0, 32000, int(s)).astype(np.int32) for s in lens]
+    prompts = danube_traffic()
     specs = {"dense": (kr.DENSE, "dense_matmul"),
              "s0.5": (kr.KratosSpec(sparsity=0.5), "bsr_matmul"),
              "s0.5-w8": (kr.KratosSpec(sparsity=0.5, bits=8),
@@ -371,7 +526,7 @@ def phase_serving(torch, card):
         for r in reqs:
             assert r.done and len(r.generated) == gen_len
             assert all(0 <= t < model.cfg.vocab for t in r.generated)
-        for name in ("dense_matmul", "bsr_matmul", "bsr_quant_matmul"):
+        for name in GEMM_KERNELS:
             assert (counts[name] > 0) == (name == gemm), (tag, counts)
         assert counts["flash_attention"] > 0, counts
         # bookkeeping only (the engine counts one sync per dispatch); the
@@ -441,6 +596,252 @@ def phase_serving(torch, card):
     return totals, results
 
 
+def first_divergence(torch, model, prompts, got, want):
+    """Hold greedy tokens `got` to `want` request by request. Where they
+    first differ, recompute the logits of the common prefix on the card
+    and require a top-2 gap below TOP2_GAP (a near-tie that two summation
+    orders may break either way). Returns the divergences found."""
+    from repro_torch.models import transformer as T
+    out = []
+    for i, (p, a, b) in enumerate(zip(prompts, got, want)):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        seq = np.concatenate([p, np.asarray(a[:j], np.int32)])
+        caches = T.make_caches(model.cfg, 1, len(seq), torch.float32, "cuda")
+        logits, _ = T.forward(model.params,
+                              torch.from_numpy(seq[None]).cuda(), model.cfg,
+                              caches=caches, last_only=True)
+        top = torch.topk(logits[0, -1].float(), 2).values
+        gap = float(top[0] - top[1])
+        out.append(dict(request=i, step=j, top2_gap=gap))
+        print(f"    request {i}: first divergent token at step {j}, top-2 "
+              f"logit gap {gap:.3g} (limit {TOP2_GAP:g})", flush=True)
+        if gap >= TOP2_GAP:
+            raise AssertionError(f"request {i} diverges at step {j} with a "
+                                 f"top-2 gap of {gap}")
+    if not out:
+        print("    tokens identical, no divergent step", flush=True)
+    return out
+
+
+def phase_paged_serving(torch, card, params):
+    """h2o-danube-1.8b at full width and depth through the page pool: its
+    window (4096) exceeds max_len (544), so every k/v leaf is paged and
+    decode attention runs through the page-table kernel."""
+    from repro_torch.core import kratos as kr
+    from repro_torch.kernels import ops
+    from repro_torch.serve import EngineConfig, InferenceEngine, ModelRegistry
+
+    arch, n_slots, gen_len, k = DANUBE, N_SLOTS, GEN_LEN, CHUNK
+    prompts = danube_traffic()
+    runs = {"dense-slab": (kr.DENSE, None, "dense_matmul"),
+            "dense-paged": (kr.DENSE, 16, "dense_matmul"),
+            "w4-paged": (kr.KratosSpec(bits=4), 16, "quant_matmul"),
+            "w8a8-paged": (kr.KratosSpec(bits=8, act_bits=8), 16,
+                           "quant_matmul_w8a8")}
+    totals = {name: 0 for name in ops.KERNELS}
+    results, tokens = {}, {}
+    for tag, (spec, page_size, gemm) in runs.items():
+        model = ModelRegistry().load(arch, spec, smoke=False, params=params,
+                                     seed=SEED)
+        ecfg = EngineConfig(n_slots=n_slots, max_len=512 + gen_len,
+                            decode_chunk=k, seed=SEED, page_size=page_size)
+        warm = InferenceEngine(model, ecfg)          # allocator warm-up
+        warm.submit(prompts[0][:32], 4)
+        warm.run()
+        del warm
+        eng = InferenceEngine(model, ecfg)
+        reqs = [eng.submit(p, gen_len) for p in prompts]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        for name, c in counts.items():
+            totals[name] += c
+        rep = eng.metrics.report()
+        tokens[tag] = [list(r.generated) for r in reqs]
+        for r in reqs:
+            assert r.done and len(r.generated) == gen_len
+        for name in GEMM_KERNELS:
+            assert (counts[name] > 0) == (name == gemm), (tag, counts)
+        assert counts["flash_attention"] > 0, counts
+        layers = model.cfg.n_layers
+        if page_size:
+            assert eng.pool.index is None       # windowed arch: no reuse
+            assert counts["paged_flash_attention"] \
+                == layers * rep["micro_steps"], (counts, rep["micro_steps"])
+        else:
+            assert counts["paged_flash_attention"] == 0, counts
+        n_disp = 5
+        eng.backend.decode_block()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(n_disp):
+            eng.backend.decode_block()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t1) * 1e3 / (n_disp * k)
+        prof = profile_calls(torch, eng.backend.decode_block, 2)
+        copies = [c["dtoh_copies"] for c in prof]
+        assert copies == [1] * len(copies), \
+            f"device-to-host copies per dispatch {copies}, expected 1"
+        other = [non_gemm_ms(c) / k for c in prof]
+        attn = [c["device_ms_by_kernel"].get("paged_kernel", 0.0) / k
+                for c in prof]
+        results[tag] = dict(
+            spec=kr.spec_tag(spec), page_size=page_size, wall_s=wall,
+            tok_per_s=rep["tokens_generated"] / wall,
+            latency_s_p50=rep["latency_s_p50"],
+            latency_s_p99=rep["latency_s_p99"],
+            decode_dispatches=rep["decode_steps"],
+            micro_steps=rep["micro_steps"], decode_micro_step_ms=step_ms,
+            non_gemm_device_ms_per_micro_step=other,
+            paged_attention_device_ms_per_micro_step=attn,
+            decode_dispatch_profiled=prof,
+            packed_mb=model.packed_bytes / 2 ** 20, launches=counts,
+            pages_in_use=rep["pages_in_use"],
+            page_occupancy=rep["page_occupancy"])
+        print(f"  {tag:11s} [{card}] tok/s={results[tag]['tok_per_s']:.1f} "
+              f"p50={rep['latency_s_p50']:.3f}s p99={rep['latency_s_p99']:.3f}s "
+              f"micro-step={step_ms:.2f} ms packed="
+              f"{results[tag]['packed_mb']:.0f} MB non-GEMM device ms / "
+              f"micro-step {[round(v, 3) for v in other]} (of it paged "
+              f"attention {[round(v, 3) for v in attn]}) "
+              f"dispatches={rep['decode_steps']:.0f} "
+              f"micro_steps={rep['micro_steps']:.0f} launches={counts}",
+              flush=True)
+        if tag == "dense-paged":
+            print("  dense paged against dense slab tokens:", flush=True)
+            results[tag]["divergences"] = first_divergence(
+                torch, model, prompts, tokens[tag], tokens["dense-slab"])
+        del eng, model
+        gc.collect()
+    return totals, results
+
+
+def phase_prefix_reuse(torch, card):
+    """nemotron-4-340b at full width, depth cut to 1 layer (one layer plus
+    the untied embedding and head is ~52 GB in f32), dense: a shared
+    512-token system prompt, then two follow-up turns of finished
+    conversations; paged engine with the prefix index against a slab
+    engine over the same model."""
+    from repro_torch import configs as C
+    from repro_torch.core import kratos as kr
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import EngineConfig, InferenceEngine
+    from repro_torch.serve.registry import PackedModel, pack_model_params
+
+    arch, page, n_slots, max_len, k, gen = "nemotron-4-340b", 16, 8, 768, 4, 16
+    cfg = C.get_config(arch, n_layers=1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init(cfg, seed=SEED, device="cuda")
+    packed, n_packed = pack_model_params(params, kr.DENSE)
+    del params
+    n_bytes = sum(t.numel() * t.element_size()
+                  for layer in packed["layers"] for group in layer.values()
+                  for leaf in group.values()
+                  for t in getattr(leaf, "buffers", {}).values())
+    model = PackedModel(name=f"{arch}-1layer", cfg=cfg, params=packed,
+                        spec=kr.DENSE, n_packed=n_packed,
+                        packed_bytes=n_bytes, dense_bytes=n_bytes,
+                        device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  init {arch} full width, 1 layer (f32): "
+          f"{time.perf_counter() - t0:.1f} s, max_memory_allocated "
+          f"{peak / 2 ** 30:.2f} GiB", flush=True)
+    rng = np.random.default_rng(SEED + 1)
+    system = rng.integers(0, cfg.vocab, 512).astype(np.int32)
+    wave = [np.concatenate([system, rng.integers(0, cfg.vocab, int(n))])
+            .astype(np.int32) for n in rng.integers(32, 97, 8)]
+    # a follow-up turn is a conversation hit only if its prior turn
+    # published a page of generated tokens: prompt length not a multiple
+    # of the page
+    sources = [i for i, p in enumerate(wave) if len(p) % page][:2]
+    assert len(sources) == 2, [len(p) for p in wave]
+    follow_new = [rng.integers(0, cfg.vocab, 32).astype(np.int32)
+                  for _ in sources]
+
+    def serve(page_size):
+        eng = InferenceEngine(model, EngineConfig(
+            n_slots=n_slots, max_len=max_len, decode_chunk=k, seed=SEED,
+            page_size=page_size))
+        admit_ms = []
+        start = eng._start
+
+        def timed_start(r):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            start(r)
+            torch.cuda.synchronize()
+            admit_ms.append((r.prefix_matched, len(r.prompt),
+                             (time.perf_counter() - t) * 1e3))
+        eng._start = timed_start
+        reqs = [eng.submit(p, gen) for p in wave]
+        eng.run()
+        follow = [np.concatenate([wave[i], np.asarray(reqs[i].generated,
+                                                      np.int32), f])
+                  for i, f in zip(sources, follow_new)]
+        reqs += [eng.submit(p, gen, arrival_step=eng.step_count)
+                 for p in follow]
+        eng.run()
+        return eng, reqs, follow, admit_ms
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng, reqs, follow, admit_ms = serve(page)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    rep = eng.metrics.report()
+    matched = [r.prefix_matched for r in reqs]
+    assert matched[:8] == [0] + [512] * 7, matched
+    assert rep["prefill_tokens_skipped"] >= 7 * 512, rep
+    assert rep["conversation_prefix_hits"] == 2, rep
+    for r, p in zip(reqs[8:], follow):
+        conv_len = len(p) - 32
+        assert r.prefix_matched == (conv_len - 1) // page * page, \
+            (r.prefix_matched, conv_len)
+    assert eng.pool.pages_in_use == eng.pool.index.n_nodes, \
+        (eng.pool.pages_in_use, eng.pool.index.n_nodes)
+    assert counts["paged_flash_attention"] > 0 and counts["dense_matmul"] > 0
+    hit = [ms for m_, _, ms in admit_ms if m_]
+    miss = [ms for m_, _, ms in admit_ms if not m_]
+    print(f"  paged [{card}] {len(reqs)} requests in {wall:.2f} s, prefix_"
+          f"matched {matched}, prefill_tokens_skipped "
+          f"{rep['prefill_tokens_skipped']:.0f}, skip fraction "
+          f"{rep['prefill_skip_fraction']:.3f}, conversation hits "
+          f"{rep['conversation_prefix_hits']:.0f} "
+          f"({rep['conversation_tokens_reused']:.0f} tokens), pages in use "
+          f"after drain {eng.pool.pages_in_use} = index nodes "
+          f"{eng.pool.index.n_nodes}, launches {counts}", flush=True)
+    print(f"  admission wall ms: unmatched {[round(v, 1) for v in miss]}, "
+          f"matched {[round(v, 1) for v in hit]}", flush=True)
+    paged_tokens = [list(r.generated) for r in reqs]
+    del eng
+    slab, slab_reqs, _, slab_admit = serve(None)
+    print("  paged against slab tokens:", flush=True)
+    div = first_divergence(torch, model, wave + follow, paged_tokens,
+                           [list(r.generated) for r in slab_reqs])
+    result = dict(wall_s=wall, prefix_matched=matched, launches=counts,
+                  max_memory_allocated=peak, admission_ms=admit_ms,
+                  slab_admission_ms=slab_admit, divergences=div,
+                  report={key: rep[key] for key in (
+                      "prefix_hit_rate", "prefill_skip_fraction",
+                      "prefill_tokens_skipped", "conversation_prefix_hits",
+                      "conversation_tokens_reused", "pages_in_use",
+                      "page_occupancy", "tok_per_s")})
+    del slab, model, packed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -473,8 +874,21 @@ def main() -> int:
     print("[4] model parity: card vs CPU, h2o-danube-1.8b width, 2 layers",
           flush=True)
     phase_parity(torch)
+    params = init_danube(torch)
     print("[5] serving h2o-danube-1.8b, full width and depth", flush=True)
-    launches, serving = phase_serving(torch, card)
+    launches, serving = phase_serving(torch, card, params)
+    print("[6] paged serving h2o-danube-1.8b, full width and depth",
+          flush=True)
+    paged_launches, paged = phase_paged_serving(torch, card, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[7] prefix and conversation reuse, nemotron-4-340b full width, "
+          "1 layer", flush=True)
+    reuse_launches, reuse = phase_prefix_reuse(torch, card)
+    for more in (paged_launches, reuse_launches):
+        for name, c in more.items():
+            launches[name] += c
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -492,7 +906,8 @@ def main() -> int:
         {"card": card, "env": env, "build_s": secs, "ptxas": ptxas,
          "kernels": kernels,
          "cases": [{k: v for k, v in c.items() if k != "key"} for c in cases],
-         "serving": serving}, indent=1))
+         "serving": serving, "paged_serving": paged, "prefix_reuse": reuse},
+        indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,14 +7,15 @@ masked dense weight), weight precision `bits`, and the block grid `bk, bn`.
 `apply_packed` picks the GEMM kernel from which buffers `pack()` produced:
 
     'w'                   -> dense_matmul
+    'qt'                  -> quant_matmul, or quant_matmul_w8a8 when
+                             act_bits == 8 and the codes are 8-bit
     'blocks'              -> bsr_matmul
     'qblocks' + 'qscale'  -> bsr_quant_matmul
 
 Weights keep the JAX layout (n_in, n_out), so the buffers compare one to
 one with the JAX package's. The plan's index table becomes an int32 tensor
 on the weight's device once, at pack time (`PackedLinear.indices`), never
-per call. Weight-only quantization without block sparsity (the 'qt'
-buffer, `quant_matmul`) and w8a8 (`act_bits=8`) are not ported yet.
+per call.
 """
 
 from __future__ import annotations
@@ -31,12 +32,6 @@ from repro_torch.kernels import ops
 
 UNROLL_FACTORS = ("pixelwise", "row", "full")
 
-QT_NOT_PORTED = ("weight-only quantization without block sparsity (the "
-                 "'qt' buffer, kernel quant_matmul) is not ported yet: "
-                 "ROADMAP.md queue 2, item 2")
-W8A8_NOT_PORTED = ("act_bits=8 (w8a8, kernel quant_matmul_w8a8) is not "
-                   "ported yet: ROADMAP.md queue 2, item 5")
-
 
 @dataclasses.dataclass(frozen=True)
 class KratosSpec:
@@ -46,7 +41,7 @@ class KratosSpec:
     unroll: str = "full"
     bk: int = 128
     bn: int = 128
-    act_bits: Optional[int] = None    # 8 => w8a8 (not ported yet)
+    act_bits: Optional[int] = None    # 8 => w8a8
     seed: int = 0
 
     def __post_init__(self):
@@ -111,10 +106,11 @@ def serving_spec(n_in: int, n_out: int, spec: KratosSpec) -> KratosSpec:
 def init(n_in: int, n_out: int, spec: KratosSpec = DENSE, *,
          generator: torch.Generator, device, dtype=torch.float32,
          init_scale: Optional[float] = None) -> Dict[str, torch.Tensor]:
-    """Dense float master weight, normal * n_in**-0.5; pruned blocks zero."""
+    """Dense float master weight, normal * n_in**-0.5; pruned blocks zero.
+    Scaled in place, so a large projection never holds two copies."""
     scale = (n_in ** -0.5) if init_scale is None else init_scale
     w = torch.randn((n_in, n_out), generator=generator, device=device,
-                    dtype=dtype) * scale
+                    dtype=dtype).mul_(scale)
     plan = plan_for(n_in, n_out, spec)
     if plan is not None:
         w = sp.sparsify_init(w, plan)
@@ -124,18 +120,16 @@ def init(n_in: int, n_out: int, spec: KratosSpec = DENSE, *,
 def pack(params: Dict[str, torch.Tensor], spec: KratosSpec
          ) -> Dict[str, torch.Tensor]:
     """Convert a dense `{"w"}` leaf into packed inference buffers."""
-    if spec.act_bits == 8:
-        raise NotImplementedError(W8A8_NOT_PORTED)
     w = params["w"]
     n_in, n_out = w.shape
     plan = plan_for(n_in, n_out, spec)
     if plan is None or spec.impl == "systolic":
-        if spec.bits is not None:
-            raise NotImplementedError(QT_NOT_PORTED)
         if plan is not None:
             w = w * torch.as_tensor(sp.plan_mask(plan), dtype=w.dtype,
                                     device=w.device)
-        return {"w": w}
+        if spec.bits is None:
+            return {"w": w}
+        return {"qt": qz.quantize(w, spec.bits)}
     if spec.bits is None:
         return {"blocks": sp.pack_blocks(w, plan)}
     scale = qz.compute_scale(w, spec.bits)                 # (n_out,)
@@ -156,7 +150,7 @@ class PackedLinear:
     spec. `indices` is the plan's int32 index table on the buffers' device
     (None for the dense 'w' buffer)."""
 
-    buffers: Dict[str, torch.Tensor]
+    buffers: Dict[str, object]      # tensors, or a QuantizedTensor at 'qt'
     n_in: int
     n_out: int
     spec: KratosSpec
@@ -164,7 +158,9 @@ class PackedLinear:
 
     @property
     def packed_bytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in self.buffers.values())
+        return sum(t.packed_bytes if isinstance(t, qz.QuantizedTensor)
+                   else t.numel() * t.element_size()
+                   for t in self.buffers.values())
 
 
 def pack_linear(params: Dict[str, torch.Tensor],
@@ -192,13 +188,16 @@ def apply_packed(p: PackedLinear, x: torch.Tensor) -> torch.Tensor:
     b = p.buffers
     if "w" in b:
         y = ops.matmul(xm, b["w"].to(x.dtype))
+    elif "qt" in b:
+        if p.spec.act_bits == 8 and b["qt"].bits == 8:
+            y = ops.quant_matmul_w8a8(xm, b["qt"])
+        else:
+            y = ops.quant_matmul(xm, b["qt"])
     elif "blocks" in b:
         y = ops.bsr_matmul(xm, b["blocks"].to(x.dtype), p.indices)
-    elif "qblocks" in b:
+    else:
         y = ops.bsr_quant_matmul(xm, b["qblocks"], b["qscale"], p.indices,
                                  p.spec.bits)
-    else:
-        raise NotImplementedError(QT_NOT_PORTED)
     return y.reshape(*lead, p.n_out)
 
 

@@ -119,3 +119,21 @@ def quantize(w: torch.Tensor, bits: int) -> QuantizedTensor:
     return QuantizedTensor(data=pack_codes(q, bits),
                            scale=scale.to(torch.float32), bits=bits,
                            shape=tuple(w.shape))
+
+
+def dequantize(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
+    """codes * scale in `dtype` (the JAX package's dequantize)."""
+    codes = unpack_codes(qt.data, qt.bits)
+    return codes.to(dtype) * qt.scale.to(dtype)
+
+
+def quantize_activations_int8(x: torch.Tensor):
+    """Dynamic per-row symmetric int8 activation quantization (for w8a8).
+
+    x: (..., k) -> (codes int8 (..., k), scale f32 (..., 1)). Computed in
+    x's dtype step by step as the JAX package does (abs-max, / 127, + 1e-12,
+    round half to even, clip), so the codes match it byte for byte in bf16
+    too; only the scale is cast to f32."""
+    scale = torch.amax(torch.abs(x), dim=-1, keepdim=True) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale.to(torch.float32)

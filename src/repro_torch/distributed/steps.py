@@ -5,14 +5,17 @@ run back to back on the device — forward, Gumbel-max / greedy sampling,
 per-slot EOS and length masking with `torch.where` — and nothing inside
 the loop reads a value back to the host (no `.item()`, `.cpu()` or
 `nonzero`). The stacked (K, B) int32 token block is the one thing the
-caller copies out per dispatch. The KV slab and the loop state are updated
-in place on the device. Training steps, paged and speculative decode are
-not ported yet (ROADMAP.md queue 1, items 5, 6 and 9).
+caller copies out per dispatch. The KV slab (or page store) and the loop
+state are updated in place on the device. `make_paged_decode_step` is the
+native paged form — the page table rides into every forward as device
+state — and `make_suffix_prefill_step` prefills only the unmatched suffix
+of a prefix-reuse admission. Training steps and speculative decode are not
+ported yet (ROADMAP.md queue 1, items 6 and 9).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -34,19 +37,31 @@ def make_prefill_step(cfg: T.ModelConfig, last_only: bool = True, *,
     return prefill
 
 
-def make_decode_step(cfg: T.ModelConfig, *, n_steps: int):
+def make_decode_step(cfg: T.ModelConfig, *, n_steps: int,
+                     pages_meta: Optional[Dict[str, int]] = None):
     """decode(params, caches, state) -> (tok_block (K, B) int32 on the
     device, caches, state). Slots that finish mid-block (EOS or budget)
-    freeze their token and index; the host catches up from the block."""
+    freeze their token and index; the host catches up from the block.
+
+    pages_meta={'size': page_size, 'len': cache_len} builds the native
+    paged form, which takes the (n_slots, pp) page table after `caches`:
+        decode(params, caches, page_table, state)
+            -> (tok_block, caches, page_table, state)
+    and threads pages={'table', 'size', 'len'} into every forward. The
+    table is loop-invariant inside the dispatch (admission changes it
+    between dispatches)."""
     if n_steps < 1:
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
 
-    def decode(params, caches, state):
+    def decode(params, caches, state, page_table=None):
+        pages = None if page_table is None else dict(pages_meta,
+                                                     table=page_table)
         toks = []
         st = state
         for _ in range(n_steps):
             logits, caches = T.forward(params, st["tokens"][:, None], cfg,
-                                       caches=caches, index=st["index"])
+                                       caches=caches, index=st["index"],
+                                       pages=pages)
             tok = T.sample_tokens(logits[:, -1], st["generator"],
                                   st["temperature"])
             active = st["active"]
@@ -61,7 +76,59 @@ def make_decode_step(cfg: T.ModelConfig, *, n_steps: int):
             toks.append(tok)
         return torch.stack(toks), caches, st
 
+    if pages_meta is not None:
+        def paged_decode(params, caches, page_table, state):
+            tok_block, caches, state = decode(params, caches, state,
+                                              page_table)
+            return tok_block, caches, page_table, state
+        return paged_decode
     return decode
+
+
+def make_paged_decode_step(cfg: T.ModelConfig, *, n_steps: int, layout):
+    """Native paged form of the device-resident loop (serve.paging):
+
+        decode(params, store, page_table, state)
+            -> (tok_block, store, page_table, state)
+
+    The store's leaves pass straight into the forward as its cache list
+    and the attention layers read and write them through the table — one
+    indexed write per leaf for the new rows, the page-table kernel for the
+    read — so no per-dispatch slab view exists."""
+    meta = {"size": layout.page_size, "len": layout.cache_len}
+    inner = make_decode_step(cfg, n_steps=n_steps, pages_meta=meta)
+
+    def decode(params, store, page_table, state):
+        return inner(params, layout.as_tree(store), page_table, state)
+
+    return decode
+
+
+def make_suffix_prefill_step(cfg: T.ModelConfig, *, layout):
+    """Prefill ONLY the unmatched suffix of a prompt whose prefix pages are
+    already resident:
+
+        prefill(params, batch, store, page_table, slot, index)
+            -> ((1, S, vocab) suffix logits, store)
+
+    Gathers the slot's batch-1 slab-layout view (the shared prefix pages
+    supply positions < index), runs the suffix through the decode-form
+    forward (the s > 1 contiguous block write, so suffix tokens attend to
+    the cached prefix under the validity masks) and scatters the view back
+    in place: fresh suffix pages receive the new KV, shared prefix pages
+    the values they supplied. `index` is the matched prefix length (a 0-d
+    int32 device tensor). Padded suffix rows land past the shared region,
+    masked until decode overwrites them; the caller reads the logits
+    column at the true suffix end."""
+    def prefill(params, batch, store, page_table, slot, index):
+        row = page_table[slot]
+        caches = layout.gather_one(store, row, slot)
+        logits, caches = T.forward(params, batch["tokens"], cfg,
+                                   caches=caches, index=index)
+        layout.scatter_one(store, row, slot, caches)
+        return logits, store
+
+    return prefill
 
 
 def make_decode_state(n_slots: int, seed: int = 0,

@@ -1,10 +1,10 @@
-"""Flash attention: wrapper of `csrc/flash_attention.cu`.
+"""Flash attention: wrappers of `csrc/flash_attention.cu`.
 
-Replaces `repro.kernels.flash_attention.flash_attention` (the paged
-decode kernel of the same JAX module is not ported yet: ROADMAP.md queue
-2, item 7). Layout as in the JAX kernel: q (bh, sq, d), k and v
-(bh_kv, skv, d), GQA head bh -> bh // (bh / bh_kv). Any sq, skv >= 1 (the
-kernel masks ragged tails); d <= 128. CPU tensors take the plain version.
+Replaces the two kernels of `repro.kernels.flash_attention`:
+`flash_attention` (prefill; layout as in the JAX kernel: q (bh, sq, d),
+k and v (bh_kv, skv, d), GQA head bh -> bh // (bh / bh_kv), any
+sq, skv >= 1) and `paged_flash_attention` (decode through a page table).
+Both take head_dim d <= 256. CPU tensors take the plain versions.
 """
 
 from __future__ import annotations
@@ -16,9 +16,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.ref import attention_ref, paged_attention_ref
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
@@ -32,6 +32,22 @@ def _lib():
                    _i, _c]
     fn.restype = _i
     return fn
+
+
+@functools.cache
+def _lib_paged():
+    fn = build.load("flash_attention").paged_attention_launch
+    fn.argtypes = [_c, _c, _c, _c, _c, _c, _i, _i, _i, _i, _i, _i, _i, _f,
+                   _i, _f, _i, _i, _c]
+    fn.restype = _i
+    return fn
+
+
+def _check_options(name, window, softcap):
+    if window is not None and window < 1:
+        raise ValueError(f"{name}: window must be >= 1, got {window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"{name}: softcap must be > 0, got {softcap}")
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None,
@@ -54,10 +70,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if bh % bh_kv or d2 != d or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if window is not None and window < 1:
-        raise ValueError(f"flash_attention: window must be >= 1, got {window}")
-    if softcap is not None and softcap <= 0:
-        raise ValueError(f"flash_attention: softcap must be > 0, got {softcap}")
+    _check_options("flash_attention", window, softcap)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, q_offset=q_offset,
@@ -84,3 +97,60 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def paged_flash_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, table: torch.Tensor,
+                          last: torch.Tensor, *, window: Optional[int] = None,
+                          softcap: Optional[float] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Decode attention reading K/V through the page table.
+
+    q: (b, h, sq, d) — the decode block, sq small; k_pages, v_pages:
+    (n_pages, h_kv, P, d) page-major store leaves; table: int32 (b, pp)
+    page ids (sink page 0); last: int32 (b,) position of each slot's final
+    query row. Causal by construction. Returns (b, h, sq, d) in q's dtype;
+    q and the pages may differ in dtype (f32 or bf16 each)."""
+    b, h, sq, d = q.shape
+    n_pages, h_kv, page, d2 = k_pages.shape
+    if (h % h_kv or d2 != d or tuple(v_pages.shape) != tuple(k_pages.shape)
+            or table.ndim != 2 or table.shape[0] != b
+            or tuple(last.shape) != (b,)):
+        raise ValueError(f"paged_flash_attention: q {tuple(q.shape)}, pages "
+                         f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}, "
+                         f"table {tuple(table.shape)}, last "
+                         f"{tuple(last.shape)}")
+    _check_options("paged_flash_attention", window, softcap)
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, k_pages, v_pages, table, last,
+                                   window=window, softcap=softcap, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_flash_attention: unsupported device "
+                         f"{q.device}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"paged_flash_attention: head_dim {d} > "
+                         f"{MAX_HEAD_DIM}")
+    if v_pages.dtype != k_pages.dtype or table.dtype != torch.int32 \
+            or last.dtype != torch.int32:
+        raise TypeError(f"paged_flash_attention: k {k_pages.dtype}, v "
+                        f"{v_pages.dtype}, table {table.dtype} (int32), last "
+                        f"{last.dtype} (int32)")
+    build.check_cuda_operands("paged_flash_attention", k_pages.dtype,
+                              k_pages, v_pages, q, table, last)
+    build.check_cuda_operands("paged_flash_attention", q.dtype, q)
+    scale = (d ** -0.5) if scale is None else scale
+    o = torch.empty_like(q)
+    rc = _lib_paged()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                      table.data_ptr(), last.data_ptr(), o.data_ptr(), b, h,
+                      h_kv, sq, page, table.shape[1], d, float(scale),
+                      0 if window is None else int(window),
+                      0.0 if softcap is None else float(softcap),
+                      int(q.dtype == torch.bfloat16),
+                      int(k_pages.dtype == torch.bfloat16),
+                      torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, "paged_flash_attention")
+    paged_flash_attention.launches += 1
+    return o
+
+
+paged_flash_attention.launches = 0

@@ -1,7 +1,8 @@
 """Public kernel entry points, dispatched by the tensor's device.
 
 Counterpart of `repro.kernels.ops` (same contracts as its `matmul`,
-`bsr_matmul`, `bsr_quant_matmul` and `flash_attention`). The JAX `backend`
+`bsr_matmul`, `quant_matmul`, `quant_matmul_w8a8`, `bsr_quant_matmul`,
+`flash_attention` and `paged_attention`). The JAX `backend`
 knob has no counterpart: a CUDA tensor launches the hand-written Hopper
 kernel, a CPU tensor takes its plain version, inside each wrapper.
 `launch_counts` / `reset_launch_counts` read and zero the wrappers'
@@ -14,13 +15,18 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.core import quantize as qz
 from repro_torch.kernels.bsr_matmul import bsr_matmul as _bsr
 from repro_torch.kernels.dense_matmul import dense_matmul as _dense
 from repro_torch.kernels.flash_attention import flash_attention as _fa
+from repro_torch.kernels.flash_attention import paged_flash_attention as _paged
 from repro_torch.kernels.quant_matmul import bsr_quant_matmul as _bsr_quant
+from repro_torch.kernels.quant_matmul import quant_matmul as _qmm
+from repro_torch.kernels.quant_matmul import quant_matmul_w8a8 as _w8a8
 
-KERNELS = {"dense_matmul": _dense, "bsr_matmul": _bsr,
-           "bsr_quant_matmul": _bsr_quant, "flash_attention": _fa}
+KERNELS = {"dense_matmul": _dense, "bsr_matmul": _bsr, "quant_matmul": _qmm,
+           "quant_matmul_w8a8": _w8a8, "bsr_quant_matmul": _bsr_quant,
+           "flash_attention": _fa, "paged_flash_attention": _paged}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -44,6 +50,16 @@ def bsr_matmul(x: torch.Tensor, blocks: torch.Tensor,
     return _bsr(x.contiguous(), blocks, indices)
 
 
+def quant_matmul(x: torch.Tensor, qt: qz.QuantizedTensor) -> torch.Tensor:
+    """Weight-only quantized GEMM (w{8,4,2,1}a16)."""
+    return _qmm(x.contiguous(), qt)
+
+
+def quant_matmul_w8a8(x: torch.Tensor, qt: qz.QuantizedTensor) -> torch.Tensor:
+    """int8 x int8 GEMM: per-row activation codes, int32 accumulation."""
+    return _w8a8(x.contiguous(), qt)
+
+
 def bsr_quant_matmul(x: torch.Tensor, qblocks: torch.Tensor,
                      scales: torch.Tensor, indices: torch.Tensor,
                      bits: int) -> torch.Tensor:
@@ -63,3 +79,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               v.reshape(b * h_kv, skv, d).contiguous(), causal=causal, window=window,
               softcap=softcap, q_offset=q_offset, scale=scale)
     return out.reshape(b, h, sq, d)
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, table: torch.Tensor,
+                    last: torch.Tensor, *, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Page-table-native decode attention. q: (b, h, sq, d); k_pages,
+    v_pages: (n_pages, h_kv, P, d); table: int32 (b, pp) page ids; last:
+    int32 (b,) position of each slot's final query row. Returns
+    (b, h, sq, d). Causal by construction."""
+    return _paged(q.contiguous(), k_pages, v_pages, table, last,
+                  window=window, softcap=softcap, scale=scale)

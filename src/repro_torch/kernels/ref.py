@@ -3,9 +3,9 @@
 Same signatures as `repro.kernels.ref`. On a CPU tensor the kernel
 wrappers run these; on the card `chip_smoke.py` holds each hand-written
 kernel against them. Every product is taken in f32 and cast to x's dtype
-once at the end — for the quantized kernel that means the scale is applied
-in f32 too (the JAX oracle scales in x's dtype, which for bf16 differs
-from the f32-flush kernels by about one ulp).
+once at the end — for the quantized kernels that means the scale is
+applied in f32 too (the JAX oracles dequantize or scale in x's dtype,
+which for bf16 differs from the f32-flush kernels by about one ulp).
 """
 
 from __future__ import annotations
@@ -53,6 +53,69 @@ def bsr_quant_matmul_ref(x: torch.Tensor, qblocks: torch.Tensor,
     xg = _gather_x(x, indices, bkp * vpb)
     y = torch.einsum("mjtk,jtkn->mjn", xg, blocks.float())
     return (y * scales.float()[None]).reshape(m, n_pb * bn).to(x.dtype)
+
+
+def quant_matmul_ref(x: torch.Tensor, qt: qz.QuantizedTensor) -> torch.Tensor:
+    """Weight-only quantized GEMM: unpack the codes, f32 product, per-column
+    scale in f32."""
+    codes = qz.unpack_codes(qt.data, qt.bits)
+    y = torch.matmul(x.float(), codes.float()) * qt.scale.float()
+    return y.to(x.dtype)
+
+
+def quant_matmul_w8a8_ref(x: torch.Tensor,
+                          qt: qz.QuantizedTensor) -> torch.Tensor:
+    """Fully-quantized int8 GEMM: dynamic per-row activation codes, an exact
+    integer accumulation (float64 holds every partial sum exactly; f32 does
+    not past 2^24), dequantized as acc_f32 * row scale * column scale."""
+    if qt.bits != 8:
+        raise ValueError(f"quant_matmul_w8a8 needs 8-bit weights, got {qt.bits}")
+    xq, xs = qz.quantize_activations_int8(x)
+    acc = torch.matmul(xq.double(), qt.data.double())
+    return (acc.float() * xs * qt.scale.float()[None, :]).to(x.dtype)
+
+
+def paged_view(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Contiguous per-slot view of a page-major K/V leaf.
+
+    pages: (n_pages, h_kv, P, d); table: (b, pp) int page ids. Returns
+    (b, h_kv, pp * P, d), slot b's positions in order. Sink-page (page 0)
+    entries yield garbage rows the caller's position mask excludes."""
+    g = pages[table.long()]                      # (b, pp, h_kv, P, d)
+    b, pp, h_kv, p, d = g.shape
+    return g.permute(0, 2, 1, 3, 4).reshape(b, h_kv, pp * p, d)
+
+
+def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, table: torch.Tensor,
+                        last: torch.Tensor, *, window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Oracle of the page-table-native decode attention: q (b, h, sq, d),
+    k/v pages (n_pages, h_kv, P, d), table (b, pp), last (b,) the position
+    of each slot's final query row. Position j is live for query row i of
+    slot b iff j <= last[b] - (sq - 1) + i (and inside the window)."""
+    b, h, sq, d = q.shape
+    h_kv = k_pages.shape[1]
+    scale = (d ** -0.5) if scale is None else scale
+    k = paged_view(k_pages, table)
+    v = paged_view(v_pages, table)
+    if h != h_kv:
+        k = k.repeat_interleave(h // h_kv, dim=1)
+        v = v.repeat_interleave(h // h_kv, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = (last.long()[:, None] - (sq - 1)
+            + torch.arange(sq, device=q.device)[None, :])        # (b, sq)
+    kpos = torch.arange(k.shape[2], device=q.device)
+    mask = kpos[None, None, :] <= qpos[:, :, None]               # (b, sq, skv)
+    if window is not None:
+        mask &= kpos[None, None, :] > qpos[:, :, None] - window
+    s = s.masked_fill(~mask[:, None], -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(),
+                        v.float()).to(q.dtype)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -5,13 +5,18 @@ Caches, per layer, batch-major:
   full window:    k/v (B, KV, S_max, dh), position p at row p
   sliding window: circular buffer of W rows, position p at row p % W
 
+  paged (serve.paging): page-major (n_pages, KV, P, dh) store leaves read
+                  and written through a (B, pp) page table
+
 Prefill (contiguous positions) runs the flash kernel through
 `kernels.ops.flash_attention`. Decode writes the new K/V rows IN PLACE into
-the cache tensors (the JAX package returns updated arrays; here the slab is
-mutated, which saves a cache copy per step) and attends with the plain
-`attention_positional`, as the JAX package does. Decode takes a scalar
-index (one shared clock) or a (B,) vector of per-slot clocks (continuous
-batching).
+the cache tensors (the JAX package returns updated arrays; here the slab or
+page store is mutated, which saves a cache copy per step). Slab decode
+attends with the plain `attention_positional`, as the JAX package does;
+native paged decode attends through `kernels.ops.paged_attention` (the
+page-table kernel) on the card and through the sliced slab-layout view on
+the CPU, the JAX package's `ref` path. Decode takes a scalar index (one
+shared clock) or a (B,) vector of per-slot clocks (continuous batching).
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import kratos as kr
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
 
 
@@ -123,10 +128,62 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, s, h * dh)
 
 
+def _paged_leaf_view(leaf, table, cache_len: int):
+    """Contiguous (B, KV, cache_len, dh) view of a page-major leaf
+    (n_pages, KV, P, dh) through the (B, pp) table: value-identical to the
+    slab rows on every position the validity masks admit."""
+    return ref.paged_view(leaf, table)[:, :, :cache_len]
+
+
+def _page_offsets(pages, index, b: int, s: int):
+    """(page, offset, last) for writing s tokens at `index`: position
+    index[b] + j lands in page table[b, pos // P] at row pos % P (positions
+    past the slot's footprint hit its sink-page tail: masked garbage).
+    last (B,) is the position of the final written token."""
+    idx = index.to(torch.int32)
+    if idx.ndim == 0:
+        idx = idx.expand(b)
+    pos = idx[:, None] + torch.arange(s, dtype=torch.int32,
+                                      device=idx.device)[None, :]
+    page = torch.gather(pages["table"], 1, (pos // pages["size"]).long())
+    return page, pos % pages["size"], idx + (s - 1)
+
+
+def _paged_gqa_decode(q, k, v, cfg: AttnConfig, cache, index, pages,
+                      positions, out_dtype):
+    """Page-table-native decode for full-window GQA layers: one indexed
+    write per leaf puts the s new rows straight into their pages (no slab
+    view anywhere), then attention reads through the table."""
+    b, s = q.shape[0], q.shape[2]
+    page, off, last = _page_offsets(pages, index, b, s)
+    page, off = page.long(), off.long()
+    # advanced indices at axes 0 and 2 around a sliced head axis: the
+    # written block is (B, s, KV, dh)
+    cache["k"][page, :, off] = k.transpose(1, 2).to(cache["k"].dtype)
+    cache["v"][page, :, off] = v.transpose(1, 2).to(cache["v"].dtype)
+    if q.device.type == "cuda":
+        return ops.paged_attention(q, cache["k"], cache["v"], pages["table"],
+                                   last, window=cfg.window,
+                                   softcap=cfg.softcap, scale=cfg.scale)
+    k_view = _paged_leaf_view(cache["k"], pages["table"], pages["len"])
+    v_view = _paged_leaf_view(cache["v"], pages["table"], pages["len"])
+    slots = torch.arange(pages["len"], dtype=torch.int32, device=q.device)
+    valid = slots[None] <= last[:, None]
+    return attention_positional(
+        q, k_view.to(out_dtype), v_view.to(out_dtype), positions, slots,
+        causal=cfg.causal, window=cfg.window, softcap=cfg.softcap,
+        extra_mask=valid, scale=cfg.scale)
+
+
 def gqa_apply(params, x, cfg: AttnConfig, *, positions=None, cache=None,
-              index=None) -> Tuple[torch.Tensor, Optional[Dict]]:
+              index=None, pages=None) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Full-sequence (cache None, or prefill into `cache` with index None)
-    or decode (cache and index) GQA attention. Returns (y, cache)."""
+    or decode (cache and index) GQA attention. Returns (y, cache).
+
+    pages: the page-table operand of native paged decode ({'table',
+    'size', 'len'}); the cache leaves are then page-major. A windowed
+    layer whose window is shorter than `len` keeps a resident circular
+    slab leaf and ignores it."""
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _split_heads(kr.apply(params["wq"], x), h, dh)
@@ -145,6 +202,10 @@ def gqa_apply(params, x, cfg: AttnConfig, *, positions=None, cache=None,
         if cache is not None:
             _prefill_cache(cache, k, v, cfg)
         o = _sdpa(q, k, v, cfg)
+    elif pages is not None and (cfg.window is None
+                                or cfg.window >= pages["len"]):
+        o = _paged_gqa_decode(q, k, v, cfg, cache, index, pages, positions,
+                              x.dtype)
     else:
         kv_pos, valid = _decode_cache_write(cache, k, v, cfg, index)
         o = attention_positional(

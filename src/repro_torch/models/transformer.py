@@ -8,7 +8,8 @@ package's stacked `blocks` consumed by `lax.scan`:
      "layers": [{"pre_norm", "mixer": {wq, wk, wv, wo}, "ffn_norm",
                  "ffn": {w_gate?, w_up, w_down}}, ...]}
 
-Caches are a per-layer list of {"k", "v"} tensors (models.attention).
+Caches are a per-layer list of {"k", "v"} tensors (models.attention),
+slab rows or, under a paged pool, page-major store leaves.
 MoE, MLA, Mamba, encoder-decoder and the gemma2 norms are not ported yet
 (ROADMAP.md queue 1, item 7).
 """
@@ -113,7 +114,8 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict:
                               spec=cfg.kratos, **kw),
         })
     params = {
-        "embed": {"emb": torch.randn((cfg.vocab, cfg.d_model), **kw) * 0.02},
+        "embed": {"emb": torch.randn((cfg.vocab, cfg.d_model),
+                                     **kw).mul_(0.02)},
         "final_norm": _norm_params(cfg, device),
         "layers": layers,
     }
@@ -123,10 +125,11 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict:
 
 
 def _layer_apply(p: Dict, x, cfg: ModelConfig, kind: Dict, *, positions,
-                 cache, index):
+                 cache, index, pages):
     h = _norm(cfg, p["pre_norm"], x)
     h, cache = A.gqa_apply(p["mixer"], h, attn_cfg_for(cfg, kind),
-                           positions=positions, cache=cache, index=index)
+                           positions=positions, cache=cache, index=index,
+                           pages=pages)
     x = x + h * cfg.residual_scale
     h = _norm(cfg, p["ffn_norm"], x)
     h = L.mlp_apply(p["ffn"], h, activation=cfg.activation)
@@ -136,12 +139,15 @@ def _layer_apply(p: Dict, x, cfg: ModelConfig, kind: Dict, *, positions,
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             caches: Optional[List[Dict]] = None, index=None,
+            pages: Optional[Dict] = None,
             last_only: bool = False) -> Tuple[torch.Tensor, Optional[List]]:
     """Decoder forward. tokens: (B, S) int. Returns (f32 logits, caches).
 
-    caches: per-layer list from `make_caches` or None. index None runs the
-    full sequence (filling `caches` when given: prefill); a 0-d or (B,)
-    int32 tensor decodes at that position, writing the caches in place.
+    caches: per-layer list from `make_caches` (or a paged pool's store)
+    or None. index None runs the full sequence (filling `caches` when
+    given: prefill); a 0-d or (B,) int32 tensor decodes at that position,
+    writing the caches in place. pages: the page-table operand of native
+    paged decode ({'table', 'size', 'len'}), threaded to every GQA layer.
     last_only: logits for the final position only."""
     x = L.embed(params["embed"], tokens, scale=cfg.emb_scale).to(cfg.adtype())
     positions = None if index is None else \
@@ -149,7 +155,8 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     for li, lp in enumerate(params["layers"]):
         c = caches[li] if caches is not None else None
         x, _ = _layer_apply(lp, x, cfg, layer_kind(cfg, li),
-                            positions=positions, cache=c, index=index)
+                            positions=positions, cache=c, index=index,
+                            pages=pages)
     if last_only:
         x = x[:, -1:]
     x = _norm(cfg, params["final_norm"], x)

@@ -1,22 +1,28 @@
 """Continuous-batching inference engine over a packed model (port of
-`repro.serve.engine`, slab + device-loop path).
+`repro.serve.engine`, device-loop path over the slab or the page pool).
 
 Step loop (`step()`):
   1. admission — the scheduler picks arrived requests for free slots; each
      is prefilled alone (batch 1, prompt right-padded to a power-of-two
      bucket where that is exact) and its cache copied into its slab row.
+     Under a paged pool (`page_size`) the admission first matches the
+     longest cached page-aligned prefix, reserves the slot's pages (shared
+     prefix pages by refcount) and prefills only the unmatched suffix; a
+     pool short of pages requeues the admission at the front.
      The first token is sampled from the prefill logits (one host sync)
      and the slot's row of the device loop state is installed.
   2. decode — ONE dispatch of `decode_chunk` (K) micro-steps over all
      slots, sampling and EOS / length masking on the device; the (K, B)
      int32 token block is the dispatch's one host sync.
   3. lifecycle — the block is emitted per request in micro-step order,
-     finished requests free their slots for the next step.
+     finished requests publish their conversation to the prefix index
+     (paged) and free their slots for the next step.
 
-Greedy output is independent of K and of what else shares the slab.
-Paging, speculation, QoS tiers, deadlines, the ineffectual-work ledger,
-tracing and the host-side decode loop are not ported yet; asking for them
-raises `NotImplementedError` naming the ROADMAP.md item.
+Greedy output is independent of K, of what else shares the slab, and of
+paging. Speculation, QoS tiers, deadlines, bounded pool-wait retries, the
+legacy gather/scatter paged decode, the ineffectual-work ledger, tracing
+and the host-side decode loop are not ported yet; asking for them raises
+`NotImplementedError` naming the ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.serve.backend import LocalBackend
+from repro_torch.serve.cache_pool import PoolExhausted
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.registry import PackedModel, check_device
 from repro_torch.serve.scheduler import ContinuousScheduler, Request
@@ -46,7 +53,9 @@ class ReplicaFault(RuntimeError):
 _NOT_PORTED = {
     "device_loop": (True, "the host-side decode loop baseline: queue 1, item 8"),
     "speculate": (0, "speculative decode: queue 1, item 6"),
-    "page_size": (None, "paged KV: queue 1, item 5"),
+    "paged_native": (True, "the legacy gather/scatter paged decode (an A/B "
+                     "baseline): queue 1, item 10"),
+    "pool_wait_retries": (None, "bounded pool-wait retries: queue 1, item 8"),
     "qos": (None, "QoS tiers: queue 1, item 8"),
     "ledger": (None, "the ineffectual-work ledger: queue 1, item 8"),
     "trace": (None, "tracing: queue 1, item 8"),
@@ -66,7 +75,17 @@ class EngineConfig:
     max_waiting: Optional[int] = None  # waiting-deque bound (None = open)
     device_loop: bool = True
     speculate: int = 0
+    # paged KV + prefix reuse (serve.paging): page_size carves the cache
+    # into fixed pages behind per-slot page tables (None = the slab);
+    # n_pages sizes the pool (None = slab capacity, n_slots *
+    # pages_per_slot, + the sink page); prefix_cache shares page-aligned
+    # prompt prefixes through the radix index (off by itself for archs
+    # whose cache is not purely positional)
     page_size: Optional[int] = None
+    n_pages: Optional[int] = None
+    prefix_cache: bool = True
+    paged_native: bool = True
+    pool_wait_retries: Optional[int] = None
     qos: Optional[Any] = None
     ledger: Optional[Any] = None
     trace: Optional[Any] = None
@@ -83,6 +102,11 @@ class EngineConfig:
         if self.max_waiting is not None and self.max_waiting < 0:
             raise ValueError(f"max_waiting must be >= 0 or None, got "
                              f"{self.max_waiting}")
+        if self.page_size is not None and self.page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {self.page_size}")
+        if self.n_pages is not None and not self.page_size:
+            raise ValueError("n_pages without page_size: the slab pool has "
+                             "no page geometry")
 
 
 class InferenceEngine:
@@ -151,10 +175,23 @@ class InferenceEngine:
             chosen = {r.id for r in admitted}
             self._waiting = collections.deque(
                 r for r in self._waiting if r.id not in chosen)
-            for r in admitted:
-                self._start(r)
+            for i, r in enumerate(admitted):
+                try:
+                    self._start(r)
+                except PoolExhausted:
+                    # free slots but not enough free pages, even after LRU
+                    # prefix eviction: requeue this and the remaining
+                    # admissions at the front in arrival order; finishing
+                    # requests release pages for the next step
+                    for rr in reversed(admitted[i:]):
+                        self._waiting.appendleft(rr)
+                    self.metrics.on_pool_wait()
+                    break
         if self.pool.n_active:
             advanced = self._decode_block()
+            stats = self.backend.page_stats()
+            if stats is not None:           # per-dispatch page-pool gauge
+                self.metrics.on_pages(*stats)
         else:
             self.metrics.on_idle_step()
             advanced = 1
@@ -183,12 +220,31 @@ class InferenceEngine:
             b *= 2
         return b if b <= self._bucket_cap else s0
 
+    def _suffix_len(self, s: int, start: int) -> int:
+        """Bucketed suffix-prefill length: pow2 like `_prefill_len`, but
+        the padded tail is written (masked) at positions start..start+b, so
+        the bucket falls back to exact when it would run past the slot."""
+        if not self.cfg.prefill_buckets:
+            return s
+        b = self.cfg.bucket_min
+        while b < s:
+            b *= 2
+        return b if start + b <= self._bucket_cap else s
+
     def _emit(self, r: Request, tok: int, step: int) -> None:
         r.generated.append(tok)
         self.metrics.on_token(r.id, step)
         if len(r.generated) >= r.max_new_tokens \
                 or (r.eos_id is not None and tok == r.eos_id):
             r.state = "done"
+            if self.backend.paged:
+                # publish the whole conversation (prompt + generated)
+                # before the slot's pages are freed: the chat's next turn
+                # then skips prefill over all of it
+                self.backend.conversation_insert(
+                    np.concatenate([r.prompt,
+                                    np.asarray(r.generated, np.int32)]),
+                    r.slot)
             self.pool.free(r.slot)
             self._slots[r.slot] = None
             self.metrics.on_finish(r.id, step)
@@ -196,13 +252,45 @@ class InferenceEngine:
     def _start(self, r: Request) -> None:
         slot = self.pool.alloc()
         s0 = len(r.prompt)
-        sp = self._prefill_len(s0)
-        tokens = np.zeros((1, sp), np.int32)
-        tokens[0, :s0] = r.prompt
-        batch = {"tokens": torch.from_numpy(tokens).to(self.backend.device)}
-        logits, caches = self.backend.prefill(batch, exact=sp == s0)
-        row = logits[:, -1] if sp == s0 else logits[:, s0 - 1]
-        self.backend.write_slot(slot, caches)
+        dev = self.backend.device
+        # paged admission: the longest page-aligned cached prefix, then the
+        # slot's page-table row (shared prefix pages by refcount, fresh
+        # private pages for the rest of prompt + budget). Pages are sized
+        # from the true footprint, never from the prefill bucket: padded
+        # writes past it land in the sink page. PoolExhausted propagates
+        # to step(), which requeues.
+        matched, shared, conv = self.backend.prefix_match(r.prompt)
+        try:
+            self.backend.alloc_slot_pages(slot, s0 + r.max_new_tokens,
+                                          shared)
+        except PoolExhausted:
+            self.pool.free(slot)
+            raise
+        if matched:
+            # prefix hit: only the unmatched suffix runs, right-padded into
+            # the same pow2 buckets as full prefills
+            s_sfx = s0 - matched
+            sfx = np.zeros((1, self._suffix_len(s_sfx, matched)), np.int32)
+            sfx[0, :s_sfx] = r.prompt[matched:]
+            logits = self.backend.prefill_suffix(
+                {"tokens": torch.from_numpy(sfx).to(dev)}, slot, matched)
+            row = logits[:, s_sfx - 1]
+        else:
+            sp = self._prefill_len(s0)
+            tokens = np.zeros((1, sp), np.int32)
+            tokens[0, :s0] = r.prompt
+            logits, caches = self.backend.prefill(
+                {"tokens": torch.from_numpy(tokens).to(dev)}, exact=sp == s0)
+            row = logits[:, -1] if sp == s0 else logits[:, s0 - 1]
+            self.backend.write_slot(slot, caches)
+        if self.backend.paged:
+            # publish the prompt's full pages for later admissions (a no-op
+            # without a prefix index)
+            self.backend.prefix_insert(r.prompt, slot)
+            self.metrics.on_prefix(matched, s0)
+            if conv and matched:
+                self.metrics.on_conversation_hit(matched)
+        r.prefix_matched = matched
         r.state, r.slot, r.index = "running", slot, s0
         self._slots[slot] = r
         self.metrics.on_start(r.id, self.step_count)

@@ -1,5 +1,6 @@
-"""Serving metrics: throughput, latency percentiles, occupancy, host syncs
-(the slab-engine subset of `repro.serve.metrics`, same report keys).
+"""Serving metrics: throughput, latency percentiles, occupancy, host syncs,
+prefix reuse and page occupancy (the slab and paged engine's subset of
+`repro.serve.metrics`, same report keys).
 
 Two clocks: wall seconds (time.perf_counter, monotonic) and engine steps
 (one slab decode micro-step per step). `decode_steps` counts DISPATCHES (K
@@ -52,6 +53,16 @@ class ServeMetrics:
         self.host_syncs: Dict[str, int] = {"decode": 0, "prefill": 0}
         self.occupancy: List[float] = []
         self.records: Dict[int, RequestRecord] = {}
+        # paged KV + prefix reuse (serve.paging)
+        self.prefix_lookups = 0               # paged admissions
+        self.prefix_hits = 0                  # ... that matched a prefix
+        self.prefill_tokens_skipped = 0       # prompt tokens never prefilled
+        self.prefill_tokens_computed = 0      # prompt tokens prefilled
+        self.pool_waits = 0                   # admissions requeued on pages
+        self.page_samples: List[int] = []     # pages_in_use per dispatch
+        self.page_capacity = 0                # usable pages in the pool
+        self.conversation_prefix_hits = 0     # admissions resuming a chat
+        self.conversation_tokens_reused = 0   # ... tokens matched there
 
     def on_submit(self, request_id: int, arrival_step: int, n_prompt: int) -> None:
         self.records[request_id] = RequestRecord(
@@ -90,6 +101,31 @@ class ServeMetrics:
     def on_host_sync(self, kind: str, n: int = 1) -> None:
         self.host_syncs[kind] = self.host_syncs.get(kind, 0) + n
 
+    def on_prefix(self, matched: int, n_prompt: int) -> None:
+        """One paged admission: `matched` of `n_prompt` prompt tokens came
+        from shared prefix pages (their prefill was skipped)."""
+        self.prefix_lookups += 1
+        self.prefix_hits += int(matched > 0)
+        self.prefill_tokens_skipped += matched
+        self.prefill_tokens_computed += n_prompt - matched
+
+    def on_conversation_hit(self, matched: int) -> None:
+        """A paged admission whose match ran through pages a finished
+        request published from its generated tokens (a chat resuming its
+        prior turn); `matched` tokens skipped prefill."""
+        self.conversation_prefix_hits += 1
+        self.conversation_tokens_reused += matched
+
+    def on_pool_wait(self) -> None:
+        """An admission bounced off page pressure and was requeued."""
+        self.pool_waits += 1
+
+    def on_pages(self, in_use: int, capacity: int) -> None:
+        """Per-dispatch page-pool gauge (pages referenced by live slots or
+        retained by the prefix index, out of the usable pool)."""
+        self.page_samples.append(in_use)
+        self.page_capacity = capacity
+
     def report(self) -> Dict[str, float]:
         elapsed = max(time.perf_counter() - self.t0, 1e-9)
         per_dispatch = self.tokens_generated / max(1, self.decode_steps)
@@ -122,4 +158,22 @@ class ServeMetrics:
             "latency_s_p99": percentile(lat_wall, 99),
             "ttft_steps_p50": percentile(ttft_steps, 50),
             "ttft_steps_p99": percentile(ttft_steps, 99),
+            # paged KV + prefix reuse
+            "prefix_hit_rate": self.prefix_hits
+            / max(1, self.prefix_lookups),
+            "prefill_tokens_skipped": float(self.prefill_tokens_skipped),
+            "prefill_skip_fraction": self.prefill_tokens_skipped
+            / max(1, self.prefill_tokens_skipped
+                  + self.prefill_tokens_computed),
+            "pool_waits": float(self.pool_waits),
+            "conversation_prefix_hits": float(self.conversation_prefix_hits),
+            "conversation_tokens_reused": float(
+                self.conversation_tokens_reused),
+            "pages_in_use": (sum(self.page_samples)
+                             / len(self.page_samples))
+            if self.page_samples else 0.0,
+            "page_occupancy": (sum(self.page_samples)
+                               / (len(self.page_samples)
+                                  * self.page_capacity))
+            if (self.page_samples and self.page_capacity) else 0.0,
         }

@@ -1,0 +1,311 @@
+"""Block-paged KV pool with radix-tree prefix reuse (port of
+`repro.serve.paging`, native form, one device).
+
+The slab (serve.cache_pool) reserves one `max_len` stride per slot. This
+pool carves the same memory into fixed-size PAGES:
+
+  * every cache leaf with the positional `cache_len` axis is stored
+    page-major: the slab's (n_slots, KV, cache_len, dh) becomes
+    (n_pages, KV, page_size, dh) — the page axis sits where the slot axis
+    sat (axis 0 of every per-layer leaf);
+  * each slot owns an int32 row of a (n_slots, pages_per_slot) PAGE TABLE
+    mapping position p to page table[slot, p // P]; the table lives on the
+    device and is written only at admission and release;
+  * page alloc/free is free-list bookkeeping with REFCOUNTS: a page shared
+    by several slots and/or retained by the prefix index frees only when
+    its last reference drops;
+  * decode reads and writes the store through the table
+    (models.attention's paged branch, kernels.ops.paged_attention), so no
+    slab view exists on the decode path.
+
+Leaves that are not positional (a circular sliding-window leaf whose W is
+shorter than cache_len) stay RESIDENT in the slot-major slab layout inside
+the same store.
+
+Page 0 is the reserved WRITE SINK: a freed slot's table row resets to it,
+so an idle slot's garbage decode writes land in a page nobody reads. Rows
+past a slot's allocated length point at it too; the per-slot validity
+clocks keep those positions inert.
+
+Prefix reuse: `prefix_match` returns the longest PAGE-ALIGNED cached
+prefix (capped at prompt_len - 1, so a suffix token remains to produce the
+first-sample logits); admission bumps the shared pages' refcounts
+(`alloc_pages`), prefills only the suffix, and publishes the prompt's full
+pages (`prefix_insert`). A finished request publishes its whole
+conversation (`conversation_insert`) so a follow-up turn skips prefill
+over everything said so far. Only pages with complete, final KV are ever
+published, so sharing needs no copy-on-write. Under page pressure
+allocation first evicts LRU tree pages nobody else references, then raises
+`PoolExhausted` (the engine requeues the admission).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.ref import paged_view
+from repro_torch.models import transformer as T
+from repro_torch.serve.cache_pool import PoolExhausted
+from repro_torch.serve.prefix import PrefixIndex
+
+Store = List[Dict[str, torch.Tensor]]
+
+
+def prefix_supported(cfg: T.ModelConfig) -> bool:
+    """Archs whose whole per-request cache state is positional and paged —
+    the precondition for prefix sharing to reproduce a prefill exactly. A
+    circular window overwrites position identity."""
+    return not cfg.window
+
+
+class PageLayout:
+    """Leaf classification plus the batch-1 gather/scatter between the
+    page store and the slab layout (suffix prefill and slot install).
+
+    The store is the per-layer leaf list of `T.make_caches(cfg, n_slots,
+    cache_len)` with every PAGED leaf re-laid out page-major. `as_tree`
+    hands the store to the forward as its cache list unchanged."""
+
+    def __init__(self, cfg: T.ModelConfig, n_slots: int, cache_len: int,
+                 page_size: int, dtype=torch.float32, device="cuda"):
+        if page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        self.cfg, self.n_slots = cfg, n_slots
+        self.cache_len, self.page_size = cache_len, page_size
+        self.pp = -(-cache_len // page_size)          # pages per slot
+        self.dtype, self.device = dtype, torch.device(device)
+        template = T.make_caches(cfg, n_slots, cache_len, dtype, "meta")
+        self.slab_shapes = [{n: tuple(t.shape) for n, t in layer.items()}
+                            for layer in template]
+        self.paged = [{n: len(s) >= 3 and s[-2] == cache_len
+                       for n, s in layer.items()}
+                      for layer in self.slab_shapes]
+        self.has_paged = any(any(layer.values()) for layer in self.paged)
+
+    def store_shapes(self, n_pages: int) -> List[Dict[str, Tuple[int, ...]]]:
+        out = []
+        for shapes, paged in zip(self.slab_shapes, self.paged):
+            out.append({n: (n_pages, *s[1:-2], self.page_size, s[-1])
+                        if paged[n] else s for n, s in shapes.items()})
+        return out
+
+    def make_store(self, n_pages: int) -> Store:
+        return [{n: torch.zeros(s, dtype=self.dtype, device=self.device)
+                 for n, s in layer.items()}
+                for layer in self.store_shapes(n_pages)]
+
+    def as_tree(self, store: Store) -> Store:
+        """The cache list the native paged forward takes: the store itself
+        (the page axis sits where the slot axis sat)."""
+        return store
+
+    def _gather_leaf(self, leaf, table):
+        return paged_view(leaf, table)[:, :, :self.cache_len]
+
+    def _scatter_leaf(self, store_leaf, table, slab_leaf) -> None:
+        pad = self.pp * self.page_size - self.cache_len
+        x = slab_leaf
+        if pad:   # the final partial page is private by construction
+            x = torch.cat([x, x.new_zeros((*x.shape[:-2], pad, x.shape[-1]))],
+                          dim=-2)
+        x = x.unflatten(-2, (self.pp, self.page_size)).movedim(-3, 1)
+        store_leaf[table.long()] = x.to(store_leaf.dtype)
+
+    def gather_one(self, store: Store, table_row: torch.Tensor,
+                   slot: int) -> Store:
+        """Batch-1 slab-layout copy of one slot (suffix prefill)."""
+        return [{n: self._gather_leaf(t, table_row[None]) if paged[n]
+                 else t[slot:slot + 1].clone()
+                 for n, t in layer.items()}
+                for layer, paged in zip(store, self.paged)]
+
+    def scatter_one(self, store: Store, table_row: torch.Tensor, slot: int,
+                    caches: Store) -> None:
+        """Write a batch-1 slab-layout cache into the slot's pages (and its
+        resident rows), in place. Shared prefix pages receive back the
+        values they supplied."""
+        for layer, one, paged in zip(store, caches, self.paged):
+            for n, t in layer.items():
+                if paged[n]:
+                    self._scatter_leaf(t, table_row[None], one[n])
+                else:
+                    t[slot].copy_(one[n][0])
+
+
+class PagedCachePool:
+    """Fixed-page KV pool: refcounted pages + per-slot page tables.
+
+    Same slot surface as `CachePool` (alloc / free / n_free / n_active /
+    write_slot) plus the paging and prefix-reuse surface the engine's
+    admission drives: `prefix_match` -> `alloc_pages` -> (suffix) prefill
+    -> `prefix_insert`, and `conversation_insert` at finish."""
+
+    def __init__(self, cfg: T.ModelConfig, n_slots: int, max_len: int,
+                 dtype=torch.float32, device="cuda", *, page_size: int,
+                 n_pages: Optional[int] = None, prefix_cache: bool = True):
+        if n_slots < 1:
+            raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+        self.cfg, self.n_slots = cfg, n_slots
+        self.max_len, self.dtype = max_len, dtype
+        self.layout = PageLayout(cfg, n_slots, max_len, page_size, dtype,
+                                 device)
+        self.page_size, self.pp = page_size, self.layout.pp
+        # +1: page 0 is the reserved write sink, never allocated
+        self.n_pages = n_pages if n_pages is not None \
+            else n_slots * self.pp + 1
+        if self.layout.has_paged and self.n_pages < self.pp + 1:
+            raise ValueError(
+                f"n_pages={self.n_pages} cannot hold even one full slot "
+                f"({self.pp} pages) plus the reserved sink page")
+        self.store = self.layout.make_store(self.n_pages)
+        self.page_table = torch.zeros((n_slots, self.pp), dtype=torch.int32,
+                                      device=device)
+        self._table = np.zeros((n_slots, self.pp), np.int32)
+        self.refs = np.zeros(self.n_pages, np.int32)
+        self.refs[0] = 1                       # the sink is never freeable
+        self._free_pages: List[int] = list(range(self.n_pages - 1, 0, -1))
+        self._slot_pages: List[List[int]] = [[] for _ in range(n_slots)]
+        self._free_slots: List[int] = list(range(n_slots - 1, -1, -1))
+        self.index = PrefixIndex(page_size) \
+            if (prefix_cache and self.layout.has_paged
+                and prefix_supported(cfg)) else None
+
+    # -------------------------------------------------------------- slots
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free_slots)
+
+    @property
+    def n_active(self) -> int:
+        return self.n_slots - len(self._free_slots)
+
+    def alloc(self) -> int:
+        if not self._free_slots:
+            raise PoolExhausted(
+                f"all {self.n_slots} cache slots in use; admission must wait")
+        return self._free_slots.pop()
+
+    def _set_row(self, slot: int, row: np.ndarray) -> None:
+        self._table[slot] = row
+        self.page_table[slot] = torch.from_numpy(row).to(
+            self.page_table.device)
+
+    def free(self, slot: int) -> None:
+        """Release a slot and its page references; pages the prefix index
+        retains survive. The slot's table row resets to the sink page."""
+        if not (0 <= slot < self.n_slots):
+            raise ValueError(f"slot {slot} out of range [0, {self.n_slots})")
+        if slot in self._free_slots:
+            raise ValueError(f"double-free of slot {slot}")
+        for p in self._slot_pages[slot]:
+            self._release(p)
+        self._slot_pages[slot] = []
+        self._set_row(slot, np.zeros((self.pp,), np.int32))
+        self._free_slots.append(slot)
+
+    # -------------------------------------------------------------- pages
+
+    def _retain(self, page: int) -> None:
+        self.refs[page] += 1
+
+    def _release(self, page: int) -> None:
+        self.refs[page] -= 1
+        assert self.refs[page] >= 0, f"refcount underflow on page {page}"
+        if self.refs[page] == 0:
+            self._free_pages.append(page)
+
+    def pages_needed(self, n_positions: int) -> int:
+        if not self.layout.has_paged:
+            return 0
+        return -(-min(n_positions, self.max_len) // self.page_size)
+
+    @property
+    def n_usable_pages(self) -> int:
+        return self.n_pages - 1
+
+    @property
+    def pages_in_use(self) -> int:
+        return self.n_pages - 1 - len(self._free_pages)
+
+    def page_stats(self) -> Tuple[int, int]:
+        return self.pages_in_use, self.n_usable_pages
+
+    def alloc_pages(self, slot: int, n_positions: int,
+                    shared: Sequence[int] = ()) -> None:
+        """Install a slot's page-table row: the `shared` prefix pages (from
+        `prefix_match` in the same admission; refcount bump) followed by
+        fresh private pages covering `n_positions`. LRU tree-only pages are
+        evicted first under pressure; a request the pool still cannot hold
+        raises `PoolExhausted` with every refcount restored."""
+        need = self.pages_needed(n_positions)
+        shared = list(shared)
+        assert len(shared) <= need, (len(shared), need)
+        for p in shared:
+            self._retain(p)     # before eviction: a matched page is pinned
+        n_new = need - len(shared)
+        if n_new > len(self._free_pages) and self.index is not None:
+            self.index.evict(n_new - len(self._free_pages),
+                             can_free=lambda p: self.refs[p] == 1,
+                             release=self._release)
+        if n_new > len(self._free_pages):
+            for p in shared:
+                self._release(p)
+            raise PoolExhausted(
+                f"{n_new} pages needed, {len(self._free_pages)} free "
+                f"(of {self.n_usable_pages}); admission must wait")
+        fresh = [self._free_pages.pop() for _ in range(n_new)]
+        for p in fresh:
+            self.refs[p] = 1
+        pages = shared + fresh
+        self._slot_pages[slot] = pages
+        row = np.zeros((self.pp,), np.int32)
+        row[:len(pages)] = pages
+        self._set_row(slot, row)
+
+    # ------------------------------------------------------------- prefix
+
+    def prefix_match(self, tokens) -> Tuple[int, List[int], bool]:
+        """(matched token count, shared page ids, conversation hit) for the
+        longest cached page-aligned prefix, capped at len(tokens) - 1. The
+        third element is True when the match reached pages published at a
+        request finish (whole-conversation reuse)."""
+        if self.index is None:
+            return 0, [], False
+        pages, conversation = self.index.match(tokens)
+        cap = max(0, (len(tokens) - 1) // self.page_size)
+        pages = pages[:cap]
+        return len(pages) * self.page_size, pages, conversation and \
+            bool(pages)
+
+    def prefix_insert(self, tokens, slot: int) -> int:
+        """Publish the slot's FULL prompt pages (never the partial tail: it
+        receives this request's generated tokens) into the tree."""
+        if self.index is None:
+            return 0
+        n_full = len(tokens) // self.page_size
+        return self.index.insert(tokens, self._slot_pages[slot][:n_full],
+                                 retain=self._retain)
+
+    def conversation_insert(self, tokens, slot: int) -> int:
+        """Publish a FINISHED request's conversation (prompt + generated).
+        Decode never writes KV for the final emitted token, so valid KV
+        ends at len(tokens) - 2 and (len(tokens) - 1) // page_size pages
+        publish; every later write lands strictly past them."""
+        if self.index is None:
+            return 0
+        n_full = max(0, (len(tokens) - 1) // self.page_size)
+        return self.index.insert(tokens, self._slot_pages[slot][:n_full],
+                                 retain=self._retain, generated=True)
+
+    # ------------------------------------------------------------ install
+
+    def write_slot(self, slot: int, single: Store) -> None:
+        """Scatter a prefilled batch-1 cache into the slot's pages (and its
+        resident rows). Shared prefix pages receive back the values they
+        supplied — a value-level no-op."""
+        self.layout.scatter_one(self.store, self.page_table[slot], slot,
+                                single)

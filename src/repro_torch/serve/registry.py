@@ -78,15 +78,6 @@ def tree_to(node, device):
     return node
 
 
-def check_spec(spec: kr.KratosSpec) -> None:
-    """Refuse, up front, a spec whose kernels are not ported yet."""
-    if spec.act_bits is not None:
-        raise NotImplementedError(kr.W8A8_NOT_PORTED)
-    if spec.bits is not None and (spec.sparsity == 0.0
-                                  or spec.impl == "systolic"):
-        raise NotImplementedError(kr.QT_NOT_PORTED)
-
-
 @dataclasses.dataclass
 class PackedModel:
     """A named serving artifact: config + packed parameter tree + stats."""
@@ -131,7 +122,6 @@ class ModelRegistry:
         device = check_device(device)
         cfg = (C.get_smoke if smoke else C.get_config)(arch)
         spec = cfg.kratos if spec is None else spec
-        check_spec(spec)
         cfg = dataclasses.replace(cfg, kratos=spec)
         key = (arch, spec, smoke, seed, str(device))
         if params is None and key in self._models:

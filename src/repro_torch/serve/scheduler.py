@@ -27,6 +27,7 @@ class Request:
     state: str = "waiting"                  # waiting | running | done
     slot: int = -1
     index: int = 0                          # next cache write position
+    prefix_matched: int = 0                 # prompt tokens reused (paged)
     generated: List[int] = dataclasses.field(default_factory=list)
 
     @property

@@ -100,12 +100,18 @@ def test_pack_buffers_byte_identical_and_apply_packed(spec):
 
 
 def test_unported_specs_raise():
+    """The weight-only and w8a8 specs pack into the buffers JAX's pack()
+    makes ('qt' dense, 'qblocks' on the tree path, where act_bits is not
+    used); what still raises is the training-time apply on a dense leaf."""
     w = {"w": torch.zeros(64, 32)}
-    with pytest.raises(NotImplementedError, match="queue 2, item 2"):
-        pkr.pack_linear(w, pkr.KratosSpec(bits=8))
-    with pytest.raises(NotImplementedError, match="queue 2, item 5"):
-        pkr.pack_linear(w, pkr.KratosSpec(sparsity=0.5, bits=8, act_bits=8,
-                                          bk=8, bn=8))
+    assert set(pkr.pack_linear(w, pkr.KratosSpec(bits=8)).buffers) == {"qt"}
+    assert set(pkr.pack_linear(w, pkr.KratosSpec(bits=8, act_bits=8))
+               .buffers) == {"qt"}
+    assert set(pkr.pack_linear(w, pkr.KratosSpec(
+        sparsity=0.5, bits=8, act_bits=8, bk=8, bn=8)).buffers) \
+        == {"qblocks", "qscale"}
+    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+        pkr.apply(w, torch.zeros(2, 64))
 
 
 def test_cost_report_matches_jax():

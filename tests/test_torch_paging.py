@@ -1,0 +1,296 @@
+"""Port parity, paged KV with prefix reuse: the plain version of
+`paged_flash_attention` against the JAX Pallas kernel in interpret mode;
+the port's `PagedCachePool` against `repro.serve.paging`'s on one random
+alloc / match / insert / free / evict sequence; and the port's paged
+engine against JAX's on a shared-system-prompt trace followed by a
+conversation's second turn, for the dense, w4 and w8a8 specs at K in
+{1, 2}: greedy tokens, `prefix_matched` lists and reuse counters equal,
+and the drain returns the pool to pristine."""
+
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax
+import jax.numpy as jnp
+
+from repro import configs as JC
+from repro.checkpoint.manager import save_pytree
+from repro.core import kratos as jkr
+from repro.kernels import ops as jops
+from repro.models import transformer as JT
+from repro.serve import EngineConfig as JEngineConfig
+from repro.serve import InferenceEngine as JEngine
+from repro.serve import ModelRegistry as JRegistry
+from repro.serve import PagedCachePool as JPool
+from repro.serve import PoolExhausted as JPoolExhausted
+from repro_torch import configs as PC
+from repro_torch.checkpoint.convert import convert
+from repro_torch.core import kratos as pkr
+from repro_torch.kernels import ops as pops
+from repro_torch.serve import (EngineConfig, InferenceEngine, ModelRegistry,
+                               PagedCachePool, PoolExhausted,
+                               prefix_supported)
+
+from test_torch_serve import _record_decode_host_reads
+
+NEMOTRON, DANUBE = "nemotron-4-340b", "h2o-danube-1.8b"
+SPECS = {"dense": {}, "w4": dict(bits=4), "w8a8": dict(bits=8, act_bits=8)}
+# reuse counters that do not depend on the dispatch grouping K, and the two
+# per-dispatch page gauges that do
+REUSE_KEYS = ("prefix_hit_rate", "prefill_skip_fraction",
+              "prefill_tokens_skipped", "conversation_prefix_hits",
+              "conversation_tokens_reused", "pool_waits",
+              "requests_completed", "tokens_generated")
+GAUGE_KEYS = ("pages_in_use", "page_occupancy")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Smoke-sized CPU ops run far faster on one intra-op thread than
+    spread over many (and the suite runs several workers at once)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def rnd(seed, shape, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale
+            ).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# kernel: plain version vs Pallas interpret
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("h,h_kv,sq,window,softcap", [
+    (4, 4, 1, None, None),
+    (8, 2, 1, None, None),                 # GQA
+    (8, 2, 3, None, 30.0),                 # verify-sized block + softcap
+    (8, 2, 1, 6, None),                    # sliding window
+    (8, 2, 3, 6, 50.0),
+])
+def test_paged_attention_plain_vs_pallas(h, h_kv, sq, window, softcap):
+    b, pp, page, d = 4, 5, 4, 16
+    rng = np.random.default_rng(h * 10 + sq)
+    n_pages = b * pp + 1
+    kp, vp = rnd(1, (n_pages, h_kv, page, d)), rnd(2, (n_pages, h_kv, page, d))
+    table = (rng.permutation(n_pages - 1)[:b * pp] + 1).reshape(b, pp)
+    table = table.astype(np.int32)
+    last = np.array([pp * page - 1, 6, 9, 13], np.int32)
+    table[1, 2:] = 0          # pages past the slot's footprint: the sink
+    table[2] = 0              # an idle slot parked on the sink page
+    q = rnd(3, (b, h, sq, d))
+    want = jops.paged_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(table),
+        jnp.asarray(last), window=window, softcap=softcap,
+        backend="interpret")
+    got = pops.paged_attention(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(table), torch.from_numpy(last), window=window,
+        softcap=softcap)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3,
+                               atol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# pool: identical bookkeeping on one random sequence
+# ---------------------------------------------------------------------------
+
+def _pool_state(pool):
+    return (pool._table.tolist(), np.asarray(pool.page_table).tolist(),
+            pool.refs.tolist(), list(pool._free_pages),
+            list(pool._free_slots), pool.index.n_nodes)
+
+
+def test_pool_matches_jax_on_random_sequence():
+    cfg_j, cfg_p = JC.get_smoke(NEMOTRON), PC.get_smoke(NEMOTRON)
+    kw = dict(page_size=8, n_pages=10)
+    jpool = JPool(cfg_j, 3, 32, jnp.float32, **kw)
+    ppool = PagedCachePool(cfg_p, 3, 32, torch.float32, "cpu", **kw)
+    rng = np.random.default_rng(0)
+    systems = [rng.integers(0, 64, 16) for _ in range(2)]
+    live, events = {}, {"exhausted": 0, "evicted": 0, "matched": 0}
+    for _ in range(60):
+        if live and (not jpool.n_free or rng.random() < 0.4):
+            slot = int(rng.choice(sorted(live)))
+            conv = np.concatenate([live.pop(slot),
+                                   rng.integers(0, 64, rng.integers(1, 9))])
+            assert jpool.conversation_insert(conv, slot) \
+                == ppool.conversation_insert(conv, slot)
+            jpool.free(slot)
+            ppool.free(slot)
+        else:
+            prompt = np.concatenate([systems[rng.integers(2)],
+                                     rng.integers(0, 64, rng.integers(1, 9))])
+            slot = jpool.alloc()
+            assert ppool.alloc() == slot
+            match = jpool.prefix_match(prompt)
+            assert ppool.prefix_match(prompt) == match
+            events["matched"] += match[0] > 0
+            n = len(prompt) + int(rng.integers(1, 9))
+            evicted = jpool.index.evicted
+            try:
+                jpool.alloc_pages(slot, n, match[1])
+            except JPoolExhausted:
+                with pytest.raises(PoolExhausted):
+                    ppool.alloc_pages(slot, n, match[1])
+                jpool.free(slot)
+                ppool.free(slot)
+                events["exhausted"] += 1
+            else:
+                ppool.alloc_pages(slot, n, match[1])
+                assert jpool.prefix_insert(prompt, slot) \
+                    == ppool.prefix_insert(prompt, slot)
+                live[slot] = prompt
+            events["evicted"] += jpool.index.evicted - evicted
+            assert ppool.index.evicted == jpool.index.evicted
+        assert _pool_state(ppool) == _pool_state(jpool)
+        assert ppool.page_stats() == jpool.page_stats()
+    assert all(events.values()), events       # every path was exercised
+
+
+def test_pool_refuses_too_few_pages():
+    for pool, cfg, extra in ((JPool, JC.get_smoke(NEMOTRON), ()),
+                             (PagedCachePool, PC.get_smoke(NEMOTRON),
+                              ("cpu",))):
+        with pytest.raises(ValueError, match="cannot hold even one"):
+            pool(cfg, 2, 32, *((jnp.float32,) if not extra
+                               else (torch.float32, *extra)),
+                 page_size=8, n_pages=4)
+
+
+# ---------------------------------------------------------------------------
+# engine: JAX's paged engine vs the port's
+# ---------------------------------------------------------------------------
+
+def _trace(vocab):
+    """Five requests sharing a 24-token system prompt, then the second
+    turn of the first one's conversation (prior prompt + reply + 5 new)."""
+    rng = np.random.default_rng(0)
+    sys_p = rng.integers(0, vocab, 24)
+    wave = [np.concatenate([sys_p, rng.integers(0, vocab, 5)])
+            for _ in range(5)]
+    return wave, rng.integers(0, vocab, 5)
+
+
+def _serve(eng, vocab):
+    wave, follow = _trace(vocab)
+    reqs = [eng.submit(p, 5, arrival_step=i) for i, p in enumerate(wave)]
+    eng.run()
+    conv = np.concatenate([wave[0], np.asarray(reqs[0].generated, np.int32)])
+    reqs.append(eng.submit(np.concatenate([conv, follow]), 5,
+                           arrival_step=eng.step_count))
+    eng.run()
+    return ([list(r.generated) for r in reqs],
+            [r.prefix_matched for r in reqs], eng.metrics.report())
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_side(arch, name, k):
+    """(greedy tokens, prefix_matched, report, flat JAX params)."""
+    spec = jkr.KratosSpec(**SPECS[name])
+    cfg = JC.get_smoke(arch, kratos=spec)
+    params = JT.init(jax.random.PRNGKey(0), cfg)
+    model = JRegistry().load(arch, spec, params=params)
+    eng = JEngine(model, JEngineConfig(n_slots=2, max_len=64, page_size=8,
+                                       decode_chunk=k))
+    return (*_serve(eng, cfg.vocab), params)
+
+
+def _port_engine(arch, name, params, tmp_path, **kw):
+    save_pytree(str(tmp_path), params)
+    cfg = PC.get_smoke(arch)
+    model = ModelRegistry().load(
+        arch, pkr.KratosSpec(**SPECS[name]),
+        params=convert(str(tmp_path), cfg.n_layers), device="cpu")
+    return InferenceEngine(model, EngineConfig(n_slots=2, max_len=64,
+                                               device="cpu", **kw))
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("name", list(SPECS))
+def test_paged_engine_matches_jax(name, k, tmp_path, monkeypatch):
+    want_tok, want_matched, want_rep, params = _jax_side(NEMOTRON, name, 1)
+    eng = _port_engine(NEMOTRON, name, params, tmp_path, page_size=8,
+                       decode_chunk=k)
+    reads = _record_decode_host_reads(monkeypatch, eng.backend)
+    tok, matched, rep = _serve(eng, PC.get_smoke(NEMOTRON).vocab)
+    monkeypatch.undo()
+    assert tok == want_tok
+    # 4 admissions reuse the system prompt; turn 2 reuses the 4 full pages
+    # of its 34-token conversation, the last of them generated
+    assert matched == want_matched == [0, 24, 24, 24, 24, 32]
+    keys = REUSE_KEYS + (GAUGE_KEYS if k == 1 else ())
+    assert {key: rep[key] for key in keys} \
+        == {key: want_rep[key] for key in keys}
+    assert rep["conversation_prefix_hits"] == 1
+    assert rep["conversation_tokens_reused"] == 32
+    assert reads == ["cpu"] * int(rep["decode_steps"])
+    # pristine drain: only tree-retained pages remain referenced
+    pool = eng.pool
+    assert pool.n_active == 0 and pool.pages_in_use == pool.index.n_nodes
+    pool.index.clear(pool._release)
+    assert int(pool.refs[1:].sum()) == 0
+    assert len(pool._free_pages) == pool.n_usable_pages
+
+
+def test_paged_engine_matches_slab_engine(tmp_path):
+    """The port's own paged and slab engines agree token for token."""
+    *_, params = _jax_side(NEMOTRON, "w4", 1)
+    out = []
+    for kw in (dict(page_size=8), {}):
+        eng = _port_engine(NEMOTRON, "w4", params, tmp_path, decode_chunk=2,
+                           **kw)
+        out.append(_serve(eng, PC.get_smoke(NEMOTRON).vocab)[0])
+    assert out[0] == out[1]
+
+
+def test_windowed_arch_pages_nothing_and_matches_jax(tmp_path):
+    """h2o-danube's window-8 leaves are shorter than max_len: they stay
+    resident in the store, the prefix index is off, and the paged engine
+    still gives JAX's tokens."""
+    want_tok, want_matched, want_rep, params = _jax_side(DANUBE, "dense", 2)
+    eng = _port_engine(DANUBE, "dense", params, tmp_path, page_size=8,
+                       decode_chunk=2)
+    assert not prefix_supported(eng.model.cfg)
+    assert eng.pool.index is None and not eng.pool.layout.has_paged
+    assert tuple(eng.pool.store[0]["k"].shape) == (2, 2, 8, 8)
+    tok, matched, rep = _serve(eng, PC.get_smoke(DANUBE).vocab)
+    assert tok == want_tok
+    assert matched == want_matched == [0] * 6
+    assert rep["prefix_hit_rate"] == want_rep["prefix_hit_rate"] == 0.0
+
+
+def test_pool_pressure_requeues_and_release_parks_slot(tmp_path):
+    """With pages for one request at a time, the second admission bounces
+    (pool_waits), is requeued at the front and completes after the first
+    frees its pages. release_slot parks a running slot's loop row."""
+    *_, params = _jax_side(NEMOTRON, "dense", 1)
+    eng = _port_engine(NEMOTRON, "dense", params, tmp_path, page_size=8,
+                       n_pages=9, prefix_cache=False)
+    rng = np.random.default_rng(1)
+    reqs = [eng.submit(rng.integers(0, 256, 30), 20) for _ in range(2)]
+    eng.step()
+    slot = reqs[0].slot
+    assert bool(eng.backend.state["active"][slot])
+    eng.run()
+    assert eng.metrics.report()["pool_waits"] >= 1
+    assert all(len(r.generated) == 20 for r in reqs)
+    eng.submit(rng.integers(0, 256, 10), 5)
+    eng.step()
+    eng.backend.release_slot(eng.requests[2].slot)
+    st = eng.backend.state
+    assert not bool(st["active"][eng.requests[2].slot])
+    assert int(st["remaining"][eng.requests[2].slot]) == 0
+
+
+def test_paged_config_checks():
+    with pytest.raises(ValueError, match="page_size must be >= 1"):
+        EngineConfig(device="cpu", page_size=0)
+    with pytest.raises(ValueError, match="n_pages without page_size"):
+        EngineConfig(device="cpu", n_pages=8)

@@ -2,7 +2,8 @@
 equal `repro`'s on one mixed-length trace, for the dense and the
 sparse x int8 spec, at decode chunks K in {1, 4}, with exactly one
 tensor-to-host read per decode dispatch. Also: the port imports nothing of JAX or
-`repro`, and its entry points refuse a missing GPU and unported features."""
+`repro`, and its entry points refuse a missing GPU and unported features
+(the paged engine's parity is in test_torch_paging.py)."""
 
 import ast
 import functools
@@ -139,7 +140,8 @@ def test_cuda_device_refused_without_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("speculate", 2, "item 6"), ("page_size", 8, "item 5"),
+    ("speculate", 2, "item 6"), ("paged_native", False, "item 10"),
+    ("pool_wait_retries", 2, "item 8"),
     ("device_loop", False, "item 8"), ("trace", object(), "item 8")])
 def test_unported_engine_features_raise(field, value, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -147,14 +149,17 @@ def test_unported_engine_features_raise(field, value, item):
 
 
 def test_unported_specs_and_archs_refused_up_front():
+    """Every KratosSpec packs now (w, qt, blocks, qblocks); an unported
+    arch and the training-time apply on a dense leaf still raise."""
     reg = ModelRegistry()
-    with pytest.raises(NotImplementedError, match="queue 2, item 2"):
-        reg.load(ARCH, pkr.KratosSpec(bits=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 2, item 5"):
-        reg.load(ARCH, pkr.KratosSpec(sparsity=0.5, bits=8, act_bits=8,
-                                      bk=8, bn=8), device="cpu")
+    for spec in (pkr.KratosSpec(bits=4), pkr.KratosSpec(bits=8, act_bits=8),
+                 pkr.KratosSpec(sparsity=0.5, bits=8, act_bits=8, bk=8,
+                                bn=8)):
+        assert reg.load(ARCH, spec, device="cpu").n_packed > 0
     with pytest.raises(NotImplementedError, match="item 7"):
         reg.load("gemma2-27b", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        pkr.apply({"w": torch.zeros(4, 4)}, torch.zeros(1, 4))
 
 
 def test_bounded_waiting_rejects():
