@@ -9,7 +9,8 @@ Phases, in order; any failure raises and exits non-zero:
   2. build: every kernel under src/repro_torch/csrc, one nvcc each, all at
      once (timed);
   3. kernels: each hand-written kernel against its plain PyTorch version on
-     the card, at the shapes the h2o-danube-1.8b serving path gives it, with
+     the card, at the shapes the h2o-danube-1.8b, nemotron-4-340b and
+     falcon-mamba-7b serving paths give it, with
      its time (CUDA events, L2 flushed before each launch), the plain
      version's, one PyTorch library call's and the least time the card
      could take (the bound);
@@ -35,7 +36,15 @@ Phases, in order; any failure raises and exits non-zero:
      cut to 1 layer, f32: a shared 512-token system prompt under 8
      requests, then 2 follow-up turns of finished conversations, through
      the paged engine with the prefix index, against a slab engine over
-     the same model.
+     the same model;
+  8. Mamba serving: falcon-mamba-7b. Card-vs-CPU parity at full width cut
+     to 2 layers (one 64-token prefill, 4 greedy decode steps); then the
+     full model (64 layers, random f32 weights from seed 0, 29.1 GB),
+     packed dense and sparsity 0.5 x int8, serving phase 5's traffic. Every
+     prefill runs the selective-scan kernel once per layer (64 x 16 per
+     run), each spec launches only its own GEMMs, no attention kernel
+     runs, and a traced decode dispatch copies to the host once; 3 decode
+     dispatches and 3 512-token prefills are traced.
 The last lines are the kernels JSON line, the card line and
 {"ok": true, "device": {...}}. Per-case numbers go to
 chiprun_out/chip_smoke.json. Without a CUDA device it exits 2.
@@ -69,6 +78,9 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 2.0 ** -7)}    # atol, rtol
 # 2^-9 * sum_j p_j |v_j| (~6e-3 for randn v at these lengths), plus one
 # bf16 ulp of the output
 FA_TOL = {"float32": (2e-3, 2e-3), "bfloat16": (8e-3, 2.0 ** -7)}
+# selective scan: f32 state on both sides (the kernel's expf against
+# torch.exp, FMA contraction); bf16 inputs at the JAX test's tolerance
+SSM_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 3e-2)}
 # the case whose times stand for each kernel in the kernels line: the
 # largest decode GEMM of a micro-step (w_gate / w_up at m = n_slots) and
 # the longest prefill bucket
@@ -82,7 +94,9 @@ HEADLINE = {
     "quant_matmul_w8a8": ("quant_matmul_w8a8", "float32", 8, (2560, 6912)),
     # one h2o-danube layer's decode attention: 8 slots, 34 pages of 16
     "paged_flash_attention": ("paged_flash_attention", "float32", 80, 1,
-                              None, None)}
+                              None, None),
+    # one falcon-mamba layer's scan in a 512-token prefill
+    "ssm_scan": ("ssm_scan", "float32", 1, 512, 8192, 16)}
 SOURCES = {
     "dense_matmul": ("src/repro_torch/csrc/dense_matmul.cu",
                      "src/repro/kernels/dense_matmul.py:38"),
@@ -98,6 +112,8 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:91"),
     "paged_flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                               "src/repro/kernels/flash_attention.py:213"),
+    "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
+                 "src/repro/kernels/ssm_scan.py:64"),
 }
 GEMM_KERNELS = ("dense_matmul", "bsr_matmul", "quant_matmul",
                 "quant_matmul_w8a8", "bsr_quant_matmul")
@@ -149,7 +165,13 @@ def nbytes(*ts):
 # device-kernel name fragments of the port's kernels; the first two are
 # the projection GEMMs
 KERNEL_FAMILIES = ("gemm_tile_kernel", "w8a8_kernel", "fa_kernel",
-                   "paged_kernel")
+                   "paged_kernel", "ssm_scan_kernel")
+
+
+def gemm_ms(call):
+    """Device ms of a traced call in the port's projection GEMMs."""
+    return sum(call["device_ms_by_kernel"].get(f, 0.0)
+               for f in KERNEL_FAMILIES[:2])
 
 
 def non_gemm_ms(call):
@@ -158,43 +180,63 @@ def non_gemm_ms(call):
                if f not in KERNEL_FAMILIES[:2])
 
 
-def profile_calls(torch, fn, n):
-    """Trace `n` calls of `fn` (each closed by a device sync), one
-    torch.profiler session of device activity per call. For each call: the
-    device window (first device op's start to last one's end), the device
-    ms by kernel family, the number of device-to-host copies, the device
-    idle share = 1 - (union of device activity) / (device window), and the
-    host wall time of the traced call (the tracing widens it)."""
+def trace_call(torch, fn):
+    """Trace one call of `fn` (closed by a device sync) in its own
+    torch.profiler session of device activity. Returns the device window
+    (first device op's start to last one's end), the device ms by kernel
+    family, the numbers of device ops and of device-to-host copies, the
+    device idle share = 1 - (union of device activity) / (device window),
+    and the host wall time of the traced call (the tracing widens it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    calls = []
-    for i in range(n):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t_host = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            t_host = time.perf_counter() - t_host
-        device = sorted((e.time_range.start, e.time_range.end, e.name)
-                        for e in prof.events()
-                        if e.device_type == DeviceType.CUDA)
-        if not device:
-            raise AssertionError(f"profiler saw no device activity in "
-                                 f"call {i}")
-        t0, t1 = device[0][0], max(e for _, e, _ in device)
-        busy, end, by_kernel, dtoh = 0.0, t0, {}, 0
-        for s, e, name in device:
-            busy += max(0.0, e - max(s, end))
-            end = max(end, e)
-            fam = next((f for f in KERNEL_FAMILIES if f in name),
-                       "memcpy_memset" if "mem" in name.lower() else
-                       "library_gemm" if "gemm" in name.lower() else "other")
-            by_kernel[fam] = by_kernel.get(fam, 0.0) + (e - s) / 1e3
-            dtoh += "DtoH" in name
-        calls.append(dict(window_ms=(t1 - t0) / 1e3, busy_ms=busy / 1e3,
-                          idle_share=1.0 - busy / (t1 - t0),
-                          traced_host_ms=t_host * 1e3,
-                          device_ms_by_kernel=by_kernel, dtoh_copies=dtoh))
-    return calls
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t_host = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        t_host = time.perf_counter() - t_host
+    device = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+    if not device:
+        raise AssertionError("profiler saw no device activity")
+    t0, t1 = device[0][0], max(e for _, e, _ in device)
+    busy, end, by_kernel, dtoh = 0.0, t0, {}, 0
+    for s, e, name in device:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+        fam = next((f for f in KERNEL_FAMILIES if f in name),
+                   "memcpy_memset" if "mem" in name.lower() else
+                   "library_gemm" if "gemm" in name.lower() else "other")
+        by_kernel[fam] = by_kernel.get(fam, 0.0) + (e - s) / 1e3
+        dtoh += "DtoH" in name
+    return dict(window_ms=(t1 - t0) / 1e3, busy_ms=busy / 1e3,
+                idle_share=1.0 - busy / (t1 - t0),
+                traced_host_ms=t_host * 1e3, device_ms_by_kernel=by_kernel,
+                dtoh_copies=dtoh, device_ops=len(device))
+
+
+def profile_calls(torch, fn, n, dtoh=None, retries=3):
+    """`n` traces of `fn`, each by `trace_call`. With `dtoh`, every kept
+    trace must hold exactly that many device-to-host copies. The tracer can
+    lose records of a call with thousands of device ops (a falcon-mamba
+    decode dispatch, ~15.5k ops, lost its host copy in one trace of
+    three); a trace whose copy count differs is taken again, at most
+    `retries` more times in all. A real extra or missing copy repeats in
+    every dispatch and still fails. Returns (kept traces, retaken ones)."""
+    kept, retaken = [], []
+    while len(kept) < n:
+        c = trace_call(torch, fn)
+        if dtoh is not None and c["dtoh_copies"] != dtoh \
+                and len(retaken) < retries:
+            retaken.append(c)
+            continue
+        kept.append(c)
+    if dtoh is not None:
+        copies = [c["dtoh_copies"] for c in kept]
+        assert copies == [dtoh] * n, \
+            f"device-to-host copies per call {copies}, expected {dtoh} " \
+            f"(retaken: {[c['dtoh_copies'] for c in retaken]})"
+    return kept, retaken
 
 
 def phase_kernels(torch, timer):
@@ -416,29 +458,66 @@ def phase_kernels(torch, timer):
                                library, slots=b, heads=heads, kv_heads=8,
                                d=d, page=page, pages_per_slot=pp, sq=sq,
                                window=window, softcap=cap)
+
+    # selective scan: falcon-mamba prefill (1 sequence, d_inner 8192,
+    # d_state 16) at 1, 7, 64 and 512 positions, and a ragged small case;
+    # inputs drawn as tests/test_ssm_kernel.py draws them. No PyTorch call
+    # computes a selective scan, so there is no library time. Operations:
+    # per (position, channel, state) element, dt*a, exp, dt*u, *b, the
+    # update's multiply-add and the output's multiply-add, 8 in f32
+    n = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    for dtype in DTYPES:
+        dt = getattr(torch, dtype)
+        for bsz, s, di, st in ((1, 1, 8192, 16), (1, 7, 8192, 16),
+                               (1, 64, 8192, 16), (1, 512, 8192, 16),
+                               (2, 33, 128, 8)):
+            u = n(bsz, s, di) * 0.5
+            delta = torch.nn.functional.softplus(n(bsz, s, di) - 1.0)
+            b_, c_ = n(bsz, s, st) * 0.5, n(bsz, s, st) * 0.5
+            a = -torch.exp(n(di, st) * 0.3)
+            args = [x.to(dt) for x in (u, delta, b_, c_)] + [a]
+            y, h = ops.ssm_scan(*args)
+            want_y, want_h = ref.ssm_scan_ref(*args)
+            record("ssm_scan", dtype,
+                   torch.cat([y.float().flatten(), h.flatten()]),
+                   torch.cat([want_y.float().flatten(), want_h.flatten()]),
+                   SSM_TOL[dtype], ("ssm_scan", dtype, bsz, s, di, st),
+                   nbytes(*args, y, h), 8 * bsz * s * di * st,
+                   lambda: ops.ssm_scan(*args),
+                   lambda: ref.ssm_scan_ref(*args), None, peak="float32",
+                   batch=bsz, s=s, d_inner=di, d_state=st)
     torch.cuda.synchronize()
     return cases
 
 
-def phase_parity(torch):
+def phase_parity(torch, arch, s0, max_len):
+    """The port's forward on the card against the same forward on the CPU
+    (plain versions): `arch` at full width cut to 2 layers, a batch of 2
+    prompts of s0 tokens, then 4 greedy decode steps. Returns the kernel
+    launches of the card's prefills."""
     from repro_torch import configs as C
     from repro_torch.core import kratos as kr
+    from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     from repro_torch.serve.registry import pack_model_params, tree_to
 
-    cfg = C.get_config("h2o-danube-1.8b", n_layers=2)
+    cfg = C.get_config(arch, n_layers=2)
     params = T.init(cfg, seed=SEED, device="cuda")
     params_cpu = tree_to(params, "cpu")
     rng = np.random.default_rng(SEED)
-    b, s0, steps, max_len = 2, 100, 4, 128
+    b, steps = 2, 4
     tokens = rng.integers(0, cfg.vocab, (b, s0)).astype(np.int32)
+    prefill_launches = {name: 0 for name in ops.KERNELS}
     for spec in (kr.DENSE, kr.KratosSpec(sparsity=0.5, bits=8)):
         out = {}
         for dev, tree in (("cuda", params), ("cpu", params_cpu)):
             packed, _ = pack_model_params(tree, spec)
             caches = T.make_caches(cfg, b, max_len, torch.float32, dev)
+            ops.reset_launch_counts()
             logits, caches = T.forward(packed, torch.from_numpy(tokens).to(dev),
                                        cfg, caches=caches)
+            for name, c in ops.launch_counts().items():
+                prefill_launches[name] += c
             out[dev] = [logits.cpu()]
             out[dev + "_state"] = (packed, caches)
         worst = float((out["cuda"][0] - out["cpu"][0]).abs().max())
@@ -456,23 +535,26 @@ def phase_parity(torch):
             tok = lg["cpu"][:, -1].argmax(-1).to(torch.int32)
             same &= bool((lg["cuda"][:, -1].argmax(-1) == tok.long()).all())
         tag = kr.spec_tag(spec)
-        print(f"  parity {tag}: max |logit diff| card vs CPU = {worst:.3g} "
-              f"(tol 1e-3), greedy tokens identical: {same}", flush=True)
+        print(f"  parity {arch} {tag}: max |logit diff| card vs CPU = "
+              f"{worst:.3g} (tol 1e-3), greedy tokens identical: {same}",
+              flush=True)
         if worst > 1e-3 or not same:
-            raise AssertionError(f"model parity failed for {tag}")
-    del params, params_cpu
+            raise AssertionError(f"model parity failed for {arch} {tag}")
+    del params, params_cpu, out
+    gc.collect()
     torch.cuda.empty_cache()
+    return prefill_launches
 
 
 DANUBE = "h2o-danube-1.8b"
 N_SLOTS, GEN_LEN, CHUNK = 8, 32, 4
 
 
-def danube_traffic():
-    """Phases 5 and 6: 16 prompts of 32-512 tokens from the seed."""
+def serving_traffic(vocab=32000):
+    """Phases 5, 6 and 8: 16 prompts of 32-512 tokens from the seed."""
     rng = np.random.default_rng(SEED)
     lens = rng.integers(32, 513, 16)
-    return [rng.integers(0, 32000, int(s)).astype(np.int32) for s in lens]
+    return [rng.integers(0, vocab, int(s)).astype(np.int32) for s in lens]
 
 
 def init_danube(torch):
@@ -493,7 +575,7 @@ def phase_serving(torch, card, params):
 
     arch, n_slots, gen_len, k = DANUBE, N_SLOTS, GEN_LEN, CHUNK
     reg = ModelRegistry()
-    prompts = danube_traffic()
+    prompts = serving_traffic()
     specs = {"dense": (kr.DENSE, "dense_matmul"),
              "s0.5": (kr.KratosSpec(sparsity=0.5), "bsr_matmul"),
              "s0.5-w8": (kr.KratosSpec(sparsity=0.5, bits=8),
@@ -543,10 +625,8 @@ def phase_serving(torch, card, params):
             eng.backend.decode_block()
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t1) * 1e3 / (n_disp * k)
-        decode_prof = profile_calls(torch, eng.backend.decode_block, 3)
-        copies = [c["dtoh_copies"] for c in decode_prof]
-        assert copies == [1] * len(copies), \
-            f"device-to-host copies per dispatch {copies}, expected 1"
+        decode_prof, retaken = profile_calls(
+            torch, eng.backend.decode_block, 3, dtoh=1)
         # one 512-token prefill (the largest bucket), wall and device time
         batch = {"tokens": torch.from_numpy(
             np.resize(prompts[0], (1, 512)).astype(np.int32)).cuda()}
@@ -556,11 +636,12 @@ def phase_serving(torch, card, params):
         eng.backend.prefill(batch, exact=True)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t1) * 1e3
-        prefill_prof = profile_calls(
+        prefill_prof, _ = profile_calls(
             torch, lambda: eng.backend.prefill(batch, exact=True), 3)
         results[tag] = dict(
             prefill_512_ms=prefill_ms, prefill_512_profiled=prefill_prof,
             decode_dispatch_profiled=decode_prof,
+            retaken_decode_traces=retaken,
             spec=kr.spec_tag(spec), pack_s=pack_s, wall_s=wall,
             tok_per_s=rep["tokens_generated"] / wall,
             latency_s_p50=rep["latency_s_p50"],
@@ -634,7 +715,7 @@ def phase_paged_serving(torch, card, params):
     from repro_torch.serve import EngineConfig, InferenceEngine, ModelRegistry
 
     arch, n_slots, gen_len, k = DANUBE, N_SLOTS, GEN_LEN, CHUNK
-    prompts = danube_traffic()
+    prompts = serving_traffic()
     runs = {"dense-slab": (kr.DENSE, None, "dense_matmul"),
             "dense-paged": (kr.DENSE, 16, "dense_matmul"),
             "w4-paged": (kr.KratosSpec(bits=4), 16, "quant_matmul"),
@@ -684,10 +765,8 @@ def phase_paged_serving(torch, card, params):
             eng.backend.decode_block()
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t1) * 1e3 / (n_disp * k)
-        prof = profile_calls(torch, eng.backend.decode_block, 2)
-        copies = [c["dtoh_copies"] for c in prof]
-        assert copies == [1] * len(copies), \
-            f"device-to-host copies per dispatch {copies}, expected 1"
+        prof, retaken = profile_calls(torch, eng.backend.decode_block, 2,
+                                      dtoh=1)
         other = [non_gemm_ms(c) / k for c in prof]
         attn = [c["device_ms_by_kernel"].get("paged_kernel", 0.0) / k
                 for c in prof]
@@ -700,7 +779,7 @@ def phase_paged_serving(torch, card, params):
             micro_steps=rep["micro_steps"], decode_micro_step_ms=step_ms,
             non_gemm_device_ms_per_micro_step=other,
             paged_attention_device_ms_per_micro_step=attn,
-            decode_dispatch_profiled=prof,
+            decode_dispatch_profiled=prof, retaken_decode_traces=retaken,
             packed_mb=model.packed_bytes / 2 ** 20, launches=counts,
             pages_in_use=rep["pages_in_use"],
             page_occupancy=rep["page_occupancy"])
@@ -842,6 +921,147 @@ def phase_prefix_reuse(torch, card):
     return counts, result
 
 
+FALCON = "falcon-mamba-7b"
+
+
+def phase_mamba_serving(torch, card):
+    """falcon-mamba-7b at full width and depth, random f32 weights from the
+    seed, packed dense and sparsity 0.5 x int8 (x_proj's 288 outputs do
+    not divide the 128-wide block grid, so it packs weight-only w8), over
+    phase 5's traffic in this vocab. The prompts prefill at exact length."""
+    from repro_torch import configs as C
+    from repro_torch.core import kratos as kr
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import EngineConfig, InferenceEngine, ModelRegistry
+
+    cfg = C.get_config(FALCON)
+    n_slots, gen_len, k = N_SLOTS, GEN_LEN, CHUNK
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  init full-width {FALCON} ({cfg.n_layers} layers, f32): "
+          f"{time.perf_counter() - t0:.1f} s, memory_allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    prompts = serving_traffic(cfg.vocab)
+    specs = {"dense": (kr.DENSE, {"dense_matmul"}),
+             "s0.5-w8": (kr.KratosSpec(sparsity=0.5, bits=8),
+                         {"bsr_quant_matmul", "quant_matmul"})}
+    totals = {name: 0 for name in ops.KERNELS}
+    results = {}
+    for tag, (spec, gemms) in specs.items():
+        t0 = time.perf_counter()
+        model = ModelRegistry().load(FALCON, spec, smoke=False, params=params,
+                                     seed=SEED)
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        ecfg = EngineConfig(n_slots=n_slots, max_len=512 + gen_len,
+                            decode_chunk=k, seed=SEED)
+        warm = InferenceEngine(model, ecfg)          # allocator warm-up
+        warm.submit(prompts[0][:32], 4)
+        warm.run()
+        del warm
+        eng = InferenceEngine(model, ecfg)
+        reqs = [eng.submit(p, gen_len) for p in prompts]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        for name, c in counts.items():
+            totals[name] += c
+        rep = eng.metrics.report()
+        for r in reqs:
+            assert r.done and len(r.generated) == gen_len
+            assert all(0 <= t < cfg.vocab for t in r.generated)
+        assert counts["ssm_scan"] == cfg.n_layers * len(prompts), counts
+        for name in GEMM_KERNELS:
+            assert (counts[name] > 0) == (name in gemms), (tag, counts)
+        assert counts["flash_attention"] == 0, counts
+        assert counts["paged_flash_attention"] == 0, counts
+        assert rep["host_syncs_decode"] == rep["decode_steps"], rep
+        n_disp = 5
+        eng.backend.decode_block()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(n_disp):
+            eng.backend.decode_block()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t1) * 1e3 / (n_disp * k)
+        decode_prof, retaken = profile_calls(
+            torch, eng.backend.decode_block, 3, dtoh=1)
+        batch = {"tokens": torch.from_numpy(
+            np.resize(prompts[0], (1, 512)).astype(np.int32)).cuda()}
+        eng.backend.prefill(batch, exact=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eng.backend.prefill(batch, exact=True)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t1) * 1e3
+        prefill_prof, _ = profile_calls(
+            torch, lambda: eng.backend.prefill(batch, exact=True), 3)
+        gemm = [gemm_ms(c) / k for c in decode_prof]
+        other = [non_gemm_ms(c) / k for c in decode_prof]
+        idle = [c["idle_share"] for c in decode_prof]
+        scan = [c["device_ms_by_kernel"].get("ssm_scan_kernel", 0.0)
+                for c in prefill_prof]
+        prefill_gemm = [gemm_ms(c) for c in prefill_prof]
+        results[tag] = dict(
+            spec=kr.spec_tag(spec), pack_s=pack_s, wall_s=wall,
+            tok_per_s=rep["tokens_generated"] / wall,
+            latency_s_p50=rep["latency_s_p50"],
+            latency_s_p99=rep["latency_s_p99"],
+            decode_dispatches=rep["decode_steps"],
+            micro_steps=rep["micro_steps"], decode_micro_step_ms=step_ms,
+            gemm_device_ms_per_micro_step=gemm,
+            non_gemm_device_ms_per_micro_step=other,
+            decode_idle_share=idle, prefill_512_ms=prefill_ms,
+            prefill_512_ssm_scan_device_ms=scan,
+            prefill_512_gemm_device_ms=prefill_gemm,
+            decode_dispatch_profiled=decode_prof,
+            retaken_decode_traces=retaken,
+            prefill_512_profiled=prefill_prof,
+            packed_mb=model.packed_bytes / 2 ** 20,
+            dense_mb=model.dense_bytes / 2 ** 20, launches=counts)
+        print(f"  mamba {tag:8s} [{card}] tok/s="
+              f"{results[tag]['tok_per_s']:.1f} p50="
+              f"{rep['latency_s_p50']:.3f}s p99={rep['latency_s_p99']:.3f}s "
+              f"packed={results[tag]['packed_mb']:.0f} MB pack={pack_s:.1f} s "
+              f"wall ms / micro-step={step_ms:.2f} GEMM device ms / "
+              f"micro-step {[round(v, 3) for v in gemm]} non-GEMM "
+              f"{[round(v, 3) for v in other]} idle share "
+              f"{[round(v, 4) for v in idle]} (decode traces retaken: "
+              f"{len(retaken)}) "
+              f"dispatches="
+              f"{rep['decode_steps']:.0f} micro_steps="
+              f"{rep['micro_steps']:.0f} launches={counts}", flush=True)
+        print(f"    512-token prefill: untraced wall {prefill_ms:.2f} ms, "
+              f"ssm_scan device ms {[round(v, 3) for v in scan]} against "
+              f"GEMM device ms {[round(v, 3) for v in prefill_gemm]}, idle "
+              f"share {[round(c['idle_share'], 4) for c in prefill_prof]}",
+              flush=True)
+        for what, prof in (("decode dispatch", decode_prof),
+                           ("512-token prefill", prefill_prof)):
+            for c in prof:
+                by = {n: round(v, 3) for n, v in
+                      c["device_ms_by_kernel"].items()}
+                print(f"    traced {what}: host {c['traced_host_ms']:.3f} "
+                      f"ms, device window {c['window_ms']:.3f} ms, busy "
+                      f"{c['busy_ms']:.3f} ms, {c['device_ops']} device "
+                      f"ops, device-to-host copies {c['dtoh_copies']}, "
+                      f"device ms by kernel {by}", flush=True)
+        del eng, model
+        gc.collect()
+    results["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals, results
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -873,7 +1093,7 @@ def main() -> int:
     cases = phase_kernels(torch, Timer(torch))
     print("[4] model parity: card vs CPU, h2o-danube-1.8b width, 2 layers",
           flush=True)
-    phase_parity(torch)
+    phase_parity(torch, DANUBE, 100, 128)
     params = init_danube(torch)
     print("[5] serving h2o-danube-1.8b, full width and depth", flush=True)
     launches, serving = phase_serving(torch, card, params)
@@ -886,7 +1106,14 @@ def main() -> int:
     print("[7] prefix and conversation reuse, nemotron-4-340b full width, "
           "1 layer", flush=True)
     reuse_launches, reuse = phase_prefix_reuse(torch, card)
-    for more in (paged_launches, reuse_launches):
+    print(f"[8] Mamba serving, {FALCON}: memory_allocated before "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; card vs CPU at "
+          "full width, 2 layers", flush=True)
+    parity_launches = phase_parity(torch, FALCON, 64, 128)
+    assert parity_launches["ssm_scan"] == 2 * 2, parity_launches
+    print(f"  {FALCON} full width and depth", flush=True)
+    mamba_launches, mamba = phase_mamba_serving(torch, card)
+    for more in (paged_launches, reuse_launches, mamba_launches):
         for name, c in more.items():
             launches[name] += c
 
@@ -906,7 +1133,8 @@ def main() -> int:
         {"card": card, "env": env, "build_s": secs, "ptxas": ptxas,
          "kernels": kernels,
          "cases": [{k: v for k, v in c.items() if k != "key"} for c in cases],
-         "serving": serving, "paged_serving": paged, "prefix_reuse": reuse},
+         "serving": serving, "paged_serving": paged, "prefix_reuse": reuse,
+         "mamba_serving": mamba},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,7 +2,7 @@
 
 Counterpart of `repro.kernels.ops` (same contracts as its `matmul`,
 `bsr_matmul`, `quant_matmul`, `quant_matmul_w8a8`, `bsr_quant_matmul`,
-`flash_attention` and `paged_attention`). The JAX `backend`
+`flash_attention`, `paged_attention` and `ssm_scan`). The JAX `backend`
 knob has no counterpart: a CUDA tensor launches the hand-written Hopper
 kernel, a CPU tensor takes its plain version, inside each wrapper.
 `launch_counts` / `reset_launch_counts` read and zero the wrappers'
@@ -23,10 +23,12 @@ from repro_torch.kernels.flash_attention import paged_flash_attention as _paged
 from repro_torch.kernels.quant_matmul import bsr_quant_matmul as _bsr_quant
 from repro_torch.kernels.quant_matmul import quant_matmul as _qmm
 from repro_torch.kernels.quant_matmul import quant_matmul_w8a8 as _w8a8
+from repro_torch.kernels.ssm_scan import ssm_scan as _ssm
 
 KERNELS = {"dense_matmul": _dense, "bsr_matmul": _bsr, "quant_matmul": _qmm,
            "quant_matmul_w8a8": _w8a8, "bsr_quant_matmul": _bsr_quant,
-           "flash_attention": _fa, "paged_flash_attention": _paged}
+           "flash_attention": _fa, "paged_flash_attention": _paged,
+           "ssm_scan": _ssm}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -92,3 +94,12 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     (b, h, sq, d). Causal by construction."""
     return _paged(q.contiguous(), k_pages, v_pages, table, last,
                   window=window, softcap=softcap, scale=scale)
+
+
+def ssm_scan(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor, a: torch.Tensor):
+    """Selective-scan (Mamba-1) recurrence. u, dt: (B, S, di); b, c:
+    (B, S, st); a: (di, st) f32. Returns (y in u's dtype, h_final
+    (B, di, st) f32)."""
+    return _ssm(u.contiguous(), dt.contiguous(), b.contiguous(),
+                c.contiguous(), a.contiguous())

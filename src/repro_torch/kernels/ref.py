@@ -140,3 +140,22 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(),
                         v.float()).to(q.dtype)
+
+
+def ssm_scan_ref(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor, a: torch.Tensor):
+    """Mamba-1 selective scan, the sequential recurrence with an f32 state:
+    h_t = exp(dt_t * a) * h_{t-1} + (dt_t * u_t) * b_t, y_t = c_t . h_t.
+    u, dt: (B, S, di); b, c: (B, S, st); a: (di, st). Returns (y in u's
+    dtype, h_final (B, di, st) f32). One step at a time, so the
+    (B, S, di, st) decay and update tensors are never materialised."""
+    uf, dtf, bf, cf = u.float(), dt.float(), b.float(), c.float()
+    af = a.float()
+    h = uf.new_zeros((u.shape[0], u.shape[2], a.shape[1]))
+    ys = []
+    for t in range(u.shape[1]):
+        da = torch.exp(dtf[:, t, :, None] * af)
+        dbx = (dtf[:, t] * uf[:, t])[:, :, None] * bf[:, t, None, :]
+        h = da * h + dbx
+        ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]))
+    return torch.stack(ys, dim=1).to(u.dtype), h

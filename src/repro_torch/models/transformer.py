@@ -1,4 +1,5 @@
-"""Dense GQA decoder (the dense half of `repro.models.transformer`).
+"""Dense GQA and pure Mamba-1 decoders (the dense and `is_ssm` halves of
+`repro.models.transformer`).
 
 Parameters are a plain dict with a per-layer list in place of the JAX
 package's stacked `blocks` consumed by `lax.scan`:
@@ -8,10 +9,13 @@ package's stacked `blocks` consumed by `lax.scan`:
      "layers": [{"pre_norm", "mixer": {wq, wk, wv, wo}, "ffn_norm",
                  "ffn": {w_gate?, w_up, w_down}}, ...]}
 
+An `is_ssm` model (falcon-mamba) has a Mamba mixer (models.ssm) and no
+FFN in every layer: {"pre_norm", "mixer": {in_proj, conv_w, ...}}.
 Caches are a per-layer list of {"k", "v"} tensors (models.attention),
-slab rows or, under a paged pool, page-major store leaves.
-MoE, MLA, Mamba, encoder-decoder and the gemma2 norms are not ported yet
-(ROADMAP.md queue 1, item 7).
+slab rows or, under a paged pool, page-major store leaves; a Mamba layer's
+is {"conv", "ssm"}, always slot-major. MoE, MLA, the jamba hybrid,
+encoder-decoder and the gemma2 norms are not ported yet (ROADMAP.md
+queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 from repro_torch.core import kratos as kr
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +56,13 @@ class ModelConfig:
     attn_scale: Optional[float] = None
     qk_norm: bool = False
     window: Optional[int] = None          # sliding window on every layer
+    # Mamba (pure SSM: every layer a Mamba-1 mixer without FFN)
+    is_ssm: bool = False
+    d_state: int = 16
+    d_conv: int = 4
+    mamba_expand: int = 2
+    bcdt_rms: bool = False
+    ssm_chunk: int = 256                  # JAX's XLA scan chunk (no use here)
     kratos: kr.KratosSpec = kr.DENSE
     param_dtype: str = "float32"
     dtype: str = "float32"                # activation dtype
@@ -58,6 +70,10 @@ class ModelConfig:
     @property
     def dh(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def d_inner(self) -> int:
+        return self.mamba_expand * self.d_model
 
     @property
     def gated(self) -> bool:
@@ -72,7 +88,10 @@ class ModelConfig:
 
 
 def layer_kind(cfg: ModelConfig, i: int) -> Dict[str, Any]:
-    """What lives at layer i; every layer of a dense decoder is alike."""
+    """What lives at layer i; every layer of a ported decoder is alike:
+    attention + MLP, or (is_ssm) a Mamba mixer without FFN."""
+    if cfg.is_ssm:
+        return {"mixer": "mamba", "window": cfg.window, "ffn": "none"}
     return {"mixer": "attn", "window": cfg.window, "ffn": "mlp"}
 
 
@@ -82,6 +101,12 @@ def attn_cfg_for(cfg: ModelConfig, kind: Dict) -> A.AttnConfig:
         head_dim=cfg.dh, rope_theta=cfg.rope_theta, use_rope=cfg.use_rope,
         causal=True, window=kind["window"], softcap=cfg.attn_softcap,
         qk_norm=cfg.qk_norm, attn_scale=cfg.attn_scale)
+
+
+def mamba_cfg_for(cfg: ModelConfig) -> S.MambaConfig:
+    return S.MambaConfig(
+        d_model=cfg.d_model, d_inner=cfg.d_inner, d_state=cfg.d_state,
+        d_conv=cfg.d_conv, bcdt_rms=cfg.bcdt_rms)
 
 
 def _norm_params(cfg: ModelConfig, device) -> Dict:
@@ -106,13 +131,17 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict:
     layers = []
     for i in range(cfg.n_layers):
         kind = layer_kind(cfg, i)
-        layers.append({
-            "pre_norm": _norm_params(cfg, device),
-            "mixer": A.gqa_init(attn_cfg_for(cfg, kind), cfg.kratos, **kw),
-            "ffn_norm": _norm_params(cfg, device),
-            "ffn": L.mlp_init(cfg.d_model, cfg.d_ff, gated=cfg.gated,
-                              spec=cfg.kratos, **kw),
-        })
+        layer = {"pre_norm": _norm_params(cfg, device)}
+        if kind["mixer"] == "mamba":
+            layer["mixer"] = S.mamba_init(mamba_cfg_for(cfg), cfg.kratos, **kw)
+        else:
+            layer["mixer"] = A.gqa_init(attn_cfg_for(cfg, kind), cfg.kratos,
+                                        **kw)
+        if kind["ffn"] == "mlp":
+            layer["ffn_norm"] = _norm_params(cfg, device)
+            layer["ffn"] = L.mlp_init(cfg.d_model, cfg.d_ff, gated=cfg.gated,
+                                      spec=cfg.kratos, **kw)
+        layers.append(layer)
     params = {
         "embed": {"emb": torch.randn((cfg.vocab, cfg.d_model),
                                      **kw).mul_(0.02)},
@@ -127,13 +156,20 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict:
 def _layer_apply(p: Dict, x, cfg: ModelConfig, kind: Dict, *, positions,
                  cache, index, pages):
     h = _norm(cfg, p["pre_norm"], x)
-    h, cache = A.gqa_apply(p["mixer"], h, attn_cfg_for(cfg, kind),
-                           positions=positions, cache=cache, index=index,
-                           pages=pages)
+    if kind["mixer"] == "mamba":
+        # recurrent state: O(1) per slot and resident, so pages and
+        # positions do not reach it
+        h, cache = S.mamba_apply(p["mixer"], h, mamba_cfg_for(cfg),
+                                 cache=cache, index=index)
+    else:
+        h, cache = A.gqa_apply(p["mixer"], h, attn_cfg_for(cfg, kind),
+                               positions=positions, cache=cache, index=index,
+                               pages=pages)
     x = x + h * cfg.residual_scale
-    h = _norm(cfg, p["ffn_norm"], x)
-    h = L.mlp_apply(p["ffn"], h, activation=cfg.activation)
-    x = x + h * cfg.residual_scale
+    if kind["ffn"] == "mlp":
+        h = _norm(cfg, p["ffn_norm"], x)
+        h = L.mlp_apply(p["ffn"], h, activation=cfg.activation)
+        x = x + h * cfg.residual_scale
     return x.to(cfg.adtype()), cache
 
 
@@ -150,7 +186,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     paged decode ({'table', 'size', 'len'}), threaded to every GQA layer.
     last_only: logits for the final position only."""
     x = L.embed(params["embed"], tokens, scale=cfg.emb_scale).to(cfg.adtype())
-    positions = None if index is None else \
+    positions = None if index is None or cfg.is_ssm else \
         A._positions_for(index, x.shape[1], x.device)
     for li, lp in enumerate(params["layers"]):
         c = caches[li] if caches is not None else None
@@ -167,9 +203,18 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 def make_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.float32, device="cuda") -> List[Dict]:
-    return [A.make_gqa_cache(attn_cfg_for(cfg, layer_kind(cfg, i)), batch,
-                             max_len, dtype, device)
-            for i in range(cfg.n_layers)]
+    """Per-layer decode caches: {"k", "v"} of `max_len` positions, or a
+    Mamba layer's {"conv", "ssm"} (independent of max_len)."""
+    out = []
+    for i in range(cfg.n_layers):
+        kind = layer_kind(cfg, i)
+        if kind["mixer"] == "mamba":
+            out.append(S.make_mamba_cache(mamba_cfg_for(cfg), batch, dtype,
+                                          device))
+        else:
+            out.append(A.make_gqa_cache(attn_cfg_for(cfg, kind), batch,
+                                        max_len, dtype, device))
+    return out
 
 
 def sample_tokens(logits: torch.Tensor, generator: torch.Generator,

@@ -4,7 +4,9 @@
 Step loop (`step()`):
   1. admission — the scheduler picks arrived requests for free slots; each
      is prefilled alone (batch 1, prompt right-padded to a power-of-two
-     bucket where that is exact) and its cache copied into its slab row.
+     bucket where that is exact; at its exact length for a recurrent
+     (is_ssm) arch, whose padded positions would enter the state) and its
+     cache copied into its slab row.
      Under a paged pool (`page_size`) the admission first matches the
      longest cached page-aligned prefix, reserves the slot's pages (shared
      prefix pages by refcount) and prefills only the unmatched suffix; a
@@ -135,9 +137,12 @@ class InferenceEngine:
         # positions in favour of pad rows (attention._prefill_cache)
         self._bucket_cap = min([cfg.max_len] + ([mcfg.window] if mcfg.window
                                                 else []))
-        # a uniformly windowed cache is circular: such requests may run
-        # longer than the slab
-        self._len_bounded = mcfg.window is None
+        # pad tokens would run through a recurrence and corrupt the cached
+        # conv tail and state: recurrent archs prefill at exact length
+        self._exact_prefill = mcfg.is_ssm
+        # pure-SSM state is O(1) and a uniformly windowed cache is
+        # circular: such requests may run longer than the slab
+        self._len_bounded = not (mcfg.is_ssm or mcfg.window is not None)
 
     # ------------------------------------------------------------------ API
 
@@ -213,7 +218,7 @@ class InferenceEngine:
     # ------------------------------------------------------------- internals
 
     def _prefill_len(self, s0: int) -> int:
-        if not self.cfg.prefill_buckets:
+        if self._exact_prefill or not self.cfg.prefill_buckets:
             return s0
         b = self.cfg.bucket_min
         while b < s0:

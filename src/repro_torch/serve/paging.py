@@ -18,9 +18,10 @@ pool carves the same memory into fixed-size PAGES:
     (models.attention's paged branch, kernels.ops.paged_attention), so no
     slab view exists on the decode path.
 
-Leaves that are not positional (a circular sliding-window leaf whose W is
-shorter than cache_len) stay RESIDENT in the slot-major slab layout inside
-the same store.
+Leaves that are not positional stay RESIDENT in the slot-major slab
+layout inside the same store: a circular sliding-window leaf whose W is
+shorter than cache_len, and a Mamba layer's recurrent `conv` tail and
+`ssm` state (by name: their shapes do not say what they are).
 
 Page 0 is the reserved WRITE SINK: a freed slot's table row resets to it,
 so an idle slot's garbage decode writes land in a page nobody reads. Rows
@@ -54,11 +55,15 @@ from repro_torch.serve.prefix import PrefixIndex
 Store = List[Dict[str, torch.Tensor]]
 
 
+RESIDENT_LEAVES = frozenset({"conv", "ssm"})
+
+
 def prefix_supported(cfg: T.ModelConfig) -> bool:
     """Archs whose whole per-request cache state is positional and paged —
     the precondition for prefix sharing to reproduce a prefill exactly. A
-    circular window overwrites position identity."""
-    return not cfg.window
+    circular window overwrites position identity; a recurrent state sums
+    the whole prompt and no page of it can be shared."""
+    return not (cfg.window or cfg.is_ssm)
 
 
 class PageLayout:
@@ -80,7 +85,8 @@ class PageLayout:
         template = T.make_caches(cfg, n_slots, cache_len, dtype, "meta")
         self.slab_shapes = [{n: tuple(t.shape) for n, t in layer.items()}
                             for layer in template]
-        self.paged = [{n: len(s) >= 3 and s[-2] == cache_len
+        self.paged = [{n: n not in RESIDENT_LEAVES and len(s) >= 3
+                       and s[-2] == cache_len
                        for n, s in layer.items()}
                       for layer in self.slab_shapes]
         self.has_paged = any(any(layer.values()) for layer in self.paged)

@@ -18,7 +18,9 @@ from repro_torch import configs as C
 from repro_torch.core import kratos as kr
 from repro_torch.models import transformer as T
 
-PACKABLE = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"})
+# Mamba's dt_proj ({"w", "b"}) stays a plain matmul, as in the JAX package
+PACKABLE = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                      "in_proj", "x_proj", "out_proj"})
 
 
 def check_device(device) -> torch.device:
