@@ -2,20 +2,29 @@
 //
 // quant_matmul — weight-only w8/w4/w2/w1 x float activations.
 // Replaces: src/repro/kernels/quant_matmul.py::quant_matmul (_wq_kernel).
+// Codes are packed along k with _unpack_tile's bit layout (value i of a
+// byte at bit offset i*bits, two's complement, and a sign bit {0 -> -1,
+// 1 -> +1} for 1-bit); the sum is taken in f32 and the per-output-channel
+// scale applied once, in f32, after the whole contraction. Output in x's
+// dtype. Bound on the H100: at decode the packed code bytes (bits / 8 bytes
+// per weight) dominate, so it is memory-bound with a floor bits/32 of the
+// f32 dense kernel's; at prefill the f32 FMAs bound it. Design: the same
+// two forms as dense_matmul.cu over gemm_src.cuh's Codes<BITS> source, BITS
+// a template constant dispatched once on the host. At decode
+// (gemv_cluster.cuh) a thread reads one 32-bit word of codes (4 columns x
+// vpb k values) and unpacks it with compile-time shifts, no byte read
+// twice; at prefill (gemm_pipe.cuh) the code bytes of a stage are copied
+// with cp.async and unpacked once into the f32 shared-memory tile, so the
+// unpack is amortised over the CTA's rows. No float weight ever exists in
+// device memory.
+//
 // bsr_quant_matmul — block-sparse x quantized (the sparsity x precision
 // point): walks only the listed k-blocks.
 // Replaces: src/repro/kernels/quant_matmul.py::bsr_quant_matmul
-// (_bsr_wq_kernel).
-// Both unpack codes in-kernel with _unpack_tile's bit layout (codes packed
-// along k, value i of a byte at bit offset i*bits, two's complement, and a
-// sign bit {0 -> -1, 1 -> +1} for 1-bit), accumulate in f32 and apply the
-// per-output-channel scale once, in f32, at flush. Output in x's dtype.
-// Bound on the H100: at decode the packed code bytes (bits / 8 bytes per
-// kept weight) dominate, so they are memory-bound with a floor far below
-// the dense kernel's; at prefill the f32 FMAs bound them. Design: the
-// shared tiled mainloop; each weight element is unpacked from its byte
-// while the tile is staged into shared memory, so no float weight ever
-// exists in device memory.
+// (_bsr_wq_kernel). Same code layout and f32 flush; the shared tiled
+// mainloop of gemm_tile.cuh, each weight element unpacked from its byte
+// while the tile is staged into shared memory. Bound on the H100: the
+// packed code bytes at decode, the f32 FMAs at prefill.
 //
 // quant_matmul_w8a8 — int8 x int8 -> int32, dequantized by row scale x
 // column scale at flush (acc_f32 * xs[row] * s[col], in that order).
@@ -27,7 +36,9 @@
 // both tiles are staged into shared memory as 4-k-packed int32 words, so
 // each inner step is one dp4a per accumulator. mma.sync / wgmma s8 is
 // later work.
+#include "gemm_pipe.cuh"
 #include "gemm_tile.cuh"
+#include "gemv_cluster.cuh"
 
 namespace {
 
@@ -39,26 +50,6 @@ __device__ __forceinline__ float unpack_code(int8_t b, int r, int bits, int vpb)
   const int sign = 1 << (bits - 1);
   return static_cast<float>((f ^ sign) - sign);
 }
-
-// codes (n / vpb, p), scale (p,): one segment over the whole k range
-struct QtSrc {
-  const int8_t* q;
-  const float* scales;
-  int n, p, bits, vpb, tn;
-  int col0, ncols, nseg;
-  __host__ __device__ int n_tiles() const { return (p + tn - 1) / tn; }
-  __device__ void setup(int bx) {
-    col0 = bx * tn;
-    ncols = min(tn, p - col0);
-    nseg = 1;
-  }
-  __device__ int seg_x0(int) const { return 0; }
-  __device__ int seg_len() const { return n; }
-  __device__ float load(int, int r, int c) const {
-    return unpack_code(q[(size_t)(r / vpb) * p + col0 + c], r, bits, vpb);
-  }
-  __device__ float scale(int c) const { return scales[col0 + c]; }
-};
 
 struct QBsrSrc {
   const int8_t* q;
@@ -180,19 +171,43 @@ int run_w8a8(const void* xq, const float* xs, const void* w, const float* s, voi
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int BITS>
+int run_qt(const void* x, const void* q, const void* scales, void* y, int m, int n, int p,
+           int form, int bm, int bn, int split, int k_per_split, int smem, void* stream) {
+  const T* xp = static_cast<const T*>(x);
+  T* yp = static_cast<T*>(y);
+  const auto src = gk::codes_source<BITS>(q, scales, p);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = form == 0
+      ? gk::launch_gemv<T>(xp, m, n, yp, p, src, bm, bn, split, k_per_split, smem, st)
+      : gk::launch_pipe<T>(xp, m, n, yp, p, src, bm, bn, split, k_per_split, smem, st);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  return static_cast<int>(e);
+}
+
+template <typename T>
+int run_qt_bits(const void* x, const void* q, const void* scales, void* y, int m, int n, int p,
+                int bits, int form, int bm, int bn, int split, int k_per_split, int smem,
+                void* stream) {
+  switch (bits) {
+    case 8: return run_qt<T, 8>(x, q, scales, y, m, n, p, form, bm, bn, split, k_per_split, smem, stream);
+    case 4: return run_qt<T, 4>(x, q, scales, y, m, n, p, form, bm, bn, split, k_per_split, smem, stream);
+    case 2: return run_qt<T, 2>(x, q, scales, y, m, n, p, form, bm, bn, split, k_per_split, smem, stream);
+    case 1: return run_qt<T, 1>(x, q, scales, y, m, n, p, form, bm, bn, split, k_per_split, smem, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
+// form, bm, bn, split, k_per_split, smem: the launch plan (gemm_plan.py)
 extern "C" int quant_matmul_launch(const void* x, const void* q, const void* scales, void* y,
-                                   int m, int n, int p, int bits, int is_bf16, void* stream) {
-  QtSrc src{};
-  src.q = static_cast<const int8_t*>(q);
-  src.scales = static_cast<const float*>(scales);
-  src.n = n;
-  src.p = p;
-  src.bits = bits;
-  src.vpb = 8 / bits;
-  return is_bf16 ? rt::launch_gemm<__nv_bfloat16>(x, m, n, y, p, src, stream)
-                 : rt::launch_gemm<float>(x, m, n, y, p, src, stream);
+                                   int m, int n, int p, int bits, int is_bf16, int form, int bm,
+                                   int bn, int split, int k_per_split, int smem, void* stream) {
+  return is_bf16 ? run_qt_bits<__nv_bfloat16>(x, q, scales, y, m, n, p, bits, form, bm, bn, split,
+                                              k_per_split, smem, stream)
+                 : run_qt_bits<float>(x, q, scales, y, m, n, p, bits, form, bm, bn, split,
+                                      k_per_split, smem, stream);
 }
 
 extern "C" int bsr_quant_matmul_launch(const void* x, const void* qblocks, const void* scales,

@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` compiles with one `nvcc` call into its own shared
 library with a plain C interface, loaded through `ctypes` (no PyTorch
 headers, so a build takes seconds). Libraries land in `build/repro_torch/`
-at the repository root, named by a hash of the sources, so an edited
-source rebuilds and an unchanged one is reused. Nothing here runs at import
+at the repository root, named by a hash of the source and of every
+`csrc/*.cuh` header, so an edited source or header rebuilds and an
+unchanged one is reused. Nothing here runs at import
 time: a kernel is built the first time its wrapper launches it, or up front
 through `build_all` (which starts every `nvcc` at once).
 """
@@ -42,7 +43,8 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for src in (CSRC / f"{name}.cu", CSRC / "gemm_tile.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
@@ -84,6 +86,27 @@ def ptxas_report(name: str) -> str:
     shared-memory lines of a successful build."""
     log = _lib_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def ptxas_kernels(name: str) -> List[Dict[str, object]]:
+    """Per-kernel lines of a build's ptxas report: the (mangled) entry name,
+    registers, spill stores and loads in bytes, static shared memory."""
+    out, cur = [], None
+    for line in ptxas_report(name).splitlines():
+        if "Compiling entry function" in line:
+            cur = dict(kernel=line.split("'")[1], registers=None,
+                       spill_stores=0, spill_loads=0, smem_bytes=0)
+            out.append(cur)
+        elif cur is not None and "spill stores" in line:
+            words = line.replace(",", "").split()
+            cur["spill_stores"] = int(words[words.index("spill") - 2])
+            cur["spill_loads"] = int(words[words.index("loads") - 3])
+        elif cur is not None and "Used" in line and "registers" in line:
+            words = line.replace(",", "").split()
+            cur["registers"] = int(words[words.index("registers") - 1])
+            if "smem" in words:
+                cur["smem_bytes"] = int(words[words.index("smem") - 2])
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

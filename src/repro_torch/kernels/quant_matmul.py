@@ -15,7 +15,7 @@ import functools
 import torch
 
 from repro_torch.core import quantize as qz
-from repro_torch.kernels import build
+from repro_torch.kernels import build, gemm_plan
 from repro_torch.kernels.ref import (bsr_quant_matmul_ref, quant_matmul_ref,
                                      quant_matmul_w8a8_ref)
 
@@ -32,7 +32,8 @@ def _bind(name, argtypes):
 
 @functools.cache
 def _lib_qt():
-    return _bind("quant_matmul_launch", [_c, _c, _c, _c, _i, _i, _i, _i, _i, _c])
+    return _bind("quant_matmul_launch", [_c, _c, _c, _c, _i, _i, _i, _i, _i,
+                                         _i, _i, _i, _i, _i, _i, _c])
 
 
 @functools.cache
@@ -77,10 +78,12 @@ def quant_matmul(x: torch.Tensor, qt: qz.QuantizedTensor) -> torch.Tensor:
     build.check_cuda_operands("quant_matmul", x.dtype, x, qt.data, qt.scale)
     m, n = x.shape
     p = qt.shape[1]
+    pl = gemm_plan.plan(m, n, p, bits=qt.bits, elem=x.element_size())
     y = torch.empty((m, p), dtype=x.dtype, device=x.device)
     rc = _lib_qt()(x.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(),
                    y.data_ptr(), m, n, p, qt.bits,
-                   int(x.dtype == torch.bfloat16), _stream(x))
+                   int(x.dtype == torch.bfloat16), pl.form_id, pl.bm, pl.bn,
+                   pl.split, pl.k_per_split, pl.smem_bytes, _stream(x))
     build.check(rc, "quant_matmul")
     quant_matmul.launches += 1
     return y

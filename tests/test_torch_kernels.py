@@ -10,12 +10,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax
-import jax.numpy as jnp
+try:
+    import jax
+    import jax.numpy as jnp
 
-from repro.core import quantize as jqz
-from repro.core import sparsity as jsp
-from repro.kernels import ops as jops
+    from repro.core import quantize as jqz
+    from repro.core import sparsity as jsp
+    from repro.kernels import ops as jops
+except ImportError:     # a GPU machine without JAX runs the `cuda` tests only
+    jax = None
+
 from repro_torch.core import sparsity as psp
 from repro_torch.kernels import ops as pops
 from repro_torch.kernels import ref as pref
@@ -160,4 +164,31 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype):
             (8e-3, 2.0 ** -7)
         torch.testing.assert_close(got.float(), want.float(), rtol=fa_rtol,
                                    atol=fa_atol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_dense_matmul_both_forms(cuda_device, dtype):
+    """dense_matmul's decode form (cluster split-K, m <= 16) and prefill form
+    (pipelined tile, k split over a cluster when the grid is small) against
+    the plain version: ragged p, n not a multiple of the split or of the
+    k stage, one launch per call, two calls bitwise equal."""
+    from repro_torch.kernels import gemm_plan
+    dt = getattr(torch, dtype)
+    atol, rtol = (1e-4, 1e-4) if dt == torch.float32 else (1e-3, 2.0 ** -7)
+    t = lambda a: torch.from_numpy(a).to(cuda_device)
+    for n, p in ((256, 96), (200, 100), (520, 288), (255, 97)):
+        w = t(rnd(1, (n, p), n ** -0.5)).to(dt)
+        for m in (1, 8, 16, 17, 77):
+            pl = gemm_plan.plan(m, n, p, elem=w.element_size())
+            assert pl.form == ("gemv" if m <= 16 else "tile")
+            x = t(rnd(m, (m, n))).to(dt)
+            pops.reset_launch_counts()
+            got = pops.matmul(x, w)
+            assert pops.launch_counts()["dense_matmul"] == 1
+            torch.testing.assert_close(
+                got.float(), pref.dense_matmul_ref(x, w).float(), rtol=rtol,
+                atol=atol, msg=lambda s: f"m={m} n={n} p={p}: {s}")
+            assert torch.equal(got, pops.matmul(x, w))
     torch.cuda.synchronize()

@@ -11,11 +11,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax.numpy as jnp
+try:
+    import jax.numpy as jnp
 
-from repro.core import kratos as jkr
-from repro.core import quantize as jqz
-from repro.kernels import ops as jops
+    from repro.core import kratos as jkr
+    from repro.core import quantize as jqz
+    from repro.kernels import ops as jops
+except ImportError:     # a GPU machine without JAX runs the `cuda` tests only
+    jnp = None
+
 from repro_torch.core import kratos as pkr
 from repro_torch.core import quantize as pqz
 from repro_torch.kernels import ops as pops
@@ -179,4 +183,32 @@ def test_cuda_quant_kernels_match_plain_versions(cuda_device, dtype):
         torch.testing.assert_close(
             pops.quant_matmul_w8a8(x, qt).float(),
             pref.quant_matmul_w8a8_ref(x, qt).float(), rtol=rtol, atol=atol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bits", [8, 4, 2, 1])
+def test_cuda_quant_matmul_both_forms(cuda_device, dtype, bits):
+    """quant_matmul's decode form (cluster split-K over 32-bit code words)
+    and prefill form (codes copied raw, unpacked once per stage) against the
+    plain version: ragged p, n not a multiple of the split, one launch per
+    call, two calls bitwise equal."""
+    from repro_torch.kernels import gemm_plan
+    dt = getattr(torch, dtype)
+    atol, rtol = (1e-4, 1e-4) if dt == torch.float32 else (1e-3, 2.0 ** -7)
+    for n, p in ((256, 96), (200, 100), (520, 288), (8192, 288)):
+        w = torch.from_numpy(rnd(1, (n, p), n ** -0.5)).to(cuda_device)
+        qt = pqz.quantize(w, bits)
+        for m in (1, 8, 16, 17, 77):
+            assert gemm_plan.plan(m, n, p, bits=bits).form == \
+                ("gemv" if m <= 16 else "tile")
+            x = torch.from_numpy(rnd(m, (m, n))).to(cuda_device).to(dt)
+            pops.reset_launch_counts()
+            got = pops.quant_matmul(x, qt)
+            assert pops.launch_counts()["quant_matmul"] == 1
+            torch.testing.assert_close(
+                got.float(), pref.quant_matmul_ref(x, qt).float(), rtol=rtol,
+                atol=atol, msg=lambda s: f"m={m} n={n} p={p}: {s}")
+            assert torch.equal(got, pops.quant_matmul(x, qt))
     torch.cuda.synchronize()
