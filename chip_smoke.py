@@ -13,7 +13,10 @@ Phases, in order; any failure raises and exits non-zero:
      falcon-mamba-7b serving paths give it, with
      its time (CUDA events, L2 flushed before each launch), the plain
      version's, one PyTorch library call's and the least time the card
-     could take (the bound);
+     could take (the bound; flash attention also at the rate of the tensor
+     cores it runs on); the launch form of each bsr_quant_matmul case, the
+     profiler's kernel duration beside the event time at the redesigned
+     headline rows, and the kernels SDPA runs for f32 at d = 192;
   4. model parity: the port's forward on the card against the same forward
      on the CPU (plain versions), full width cut to 2 layers, one prefill
      batch and 4 greedy decode steps;
@@ -67,13 +70,17 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12                                # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12,      # dense, no sparsity
               "int8": 1979e12}
+# flash attention's second bound, at the rate of the units it runs on:
+# 3xTF32 spends three TF32 products (495 TFLOP/s) on each f32 one, bf16
+# runs at the bf16 tensor-core rate
+TC_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 GEMM_SHAPES = [(2560, 2560), (2560, 640), (2560, 6912), (6912, 2560)]
 # falcon-mamba's x_proj: dense and weight-only only (its 288 columns are off
 # the 128-wide block grid of the block-sparse kernels)
 XPROJ = (8192, 288)
 # kernels whose k-split partials meet in distributed shared memory in a
 # fixed order: each is also held to two bitwise-equal calls on the same inputs
-BITWISE = ("dense_matmul", "quant_matmul")
+BITWISE = ("dense_matmul", "quant_matmul", "bsr_quant_matmul")
 GEMM_ROWS = [1, 8, 77, 512]
 BITS = [8, 4, 2, 1]
 SPARSITIES = [0.5, 0.75]
@@ -185,11 +192,25 @@ def profiled_kernel_ms(torch, fn, family, iters=10):
     return statistics.median(ms)
 
 
+def device_kernels(torch, fn):
+    """The device kernels one call of `fn` runs: name and duration in ms,
+    from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def demangle(name):
     """A kernel's C++ name without its parameter list (the mangled name
     where c++filt is missing)."""
     try:
-        return sh(["c++filt", name]).split("(")[0]
+        return sh(["c++filt", "-p", name])
     except (OSError, subprocess.CalledProcessError):
         return name
 
@@ -210,8 +231,11 @@ def nbytes(*ts):
 # the block-sparse kernels, and w8a8
 GEMM_FAMILIES = ("gemv_cluster_kernel", "gemm_pipe_kernel", "gemm_tile_kernel",
                  "w8a8_kernel")
-KERNEL_FAMILIES = GEMM_FAMILIES + ("fa_kernel", "paged_kernel",
+KERNEL_FAMILIES = GEMM_FAMILIES + ("fa_tc_kernel", "paged_kernel",
                                    "ssm_scan_kernel")
+# instantiations held to no register spill: the GEMV and pipelined forms
+# (over every weight source) and the tensor-core flash kernel
+NO_SPILL = GEMM_FAMILIES[:2] + ("fa_tc_kernel",)
 
 
 def gemm_ms(call):
@@ -288,15 +312,16 @@ def phase_kernels(torch, timer):
     from repro_torch.core import kratos as kr
     from repro_torch.core import quantize as qz
     from repro_torch.core import sparsity as sp
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels import gemm_plan, ops, ref
+    from repro_torch.kernels.flash_attention import (fa_plan,
+                                                     flash_attention_plain)
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(SEED)
     cases = []
 
     def record(kernel, dtype, got, want, tol, key, n_bytes, flops, run,
-               plain, library, peak=None, **shape):
+               plain, library, peak=None, tc_peak=None, **shape):
         err = (got.float() - want.float()).abs()
         atol, rtol = tol
         ok = bool((err <= atol + rtol * want.float().abs()).all())
@@ -310,6 +335,8 @@ def phase_kernels(torch, timer):
                     library_ms=None if library is None else timer(library,
                                                                   iters=5),
                     bound_ms=b_ms, bound_by=b_by, key=key)
+        if tc_peak:
+            case["bound_tc_ms"] = flops / tc_peak * 1e3
         cases.append(case)
         print(f"  {kernel:16s} {dtype:8s} {json.dumps(shape)} "
               f"err={case['max_abs_err']:.3g} (atol {atol:g}, rtol {rtol:g}) "
@@ -360,6 +387,9 @@ def phase_kernels(torch, timer):
                         w_deq = (qz.quantize_values(w32, scale, bits).float()
                                  * scale * torch.as_tensor(
                                      sp.plan_mask(plan), device=dev)).to(dt)
+                        form = gemm_plan.bsr_plan(
+                            m, plan.n_pb, plan.nnz, plan.bk, plan.bn, bits,
+                            x.element_size()).form
                         record("bsr_quant_matmul", dtype,
                                ops.bsr_quant_matmul(x, qb, sc, idx, bits),
                                ref.bsr_quant_matmul_ref(x, qb, sc, idx, bits),
@@ -371,7 +401,8 @@ def phase_kernels(torch, timer):
                                lambda: ref.bsr_quant_matmul_ref(x, qb, sc,
                                                                 idx, bits),
                                lambda: torch.matmul(x, w_deq),
-                               m=m, n=n, p=p, sparsity=s, bits=bits)
+                               m=m, n=n, p=p, sparsity=s, bits=bits,
+                               form=form)
 
     # weight-only and w8a8 GEMMs on the same shapes and rows
     for dtype in DTYPES:
@@ -444,8 +475,10 @@ def phase_kernels(torch, timer):
                                4 * d * int(live.sum()) * heads,
                                lambda: ops.flash_attention(q, k, v, **kw),
                                lambda: flash_attention_plain(qf, kf, vf, **kw),
-                               library, sq=sq, heads=heads, kv_heads=8, d=d,
-                               window=window, softcap=cap)
+                               library, tc_peak=TC_FLOPS[dtype], sq=sq,
+                               heads=heads, kv_heads=8, d=d, window=window,
+                               softcap=cap,
+                               bkv=fa_plan(d, q.element_size()).bkv)
 
     # paged decode attention: 8 slots with random clocks over a shuffled
     # page pool, slot 3 idle on the sink page; h2o-danube (32/8 heads,
@@ -537,21 +570,47 @@ def phase_kernels(torch, timer):
                    lambda: ref.ssm_scan_ref(*args), None, peak="float32",
                    batch=bsz, s=s, d_inner=di, d_state=st)
 
-    # the repaired event pair against the profiler's own kernel duration at
-    # the two redesigned decode rows (same shapes, fresh inputs)
+    # the event pair against the profiler's own kernel duration at the
+    # headline rows of the redesigned kernels (same shapes, fresh inputs):
+    # the three decode GEMVs and flash attention at sq 512
     n, p = HEADLINE["dense_matmul"][3]
     w32 = torch.randn((n, p), generator=gen, device=dev) * n ** -0.5
     x = torch.randn((8, n), generator=gen, device=dev)
     q4 = qz.quantize(w32, 4)
-    for name, fn in (("dense_matmul", lambda: ops.matmul(x, w32)),
-                     ("quant_matmul", lambda: ops.quant_matmul(x, q4))):
-        case = next(c for c in cases if c["key"] == HEADLINE[name])
-        case["profiler_ms"] = profiled_kernel_ms(torch, fn,
-                                                 "gemv_cluster_kernel")
+    spec = kr.KratosSpec(sparsity=0.5, bits=8)
+    buf = kr.pack({"w": w32}, spec)
+    idx = torch.as_tensor(kr.plan_for(n, p, spec).indices, device=dev)
+    fa_in = {d: [torch.randn((1, h, 512, d), generator=gen, device=dev)
+                 for h in (hq, 8, 8)] for hq, d in ((32, 80), (96, 192))}
+    profiled = [
+        ("dense_matmul", HEADLINE["dense_matmul"], "gemv_cluster_kernel",
+         lambda: ops.matmul(x, w32)),
+        ("quant_matmul", HEADLINE["quant_matmul"], "gemv_cluster_kernel",
+         lambda: ops.quant_matmul(x, q4)),
+        ("bsr_quant_matmul", HEADLINE["bsr_quant_matmul"],
+         "gemv_cluster_kernel",
+         lambda: ops.bsr_quant_matmul(x, buf["qblocks"], buf["qscale"], idx,
+                                      8))]
+    for d in (80, 192):
+        profiled.append(("flash_attention",
+                         ("flash_attention", "float32", 512, None, None, d),
+                         "fa_tc_kernel",
+                         lambda d=d: ops.flash_attention(*fa_in[d])))
+    for name, key, family, fn in profiled:
+        case = next(c for c in cases if c["key"] == key)
+        case["profiler_ms"] = profiled_kernel_ms(torch, fn, family)
         case["events_ms_same_inputs"] = timer(fn)
-        print(f"  {name} decode m=8 {n}x{p} f32: events "
+        print(f"  {name} {key[1:]}: events "
               f"{case['events_ms_same_inputs']:.4f} ms, profiler kernel "
               f"duration {case['profiler_ms']:.4f} ms", flush=True)
+    # which kernel SDPA runs for f32 at d = 192 (the library yardstick of
+    # the flash rows), by name and device time, from the profiler
+    case = next(c for c in cases if c["key"] == (
+        "flash_attention", "float32", 512, None, None, 192))
+    case["library_kernels"] = device_kernels(torch, lambda: sdpa(
+        *fa_in[192], is_causal=True, enable_gqa=True))
+    print(f"  SDPA f32 d=192 sq=512 runs: {case['library_kernels']}",
+          flush=True)
     torch.cuda.synchronize()
     return cases
 
@@ -1156,7 +1215,7 @@ def main() -> int:
                   f"spill stores {k['spill_stores']} B, loads "
                   f"{k['spill_loads']} B, {k['smem_bytes']} B static smem")
     spills = [k["name"] for kernels in ptxas.values() for k in kernels
-              if any(f in k["kernel"] for f in GEMM_FAMILIES[:2])
+              if any(f in k["kernel"] for f in NO_SPILL)
               and (k["spill_stores"] or k["spill_loads"])]
     assert not spills, f"register spills in {spills}"
 

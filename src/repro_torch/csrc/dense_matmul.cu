@@ -25,8 +25,8 @@ int run(const void* x, const void* w, void* y, int m, int n, int p, int form, in
   const auto src = gk::plain_source<T>(w, p);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = form == 0
-      ? gk::launch_gemv<T>(xp, m, n, yp, p, src, bm, bn, split, k_per_split, smem, st)
-      : gk::launch_pipe<T>(xp, m, n, yp, p, src, bm, bn, split, k_per_split, smem, st);
+      ? gk::launch_gemv<T>(xp, m, n, n, yp, p, src, bm, bn, split, k_per_split, smem, st)
+      : gk::launch_pipe<T>(xp, m, n, n, yp, p, src, bm, bn, split, k_per_split, smem, st);
   if (e == cudaSuccess) e = cudaGetLastError();
   return static_cast<int>(e);
 }

@@ -1,5 +1,5 @@
-// Prefill form of the dense and weight-only GEMMs (m > 16 rows): a pipelined
-// SGEMM tile on CUDA cores.
+// Prefill form of the dense, weight-only and block-sparse x quantized GEMMs
+// (m > 16 rows): a pipelined SGEMM tile on CUDA cores.
 //
 // Bound on the H100: the f32 FMAs (67 TFLOP/s outside the tensor cores) at
 // m in the hundreds. The serving path is f32 and its parity tolerance
@@ -18,7 +18,10 @@
 //   - an under-filled grid splits k over the CTAs of a cluster; the partial
 //     tiles are summed through distributed shared memory in rank order
 //     (one launch, no workspace, no atomics, bitwise repeatable);
-//   - ragged m, n and p are masked by zero-fill copies, never padded.
+//   - ragged m, n and p are masked by zero-fill copies, never padded;
+//   - a block-sparse source's column tile lies inside one block column and
+//     each 16-deep stage inside one listed block (bk % 16 == 0, the plan's
+//     rule), so a stage's x columns are one contiguous run from xcol(k0).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -51,7 +54,7 @@ struct PipeShape {
 // covered by the other's FMAs
 template <typename T, class W, int BM, int BN>
 __global__ void __launch_bounds__(BM * BN / 64, 32768 / (BM * BN))
-gemm_pipe_kernel(const T* __restrict__ x, int m, int n, T* __restrict__ y, int p, W w,
+gemm_pipe_kernel(const T* __restrict__ x, int m, int n, int ldx, T* __restrict__ y, int p, W w,
                  int k_per_split, bool xvec) {
   using S = PipeShape<T, W, BM, BN>;
   constexpr int NT = S::NT, BK = PIPE_BK, ST = PIPE_STAGES, VPB = W::VPB;
@@ -68,6 +71,9 @@ gemm_pipe_kernel(const T* __restrict__ x, int m, int n, T* __restrict__ y, int p
   const int tiles_m = (m + BM - 1) / BM;
   const int row0 = (blockIdx.y % tiles_m) * BM;
   const int col0 = (blockIdx.y / tiles_m) * BN;
+  const W wsrc = w.tile(col0);
+  const auto* wcol = wsrc.ptr(0, col0);   // the tile's first column, row 0
+  const int wstride = wsrc.stride();
   const int tid = threadIdx.x;
   // warp tiles of 32 rows x 64 columns; a lane's 8 x 8 micro-tile is rows
   // wr + lr * 4 + {0..3, 16..19} by columns wc + lc * 4 + {0..3, 32..35}, so
@@ -82,12 +88,13 @@ gemm_pipe_kernel(const T* __restrict__ x, int m, int n, T* __restrict__ y, int p
   // issue the copies of k-tile kt into ring slot s
   auto issue = [&](int kt, int s) {
     const int k0 = kt * BK;
+    const int xk0 = wsrc.xcol(k0);
     if constexpr (sizeof(T) == 4) {
       float* dst = xs + s * S::X_F32;
       for (int e = tid; e < BM * BK; e += NT) {
         const int r = e / BK, kk = e % BK;
         const bool ok = row0 + r < m && k0 + kk < n;
-        cp_async<4>(dst + kk * S::XS + r, ok ? x + (size_t)(row0 + r) * n + k0 + kk : x,
+        cp_async<4>(dst + kk * S::XS + r, ok ? x + (size_t)(row0 + r) * ldx + xk0 + kk : x,
                     ok ? 4 : 0);
       }
     } else {
@@ -95,7 +102,7 @@ gemm_pipe_kernel(const T* __restrict__ x, int m, int n, T* __restrict__ y, int p
 #pragma unroll 2
       for (int e = tid; e < BM * BK / 2; e += NT) {
         const int r = e / (BK / 2), kk = 2 * (e % (BK / 2));
-        const T* src = x + (size_t)(row0 + r) * n + k0 + kk;
+        const T* src = x + (size_t)(row0 + r) * ldx + xk0 + kk;
         if (xvec) {
           const bool ok = row0 + r < m && k0 + kk < n;
           cp_async<4>(dst + r * BK + kk, ok ? src : x, ok ? 4 : 0);
@@ -113,11 +120,13 @@ gemm_pipe_kernel(const T* __restrict__ x, int m, int n, T* __restrict__ y, int p
     for (int e = tid; e < WQ; e += NT) {
       const int rr = e / (BN / 4), c4 = e % (BN / 4);
       const int col = col0 + 4 * c4;
+      const auto* src = wcol + (size_t)(r0 + rr) * wstride + 4 * c4;
       if (w.vec) {
+        // a masked copy reads nothing; x stands in as its address
         const bool ok = r0 + rr < rows && col < p;
-        cp_async<sizeof(Q)>(dst + e, ok ? w.ptr(r0 + rr, col) : w.ptr(0, 0), ok ? sizeof(Q) : 0);
+        cp_async<sizeof(Q)>(dst + e, ok ? static_cast<const void*>(src) : x, ok ? sizeof(Q) : 0);
       } else {
-        dst[e] = r0 + rr < rows ? w.load(r0 + rr, col) : w.zero();
+        dst[e] = r0 + rr < rows ? wsrc.load_at(src, col) : wsrc.zero();
       }
     }
   };
@@ -136,7 +145,9 @@ gemm_pipe_kernel(const T* __restrict__ x, int m, int n, T* __restrict__ y, int p
     if constexpr (!W::DIRECT) {
       const typename W::Quad* src = reinterpret_cast<const typename W::Quad*>(w_raw + s * S::W_RAW);
       float* dst = ws + s * S::W_F32;
-#pragma unroll 2
+      // a gathering source keeps its index walk live: one quad at a time
+      // stays under the register cap
+#pragma unroll (W::GATHER ? 1 : 2)
       for (int e = tid; e < WQ; e += NT) {
         const int rr = e / (BN / 4), c4 = e % (BN / 4);
         const typename W::Quad qv = src[e];
@@ -232,8 +243,8 @@ gemm_pipe_kernel(const T* __restrict__ x, int m, int n, T* __restrict__ y, int p
 }
 
 template <typename T, class W, int BM, int BN>
-cudaError_t launch_pipe_tile(const T* x, int m, int n, T* y, int p, const W& w, int split,
-                             int k_per_split, int smem, cudaStream_t st) {
+cudaError_t launch_pipe_tile(const T* x, int m, int n, int ldx, T* y, int p, const W& w,
+                             int split, int k_per_split, int smem, cudaStream_t st) {
   using S = PipeShape<T, W, BM, BN>;
   if (smem != S::smem(split)) return cudaErrorInvalidValue;
   auto kern = gemm_pipe_kernel<T, W, BM, BN>;
@@ -252,22 +263,24 @@ cudaError_t launch_pipe_tile(const T* x, int m, int n, T* y, int p, const W& w, 
   la[0].val.clusterDim.z = 1;
   cfg.attrs = la;
   cfg.numAttrs = 1;
-  const bool xvec = n % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
-  return cudaLaunchKernelEx(&cfg, kern, x, m, n, y, p, w, k_per_split, xvec);
+  const bool xvec = n % 2 == 0 && ldx % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
+  return cudaLaunchKernelEx(&cfg, kern, x, m, n, ldx, y, p, w, k_per_split, xvec);
 }
 
 // Launch the plan chosen by kernels/gemm_plan.py (bm x bn tile, k split over
-// `split` CTAs of a cluster); anything else is cudaErrorInvalidValue.
+// `split` CTAs of a cluster); anything else is cudaErrorInvalidValue. n
+// counts logical k; ldx is x's row stride (n but for a block-sparse source).
 template <typename T, class W>
-cudaError_t launch_pipe(const T* x, int m, int n, T* y, int p, const W& w, int bm, int bn,
-                        int split, int k_per_split, int smem, cudaStream_t st) {
+cudaError_t launch_pipe(const T* x, int m, int n, int ldx, T* y, int p, const W& w, int bm,
+                        int bn, int split, int k_per_split, int smem, cudaStream_t st) {
   if (split < 1 || split > 8 || k_per_split <= 0 || k_per_split % PIPE_BK ||
+      w.kgrain() % PIPE_BK ||
       (long long)k_per_split * split < n || ((m + bm - 1) / bm) * ((p + bn - 1) / bn) > 65535)
     return cudaErrorInvalidValue;
   if (bm == 128 && bn == 128)
-    return launch_pipe_tile<T, W, 128, 128>(x, m, n, y, p, w, split, k_per_split, smem, st);
+    return launch_pipe_tile<T, W, 128, 128>(x, m, n, ldx, y, p, w, split, k_per_split, smem, st);
   if (bm == 128 && bn == 64)
-    return launch_pipe_tile<T, W, 128, 64>(x, m, n, y, p, w, split, k_per_split, smem, st);
+    return launch_pipe_tile<T, W, 128, 64>(x, m, n, ldx, y, p, w, split, k_per_split, smem, st);
   return cudaErrorInvalidValue;
 }
 

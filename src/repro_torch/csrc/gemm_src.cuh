@@ -1,15 +1,25 @@
-// Weight sources of the dense and weight-only GEMMs (gemv_cluster.cuh for
-// decode rows, gemm_pipe.cuh for prefill rows), and the copy helpers both
-// share.
+// Weight sources of the dense, weight-only and block-sparse x quantized
+// GEMMs (gemv_cluster.cuh for decode rows, gemm_pipe.cuh for prefill rows),
+// and the copy helpers both share.
 //
 // A source owns the weight operand's layout, row-major (n / VPB, p) with p
 // contiguous, and how one packed row turns into f32 weights:
-//   Plain<T>    a float weight (f32 or bf16), VPB = 1;
-//   Codes<BITS> int8 bytes of bit-packed codes along k (_unpack_tile's
-//               layout: value i of a byte at bit offset i * BITS, two's
-//               complement, a sign bit {0 -> -1, 1 -> +1} for 1 bit),
-//               VPB = 8 / BITS, and a per-column f32 scale applied once
-//               after the whole contraction.
+//   Plain<T>      a float weight (f32 or bf16), VPB = 1;
+//   Codes<BITS>   int8 bytes of bit-packed codes along k (_unpack_tile's
+//                 layout: value i of a byte at bit offset i * BITS, two's
+//                 complement, a sign bit {0 -> -1, 1 -> +1} for 1 bit),
+//                 VPB = 8 / BITS, and a per-column f32 scale applied once
+//                 after the whole contraction;
+//   QBlocks<BITS> the listed blocks of a block-sparse x quantized weight,
+//                 codes (n_pb, nnz, bk / VPB, bn) as Codes packs them. A
+//                 column tile lies inside one block column j; its logical
+//                 k range is the concatenation of j's nnz listed blocks, so
+//                 its packed rows are contiguous (row r of block (j, t) is
+//                 logical row t * bk / VPB + r) and logical k maps to x's
+//                 column idx[j, k / bk] * bk + k % bk.
+// A kernel takes the CTA's view of a source with tile(col0) once; xcol(k)
+// is the x column of logical k (the identity but for QBlocks), and kgrain()
+// the run of logical k that maps to contiguous x columns.
 // The unit of a decode load is a quad: 4 adjacent columns of one packed
 // row (16 bytes of f32, 8 of bf16, one 32-bit word of codes), unpacked with
 // compile-time shifts. No float weight is ever written to device memory.
@@ -102,16 +112,21 @@ struct Plain {
   static constexpr int BITS = 0;
   // an f32 quad lands in the f32 tile as it is; bf16 is widened on the way
   static constexpr bool DIRECT = sizeof(T) == 4;
+  static constexpr bool GATHER = false;   // x columns = logical k
   using Quad = typename std::conditional<sizeof(T) == 4, float4, uint2>::type;
   const T* w;
   int p;
   bool vec;  // quads may be read as one aligned vector (p % 4 == 0, w aligned)
 
+  __device__ __forceinline__ Plain tile(int) const { return *this; }
+  __device__ __forceinline__ int xcol(int k) const { return k; }
+  __host__ __device__ int kgrain() const { return 1 << 30; }
   __device__ __forceinline__ Quad zero() const { return Quad{}; }
   __device__ __forceinline__ const T* ptr(int r, int c) const { return w + (size_t)r * p + c; }
-  // packed row r, columns c .. c + 3 (masked past p)
-  __device__ __forceinline__ Quad load(int r, int c) const {
-    const T* src = ptr(r, c);
+  __device__ __forceinline__ int stride() const { return p; }  // between packed rows
+  // packed row r, columns c .. c + 3 (masked past p), from src = ptr(r, c),
+  // which a kernel steps along by stride()
+  __device__ __forceinline__ Quad load_at(const T* src, int c) const {
     if (vec && c + 4 <= p) return ldg_nc(reinterpret_cast<const Quad*>(src));
     T v[4];
 #pragma unroll
@@ -136,16 +151,20 @@ struct Codes {
   static constexpr int BITS = BITS_;
   static constexpr int VPB = 8 / BITS_;
   static constexpr bool DIRECT = false;
+  static constexpr bool GATHER = false;
   using Quad = uint32_t;
   const int8_t* q;
   const float* scales;
   int p;
   bool vec;  // p % 4 == 0 and q 4-byte aligned
 
+  __device__ __forceinline__ Codes tile(int) const { return *this; }
+  __device__ __forceinline__ int xcol(int k) const { return k; }
+  __host__ __device__ int kgrain() const { return 1 << 30; }
   __device__ __forceinline__ Quad zero() const { return 0u; }
   __device__ __forceinline__ const int8_t* ptr(int r, int c) const { return q + (size_t)r * p + c; }
-  __device__ __forceinline__ Quad load(int r, int c) const {
-    const int8_t* src = ptr(r, c);
+  __device__ __forceinline__ int stride() const { return p; }
+  __device__ __forceinline__ Quad load_at(const int8_t* src, int c) const {
     if (vec && c + 4 <= p) return ldg_nc(reinterpret_cast<const uint32_t*>(src));
     uint32_t word = 0;
 #pragma unroll
@@ -171,6 +190,34 @@ struct Codes {
   __device__ __forceinline__ float scale(int c) const { return scales[c]; }
 };
 
+template <int BITS_>
+struct QBlocks : Codes<BITS_> {
+  using Codes<BITS_>::VPB;
+  static constexpr bool GATHER = true;    // x columns through the index table
+  const int* idx;     // (n_pb, nnz) listed k-blocks of each block column
+  int nnz, bk, bn;    // bk, bn: one block's k and column extents
+  // the CTA's block column, set by tile(): its packed rows, index row and
+  // first column
+  const int8_t* qj;
+  const int* idxj;
+  int c0;
+
+  __device__ __forceinline__ QBlocks tile(int col0) const {
+    QBlocks s = *this;
+    const int j = col0 / bn;
+    s.c0 = j * bn;
+    s.qj = this->q + (size_t)j * nnz * (bk / VPB) * bn;
+    s.idxj = idx + (size_t)j * nnz;
+    return s;
+  }
+  __device__ __forceinline__ int xcol(int k) const { return idxj[k / bk] * bk + k % bk; }
+  __host__ __device__ int kgrain() const { return bk; }
+  __device__ __forceinline__ const int8_t* ptr(int r, int c) const {
+    return qj + (size_t)r * bn + (c - c0);
+  }
+  __device__ __forceinline__ int stride() const { return bn; }
+};
+
 // the sources' vec flags: a quad is one aligned vector
 template <typename T>
 inline Plain<T> plain_source(const void* w, int p) {
@@ -182,6 +229,23 @@ template <int BITS>
 inline Codes<BITS> codes_source(const void* q, const void* scales, int p) {
   Codes<BITS> s{static_cast<const int8_t*>(q), static_cast<const float*>(scales), p, false};
   s.vec = p % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 4 == 0;
+  return s;
+}
+
+// bn % 4 == 0 and the codes 4-byte aligned; the p of Codes is the full
+// width n_pb * bn (the column bound; rows are bn bytes apart within a block)
+template <int BITS>
+inline QBlocks<BITS> qblocks_source(const void* q, const void* scales, const void* idx, int n_pb,
+                                    int nnz, int bk, int bn) {
+  QBlocks<BITS> s{};
+  s.q = static_cast<const int8_t*>(q);
+  s.scales = static_cast<const float*>(scales);
+  s.p = n_pb * bn;
+  s.vec = bn % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 4 == 0;
+  s.idx = static_cast<const int*>(idx);
+  s.nnz = nnz;
+  s.bk = bk;
+  s.bn = bn;
   return s;
 }
 

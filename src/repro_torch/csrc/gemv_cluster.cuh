@@ -1,5 +1,5 @@
-// Decode form of the dense and weight-only GEMMs (m <= 16 rows): a cluster
-// split-K GEMV.
+// Decode form of the dense, weight-only and block-sparse x quantized GEMMs
+// (m <= 16 rows): a cluster split-K GEMV.
 //
 // Bound on the H100: the weight stream. At m = 8 a 2560 x 6912 f32 weight
 // is 70.8 MB against 0.57 GFLOP, so time is bytes over 3.35 TB/s, and the
@@ -12,7 +12,10 @@
 //     8-byte bf16 or one 32-bit word of codes, through ld.global.nc), and
 //     unpacks codes with compile-time shifts (BITS is a template constant);
 //   - the CTA's slice of x's m rows is staged once in shared memory (k
-//     major, so one float4 read gives 4 rows) and broadcast from there;
+//     major, so one float4 read gives 4 rows) and broadcast from there; a
+//     block-sparse source maps each logical k to its x column on the way
+//     (n counts logical k, ldx is x's row stride), so the split of the
+//     concatenated listed blocks may cut inside a block;
 //   - the k-lanes' partials meet in a fixed-order tree in shared memory,
 //     then the cluster's partials through distributed shared memory
 //     (cluster.map_shared_rank) in rank order; each CTA reduces, scales
@@ -38,9 +41,11 @@ struct GemvShape {
   static constexpr int XK = GEMV_UNION / XS / 8 * 8;    // k values per chunk
   // quads in flight per thread: 128 bytes (32 registers) of weight; at 16
   // rows, whose 64 accumulators share the 128 registers, 64 bytes of f32 or
-  // bf16 and 16 bytes of codes (their unpack needs registers of its own)
+  // bf16 and 16 bytes of codes (their unpack needs registers of its own); a
+  // gathering source at 4 rows, whose index walk needs registers too, 64
   static constexpr int U =
-      (MT < 16 ? 128 : W::BITS ? 16 : 64) / (int)sizeof(typename W::Quad);
+      (MT < 16 ? (W::GATHER && MT == 4 ? 64 : 128) : W::BITS ? 16 : 64) /
+      (int)sizeof(typename W::Quad);
 };
 
 // acc[i][j] += x[i][k] * w[k][c + j] for the VPB k values of one quad
@@ -65,8 +70,8 @@ __device__ __forceinline__ void gemv_fma(float (&acc)[MT][4], const W& w,
 
 template <typename T, class W, int MT>
 __global__ void __launch_bounds__(GEMV_THREADS, 2)
-gemv_cluster_kernel(const T* __restrict__ x, int m, int n, T* __restrict__ y, int p, W w,
-                    int bn, int k_per_split, bool xvec) {
+gemv_cluster_kernel(const T* __restrict__ x, int m, int n, int ldx, T* __restrict__ y, int p,
+                    W w, int bn, int k_per_split, bool xvec) {
   using S = GemvShape<MT, W>;
   constexpr int VPB = W::VPB;
   constexpr int U = S::U;
@@ -83,6 +88,9 @@ gemv_cluster_kernel(const T* __restrict__ x, int m, int n, T* __restrict__ y, in
   const int q = tid % nq, kl = tid / nq;
   const int col0 = blockIdx.y * bn;
   const int c = col0 + 4 * q;
+  const W wsrc = w.tile(col0);
+  const auto* wc = wsrc.ptr(0, c);   // this thread's quad column, row 0
+  const int wstride = wsrc.stride();
   const int rows = n / VPB;
   const int r_lo = rank * (k_per_split / VPB);
   const int r_hi = min(rows, r_lo + k_per_split / VPB);
@@ -103,7 +111,7 @@ gemv_cluster_kernel(const T* __restrict__ x, int m, int n, T* __restrict__ y, in
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int rr = r + u * lanes;
-        wq[u] = rr < ce ? w.load(rr, c) : w.zero();
+        wq[u] = rr < ce ? wsrc.load_at(wc + (size_t)rr * wstride, c) : wsrc.zero();
       }
     };
     fetch(cr + kl);
@@ -120,7 +128,7 @@ gemv_cluster_kernel(const T* __restrict__ x, int m, int n, T* __restrict__ y, in
       for (int b = 0; b < XB; ++b) {
         const int e = e0 + b * GEMV_THREADS, i = e / kq, k = k0 + 4 * (e % kq);
         if (e < MT * kq && i < m) {
-          load4(x + (size_t)i * n + k, v[b]);
+          load4(x + (size_t)i * ldx + wsrc.xcol(k), v[b]);
         } else {
           v[b][0] = v[b][1] = v[b][2] = v[b][3] = 0.f;
         }
@@ -139,7 +147,7 @@ gemv_cluster_kernel(const T* __restrict__ x, int m, int n, T* __restrict__ y, in
 #pragma unroll
       for (int b = 0; b < XB; ++b) {
         const int e = e0 + b * GEMV_THREADS, i = e / kt, k = 4 * kq + e % kt;
-        v[b] = e < MT * kt && i < m ? f32(x[(size_t)i * n + k0 + k]) : 0.f;
+        v[b] = e < MT * kt && i < m ? f32(x[(size_t)i * ldx + wsrc.xcol(k0 + k)]) : 0.f;
       }
 #pragma unroll
       for (int b = 0; b < XB; ++b) {
@@ -209,8 +217,8 @@ gemv_cluster_kernel(const T* __restrict__ x, int m, int n, T* __restrict__ y, in
 constexpr int gemv_smem_bytes(int mt) { return (GEMV_UNION + mt * GEMV_PART_COLS) * 4; }
 
 template <typename T, class W, int MT>
-cudaError_t launch_gemv_mt(const T* x, int m, int n, T* y, int p, const W& w, int bn, int split,
-                           int k_per_split, cudaStream_t st) {
+cudaError_t launch_gemv_mt(const T* x, int m, int n, int ldx, T* y, int p, const W& w, int bn,
+                           int split, int k_per_split, cudaStream_t st) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(split, (p + bn - 1) / bn, 1);
   cfg.blockDim = dim3(GEMV_THREADS, 1, 1);
@@ -224,25 +232,27 @@ cudaError_t launch_gemv_mt(const T* x, int m, int n, T* y, int p, const W& w, in
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   // x rows may be read 4 k values at a time (16 bytes of f32, 8 of bf16)
-  const bool xvec = n % 4 == 0 && reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0;
-  return cudaLaunchKernelEx(&cfg, gemv_cluster_kernel<T, W, MT>, x, m, n, y, p, w, bn,
+  const bool xvec = ldx % 4 == 0 && w.kgrain() % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0;
+  return cudaLaunchKernelEx(&cfg, gemv_cluster_kernel<T, W, MT>, x, m, n, ldx, y, p, w, bn,
                             k_per_split, xvec);
 }
 
 // Launch the plan chosen by kernels/gemm_plan.py (bm = row template); a plan
 // this header does not instantiate, or whose shared memory differs from the
-// kernel's, is refused with cudaErrorInvalidValue.
+// kernel's, is refused with cudaErrorInvalidValue. n counts logical k; ldx
+// is x's row stride (n but for a block-sparse source).
 template <typename T, class W>
-cudaError_t launch_gemv(const T* x, int m, int n, T* y, int p, const W& w, int mt, int bn,
-                        int split, int k_per_split, int smem, cudaStream_t st) {
+cudaError_t launch_gemv(const T* x, int m, int n, int ldx, T* y, int p, const W& w, int mt,
+                        int bn, int split, int k_per_split, int smem, cudaStream_t st) {
   const bool ok = (bn == 16 || bn == 32 || bn == 64 || bn == 128) && split >= 1 && split <= 8 &&
                   k_per_split > 0 && k_per_split % W::VPB == 0 &&
                   (long long)k_per_split * split >= n && m <= mt && smem == gemv_smem_bytes(mt);
   if (!ok) return cudaErrorInvalidValue;
   switch (mt) {
-    case 4: return launch_gemv_mt<T, W, 4>(x, m, n, y, p, w, bn, split, k_per_split, st);
-    case 8: return launch_gemv_mt<T, W, 8>(x, m, n, y, p, w, bn, split, k_per_split, st);
-    case 16: return launch_gemv_mt<T, W, 16>(x, m, n, y, p, w, bn, split, k_per_split, st);
+    case 4: return launch_gemv_mt<T, W, 4>(x, m, n, ldx, y, p, w, bn, split, k_per_split, st);
+    case 8: return launch_gemv_mt<T, W, 8>(x, m, n, ldx, y, p, w, bn, split, k_per_split, st);
+    case 16: return launch_gemv_mt<T, W, 16>(x, m, n, ldx, y, p, w, bn, split, k_per_split, st);
     default: return cudaErrorInvalidValue;
   }
 }

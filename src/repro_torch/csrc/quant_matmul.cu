@@ -21,10 +21,20 @@
 // bsr_quant_matmul — block-sparse x quantized (the sparsity x precision
 // point): walks only the listed k-blocks.
 // Replaces: src/repro/kernels/quant_matmul.py::bsr_quant_matmul
-// (_bsr_wq_kernel). Same code layout and f32 flush; the shared tiled
-// mainloop of gemm_tile.cuh, each weight element unpacked from its byte
-// while the tile is staged into shared memory. Bound on the H100: the
-// packed code bytes at decode, the f32 FMAs at prefill.
+// (_bsr_wq_kernel). Same code layout and f32 flush. Bound on the H100: the
+// packed code bytes of the listed blocks at decode, the f32 FMAs of the
+// kept (1 - sparsity) share at prefill. Design: quant_matmul's two forms
+// over gemm_src.cuh's QBlocks<BITS> source, whose column tile lies inside
+// one block column and whose logical k is the concatenation of that
+// column's listed blocks (x read through idx[j, t] * bk + kk): at decode
+// the cluster split-K GEMV splits the listed packed rows over the CTAs of a
+// cluster (a split may cut inside a block); at prefill the 3-stage cp.async
+// tile takes one 16-deep stage inside one listed block, code bytes landing
+// raw and unpacked once a stage. Shapes those forms do not take (a block
+// narrower than the GEMV's 16-column tile, or at prefill bk % 16 != 0 or a
+// block narrower than the 64-column tile) keep the tiled mainloop of
+// gemm_tile.cuh (QBsrSrc below), each element unpacked while it is staged;
+// kernels/gemm_plan.py::bsr_plan picks the form by shape.
 //
 // quant_matmul_w8a8 — int8 x int8 -> int32, dequantized by row scale x
 // column scale at flush (acc_f32 * xs[row] * s[col], in that order).
@@ -179,8 +189,8 @@ int run_qt(const void* x, const void* q, const void* scales, void* y, int m, int
   const auto src = gk::codes_source<BITS>(q, scales, p);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = form == 0
-      ? gk::launch_gemv<T>(xp, m, n, yp, p, src, bm, bn, split, k_per_split, smem, st)
-      : gk::launch_pipe<T>(xp, m, n, yp, p, src, bm, bn, split, k_per_split, smem, st);
+      ? gk::launch_gemv<T>(xp, m, n, n, yp, p, src, bm, bn, split, k_per_split, smem, st)
+      : gk::launch_pipe<T>(xp, m, n, n, yp, p, src, bm, bn, split, k_per_split, smem, st);
   if (e == cudaSuccess) e = cudaGetLastError();
   return static_cast<int>(e);
 }
@@ -198,6 +208,39 @@ int run_qt_bits(const void* x, const void* q, const void* scales, void* y, int m
   }
 }
 
+template <typename T, int BITS>
+int run_bsr(const void* x, const void* q, const void* scales, const void* idx, void* y, int m,
+            int n, int n_pb, int nnz, int bk, int bn, int form, int bm, int tbn, int split,
+            int k_per_split, int smem, void* stream) {
+  const T* xp = static_cast<const T*>(x);
+  T* yp = static_cast<T*>(y);
+  const auto src = gk::qblocks_source<BITS>(q, scales, idx, n_pb, nnz, bk, bn);
+  const int p = n_pb * bn, kn = nnz * bk;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = form == 0
+      ? gk::launch_gemv<T>(xp, m, kn, n, yp, p, src, bm, tbn, split, k_per_split, smem, st)
+      : gk::launch_pipe<T>(xp, m, kn, n, yp, p, src, bm, tbn, split, k_per_split, smem, st);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  return static_cast<int>(e);
+}
+
+template <typename T>
+int run_bsr_bits(const void* x, const void* q, const void* scales, const void* idx, void* y,
+                 int m, int n, int n_pb, int nnz, int bk, int bn, int bits, int form, int bm,
+                 int tbn, int split, int k_per_split, int smem, void* stream) {
+#define RUN_BSR(B)                                                                        \
+  run_bsr<T, B>(x, q, scales, idx, y, m, n, n_pb, nnz, bk, bn, form, bm, tbn, split,      \
+                k_per_split, smem, stream)
+  switch (bits) {
+    case 8: return RUN_BSR(8);
+    case 4: return RUN_BSR(4);
+    case 2: return RUN_BSR(2);
+    case 1: return RUN_BSR(1);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef RUN_BSR
+}
+
 }  // namespace
 
 // form, bm, bn, split, k_per_split, smem: the launch plan (gemm_plan.py)
@@ -210,9 +253,22 @@ extern "C" int quant_matmul_launch(const void* x, const void* q, const void* sca
                                       k_per_split, smem, stream);
 }
 
+// form 0 / 1: the GEMV / pipelined tile over QBlocks<BITS> (plan: bm, tbn
+// the column tile, split, k_per_split over the logical k = nnz * bk, smem);
+// form 2: the gemm_tile.cuh mainloop
 extern "C" int bsr_quant_matmul_launch(const void* x, const void* qblocks, const void* scales,
                                        const void* idx, void* y, int m, int n, int n_pb, int nnz,
-                                       int bk, int bn, int bits, int is_bf16, void* stream) {
+                                       int bk, int bn, int bits, int is_bf16, int form, int bm,
+                                       int tbn, int split, int k_per_split, int smem,
+                                       void* stream) {
+  if (form != 2) {
+    if (bn % tbn) return static_cast<int>(cudaErrorInvalidValue);
+    return is_bf16 ? run_bsr_bits<__nv_bfloat16>(x, qblocks, scales, idx, y, m, n, n_pb, nnz, bk,
+                                                 bn, bits, form, bm, tbn, split, k_per_split,
+                                                 smem, stream)
+                   : run_bsr_bits<float>(x, qblocks, scales, idx, y, m, n, n_pb, nnz, bk, bn,
+                                         bits, form, bm, tbn, split, k_per_split, smem, stream);
+  }
   QBsrSrc src{};
   src.q = static_cast<const int8_t*>(qblocks);
   src.scales = static_cast<const float*>(scales);

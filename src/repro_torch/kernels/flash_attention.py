@@ -5,11 +5,18 @@ Replaces the two kernels of `repro.kernels.flash_attention`:
 k and v (bh_kv, skv, d), GQA head bh -> bh // (bh / bh_kv), any
 sq, skv >= 1) and `paged_flash_attention` (decode through a page table).
 Both take head_dim d <= 256. CPU tensors take the plain versions.
+
+`fa_plan` fixes the prefill kernel's launch from (d, dtype) alone: the
+padded head dim DP its instantiation takes, the 64-row q tile of 4 warps,
+the KV tile and the shared memory of its 2-stage K/V ring. The C launcher
+checks the plan against its own instantiations, so the choice runs and is
+tested on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional
 
@@ -19,6 +26,14 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import attention_ref, paged_attention_ref
 
 MAX_HEAD_DIM = 256
+FA_DP = (16, 32, 64, 80, 96, 128, 192, 256)   # instantiated padded head dims
+FA_WARPS = 4
+FA_BQ = 16 * FA_WARPS      # q rows of a CTA, 16 per warp
+FA_STAGES = 2              # K/V cp.async ring
+FA_BKV = (64, 32, 16)      # KV tiles, widest first
+MAX_SMEM = 232_448         # bytes of shared memory one CTA may use (227 KB)
+# two CTAs an SM: 228 KB of the SM's shared memory, 1 KB reserved per CTA
+TWO_CTA_SMEM = (233_472 - 2 * 1024) // 2
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
@@ -29,7 +44,7 @@ _f = ctypes.c_float
 def _lib():
     fn = build.load("flash_attention").flash_attention_launch
     fn.argtypes = [_c, _c, _c, _c, _i, _i, _i, _i, _i, _f, _i, _i, _f, _i,
-                   _i, _c]
+                   _i, _i, _i, _i, _c]
     fn.restype = _i
     return fn
 
@@ -41,6 +56,40 @@ def _lib_paged():
                    _i, _f, _i, _i, _c]
     fn.restype = _i
     return fn
+
+
+@dataclasses.dataclass(frozen=True)
+class FaPlan:
+    dp: int           # head dim of the instantiation (d padded with zeros)
+    bq: int           # q rows of a CTA
+    bkv: int          # keys of one K/V tile
+    stages: int       # K/V tiles in flight
+    smem_bytes: int   # dynamic shared memory: Q tile + the K/V ring
+    threads: int
+
+
+def fa_smem_bytes(dp: int, bkv: int, elem: int) -> int:
+    """Q (BQ rows) and STAGES K and V tiles (bkv rows each), every row dp
+    elements plus 16 bytes of pad."""
+    return (FA_BQ + 2 * FA_STAGES * bkv) * (dp + 16 // elem) * elem
+
+
+@functools.lru_cache(maxsize=None)
+def fa_plan(d: int, elem: int) -> FaPlan:
+    """The prefill kernel's plan for head dim d and element size elem (4
+    f32, 2 bf16): the widest KV tile whose shared memory lets two CTAs share
+    an SM, else the widest that fits one."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"fa plan: head_dim {d} not in [1, {MAX_HEAD_DIM}]")
+    if elem not in (4, 2):
+        raise ValueError(f"fa plan: element size {elem}")
+    dp = next(x for x in FA_DP if d <= x)
+    bkv = next((b for b in FA_BKV
+                if fa_smem_bytes(dp, b, elem) <= TWO_CTA_SMEM),
+               None) or next(b for b in FA_BKV
+                             if fa_smem_bytes(dp, b, elem) <= MAX_SMEM)
+    return FaPlan(dp, FA_BQ, bkv, FA_STAGES, fa_smem_bytes(dp, bkv, elem),
+                  32 * FA_WARPS)
 
 
 def _check_options(name, window, softcap):
@@ -84,12 +133,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"v {v.dtype}")
     build.check_cuda_operands("flash_attention", q.dtype, q, k, v)
     scale = (d ** -0.5) if scale is None else scale
+    pl = fa_plan(d, q.element_size())
     o = torch.empty_like(q)
     rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh,
                 bh_kv, sq, skv, d, float(scale), int(causal),
                 0 if window is None else int(window),
                 0.0 if softcap is None else float(softcap), int(q_offset),
-                int(q.dtype == torch.bfloat16),
+                int(q.dtype == torch.bfloat16), pl.dp, pl.bkv, pl.smem_bytes,
                 torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_attention")
     flash_attention.launches += 1

@@ -1,5 +1,5 @@
-"""Launch plans of the dense and weight-only GEMMs (`csrc/gemv_cluster.cuh`,
-`csrc/gemm_pipe.cuh`).
+"""Launch plans of the dense, weight-only and block-sparse x quantized GEMMs
+(`csrc/gemv_cluster.cuh`, `csrc/gemm_pipe.cuh`).
 
 A plan fixes everything about one launch that depends on the shapes only:
 the form (a cluster split-K GEMV for m <= DECODE_MAX_M, a pipelined tile
@@ -9,6 +9,14 @@ partials meet in distributed shared memory) and the k values each of them
 takes. The wrappers hand the plan to the C launcher, which checks it
 against its own instantiations and shared-memory layout, so the choice runs
 and is tested on the CPU.
+
+`bsr_plan` plans `bsr_quant_matmul` over the same two forms: a column tile
+lies inside one block column (it divides the block's bn), k is the
+concatenation of that column's listed blocks (nnz * bk logical values) and
+the k-split counts their packed rows. A block shape neither form takes
+keeps the tiled mainloop of `gemm_tile.cuh` (form "mainloop"): no GEMV
+column tile divides bn, or, at prefill, bk is not a multiple of the 16-deep
+stage or no tile column width divides bn.
 """
 
 from __future__ import annotations
@@ -38,7 +46,8 @@ TILE_CTAS = 264            # CTAs the split aims for (two an SM)
 
 @dataclasses.dataclass(frozen=True)
 class GemmPlan:
-    form: str              # "gemv" (cluster split-K) or "tile" (pipelined)
+    form: str              # "gemv" (cluster split-K), "tile" (pipelined) or
+                           # "mainloop" (gemm_tile.cuh, block-sparse only)
     bm: int                # gemv: row template (m <= bm); tile: row tile
     bn: int                # columns of one CTA's tile
     split: int             # CTAs of one cluster, each over one k-range
@@ -49,7 +58,7 @@ class GemmPlan:
 
     @property
     def form_id(self) -> int:
-        return 0 if self.form == "gemv" else 1
+        return ("gemv", "tile", "mainloop").index(self.form)
 
     def k_ranges(self, n: int) -> List[Tuple[int, int]]:
         """The [lo, hi) k-range of each CTA of a cluster."""
@@ -89,7 +98,8 @@ def gemv_smem_bytes(mt: int) -> int:
     return DECODE_UNION_FLOATS * 4 + mt * 128 * 4
 
 
-def _gemv_plan(m: int, n: int, p: int, vpb: int) -> GemmPlan:
+def _gemv_plan(m: int, n: int, p: int, vpb: int,
+               widths: Tuple[int, ...] = DECODE_BN) -> GemmPlan:
     mt = next(r for r in DECODE_ROWS if m <= r)
     rows = n // vpb
     # the widest column tile whose clusters still cover every SM, then the
@@ -97,8 +107,7 @@ def _gemv_plan(m: int, n: int, p: int, vpb: int) -> GemmPlan:
     # H100 over the serving shapes: wider tiles and shorter clusters win
     # once the card is covered)
     most = max(1, min(MAX_CLUSTER, rows // DECODE_MIN_ROWS))
-    bn = next((b for b in DECODE_BN if -(-p // b) * most >= SMS),
-              DECODE_BN[-1])
+    bn = next((b for b in widths if -(-p // b) * most >= SMS), widths[-1])
     tiles = -(-p // bn)
     split = max(1, min(most, -(-DECODE_CTAS // tiles)))
     per = -(-rows // split)
@@ -107,7 +116,8 @@ def _gemv_plan(m: int, n: int, p: int, vpb: int) -> GemmPlan:
                     gemv_smem_bytes(mt), (split, tiles))
 
 
-def _tile_plan(m: int, n: int, p: int, bits: int, elem: int) -> GemmPlan:
+def _tile_plan(m: int, n: int, p: int, bits: int, elem: int,
+               shapes: Tuple[Tuple[int, int], ...] = TILE_SHAPES) -> GemmPlan:
     # 128 x 128 tiles where there are enough of them to give two CTAs an SM
     # once k is split, 128 x 64 otherwise; the split then brings the grid up
     # to TILE_CTAS (H100 sweep over the serving shapes at m 77 and 512)
@@ -117,7 +127,8 @@ def _tile_plan(m: int, n: int, p: int, bits: int, elem: int) -> GemmPlan:
     def tiles(bm, bn):
         return -(-m // bm) * -(-p // bn)
 
-    bm, bn = (128, 128) if tiles(128, 128) * most >= TILE_CTAS else (128, 64)
+    bm, bn = shapes[0] if len(shapes) == 1 or \
+        tiles(*shapes[0]) * most >= TILE_CTAS else shapes[1]
     t = tiles(bm, bn)
     if t >= TILE_CTAS * 3 // 4:
         split = 1
@@ -151,6 +162,34 @@ def plan(m: int, n: int, p: int, bits: int = 0, elem: int = 4) -> GemmPlan:
     if m <= DECODE_MAX_M:
         return _gemv_plan(m, n, p, vpb)
     return _tile_plan(m, n, p, bits, elem)
+
+
+@functools.lru_cache(maxsize=None)
+def bsr_plan(m: int, n_pb: int, nnz: int, bk: int, bn: int, bits: int,
+             elem: int = 4) -> GemmPlan:
+    """The launch plan of `bsr_quant_matmul`: y (m, n_pb * bn) from the nnz
+    listed (bk, bn) blocks of each block column, codes of `bits` bits."""
+    if bits not in (8, 4, 2, 1):
+        raise ValueError(f"bsr plan: bits={bits}")
+    if elem not in (4, 2):
+        raise ValueError(f"bsr plan: element size {elem}")
+    vpb = 8 // bits
+    if m < 1 or n_pb < 1 or nnz < 1 or bk < 1 or bn < 1 or bk % vpb:
+        raise ValueError(f"bsr plan: m={m} n_pb={n_pb} nnz={nnz} bk={bk} "
+                         f"bn={bn} bits={bits}")
+    n, p = nnz * bk, n_pb * bn
+    if m <= DECODE_MAX_M:
+        widths = tuple(b for b in DECODE_BN if bn % b == 0)
+        if widths:
+            return _gemv_plan(m, n, p, vpb, widths)
+    else:
+        shapes = tuple(s for s in TILE_SHAPES if bn % s[1] == 0)
+        if shapes and bk % TILE_BK == 0:
+            return _tile_plan(m, n, p, bits, elem, shapes)
+    # gemm_tile.cuh's own tiles: 16 x 32 at decode rows, 64 x 64 above
+    tm, tn = (16, 32) if m <= DECODE_MAX_M else (64, 64)
+    return GemmPlan("mainloop", tm, tn, 1, n, 256, 0,
+                    (1, -(-m // tm) * n_pb * -(-bn // tn)))
 
 
 def describe(pl: GemmPlan) -> str:

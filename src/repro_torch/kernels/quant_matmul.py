@@ -45,7 +45,8 @@ def _lib_w8a8():
 @functools.cache
 def _lib_bsr():
     return _bind("bsr_quant_matmul_launch",
-                 [_c, _c, _c, _c, _c, _i, _i, _i, _i, _i, _i, _i, _i, _c])
+                 [_c, _c, _c, _c, _c, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
+                  _i, _i, _i, _i, _c])
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -123,7 +124,8 @@ def bsr_quant_matmul(x: torch.Tensor, qblocks: torch.Tensor,
                      scales: torch.Tensor, indices: torch.Tensor,
                      bits: int) -> torch.Tensor:
     """x: (m, n) float; qblocks: int8 (n_pb, nnz, bk // vpb, bn); scales:
-    f32 (n_pb, bn); indices: int32 (n_pb, nnz) -> (m, n_pb * bn)."""
+    f32 (n_pb, bn); indices: int32 (n_pb, nnz) -> (m, n_pb * bn). On the
+    card the launch form comes from `gemm_plan.bsr_plan`."""
     qz._check_bits(bits)
     m, n = x.shape
     n_pb, nnz, bkp, bn = qblocks.shape
@@ -145,11 +147,13 @@ def bsr_quant_matmul(x: torch.Tensor, qblocks: torch.Tensor,
                         f"scales {scales.dtype} (float32), indices "
                         f"{indices.dtype} (int32)")
     build.check_cuda_operands("bsr_quant_matmul", x.dtype, x, qblocks, scales,
-                        indices)
+                              indices)
+    pl = gemm_plan.bsr_plan(m, n_pb, nnz, bk, bn, bits, x.element_size())
     y = torch.empty((m, n_pb * bn), dtype=x.dtype, device=x.device)
     rc = _lib_bsr()(x.data_ptr(), qblocks.data_ptr(), scales.data_ptr(),
                     indices.data_ptr(), y.data_ptr(), m, n, n_pb, nnz, bk, bn,
-                    bits, int(x.dtype == torch.bfloat16), _stream(x))
+                    bits, int(x.dtype == torch.bfloat16), pl.form_id, pl.bm,
+                    pl.bn, pl.split, pl.k_per_split, pl.smem_bytes, _stream(x))
     build.check(rc, "bsr_quant_matmul")
     bsr_quant_matmul.launches += 1
     return y

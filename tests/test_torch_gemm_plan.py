@@ -91,3 +91,87 @@ def test_small_and_ragged_shapes():
         gp.plan(0, 8, 8)
     with pytest.raises(ValueError):
         gp.plan(4, 8, 8, bits=3)
+
+
+# block-sparse x quantized serving shapes: (n_in, n_out) of h2o-danube and
+# falcon-mamba projections on the 128 x 128 block grid, and the test specs
+BSR = [(2560, 2560), (2560, 640), (2560, 6912), (6912, 2560), (4096, 16384),
+       (8192, 4096)]
+SPARSITIES = [0.5, 0.75]
+
+
+def _bsr_shapes():
+    from repro_torch.core import sparsity as sp
+    for n, p in BSR:
+        for s in SPARSITIES:
+            nnz = sp.nnz_for_sparsity(n // 128, s)
+            yield p // 128, nnz, 128, 128
+    for bk, bn in [(8, 8), (32, 16), (16, 16), (128, 64), (64, 128)]:
+        yield 6, 5, bk, bn
+
+
+@pytest.mark.parametrize("m", ROWS)
+def test_bsr_plan_tiles_divide_the_block_and_splits_cover_listed_rows(m):
+    for n_pb, nnz, bk, bn in _bsr_shapes():
+        for bits, elem in [(8, 4), (4, 4), (2, 4), (1, 4), (8, 2)]:
+            pl = gp.bsr_plan(m, n_pb, nnz, bk, bn, bits, elem)
+            if pl.form == "mainloop":
+                continue
+            vpb = 8 // bits
+            rows = nnz * bk // vpb          # packed rows of the listed blocks
+            assert bn % pl.bn == 0          # a column tile inside one block
+            assert pl.grid[1] == (-(-m // pl.bm) if pl.form == "tile" else 1) \
+                * (n_pb * bn // pl.bn)
+            owner = [0] * rows              # each listed packed row in one split
+            for lo, hi in pl.k_ranges(nnz * bk):
+                assert lo % vpb == 0 and hi % vpb == 0 and lo < hi
+                for r in range(lo // vpb, hi // vpb):
+                    owner[r] += 1
+            assert owner == [1] * rows
+            assert 1 <= pl.split <= gp.MAX_CLUSTER
+            assert pl.ctas <= 65535 * gp.MAX_CLUSTER
+            assert pl.smem_bytes <= gp.MAX_SMEM
+            if pl.form == "tile":
+                # every 16-deep stage inside one listed block
+                assert bk % gp.TILE_BK == 0 and pl.k_per_split % gp.TILE_BK == 0
+            else:
+                assert m <= pl.bm and pl.bm in gp.DECODE_ROWS
+
+
+@pytest.mark.parametrize("bk,bn,decode,prefill", [
+    (128, 128, "gemv", "tile"), (64, 128, "gemv", "tile"),
+    (128, 64, "gemv", "tile"), (32, 16, "gemv", "mainloop"),
+    (16, 16, "gemv", "mainloop"), (8, 8, "mainloop", "mainloop"),
+    (8, 128, "gemv", "mainloop"), (24, 32, "gemv", "mainloop"),
+    (4, 4, "mainloop", "mainloop")])
+def test_bsr_plan_keeps_the_mainloop_exactly_where_the_forms_do_not_fit(
+        bk, bn, decode, prefill):
+    """The GEMV takes any block with a 16-, 32-, 64- or 128-column tile that
+    divides bn; the pipelined tile needs bk % 16 == 0 and a 64- or
+    128-column tile that divides bn. Everything else keeps gemm_tile.cuh's
+    mainloop, chosen here by shape."""
+    for bits in (8, 4, 2, 1):
+        if bk % (8 // bits):
+            continue
+        for m in (1, 8, 16):
+            assert gp.bsr_plan(m, 4, 3, bk, bn, bits).form == decode
+        for m in (17, 77, 512):
+            assert gp.bsr_plan(m, 4, 3, bk, bn, bits).form == prefill
+
+
+def test_bsr_plan_decode_fills_the_card():
+    """s0.5 and s0.75 x w8 at decode rows put at least one CTA on each SM at
+    every serving shape: the split counts the listed packed rows only."""
+    for n_pb, nnz, bk, bn in list(_bsr_shapes())[:2 * len(BSR)]:
+        for m in (1, 8, 16):
+            pl = gp.bsr_plan(m, n_pb, nnz, bk, bn, 8)
+            assert pl.form == "gemv" and pl.ctas >= gp.SMS, gp.describe(pl)
+
+
+def test_bsr_plan_refuses_bad_shapes():
+    for args in [(0, 4, 3, 128, 128, 8), (4, 4, 3, 12, 16, 1),
+                 (4, 4, 0, 128, 128, 8), (4, 4, 3, 128, 128, 3)]:
+        with pytest.raises(ValueError):
+            gp.bsr_plan(*args)
+    with pytest.raises(ValueError):
+        gp.bsr_plan(4, 4, 3, 128, 128, 8, elem=8)

@@ -20,6 +20,7 @@ try:
 except ImportError:     # a GPU machine without JAX runs the `cuda` tests only
     jax = None
 
+from repro_torch.core import kratos as pkr
 from repro_torch.core import sparsity as psp
 from repro_torch.kernels import ops as pops
 from repro_torch.kernels import ref as pref
@@ -147,8 +148,12 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype):
             pops.bsr_matmul(x, blocks, idx).float(),
             pref.bsr_matmul_ref(x, blocks, idx).float(), rtol=rtol, atol=atol)
         for bits in (8, 4, 2, 1):
-            packed, scales = _qblocks(rnd(1, (256, 96), 0.1), plan, bits)
-            qb, sc = t(packed), t(np.ascontiguousarray(scales))
+            # the port's own packing (byte-identical to the JAX package's,
+            # tests/test_torch_core.py), so this runs where JAX is missing
+            spec = pkr.KratosSpec(sparsity=0.5, bits=bits, bk=32, bn=16)
+            buf = pkr.pack({"w": torch.from_numpy(rnd(1, (256, 96), 0.1))},
+                           spec)
+            qb, sc = t(buf["qblocks"].numpy()), t(buf["qscale"].numpy())
             torch.testing.assert_close(
                 pops.bsr_quant_matmul(x, qb, sc, idx, bits).float(),
                 pref.bsr_quant_matmul_ref(x, qb, sc, idx, bits).float(),
@@ -191,4 +196,87 @@ def test_cuda_dense_matmul_both_forms(cuda_device, dtype):
                 got.float(), pref.dense_matmul_ref(x, w).float(), rtol=rtol,
                 atol=atol, msg=lambda s: f"m={m} n={n} p={p}: {s}")
             assert torch.equal(got, pops.matmul(x, w))
+    torch.cuda.synchronize()
+
+
+# flash attention's tolerance on the card (chip_smoke.FA_TOL): bf16 rounds
+# the unnormalised p to bf16 in the kernel, the normalised p in the plain
+# version
+FA_TOL = {"float32": (2e-3, 2e-3), "bfloat16": (8e-3, 2.0 ** -7)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [8, 64, 80, 96, 192, 256])
+def test_cuda_flash_attention_tensor_cores(cuda_device, dtype, d):
+    """The tensor-core prefill kernel against its plain version: GQA groups
+    1 / 4 / 12, ragged sq (one query row, a partial warp, a partial q tile,
+    more than two q tiles), skv > sq with q_offset (a suffix prefill after a
+    cached prefix), a 64-key window, a soft cap, non-causal; one launch a
+    call."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    dt = getattr(torch, dtype)
+    atol, rtol = FA_TOL[dtype]
+    t = lambda a: torch.from_numpy(a).to(cuda_device).to(dt)
+    cases = [(sq, sq, 0) for sq in (1, 17, 77, 130)] + [(17, 150, 133),
+                                                        (77, 300, 223)]
+    for g in (1, 4, 12):
+        for sq, skv, off in cases:
+            q = t(rnd(10 + sq, (2 * g, sq, d)))
+            k = t(rnd(11 + skv, (2, skv, d)))
+            v = t(rnd(12 + skv, (2, skv, d)))
+            for kw in (dict(), dict(window=64), dict(softcap=50.0),
+                       dict(window=64, softcap=50.0), dict(causal=False)):
+                pops.reset_launch_counts()
+                got = pops.flash_attention(q[None], k[None], v[None],
+                                           q_offset=off, **kw)[0]
+                assert pops.launch_counts()["flash_attention"] == 1
+                want = flash_attention_plain(q, k, v, q_offset=off, **kw)
+                torch.testing.assert_close(
+                    got.float(), want.float(), rtol=rtol, atol=atol,
+                    msg=lambda s: f"g={g} sq={sq} skv={skv} off={off} {kw}: "
+                                  f"{s}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bk,bn", [(8, 8), (32, 16), (128, 128)])
+def test_cuda_bsr_quant_matmul_both_forms(cuda_device, dtype, bk, bn):
+    """bsr_quant_matmul's decode form (cluster split-K GEMV over the listed
+    blocks, m <= 16), prefill form (pipelined tile inside one block column)
+    and the mainloop kept for blocks neither takes, against the plain
+    version: 5 of 9 k-blocks listed (the split cuts inside blocks), codes of
+    8, 4, 2 and 1 bits, one launch a call, two calls bitwise equal."""
+    from repro_torch.kernels import gemm_plan
+    dt = getattr(torch, dtype)
+    atol, rtol = (1e-4, 1e-4) if dt == torch.float32 else (1e-3, 2.0 ** -7)
+    n, p = 9 * bk, 3 * bn
+    t = lambda a: torch.from_numpy(a).to(cuda_device)
+    w = torch.from_numpy(rnd(1, (n, p), n ** -0.5))
+    for bits in (8, 4, 2, 1):
+        spec = pkr.KratosSpec(sparsity=0.45, bits=bits, bk=bk, bn=bn)
+        plan = pkr.plan_for(n, p, spec)
+        assert plan.nnz == 5
+        buf = pkr.pack({"w": w}, spec)
+        qb, sc = t(buf["qblocks"].numpy()), t(buf["qscale"].numpy())
+        idx = t(plan.indices)
+        for m in (1, 8, 16, 17, 77):
+            pl = gemm_plan.bsr_plan(m, p // bn, 5, bk, bn, bits,
+                                    2 if dt == torch.bfloat16 else 4)
+            if m <= 16:
+                assert pl.form == ("mainloop" if bn < 16 else "gemv")
+            else:
+                assert pl.form == ("tile" if bn >= 64 else "mainloop")
+            x = t(rnd(m, (m, n))).to(dt)
+            pops.reset_launch_counts()
+            got = pops.bsr_quant_matmul(x, qb, sc, idx, bits)
+            assert pops.launch_counts()["bsr_quant_matmul"] == 1
+            torch.testing.assert_close(
+                got.float(),
+                pref.bsr_quant_matmul_ref(x, qb, sc, idx, bits).float(),
+                rtol=rtol, atol=atol,
+                msg=lambda s: f"m={m} bits={bits} {pl.form}: {s}")
+            assert torch.equal(got, pops.bsr_quant_matmul(x, qb, sc, idx,
+                                                          bits))
     torch.cuda.synchronize()
