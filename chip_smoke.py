@@ -14,9 +14,12 @@ Phases, in order; any failure raises and exits non-zero:
      its time (CUDA events, L2 flushed before each launch), the plain
      version's, one PyTorch library call's and the least time the card
      could take (the bound; flash attention also at the rate of the tensor
-     cores it runs on); the launch form of each bsr_quant_matmul case, the
-     profiler's kernel duration beside the event time at the redesigned
-     headline rows, and the kernels SDPA runs for f32 at d = 192;
+     cores it runs on); the launch form of each GEMM case of the two
+     block-sparse kernels and of w8a8, the profiler's kernel duration beside
+     the event time at the redesigned headline rows, and the kernels SDPA
+     runs for f32 at d = 192. quant_matmul_w8a8 (its activation
+     quantization inside the launch) is held bit for bit to its plain
+     version;
   4. model parity: the port's forward on the card against the same forward
      on the CPU (plain versions), full width cut to 2 layers, one prefill
      batch and 4 greedy decode steps;
@@ -25,16 +28,17 @@ Phases, in order; any failure raises and exits non-zero:
      x int8) and served through InferenceEngine; the launch counts show
      which kernels the serving path ran. Three decode dispatches and three
      512-token prefills are then traced with torch.profiler: device time
-     by kernel, the device idle share within each traced call's device
-     window, and exactly one device-to-host copy per decode dispatch;
+     by kernel, GEMM device ms and device ops per micro-step, the device
+     idle share within each traced call's device window, and exactly one
+     device-to-host copy per decode dispatch;
   6. paged serving: the same model and traffic through the page pool
      (page_size 16), dense on the slab and paged, weight-only w4 and w8a8
      paged. Paged tokens equal slab tokens (or the first divergent step's
      top-2 logit gap is below 1e-3), each spec launches only its own GEMM,
      the page-table attention kernel runs 24 times per micro-step, the
      prefix index is off (windowed arch), one device-to-host copy per
-     traced dispatch, and the non-GEMM device ms per micro-step, slab
-     against paged;
+     traced dispatch, and the GEMM and non-GEMM device ms and device ops
+     per micro-step, slab against paged;
   7. prefix and conversation reuse: nemotron-4-340b at full width, depth
      cut to 1 layer, f32: a shared 512-token system prompt under 8
      requests, then 2 follow-up turns of finished conversations, through
@@ -79,13 +83,16 @@ GEMM_SHAPES = [(2560, 2560), (2560, 640), (2560, 6912), (6912, 2560)]
 # the 128-wide block grid of the block-sparse kernels)
 XPROJ = (8192, 288)
 # kernels whose k-split partials meet in distributed shared memory in a
-# fixed order: each is also held to two bitwise-equal calls on the same inputs
-BITWISE = ("dense_matmul", "quant_matmul", "bsr_quant_matmul")
+# fixed order (or as exact int32 sums): each is also held to two
+# bitwise-equal calls on the same inputs
+BITWISE = ("dense_matmul", "quant_matmul", "bsr_quant_matmul", "bsr_matmul",
+           "quant_matmul_w8a8")
 GEMM_ROWS = [1, 8, 77, 512]
 BITS = [8, 4, 2, 1]
 SPARSITIES = [0.5, 0.75]
 DTYPES = ["float32", "bfloat16"]
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 2.0 ** -7)}    # atol, rtol
+EXACT = (0.0, 0.0)        # bit for bit (torch.equal)
 # bf16 flash: the kernel rounds the unnormalised p to bf16 (as the Pallas
 # kernel does), the plain version the normalised p; each is off by up to
 # 2^-9 * sum_j p_j |v_j| (~6e-3 for randn v at these lengths), plus one
@@ -117,7 +124,7 @@ SOURCES = {
                    "src/repro/kernels/bsr_matmul.py:47"),
     "quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
                      "src/repro/kernels/quant_matmul.py:73"),
-    "quant_matmul_w8a8": ("src/repro_torch/csrc/quant_matmul.cu",
+    "quant_matmul_w8a8": ("src/repro_torch/csrc/quant_matmul_w8a8.cu",
                           "src/repro/kernels/quant_matmul.py:135"),
     "bsr_quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
                          "src/repro/kernels/quant_matmul.py:200"),
@@ -227,15 +234,17 @@ def nbytes(*ts):
 
 
 # device-kernel name fragments of the port's projection GEMMs: the decode
-# and prefill forms of dense_matmul / quant_matmul, the tiled mainloop of
-# the block-sparse kernels, and w8a8
+# and prefill forms of the float-activation GEMMs (every weight source), the
+# tiled mainloop kept for block shapes those forms do not take, and w8a8's
+# int8 GEMV, its row-quantize kernel and its tensor-core tile
 GEMM_FAMILIES = ("gemv_cluster_kernel", "gemm_pipe_kernel", "gemm_tile_kernel",
-                 "w8a8_kernel")
+                 "w8a8_gemv_kernel", "act_quant_kernel", "w8a8_mma_kernel")
 KERNEL_FAMILIES = GEMM_FAMILIES + ("fa_tc_kernel", "paged_kernel",
                                    "ssm_scan_kernel")
-# instantiations held to no register spill: the GEMV and pipelined forms
-# (over every weight source) and the tensor-core flash kernel
-NO_SPILL = GEMM_FAMILIES[:2] + ("fa_tc_kernel",)
+# instantiations held to no register spill: every GEMM family but the old
+# mainloop, and the tensor-core flash kernel
+NO_SPILL = tuple(f for f in GEMM_FAMILIES if f != "gemm_tile_kernel") + (
+    "fa_tc_kernel",)
 
 
 def gemm_ms(call):
@@ -325,6 +334,8 @@ def phase_kernels(torch, timer):
         err = (got.float() - want.float()).abs()
         atol, rtol = tol
         ok = bool((err <= atol + rtol * want.float().abs()).all())
+        if tol == EXACT:
+            ok = torch.equal(got, want)
         if kernel in BITWISE and not torch.equal(run(), run()):
             raise AssertionError(f"{kernel} {dtype} {shape}: two calls on the "
                                  "same inputs differ")
@@ -372,6 +383,9 @@ def phase_kernels(torch, timer):
                     blocks = sp.pack_blocks(w, plan)
                     w_mask = w * torch.as_tensor(sp.plan_mask(plan), dtype=dt,
                                                  device=dev)
+                    form = gemm_plan.bsr_plan(
+                        m, plan.n_pb, plan.nnz, plan.bk, plan.bn, 0,
+                        x.element_size()).form
                     record("bsr_matmul", dtype, ops.bsr_matmul(x, blocks, idx),
                            ref.bsr_matmul_ref(x, blocks, idx), TOL[dtype],
                            ("bsr_matmul", dtype, m, (n, p), s, None),
@@ -379,7 +393,7 @@ def phase_kernels(torch, timer):
                            lambda: ops.bsr_matmul(x, blocks, idx),
                            lambda: ref.bsr_matmul_ref(x, blocks, idx),
                            lambda: torch.matmul(x, w_mask),
-                           m=m, n=n, p=p, sparsity=s)
+                           m=m, n=n, p=p, sparsity=s, form=form)
                     for bits in BITS:
                         buf = kr.pack({"w": w32}, spec.with_(bits=bits))
                         qb, sc = buf["qblocks"], buf["qscale"]
@@ -407,7 +421,6 @@ def phase_kernels(torch, timer):
     # weight-only and w8a8 GEMMs on the same shapes and rows
     for dtype in DTYPES:
         dt = getattr(torch, dtype)
-        tol8 = (1e-5, 1e-5) if dtype == "float32" else TOL[dtype]
         for n, p in GEMM_SHAPES + [XPROJ]:
             w32 = torch.randn((n, p), generator=gen, device=dev) * n ** -0.5
             qts = {bits: qz.quantize(w32, bits) for bits in BITS}
@@ -425,17 +438,20 @@ def phase_kernels(torch, timer):
                            lambda: torch.matmul(x, w_deq[bits]),
                            m=m, n=n, p=p, bits=bits)
                 qt = qts[8]
-                # the kernel's int32 sums are exact, like the plain
-                # version's float64 ones: only the f32 dequant can differ
+                # the kernel's codes and row scales are made as PyTorch makes
+                # them on the card, its int32 sums are exact like the plain
+                # version's float64 ones, and the dequant takes the same
+                # steps: bit for bit
                 record("quant_matmul_w8a8", dtype,
                        ops.quant_matmul_w8a8(x, qt),
-                       ref.quant_matmul_w8a8_ref(x, qt), tol8,
+                       ref.quant_matmul_w8a8_ref(x, qt), EXACT,
                        ("quant_matmul_w8a8", dtype, m, (n, p)),
                        nbytes(x, qt.data, qt.scale, y), 2 * m * n * p,
                        lambda: ops.quant_matmul_w8a8(x, qt),
                        lambda: ref.quant_matmul_w8a8_ref(x, qt),
                        lambda: torch.matmul(x, w_deq[8]),
-                       m=m, n=n, p=p, peak="int8")
+                       m=m, n=n, p=p, peak="int8",
+                       form=gemm_plan.w8a8_plan(m, n, p).form)
 
     # flash attention: h2o-danube prefill heads (32 q over 8 kv, d = 80),
     # and nemotron-4-340b's (96 q over 8 kv, d = 192)
@@ -572,7 +588,7 @@ def phase_kernels(torch, timer):
 
     # the event pair against the profiler's own kernel duration at the
     # headline rows of the redesigned kernels (same shapes, fresh inputs):
-    # the three decode GEMVs and flash attention at sq 512
+    # the five decode GEMVs and flash attention at sq 512
     n, p = HEADLINE["dense_matmul"][3]
     w32 = torch.randn((n, p), generator=gen, device=dev) * n ** -0.5
     x = torch.randn((8, n), generator=gen, device=dev)
@@ -580,6 +596,8 @@ def phase_kernels(torch, timer):
     spec = kr.KratosSpec(sparsity=0.5, bits=8)
     buf = kr.pack({"w": w32}, spec)
     idx = torch.as_tensor(kr.plan_for(n, p, spec).indices, device=dev)
+    blocks = sp.pack_blocks(w32, kr.plan_for(n, p, spec))
+    q8 = qz.quantize(w32, 8)
     fa_in = {d: [torch.randn((1, h, 512, d), generator=gen, device=dev)
                  for h in (hq, 8, 8)] for hq, d in ((32, 80), (96, 192))}
     profiled = [
@@ -590,7 +608,11 @@ def phase_kernels(torch, timer):
         ("bsr_quant_matmul", HEADLINE["bsr_quant_matmul"],
          "gemv_cluster_kernel",
          lambda: ops.bsr_quant_matmul(x, buf["qblocks"], buf["qscale"], idx,
-                                      8))]
+                                      8)),
+        ("bsr_matmul", HEADLINE["bsr_matmul"], "gemv_cluster_kernel",
+         lambda: ops.bsr_matmul(x, blocks, idx)),
+        ("quant_matmul_w8a8", HEADLINE["quant_matmul_w8a8"],
+         "w8a8_gemv_kernel", lambda: ops.quant_matmul_w8a8(x, q8))]
     for d in (80, 192):
         profiled.append(("flash_attention",
                          ("flash_attention", "float32", 512, None, None, d),
@@ -763,7 +785,15 @@ def phase_serving(torch, card, params):
         prefill_ms = (time.perf_counter() - t1) * 1e3
         prefill_prof, _ = profile_calls(
             torch, lambda: eng.backend.prefill(batch, exact=True), 3)
+        gemm = [gemm_ms(c) / k for c in decode_prof]
+        other = [non_gemm_ms(c) / k for c in decode_prof]
+        n_ops = [c["device_ops"] / k for c in decode_prof]
+        prefill_gemm = [gemm_ms(c) for c in prefill_prof]
         results[tag] = dict(
+            gemm_device_ms_per_micro_step=gemm,
+            non_gemm_device_ms_per_micro_step=other,
+            device_ops_per_micro_step=n_ops,
+            prefill_512_gemm_device_ms=prefill_gemm,
             prefill_512_ms=prefill_ms, prefill_512_profiled=prefill_prof,
             decode_dispatch_profiled=decode_prof,
             retaken_decode_traces=retaken,
@@ -796,8 +826,11 @@ def phase_serving(torch, card, params):
                       f"{c['idle_share']:.4f}, device-to-host copies "
                       f"{c['dtoh_copies']}, device ms by kernel {by}",
                       flush=True)
-        print(f"    untraced 512-token prefill {prefill_ms:.2f} ms",
-              flush=True)
+        print(f"    untraced 512-token prefill {prefill_ms:.2f} ms, GEMM "
+              f"device ms {[round(v, 3) for v in prefill_gemm]}; decode "
+              f"GEMM device ms / micro-step {[round(v, 3) for v in gemm]}, "
+              f"non-GEMM {[round(v, 3) for v in other]}, device ops / "
+              f"micro-step {n_ops}", flush=True)
         del eng, model
     return totals, results
 
@@ -893,6 +926,8 @@ def phase_paged_serving(torch, card, params):
         prof, retaken = profile_calls(torch, eng.backend.decode_block, 2,
                                       dtoh=1)
         other = [non_gemm_ms(c) / k for c in prof]
+        gemm = [gemm_ms(c) / k for c in prof]
+        n_ops = [c["device_ops"] / k for c in prof]
         attn = [c["device_ms_by_kernel"].get("paged_kernel", 0.0) / k
                 for c in prof]
         results[tag] = dict(
@@ -903,6 +938,9 @@ def phase_paged_serving(torch, card, params):
             decode_dispatches=rep["decode_steps"],
             micro_steps=rep["micro_steps"], decode_micro_step_ms=step_ms,
             non_gemm_device_ms_per_micro_step=other,
+            gemm_device_ms_per_micro_step=gemm,
+            device_ops_per_micro_step=n_ops,
+            idle_share=[c["idle_share"] for c in prof],
             paged_attention_device_ms_per_micro_step=attn,
             decode_dispatch_profiled=prof, retaken_decode_traces=retaken,
             packed_mb=model.packed_bytes / 2 ** 20, launches=counts,
@@ -911,9 +949,12 @@ def phase_paged_serving(torch, card, params):
         print(f"  {tag:11s} [{card}] tok/s={results[tag]['tok_per_s']:.1f} "
               f"p50={rep['latency_s_p50']:.3f}s p99={rep['latency_s_p99']:.3f}s "
               f"micro-step={step_ms:.2f} ms packed="
-              f"{results[tag]['packed_mb']:.0f} MB non-GEMM device ms / "
-              f"micro-step {[round(v, 3) for v in other]} (of it paged "
-              f"attention {[round(v, 3) for v in attn]}) "
+              f"{results[tag]['packed_mb']:.0f} MB GEMM device ms / "
+              f"micro-step {[round(v, 3) for v in gemm]} non-GEMM "
+              f"{[round(v, 3) for v in other]} (of it paged "
+              f"attention {[round(v, 3) for v in attn]}) device ops / "
+              f"micro-step {n_ops} idle share "
+              f"{[round(c['idle_share'], 4) for c in prof]} "
               f"dispatches={rep['decode_steps']:.0f} "
               f"micro_steps={rep['micro_steps']:.0f} launches={counts}",
               flush=True)
@@ -1206,7 +1247,7 @@ def main() -> int:
     print(f"[1] env: {env}; card: {card}", flush=True)
 
     secs = build.build_all()
-    print(f"[2] build: {len(build.SOURCES)} kernels in {secs:.1f} s", flush=True)
+    print(f"[2] build: {len(build.SOURCES)} sources in {secs:.1f} s", flush=True)
     ptxas = {name: build.ptxas_kernels(name) for name in build.SOURCES}
     for name, kernels in ptxas.items():
         for k in kernels:

@@ -1,23 +1,26 @@
 #!/usr/bin/env python3
-"""Time this checkout's dense, weight-only and block-sparse x quantized
-GEMM kernels against another checkout's, on one NVIDIA GPU.
+"""Time this checkout's five GEMM kernels against another checkout's, on
+one NVIDIA GPU.
 
     python3 gemm_ab.py OTHER_CHECKOUT
 
-OTHER_CHECKOUT is a checkout of the repository whose `dense_matmul_launch`
-and `quant_matmul_launch` take the launch plan of `kernels/gemm_plan.py`
-(this checkout's plan is handed to both) and whose
-`bsr_quant_matmul_launch` takes none (the `gemm_tile.cuh` mainloop for
-every shape). Both checkouts' `csrc/dense_matmul.cu` and
-`csrc/quant_matmul.cu` are built with the same nvcc flags; every case of
-`chip_smoke.py`'s phase-3 grid for the three kernels (f32 and bf16, the
-h2o-danube shapes, falcon-mamba's x_proj for the first two, m in 1, 8, 77,
-512, codes of 8, 4, 2 and 1 bits, block sparsity 0.5 and 0.75) is then
-timed in turns, other / this / this / other, with `chip_smoke.Timer` (L2
-flushed, host work hidden), and the two outputs are held to each other at
-the phase's tolerance. Prints one line per case and the cases where this
-checkout is more than 5% slower; writes chiprun_out/gemm_ab.json. Exits
-non-zero without a GPU.
+OTHER_CHECKOUT is a checkout of the repository (commit 3364f77 or one like it)
+whose `dense_matmul_launch`, `quant_matmul_launch` and
+`bsr_quant_matmul_launch` take the launch plan of `kernels/gemm_plan.py`
+(this checkout's plan is handed to them), whose `bsr_matmul_launch` takes
+none (the `gemm_tile.cuh` mainloop for every shape), and whose
+`quant_matmul_w8a8_launch` takes int8 codes and row scales made outside
+it: that side is timed together with `quantize_activations_int8`, so both
+sides do the same work. Both checkouts' `csrc/dense_matmul.cu`,
+`csrc/bsr_matmul.cu` and `csrc/quant_matmul.cu` are built with the same
+nvcc flags; every case of `chip_smoke.py`'s phase-3 grid for the five
+kernels (f32 and bf16, the h2o-danube shapes, falcon-mamba's x_proj for
+the dense and quantized ones, m in 1, 8, 77, 512, codes of 8, 4, 2 and 1
+bits, block sparsity 0.5 and 0.75) is then timed in turns, other / this /
+this / other, with `chip_smoke.Timer` (L2 flushed, host work hidden), and
+the two outputs are held to each other at the phase's tolerance. Prints
+one line per case and the cases where this checkout is more than 5%
+slower; writes chiprun_out/gemm_ab.json. Exits non-zero without a GPU.
 """
 
 from __future__ import annotations
@@ -34,10 +37,10 @@ _c, _i = ctypes.c_void_p, ctypes.c_int
 
 
 def build_other(other: Path, out_dir: Path, nvcc: str, flags) -> dict:
-    """Build the other checkout's two GEMM sources, both nvccs at once."""
+    """Build the other checkout's three GEMM sources, all nvccs at once."""
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name in ("dense_matmul", "quant_matmul"):
+    for name in ("dense_matmul", "bsr_matmul", "quant_matmul"):
         out = out_dir / f"{name}.so"
         jobs[name] = (out, subprocess.Popen(
             # the other build's kernels get namespaces of their own, so the
@@ -58,9 +61,16 @@ def build_other(other: Path, out_dir: Path, nvcc: str, flags) -> dict:
     qt.argtypes = [_c, _c, _c, _c] + [_i] * 11 + [_c]
     qt.restype = _i
     bsr = libs["quant_matmul"].bsr_quant_matmul_launch
-    bsr.argtypes = [_c, _c, _c, _c, _c] + [_i] * 8 + [_c]
+    bsr.argtypes = [_c, _c, _c, _c, _c] + [_i] * 14 + [_c]
     bsr.restype = _i
-    return {"dense": dense, "qt": qt, "bsr": bsr}
+    blocks = libs["bsr_matmul"].bsr_matmul_launch
+    blocks.argtypes = [_c, _c, _c, _c] + [_i] * 7 + [_c]
+    blocks.restype = _i
+    w8a8 = libs["quant_matmul"].quant_matmul_w8a8_launch
+    w8a8.argtypes = [_c, _c, _c, _c, _c] + [_i] * 4 + [_c]
+    w8a8.restype = _i
+    return {"dense": dense, "qt": qt, "bsr": bsr, "blocks": blocks,
+            "w8a8": w8a8}
 
 
 def main(argv) -> int:
@@ -78,12 +88,14 @@ def main(argv) -> int:
     import chip_smoke as cs
     from repro_torch.core import kratos as kr
     from repro_torch.core import quantize as qz
+    from repro_torch.core import sparsity as sp
     from repro_torch.kernels import build, gemm_plan, ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = cs.sh(["nvidia-smi", "--query-gpu=name,power.limit",
                   "--format=csv,noheader"]).splitlines()[0]
-    build.build_all(["dense_matmul", "quant_matmul"])
+    build.build_all(["dense_matmul", "bsr_matmul", "quant_matmul",
+                     "quant_matmul_w8a8"])
     old = build_other(other, ROOT / "build" / "gemm_ab", build.nvcc_path(),
                       build.NVCC_FLAGS)
     timer = cs.Timer(torch)
@@ -121,12 +133,36 @@ def main(argv) -> int:
     def old_bsr(x, qb, sc, idx, bits):
         m, n = x.shape
         n_pb, nnz, bkp, bn = qb.shape
+        bk = bkp * (8 // bits)
         y = torch.empty((m, n_pb * bn), dtype=x.dtype, device="cuda")
+        pl = gemm_plan.bsr_plan(m, n_pb, nnz, bk, bn, bits, x.element_size())
         build.check(old["bsr"](x.data_ptr(), qb.data_ptr(), sc.data_ptr(),
                                idx.data_ptr(), y.data_ptr(), m, n, n_pb, nnz,
-                               bkp * (8 // bits), bn, bits,
-                               int(x.dtype == torch.bfloat16), stream()),
+                               bk, bn, bits, int(x.dtype == torch.bfloat16),
+                               *plan_args(pl), stream()),
                     "other bsr_quant_matmul")
+        return y
+
+    def old_blocks(x, blocks, idx):
+        m, n = x.shape
+        n_pb, nnz, bk, bn = blocks.shape
+        y = torch.empty((m, n_pb * bn), dtype=x.dtype, device="cuda")
+        build.check(old["blocks"](x.data_ptr(), blocks.data_ptr(),
+                                  idx.data_ptr(), y.data_ptr(), m, n, n_pb,
+                                  nnz, bk, bn, int(x.dtype == torch.bfloat16),
+                                  stream()), "other bsr_matmul")
+        return y
+
+    def old_w8a8(x, qt):
+        m, n = x.shape
+        p = qt.shape[1]
+        xq, xs = qz.quantize_activations_int8(x)
+        y = torch.empty((m, p), dtype=x.dtype, device="cuda")
+        build.check(old["w8a8"](xq.data_ptr(), xs.data_ptr(),
+                                qt.data.data_ptr(), qt.scale.data_ptr(),
+                                y.data_ptr(), m, n, p,
+                                int(x.dtype == torch.bfloat16), stream()),
+                    "other quant_matmul_w8a8")
         return y
 
     print(f"card: {card}", flush=True)
@@ -139,11 +175,13 @@ def main(argv) -> int:
             w = w32.to(dt)
             qts = {bits: qz.quantize(w32, bits) for bits in cs.BITS}
             sparse = []            # (sparsity, bits, qblocks, scales, idx)
+            dense_blocks = []      # (sparsity, blocks, idx)
             if (n, p) != cs.XPROJ:
                 for s in cs.SPARSITIES:
                     spec = kr.KratosSpec(sparsity=s)
-                    idx = torch.as_tensor(kr.plan_for(n, p, spec).indices,
-                                          device="cuda")
+                    plan = kr.plan_for(n, p, spec)
+                    idx = torch.as_tensor(plan.indices, device="cuda")
+                    dense_blocks.append((s, sp.pack_blocks(w, plan), idx))
                     for bits in cs.BITS:
                         buf = kr.pack({"w": w32}, spec.with_(bits=bits))
                         sparse.append((s, bits, buf["qblocks"],
@@ -161,6 +199,13 @@ def main(argv) -> int:
                           (lambda a=(qb, sc, idx, bits):
                            ops.bsr_quant_matmul(x, *a)))
                          for s, bits, qb, sc, idx in sparse]
+                runs += [("bsr_matmul", None, s,
+                          (lambda a=(blocks, idx): old_blocks(x, *a)),
+                          (lambda a=(blocks, idx): ops.bsr_matmul(x, *a)))
+                         for s, blocks, idx in dense_blocks]
+                runs.append(("quant_matmul_w8a8", 8, None,
+                             lambda: old_w8a8(x, qts[8]),
+                             lambda: ops.quant_matmul_w8a8(x, qts[8])))
                 for kernel, bits, sparsity, f_old, f_new in runs:
                     a, b = f_old(), f_new()
                     err = float((a.float() - b.float()).abs().max())

@@ -16,10 +16,13 @@
 //                 k range is the concatenation of j's nnz listed blocks, so
 //                 its packed rows are contiguous (row r of block (j, t) is
 //                 logical row t * bk / VPB + r) and logical k maps to x's
-//                 column idx[j, k / bk] * bk + k % bk.
+//                 column idx[j, k / bk] * bk + k % bk;
+//   Blocks<T>     the listed float blocks (n_pb, nnz, bk, bn) of a
+//                 block-sparse weight: Plain<T>'s quads and unpack over
+//                 QBlocks' block-column view, VPB = 1, scale 1.
 // A kernel takes the CTA's view of a source with tile(col0) once; xcol(k)
-// is the x column of logical k (the identity but for QBlocks), and kgrain()
-// the run of logical k that maps to contiguous x columns.
+// is the x column of logical k (the identity but for the block sources),
+// and kgrain() the run of logical k that maps to contiguous x columns.
 // The unit of a decode load is a quad: 4 adjacent columns of one packed
 // row (16 bytes of f32, 8 of bf16, one 32-bit word of codes), unpacked with
 // compile-time shifts. No float weight is ever written to device memory.
@@ -218,6 +221,32 @@ struct QBlocks : Codes<BITS_> {
   __device__ __forceinline__ int stride() const { return bn; }
 };
 
+template <typename T>
+struct Blocks : Plain<T> {
+  static constexpr bool GATHER = true;    // x columns through the index table
+  const int* idx;     // (n_pb, nnz) listed k-blocks of each block column
+  int nnz, bk, bn;
+  // the CTA's block column, set by tile()
+  const T* wj;
+  const int* idxj;
+  int c0;
+
+  __device__ __forceinline__ Blocks tile(int col0) const {
+    Blocks s = *this;
+    const int j = col0 / bn;
+    s.c0 = j * bn;
+    s.wj = this->w + (size_t)j * nnz * bk * bn;
+    s.idxj = idx + (size_t)j * nnz;
+    return s;
+  }
+  __device__ __forceinline__ int xcol(int k) const { return idxj[k / bk] * bk + k % bk; }
+  __host__ __device__ int kgrain() const { return bk; }
+  __device__ __forceinline__ const T* ptr(int r, int c) const {
+    return wj + (size_t)r * bn + (c - c0);
+  }
+  __device__ __forceinline__ int stride() const { return bn; }
+};
+
 // the sources' vec flags: a quad is one aligned vector
 template <typename T>
 inline Plain<T> plain_source(const void* w, int p) {
@@ -242,6 +271,22 @@ inline QBlocks<BITS> qblocks_source(const void* q, const void* scales, const voi
   s.scales = static_cast<const float*>(scales);
   s.p = n_pb * bn;
   s.vec = bn % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 4 == 0;
+  s.idx = static_cast<const int*>(idx);
+  s.nnz = nnz;
+  s.bk = bk;
+  s.bn = bn;
+  return s;
+}
+
+// bn % 4 == 0 and the blocks aligned to one quad; p is the full width
+template <typename T>
+inline Blocks<T> blocks_source(const void* blocks, const void* idx, int n_pb, int nnz, int bk,
+                               int bn) {
+  Blocks<T> s{};
+  s.w = static_cast<const T*>(blocks);
+  s.p = n_pb * bn;
+  s.vec = bn % 4 == 0 &&
+          reinterpret_cast<uintptr_t>(blocks) % sizeof(typename Plain<T>::Quad) == 0;
   s.idx = static_cast<const int*>(idx);
   s.nnz = nnz;
   s.bk = bk;

@@ -1,13 +1,13 @@
-// Shared shared-memory-tiled GEMM mainloop for the port's three projection
-// kernels (dense_matmul.cu, bsr_matmul.cu, quant_matmul.cu).
+// The shared-memory-tiled GEMM mainloop that the two block-sparse kernels
+// (bsr_matmul.cu, quant_matmul.cu) keep for the block shapes their GEMV and
+// pipelined forms do not take (kernels/gemm_plan.py::bsr_plan).
 //
 // One CTA computes a BM x BN output tile in f32 registers. The contraction
 // runs over "segments": contiguous k-ranges of x paired with a weight
-// source. The dense kernel has one segment of length n; the block-sparse
-// kernels have one segment per listed k-block (the Pallas kernels' index
+// source, one segment per listed k-block (the Pallas kernels' index
 // table, read here by the CTA itself instead of scalar prefetch). The
-// weight source decides how a weight element is fetched (plain, gathered
-// block, or a bit-packed code unpacked on the fly) and which per-column
+// weight source decides how a weight element is fetched (a gathered float
+// block or a bit-packed code unpacked on the fly) and which per-column
 // scale the f32 accumulator is multiplied by at flush.
 //
 // Ragged edges are masked, not padded: rows past m, k past the segment and

@@ -2,7 +2,10 @@
 
 Replaces `repro.kernels.bsr_matmul.bsr_matmul`. The (n_pb, nnz) index
 table is an int32 tensor on the device (made once at pack time); the
-kernel reads it itself. CPU tensors take `ref.bsr_matmul_ref`.
+kernel reads it itself. On the card the launch form (cluster split-K GEMV,
+pipelined tile, or the tiled mainloop for blocks neither takes) comes from
+`gemm_plan.bsr_plan` with bits = 0. CPU tensors take
+`ref.bsr_matmul_ref`.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, gemm_plan
 from repro_torch.kernels.ref import bsr_matmul_ref
 
 _c = ctypes.c_void_p
@@ -22,7 +25,7 @@ _i = ctypes.c_int
 @functools.cache
 def _lib():
     fn = build.load("bsr_matmul").bsr_matmul_launch
-    fn.argtypes = [_c, _c, _c, _c, _i, _i, _i, _i, _i, _i, _i, _c]
+    fn.argtypes = [_c, _c, _c, _c] + [_i] * 13 + [_c]
     fn.restype = _i
     return fn
 
@@ -46,10 +49,12 @@ def bsr_matmul(x: torch.Tensor, blocks: torch.Tensor,
         raise TypeError(f"bsr_matmul: x {x.dtype}, blocks {blocks.dtype}, "
                         f"indices {indices.dtype} (want int32)")
     build.check_cuda_operands("bsr_matmul", x.dtype, x, blocks, indices)
+    pl = gemm_plan.bsr_plan(m, n_pb, nnz, bk, bn, 0, x.element_size())
     y = torch.empty((m, n_pb * bn), dtype=x.dtype, device=x.device)
     rc = _lib()(x.data_ptr(), blocks.data_ptr(), indices.data_ptr(),
                 y.data_ptr(), m, n, n_pb, nnz, bk, bn,
-                int(x.dtype == torch.bfloat16),
+                int(x.dtype == torch.bfloat16), pl.form_id, pl.bm, pl.bn,
+                pl.split, pl.k_per_split, pl.smem_bytes,
                 torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "bsr_matmul")
     bsr_matmul.launches += 1

@@ -1,4 +1,5 @@
-"""Quantized GEMMs: wrappers of `csrc/quant_matmul.cu`.
+"""Quantized GEMMs: wrappers of `csrc/quant_matmul.cu` and
+`csrc/quant_matmul_w8a8.cu`.
 
 Replaces the three kernels of `repro.kernels.quant_matmul`:
 `quant_matmul` (weight-only w8/w4/w2/w1, the 'qt' buffer),
@@ -23,8 +24,8 @@ _c = ctypes.c_void_p
 _i = ctypes.c_int
 
 
-def _bind(name, argtypes):
-    fn = getattr(build.load("quant_matmul"), name)
+def _bind(name, argtypes, source="quant_matmul"):
+    fn = getattr(build.load(source), name)
     fn.argtypes = argtypes
     fn.restype = _i
     return fn
@@ -39,7 +40,8 @@ def _lib_qt():
 @functools.cache
 def _lib_w8a8():
     return _bind("quant_matmul_w8a8_launch",
-                 [_c, _c, _c, _c, _c, _i, _i, _i, _i, _c])
+                 [_c, _c, _c, _c, _c, _c] + [_i] * 11 + [_c],
+                 "quant_matmul_w8a8")
 
 
 @functools.cache
@@ -94,9 +96,11 @@ quant_matmul.launches = 0
 
 
 def quant_matmul_w8a8(x: torch.Tensor, qt: qz.QuantizedTensor) -> torch.Tensor:
-    """x: (m, n) float, quantized per row to int8 here (outside the kernel,
-    as in the JAX wrapper); qt: 8-bit codes (n, p) + scale (p,) -> (m, p)
-    in x's dtype."""
+    """x: (m, n) float, quantized per row to int8 as
+    `core.quantize.quantize_activations_int8` does it; qt: 8-bit codes
+    (n, p) + scale (p,) -> (m, p) in x's dtype. On the card the
+    quantization runs inside the launch (`gemm_plan.w8a8_plan`): one device
+    kernel at decode rows, a row-quantize kernel and the GEMM above them."""
     _check_qt("quant_matmul_w8a8", x, qt)
     if qt.bits != 8:
         raise ValueError(f"quant_matmul_w8a8 needs 8-bit weights, got "
@@ -105,13 +109,21 @@ def quant_matmul_w8a8(x: torch.Tensor, qt: qz.QuantizedTensor) -> torch.Tensor:
         return quant_matmul_w8a8_ref(x, qt)
     build.check_cuda_operands("quant_matmul_w8a8", x.dtype, x, qt.data,
                               qt.scale)
-    xq, xs = qz.quantize_activations_int8(x)
     m, n = x.shape
     p = qt.shape[1]
+    pl = gemm_plan.w8a8_plan(m, n, p)
     y = torch.empty((m, p), dtype=x.dtype, device=x.device)
-    rc = _lib_w8a8()(xq.data_ptr(), xs.data_ptr(), qt.data.data_ptr(),
-                     qt.scale.data_ptr(), y.data_ptr(), m, n, p,
-                     int(x.dtype == torch.bfloat16), _stream(x))
+    ldq = -(-n // 16) * 16
+    xq = xs = None
+    if pl.form == "tile":      # the row-quantize kernel's codes and scales
+        xq = torch.empty((m, ldq), dtype=torch.int8, device=x.device)
+        xs = torch.empty((m,), dtype=torch.float32, device=x.device)
+    rc = _lib_w8a8()(x.data_ptr(), qt.data.data_ptr(), qt.scale.data_ptr(),
+                     y.data_ptr(), None if xq is None else xq.data_ptr(),
+                     None if xs is None else xs.data_ptr(), m, n, p, ldq,
+                     int(x.dtype == torch.bfloat16), pl.form_id, pl.bm,
+                     pl.bn, pl.split, pl.k_per_split, pl.smem_bytes,
+                     _stream(x))
     build.check(rc, "quant_matmul_w8a8")
     quant_matmul_w8a8.launches += 1
     return y

@@ -280,3 +280,41 @@ def test_cuda_bsr_quant_matmul_both_forms(cuda_device, dtype, bk, bn):
             assert torch.equal(got, pops.bsr_quant_matmul(x, qb, sc, idx,
                                                           bits))
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bk,bn", [(8, 8), (32, 16), (128, 128)])
+def test_cuda_bsr_matmul_both_forms(cuda_device, dtype, bk, bn):
+    """bsr_matmul's decode form (cluster split-K GEMV over the listed float
+    blocks, m <= 16), prefill form (pipelined tile inside one block column)
+    and the mainloop kept for blocks neither takes, against the plain
+    version: 5 of 9 k-blocks listed (the split cuts inside blocks), one
+    launch a call, two calls bitwise equal."""
+    from repro_torch.kernels import gemm_plan
+    dt = getattr(torch, dtype)
+    atol, rtol = (1e-4, 1e-4) if dt == torch.float32 else (1e-3, 2.0 ** -7)
+    n, p = 9 * bk, 3 * bn
+    t = lambda a: torch.from_numpy(a).to(cuda_device)
+    w = torch.from_numpy(rnd(1, (n, p), n ** -0.5))
+    plan = pkr.plan_for(n, p, pkr.KratosSpec(sparsity=0.45, bk=bk, bn=bn))
+    assert plan.nnz == 5
+    blocks = psp.pack_blocks(w, plan).to(cuda_device).to(dt)
+    idx = t(plan.indices)
+    for m in (1, 8, 16, 17, 77):
+        pl = gemm_plan.bsr_plan(m, p // bn, 5, bk, bn, 0,
+                                2 if dt == torch.bfloat16 else 4)
+        if m <= 16:
+            assert pl.form == ("mainloop" if bn < 16 else "gemv")
+        else:
+            assert pl.form == ("tile" if bn >= 64 and bk % 16 == 0
+                               else "mainloop")
+        x = t(rnd(m, (m, n))).to(dt)
+        pops.reset_launch_counts()
+        got = pops.bsr_matmul(x, blocks, idx)
+        assert pops.launch_counts()["bsr_matmul"] == 1
+        torch.testing.assert_close(
+            got.float(), pref.bsr_matmul_ref(x, blocks, idx).float(),
+            rtol=rtol, atol=atol, msg=lambda s: f"m={m} {pl.form}: {s}")
+        assert torch.equal(got, pops.bsr_matmul(x, blocks, idx))
+    torch.cuda.synchronize()

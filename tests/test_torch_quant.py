@@ -212,3 +212,53 @@ def test_cuda_quant_matmul_both_forms(cuda_device, dtype, bits):
                 atol=atol, msg=lambda s: f"m={m} n={n} p={p}: {s}")
             assert torch.equal(got, pops.quant_matmul(x, qt))
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_w8a8_both_forms(cuda_device, dtype):
+    """quant_matmul_w8a8 with its activation quantization inside the launch:
+    the int8 GEMV at decode rows and the row-quantize kernel plus int8
+    tensor-core tile above them, bit for bit equal to the plain version
+    (exact int32 sums, codes and row scales made as PyTorch makes them on
+    the card). Ragged n and p, falcon-mamba's x_proj (8192 x 288), an
+    all-zero row and a row with one large outlier; one launch a call, two
+    calls bitwise equal, and 1 device kernel a call at decode and 2 at
+    prefill (one profiler session over every case)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import gemm_plan
+    dt = getattr(torch, dtype)
+    calls = []
+    for n, p in ((256, 96), (200, 100), (255, 97), (520, 288), (8192, 288),
+                 (2560, 640)):
+        w = torch.from_numpy(rnd(1, (n, p), n ** -0.5)).to(cuda_device)
+        qt = pqz.quantize(w, 8)
+        for m in (1, 8, 16, 17, 77, 512):
+            pl = gemm_plan.w8a8_plan(m, n, p)
+            assert pl.form == ("gemv" if m <= 16 else "tile")
+            x = torch.from_numpy(rnd(m, (m, n))).to(cuda_device)
+            x[0] = 0.0                          # an all-zero row
+            if m > 1:
+                x[m - 1, n // 3] = 1e4          # one large outlier
+            x = x.to(dt)
+            pops.reset_launch_counts()
+            got = pops.quant_matmul_w8a8(x, qt)
+            assert pops.launch_counts()["quant_matmul_w8a8"] == 1
+            want = pref.quant_matmul_w8a8_ref(x, qt)
+            assert torch.equal(got, want), \
+                f"m={m} n={n} p={p}: max |diff| " \
+                f"{float((got.float() - want.float()).abs().max())}"
+            assert torch.equal(got, pops.quant_matmul_w8a8(x, qt))
+            calls.append((x, qt, 1 if m <= 16 else 2))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for x, qt, _ in calls:
+            pops.quant_matmul_w8a8(x, qt)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == sum(k for _, _, k in calls), kernels
+    families = ("w8a8_gemv_kernel", "act_quant_kernel", "w8a8_mma_kernel")
+    assert all(any(f in name for f in families) for name in kernels), kernels
