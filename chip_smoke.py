@@ -16,10 +16,12 @@ Phases, in order; any failure raises and exits non-zero:
      could take (the bound; flash attention also at the rate of the tensor
      cores it runs on); the launch form of each GEMM case of the two
      block-sparse kernels and of w8a8, the profiler's kernel duration beside
-     the event time at the redesigned headline rows, and the kernels SDPA
-     runs for f32 at d = 192. quant_matmul_w8a8 (its activation
+     the event time at the headline rows (the five decode GEMMs, flash at
+     sq 512, paged decode attention, the selective scan), and the kernels
+     SDPA runs for f32 at d = 192. quant_matmul_w8a8 (its activation
      quantization inside the launch) is held bit for bit to its plain
-     version;
+     version; the paged attention and scan kernels are each held to two
+     bitwise-equal calls;
   4. model parity: the port's forward on the card against the same forward
      on the CPU (plain versions), full width cut to 2 layers, one prefill
      batch and 4 greedy decode steps;
@@ -35,10 +37,11 @@ Phases, in order; any failure raises and exits non-zero:
      (page_size 16), dense on the slab and paged, weight-only w4 and w8a8
      paged. Paged tokens equal slab tokens (or the first divergent step's
      top-2 logit gap is below 1e-3), each spec launches only its own GEMM,
-     the page-table attention kernel runs 24 times per micro-step, the
-     prefix index is off (windowed arch), one device-to-host copy per
-     traced dispatch, and the GEMM and non-GEMM device ms and device ops
-     per micro-step, slab against paged;
+     the page-table attention kernel runs 24 times per micro-step and
+     shows device time in the trace, the prefix index is off (windowed
+     arch), one device-to-host copy per traced dispatch, and the GEMM,
+     non-GEMM and paged attention device ms and device ops per micro-step,
+     slab against paged;
   7. prefix and conversation reuse: nemotron-4-340b at full width, depth
      cut to 1 layer, f32: a shared 512-token system prompt under 8
      requests, then 2 follow-up turns of finished conversations, through
@@ -51,7 +54,8 @@ Phases, in order; any failure raises and exits non-zero:
      prefill runs the selective-scan kernel once per layer (64 x 16 per
      run), each spec launches only its own GEMMs, no attention kernel
      runs, and a traced decode dispatch copies to the host once; 3 decode
-     dispatches and 3 512-token prefills are traced.
+     dispatches and 3 512-token prefills are traced, and each prefill shows
+     the scan's device ms.
 The last lines are the kernels JSON line, the card line and
 {"ok": true, "device": {...}}. Per-case numbers go to
 chiprun_out/chip_smoke.json. Without a CUDA device it exits 2.
@@ -82,11 +86,11 @@ GEMM_SHAPES = [(2560, 2560), (2560, 640), (2560, 6912), (6912, 2560)]
 # falcon-mamba's x_proj: dense and weight-only only (its 288 columns are off
 # the 128-wide block grid of the block-sparse kernels)
 XPROJ = (8192, 288)
-# kernels whose k-split partials meet in distributed shared memory in a
-# fixed order (or as exact int32 sums): each is also held to two
-# bitwise-equal calls on the same inputs
+# kernels whose split partials meet in distributed shared memory in a fixed
+# order (or as exact int32 sums): each is also held to two bitwise-equal
+# calls on the same inputs
 BITWISE = ("dense_matmul", "quant_matmul", "bsr_quant_matmul", "bsr_matmul",
-           "quant_matmul_w8a8")
+           "quant_matmul_w8a8", "paged_flash_attention", "ssm_scan")
 GEMM_ROWS = [1, 8, 77, 512]
 BITS = [8, 4, 2, 1]
 SPARSITIES = [0.5, 0.75]
@@ -130,7 +134,7 @@ SOURCES = {
                          "src/repro/kernels/quant_matmul.py:200"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:91"),
-    "paged_flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+    "paged_flash_attention": ("src/repro_torch/csrc/paged_attention.cu",
                               "src/repro/kernels/flash_attention.py:213"),
     "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                  "src/repro/kernels/ssm_scan.py:64"),
@@ -241,10 +245,9 @@ GEMM_FAMILIES = ("gemv_cluster_kernel", "gemm_pipe_kernel", "gemm_tile_kernel",
                  "w8a8_gemv_kernel", "act_quant_kernel", "w8a8_mma_kernel")
 KERNEL_FAMILIES = GEMM_FAMILIES + ("fa_tc_kernel", "paged_kernel",
                                    "ssm_scan_kernel")
-# instantiations held to no register spill: every GEMM family but the old
-# mainloop, and the tensor-core flash kernel
-NO_SPILL = tuple(f for f in GEMM_FAMILIES if f != "gemm_tile_kernel") + (
-    "fa_tc_kernel",)
+# instantiations held to no register spill: every family but the old GEMM
+# mainloop
+NO_SPILL = tuple(f for f in KERNEL_FAMILIES if f != "gemm_tile_kernel")
 
 
 def gemm_ms(call):
@@ -336,9 +339,13 @@ def phase_kernels(torch, timer):
         ok = bool((err <= atol + rtol * want.float().abs()).all())
         if tol == EXACT:
             ok = torch.equal(got, want)
-        if kernel in BITWISE and not torch.equal(run(), run()):
-            raise AssertionError(f"{kernel} {dtype} {shape}: two calls on the "
-                                 "same inputs differ")
+        if kernel in BITWISE:
+            first, second = run(), run()     # a tensor, or the scan's (y, h)
+            if torch.is_tensor(first):
+                first, second = (first,), (second,)
+            if not all(map(torch.equal, first, second)):
+                raise AssertionError(f"{kernel} {dtype} {shape}: two calls "
+                                     "on the same inputs differ")
         b_ms, b_by = bound_ms(n_bytes, flops, peak or dtype)
         case = dict(kernel=kernel, dtype=dtype, **shape,
                     max_abs_err=float(err.max()), atol=atol, rtol=rtol,
@@ -588,7 +595,8 @@ def phase_kernels(torch, timer):
 
     # the event pair against the profiler's own kernel duration at the
     # headline rows of the redesigned kernels (same shapes, fresh inputs):
-    # the five decode GEMVs and flash attention at sq 512
+    # the five decode GEMVs, flash attention at sq 512, paged decode
+    # attention and the selective scan
     n, p = HEADLINE["dense_matmul"][3]
     w32 = torch.randn((n, p), generator=gen, device=dev) * n ** -0.5
     x = torch.randn((8, n), generator=gen, device=dev)
@@ -618,6 +626,30 @@ def phase_kernels(torch, timer):
                          ("flash_attention", "float32", 512, None, None, d),
                          "fa_tc_kernel",
                          lambda d=d: ops.flash_attention(*fa_in[d])))
+    # one h2o-danube layer's paged decode (8 slots, 34 pages of 16, slot 3
+    # idle on the sink page) and one falcon-mamba layer's 512-token scan
+    n_pages = 8 * 34 + 1
+    pg_kv = [torch.randn((n_pages, 8, 16, 80), generator=gen, device=dev)
+             for _ in range(2)]
+    pg_table = (torch.randperm(n_pages - 1, generator=gen, device=dev)
+                + 1).reshape(8, 34).to(torch.int32)
+    pg_table[3] = 0
+    pg_last = torch.randint(34 * 16 // 4, 34 * 16, (8,), generator=gen,
+                            device=dev).to(torch.int32)
+    pg_q = torch.randn((8, 32, 1, 80), generator=gen, device=dev)
+    profiled.append(("paged_flash_attention",
+                     HEADLINE["paged_flash_attention"], "paged_kernel",
+                     lambda: ops.paged_attention(pg_q, *pg_kv, pg_table,
+                                                 pg_last)))
+    scan_in = [torch.randn(shape, generator=gen, device=dev)
+               for shape in ((1, 512, 8192),) * 2 + ((1, 512, 16),) * 2
+               + ((8192, 16),)]
+    scan_in = [scan_in[0] * 0.5,
+               torch.nn.functional.softplus(scan_in[1] - 1.0),
+               scan_in[2] * 0.5, scan_in[3] * 0.5,
+               -torch.exp(scan_in[4] * 0.3)]
+    profiled.append(("ssm_scan", HEADLINE["ssm_scan"], "ssm_scan_kernel",
+                     lambda: ops.ssm_scan(*scan_in)))
     for name, key, family, fn in profiled:
         case = next(c for c in cases if c["key"] == key)
         case["profiler_ms"] = profiled_kernel_ms(torch, fn, family)
@@ -930,6 +962,10 @@ def phase_paged_serving(torch, card, params):
         n_ops = [c["device_ops"] / k for c in prof]
         attn = [c["device_ms_by_kernel"].get("paged_kernel", 0.0) / k
                 for c in prof]
+        # a paged run that launched the kernel must show its device time
+        # (a renamed device kernel would read 0 here)
+        if counts["paged_flash_attention"]:
+            assert all(a > 0 for a in attn), (tag, attn)
         results[tag] = dict(
             spec=kr.spec_tag(spec), page_size=page_size, wall_s=wall,
             tok_per_s=rep["tokens_generated"] / wall,
@@ -1174,6 +1210,7 @@ def phase_mamba_serving(torch, card):
         idle = [c["idle_share"] for c in decode_prof]
         scan = [c["device_ms_by_kernel"].get("ssm_scan_kernel", 0.0)
                 for c in prefill_prof]
+        assert counts["ssm_scan"] and all(v > 0 for v in scan), (tag, scan)
         prefill_gemm = [gemm_ms(c) for c in prefill_prof]
         results[tag] = dict(
             spec=kr.spec_tag(spec), pack_s=pack_s, wall_s=wall,

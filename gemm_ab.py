@@ -1,26 +1,32 @@
 #!/usr/bin/env python3
-"""Time this checkout's five GEMM kernels against another checkout's, on
-one NVIDIA GPU.
+"""Time this checkout's kernels against another checkout's, on one NVIDIA
+GPU.
 
     python3 gemm_ab.py OTHER_CHECKOUT
 
-OTHER_CHECKOUT is a checkout of the repository (commit 3364f77 or one like it)
-whose `dense_matmul_launch`, `quant_matmul_launch` and
-`bsr_quant_matmul_launch` take the launch plan of `kernels/gemm_plan.py`
-(this checkout's plan is handed to them), whose `bsr_matmul_launch` takes
-none (the `gemm_tile.cuh` mainloop for every shape), and whose
-`quant_matmul_w8a8_launch` takes int8 codes and row scales made outside
-it: that side is timed together with `quantize_activations_int8`, so both
-sides do the same work. Both checkouts' `csrc/dense_matmul.cu`,
-`csrc/bsr_matmul.cu` and `csrc/quant_matmul.cu` are built with the same
-nvcc flags; every case of `chip_smoke.py`'s phase-3 grid for the five
-kernels (f32 and bf16, the h2o-danube shapes, falcon-mamba's x_proj for
-the dense and quantized ones, m in 1, 8, 77, 512, codes of 8, 4, 2 and 1
-bits, block sparsity 0.5 and 0.75) is then timed in turns, other / this /
-this / other, with `chip_smoke.Timer` (L2 flushed, host work hidden), and
-the two outputs are held to each other at the phase's tolerance. Prints
-one line per case and the cases where this checkout is more than 5%
-slower; writes chiprun_out/gemm_ab.json. Exits non-zero without a GPU.
+OTHER_CHECKOUT is a checkout of the repository (commit 0b10850 or one like
+it) whose five GEMM launchers and prefill flash launcher take the arguments
+this checkout's take: this checkout's wrappers drive both sides, the other
+side through the other build's launch functions. Its decode attention
+(`paged_attention_launch`, in its `csrc/flash_attention.cu`) and its
+selective scan (`ssm_scan_launch`) take no launch plan and are called with
+their own arguments. The other checkout's `csrc/dense_matmul.cu`,
+`bsr_matmul.cu`, `quant_matmul.cu`, `quant_matmul_w8a8.cu`,
+`flash_attention.cu` and `ssm_scan.cu` are built with the same nvcc flags,
+their namespaces renamed (`-Dgk=gk_other -Drt=rt_other`) so that both
+builds load in one process. Every case of `chip_smoke.py`'s phase-3 grid
+for these kernels is then timed in turns, other / this / this / other, with
+`chip_smoke.Timer` (L2 flushed, host work hidden): the five GEMMs (f32 and
+bf16, the h2o-danube shapes, falcon-mamba's x_proj for the dense and
+quantized ones, m in 1, 8, 77, 512, codes of 8, 4, 2 and 1 bits, block
+sparsity 0.5 and 0.75), prefill flash attention (h2o-danube and
+nemotron-4-340b heads), paged decode attention (8 slots, h2o-danube and
+nemotron-4-340b heads, sq 1 and 3, window and softcap) and the scan
+(falcon-mamba's d_inner 8192 at 1-512 positions, a ragged small case). The
+two outputs are held to each other at the phase's tolerance. Prints one
+line per case and the cases where this checkout is more than 5% slower;
+writes chiprun_out/gemm_ab.json. Exits non-zero without a GPU or where the
+two outputs disagree.
 """
 
 from __future__ import annotations
@@ -32,15 +38,17 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+OTHER_SOURCES = ("dense_matmul", "bsr_matmul", "quant_matmul",
+                 "quant_matmul_w8a8", "flash_attention", "ssm_scan")
 
-_c, _i = ctypes.c_void_p, ctypes.c_int
+_c, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def build_other(other: Path, out_dir: Path, nvcc: str, flags) -> dict:
-    """Build the other checkout's three GEMM sources, all nvccs at once."""
+    """Build the other checkout's sources, all nvccs at once."""
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name in ("dense_matmul", "bsr_matmul", "quant_matmul"):
+    for name in OTHER_SOURCES:
         out = out_dir / f"{name}.so"
         jobs[name] = (out, subprocess.Popen(
             # the other build's kernels get namespaces of their own, so the
@@ -54,23 +62,7 @@ def build_other(other: Path, out_dir: Path, nvcc: str, flags) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the other {name}.cu:\n{log}")
         libs[name] = ctypes.CDLL(str(out))
-    dense = libs["dense_matmul"].dense_matmul_launch
-    dense.argtypes = [_c, _c, _c] + [_i] * 10 + [_c]
-    dense.restype = _i
-    qt = libs["quant_matmul"].quant_matmul_launch
-    qt.argtypes = [_c, _c, _c, _c] + [_i] * 11 + [_c]
-    qt.restype = _i
-    bsr = libs["quant_matmul"].bsr_quant_matmul_launch
-    bsr.argtypes = [_c, _c, _c, _c, _c] + [_i] * 14 + [_c]
-    bsr.restype = _i
-    blocks = libs["bsr_matmul"].bsr_matmul_launch
-    blocks.argtypes = [_c, _c, _c, _c] + [_i] * 7 + [_c]
-    blocks.restype = _i
-    w8a8 = libs["quant_matmul"].quant_matmul_w8a8_launch
-    w8a8.argtypes = [_c, _c, _c, _c, _c] + [_i] * 4 + [_c]
-    w8a8.restype = _i
-    return {"dense": dense, "qt": qt, "bsr": bsr, "blocks": blocks,
-            "w8a8": w8a8}
+    return libs
 
 
 def main(argv) -> int:
@@ -85,91 +77,123 @@ def main(argv) -> int:
     other = Path(argv[1]).resolve()
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
+    import numpy as np
+
     import chip_smoke as cs
     from repro_torch.core import kratos as kr
     from repro_torch.core import quantize as qz
     from repro_torch.core import sparsity as sp
-    from repro_torch.kernels import build, gemm_plan, ops
+    from repro_torch.kernels import bsr_matmul as bsr_mod
+    from repro_torch.kernels import build
+    from repro_torch.kernels import dense_matmul as dense_mod
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_matmul as qmm_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = cs.sh(["nvidia-smi", "--query-gpu=name,power.limit",
                   "--format=csv,noheader"]).splitlines()[0]
-    build.build_all(["dense_matmul", "bsr_matmul", "quant_matmul",
-                     "quant_matmul_w8a8"])
-    old = build_other(other, ROOT / "build" / "gemm_ab", build.nvcc_path(),
-                      build.NVCC_FLAGS)
+    build.build_all()
+    libs = build_other(other, ROOT / "build" / "gemm_ab", build.nvcc_path(),
+                       build.NVCC_FLAGS)
     timer = cs.Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
-    def plan_args(pl):
-        return (pl.form_id, pl.bm, pl.bn, pl.split, pl.k_per_split,
-                pl.smem_bytes)
+    # kernel -> (module, accessor, other source, launch function): the
+    # wrappers whose launch arguments did not change run the other side by
+    # swapping the module's accessor for the other build's function
+    same_abi = {
+        "dense_matmul": (dense_mod, "_lib", "dense_matmul",
+                         "dense_matmul_launch"),
+        "bsr_matmul": (bsr_mod, "_lib", "bsr_matmul", "bsr_matmul_launch"),
+        "quant_matmul": (qmm_mod, "_lib_qt", "quant_matmul",
+                         "quant_matmul_launch"),
+        "bsr_quant_matmul": (qmm_mod, "_lib_bsr", "quant_matmul",
+                             "bsr_quant_matmul_launch"),
+        "quant_matmul_w8a8": (qmm_mod, "_lib_w8a8", "quant_matmul_w8a8",
+                              "quant_matmul_w8a8_launch"),
+        "flash_attention": (fa_mod, "_lib", "flash_attention",
+                            "flash_attention_launch")}
+    other_fn = {}
+    for kernel, (mod, attr, source, name) in same_abi.items():
+        mine = getattr(mod, attr)()
+        fn = getattr(libs[source], name)
+        fn.argtypes, fn.restype = mine.argtypes, mine.restype
+        other_fn[kernel] = fn
 
-    def old_dense(x, w):
-        m, n = x.shape
-        p = w.shape[1]
-        y = torch.empty((m, p), dtype=x.dtype, device="cuda")
-        pl = gemm_plan.plan(m, n, p, elem=x.element_size())
-        build.check(old["dense"](x.data_ptr(), w.data_ptr(), y.data_ptr(), m,
-                                 n, p, int(x.dtype == torch.bfloat16),
-                                 *plan_args(pl), stream()),
-                    "other dense_matmul")
-        return y
+    def on_other(kernel, call):
+        """`call` with the kernel's wrapper launching the other build."""
+        mod, attr, _, _ = same_abi[kernel]
+        mine = getattr(mod, attr)
 
-    def old_qt(x, qt):
-        m, n = x.shape
-        p = qt.shape[1]
-        y = torch.empty((m, p), dtype=x.dtype, device="cuda")
-        pl = gemm_plan.plan(m, n, p, bits=qt.bits, elem=x.element_size())
-        build.check(old["qt"](x.data_ptr(), qt.data.data_ptr(),
-                              qt.scale.data_ptr(), y.data_ptr(), m, n, p,
-                              qt.bits, int(x.dtype == torch.bfloat16),
-                              *plan_args(pl), stream()), "other quant_matmul")
-        return y
+        def run():
+            setattr(mod, attr, lambda: other_fn[kernel])
+            try:
+                return call()
+            finally:
+                setattr(mod, attr, mine)
+        return run
 
-    def old_bsr(x, qb, sc, idx, bits):
-        m, n = x.shape
-        n_pb, nnz, bkp, bn = qb.shape
-        bk = bkp * (8 // bits)
-        y = torch.empty((m, n_pb * bn), dtype=x.dtype, device="cuda")
-        pl = gemm_plan.bsr_plan(m, n_pb, nnz, bk, bn, bits, x.element_size())
-        build.check(old["bsr"](x.data_ptr(), qb.data_ptr(), sc.data_ptr(),
-                               idx.data_ptr(), y.data_ptr(), m, n, n_pb, nnz,
-                               bk, bn, bits, int(x.dtype == torch.bfloat16),
-                               *plan_args(pl), stream()),
-                    "other bsr_quant_matmul")
-        return y
+    old_paged = libs["flash_attention"].paged_attention_launch
+    old_paged.argtypes = [_c] * 6 + [_i] * 7 + [_f, _i, _f, _i, _i, _c]
+    old_paged.restype = _i
+    old_scan = libs["ssm_scan"].ssm_scan_launch
+    old_scan.argtypes = [_c] * 7 + [_i] * 5 + [_c]
+    old_scan.restype = _i
 
-    def old_blocks(x, blocks, idx):
-        m, n = x.shape
-        n_pb, nnz, bk, bn = blocks.shape
-        y = torch.empty((m, n_pb * bn), dtype=x.dtype, device="cuda")
-        build.check(old["blocks"](x.data_ptr(), blocks.data_ptr(),
-                                  idx.data_ptr(), y.data_ptr(), m, n, n_pb,
-                                  nnz, bk, bn, int(x.dtype == torch.bfloat16),
-                                  stream()), "other bsr_matmul")
-        return y
+    def other_paged(q, kp, vp, table, last, window, softcap):
+        b, h, sq, d = q.shape
+        _, h_kv, page, _ = kp.shape
+        o = torch.empty_like(q)
+        build.check(old_paged(
+            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(),
+            last.data_ptr(), o.data_ptr(), b, h, h_kv, sq, page,
+            table.shape[1], d, d ** -0.5, window or 0, softcap or 0.0,
+            int(q.dtype == torch.bfloat16), int(kp.dtype == torch.bfloat16),
+            stream()), "other paged_flash_attention")
+        return o
 
-    def old_w8a8(x, qt):
-        m, n = x.shape
-        p = qt.shape[1]
-        xq, xs = qz.quantize_activations_int8(x)
-        y = torch.empty((m, p), dtype=x.dtype, device="cuda")
-        build.check(old["w8a8"](xq.data_ptr(), xs.data_ptr(),
-                                qt.data.data_ptr(), qt.scale.data_ptr(),
-                                y.data_ptr(), m, n, p,
-                                int(x.dtype == torch.bfloat16), stream()),
-                    "other quant_matmul_w8a8")
-        return y
+    def other_scan(u, dt, b, c, a):
+        bsz, s, di = u.shape
+        y = torch.empty_like(u)
+        h = torch.empty((bsz, di, a.shape[1]), device="cuda")
+        build.check(old_scan(u.data_ptr(), dt.data_ptr(), b.data_ptr(),
+                             c.data_ptr(), a.data_ptr(), y.data_ptr(),
+                             h.data_ptr(), bsz, s, di, a.shape[1],
+                             int(u.dtype == torch.bfloat16), stream()),
+                    "other ssm_scan")
+        return torch.cat([y.float().flatten(), h.flatten()])
 
     print(f"card: {card}", flush=True)
     cases = []
+
+    def ab(kernel, dtype, tol, f_old, f_new, **shape):
+        a, b = f_old(), f_new()
+        if isinstance(b, tuple):        # the scan's (y, h)
+            b = torch.cat([b[0].float().flatten(), b[1].flatten()])
+        atol, rtol = tol
+        diff = (a.float() - b.float()).abs()
+        ok = bool((diff <= atol + rtol * a.float().abs()).all())
+        t = [timer(f_old), timer(f_new), timer(f_new), timer(f_old)]
+        case = dict(kernel=kernel, dtype=dtype, **shape,
+                    other_ms=min(t[0], t[3]), this_ms=min(t[1], t[2]),
+                    turns_ms=t, max_abs_diff=float(diff.max()), agree=ok)
+        case["ratio"] = case["this_ms"] / case["other_ms"]
+        cases.append(case)
+        print(f"  {kernel:21s} {dtype:8s} {json.dumps(shape)} other "
+              f"{case['other_ms']:.4f} ms, this {case['this_ms']:.4f} ms, "
+              f"ratio {case['ratio']:.3f}, |diff| {case['max_abs_diff']:.3g}",
+              flush=True)
+
+    def ab_same(kernel, dtype, tol, call, **shape):
+        ab(kernel, dtype, tol, on_other(kernel, call), call, **shape)
+
+    # the five GEMMs
     for dtype in cs.DTYPES:
         dt = getattr(torch, dtype)
-        atol, rtol = cs.TOL[dtype]
         for n, p in cs.GEMM_SHAPES + [cs.XPROJ]:
             w32 = torch.randn((n, p), generator=gen, device="cuda") * n ** -0.5
             w = w32.to(dt)
@@ -188,48 +212,97 @@ def main(argv) -> int:
                                        buf["qscale"], idx))
             for m in cs.GEMM_ROWS:
                 x = torch.randn((m, n), generator=gen, device="cuda").to(dt)
-                runs = [("dense_matmul", None, None, lambda: old_dense(x, w),
-                         lambda: ops.matmul(x, w))]
-                runs += [("quant_matmul", bits, None,
-                          (lambda qt=qt: old_qt(x, qt)),
-                          (lambda qt=qt: ops.quant_matmul(x, qt)))
-                         for bits, qt in qts.items()]
-                runs += [("bsr_quant_matmul", bits, s,
-                          (lambda a=(qb, sc, idx, bits): old_bsr(x, *a)),
-                          (lambda a=(qb, sc, idx, bits):
-                           ops.bsr_quant_matmul(x, *a)))
-                         for s, bits, qb, sc, idx in sparse]
-                runs += [("bsr_matmul", None, s,
-                          (lambda a=(blocks, idx): old_blocks(x, *a)),
-                          (lambda a=(blocks, idx): ops.bsr_matmul(x, *a)))
-                         for s, blocks, idx in dense_blocks]
-                runs.append(("quant_matmul_w8a8", 8, None,
-                             lambda: old_w8a8(x, qts[8]),
-                             lambda: ops.quant_matmul_w8a8(x, qts[8])))
-                for kernel, bits, sparsity, f_old, f_new in runs:
-                    a, b = f_old(), f_new()
-                    err = float((a.float() - b.float()).abs().max())
-                    ok = bool(((a.float() - b.float()).abs()
-                               <= atol + rtol * a.float().abs()).all())
-                    t = [timer(f_old), timer(f_new), timer(f_new),
-                         timer(f_old)]
-                    case = dict(kernel=kernel, dtype=dtype, m=m, n=n, p=p,
-                                bits=bits, sparsity=sparsity,
-                                other_ms=min(t[0], t[3]),
-                                this_ms=min(t[1], t[2]), turns_ms=t,
-                                max_abs_diff=err, agree=ok)
-                    case["ratio"] = case["this_ms"] / case["other_ms"]
-                    cases.append(case)
-                    print(f"  {kernel:16s} {dtype:8s} m={m:3d} {n}x{p} "
-                          f"bits={bits} s={sparsity} other "
-                          f"{case['other_ms']:.4f} ms, "
-                          f"this {case['this_ms']:.4f} ms, ratio "
-                          f"{case['ratio']:.3f}, |diff| {err:.3g}",
-                          flush=True)
+                gemm = dict(m=m, n=n, p=p)
+                ab_same("dense_matmul", dtype, cs.TOL[dtype],
+                        lambda: ops.matmul(x, w), **gemm)
+                for bits, qt in qts.items():
+                    ab_same("quant_matmul", dtype, cs.TOL[dtype],
+                            lambda qt=qt: ops.quant_matmul(x, qt), bits=bits,
+                            **gemm)
+                for s, bits, qb, sc, idx in sparse:
+                    ab_same("bsr_quant_matmul", dtype, cs.TOL[dtype],
+                            lambda a=(qb, sc, idx, bits):
+                            ops.bsr_quant_matmul(x, *a), bits=bits,
+                            sparsity=s, **gemm)
+                for s, blocks, idx in dense_blocks:
+                    ab_same("bsr_matmul", dtype, cs.TOL[dtype],
+                            lambda a=(blocks, idx): ops.bsr_matmul(x, *a),
+                            sparsity=s, **gemm)
+                ab_same("quant_matmul_w8a8", dtype, cs.EXACT,
+                        lambda: ops.quant_matmul_w8a8(x, qts[8]), bits=8,
+                        **gemm)
+
+    # prefill flash attention
+    for dtype in cs.DTYPES:
+        dt = getattr(torch, dtype)
+        for heads, d, sqs, caps in ((32, 80, (16, 77, 512), (None, 50.0)),
+                                    (96, 192, (77, 512), (None,))):
+            for sq in sqs:
+                q, k, v = (torch.randn((1, hh, sq, d), generator=gen,
+                                       device="cuda").to(dt)
+                           for hh in (heads, 8, 8))
+                for window in (None, 64):
+                    for cap in caps:
+                        ab_same("flash_attention", dtype, cs.FA_TOL[dtype],
+                                lambda kw=dict(window=window, softcap=cap):
+                                ops.flash_attention(q, k, v, **kw), sq=sq,
+                                heads=heads, d=d, window=window, softcap=cap)
+
+    # paged decode attention: 8 slots over a shuffled pool, slot 3 idle on
+    # the sink page
+    b, page = 8, 16
+    for dtype in cs.DTYPES:
+        dt = getattr(torch, dtype)
+        for heads, d, pp in ((32, 80, 34), (96, 192, 48)):
+            n_pages = b * pp + 1
+            kp, vp = (torch.randn((n_pages, 8, page, d), generator=gen,
+                                  device="cuda").to(dt) for _ in range(2))
+            table = (torch.randperm(n_pages - 1, generator=gen, device="cuda")
+                     + 1).reshape(b, pp).to(torch.int32)
+            table[3] = 0
+            last = torch.randint(pp * page // 4, pp * page, (b,),
+                                 generator=gen, device="cuda").to(torch.int32)
+            for sq in (1, 3):
+                q = torch.randn((b, heads, sq, d), generator=gen,
+                                device="cuda").to(dt)
+                for window in (None, 64):
+                    for cap in (None, 50.0):
+                        ab("paged_flash_attention", dtype, cs.FA_TOL[dtype],
+                           lambda w_=window, c_=cap: other_paged(
+                               q, kp, vp, table, last, w_, c_),
+                           lambda w_=window, c_=cap: ops.paged_attention(
+                               q, kp, vp, table, last, window=w_,
+                               softcap=c_),
+                           heads=heads, d=d, pages_per_slot=pp, sq=sq,
+                           window=window, softcap=cap)
+
+    # the selective scan, inputs drawn as chip_smoke.py draws them
+    def n_(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    for dtype in cs.DTYPES:
+        dt = getattr(torch, dtype)
+        for bsz, s, di, st in ((1, 1, 8192, 16), (1, 7, 8192, 16),
+                               (1, 64, 8192, 16), (1, 512, 8192, 16),
+                               (2, 33, 128, 8)):
+            args = [x.to(dt) for x in (
+                n_(bsz, s, di) * 0.5,
+                torch.nn.functional.softplus(n_(bsz, s, di) - 1.0),
+                n_(bsz, s, st) * 0.5, n_(bsz, s, st) * 0.5)]
+            args.append(-torch.exp(n_(di, st) * 0.3))
+            ab("ssm_scan", dtype, cs.SSM_TOL[dtype],
+               lambda a=args: other_scan(*a), lambda a=args: ops.ssm_scan(*a),
+               batch=bsz, s=s, d_inner=di, d_state=st)
+
     slower = [c for c in cases if c["ratio"] > 1.05]
     disagree = [c for c in cases if not c["agree"]]
+    by_kernel = {}
+    for c in cases:
+        by_kernel.setdefault(c["kernel"], []).append(c["ratio"])
+    for kernel, r in by_kernel.items():
+        print(f"{kernel}: {len(r)} cases, this / other {min(r):.3f}-"
+              f"{max(r):.3f} (median {float(np.median(r)):.3f})", flush=True)
     print(f"cases {len(cases)}; more than 5% slower here: "
-          f"{[(c['kernel'], c['dtype'], c['m'], c['n'], c['p'], c['bits'], c['sparsity'], round(c['ratio'], 3)) for c in slower]}; "
+          f"{[(c['kernel'], c['dtype'], {k: v for k, v in c.items() if k in ('m', 'n', 'p', 'bits', 'sparsity', 'sq', 'd', 's', 'd_inner', 'window', 'softcap')}, round(c['ratio'], 3)) for c in slower]}; "
           f"outputs apart beyond tolerance: {len(disagree)}", flush=True)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -1,4 +1,5 @@
-"""Flash attention: wrappers of `csrc/flash_attention.cu`.
+"""Flash attention: wrappers of `csrc/flash_attention.cu` (prefill) and
+`csrc/paged_attention.cu` (decode through the page table).
 
 Replaces the two kernels of `repro.kernels.flash_attention`:
 `flash_attention` (prefill; layout as in the JAX kernel: q (bh, sq, d),
@@ -8,9 +9,13 @@ Both take head_dim d <= 256. CPU tensors take the plain versions.
 
 `fa_plan` fixes the prefill kernel's launch from (d, dtype) alone: the
 padded head dim DP its instantiation takes, the 64-row q tile of 4 warps,
-the KV tile and the shared memory of its 2-stage K/V ring. The C launcher
-checks the plan against its own instantiations, so the choice runs and is
-tested on the CPU.
+the KV tile and the shared memory of its 2-stage K/V ring. `paged_plan`
+fixes the decode kernel's (`csrc/paged_attention.cu`) from sizes the host
+knows, never from the device-resident clocks `last`: the padded head dim,
+the 16-row query tiles, how many CTAs of a cluster split each (slot, kv
+head, query tile)'s live pages, the stages of each warp's K/V ring and the
+shared memory. The C launchers check the plans against their own
+instantiations, so the choice runs and is tested on the CPU.
 """
 
 from __future__ import annotations
@@ -33,7 +38,15 @@ FA_STAGES = 2              # K/V cp.async ring
 FA_BKV = (64, 32, 16)      # KV tiles, widest first
 MAX_SMEM = 232_448         # bytes of shared memory one CTA may use (227 KB)
 # two CTAs an SM: 228 KB of the SM's shared memory, 1 KB reserved per CTA
-TWO_CTA_SMEM = (233_472 - 2 * 1024) // 2
+SM_SMEM = 233_472
+TWO_CTA_SMEM = (SM_SMEM - 2 * 1024) // 2
+SM_COUNT = 132             # H100 SXM
+PAGED_WARPS = 4            # each walks its own key tiles
+PAGED_BQ = 16              # query rows of a CTA: one m16 tile (g * sq <= 16
+                           # at decode fills one)
+PAGED_BK = 16              # keys of a tile
+PAGED_MAX_SPLIT = 8        # CTAs of a cluster (the portable limit)
+PAGED_MAX_STAGES = 2       # K/V tiles in flight per warp
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
@@ -51,9 +64,9 @@ def _lib():
 
 @functools.cache
 def _lib_paged():
-    fn = build.load("flash_attention").paged_attention_launch
+    fn = build.load("paged_attention").paged_attention_launch
     fn.argtypes = [_c, _c, _c, _c, _c, _c, _i, _i, _i, _i, _i, _i, _i, _f,
-                   _i, _f, _i, _i, _c]
+                   _i, _f, _i, _i, _i, _i, _i, _i, _c]
     fn.restype = _i
     return fn
 
@@ -90,6 +103,73 @@ def fa_plan(d: int, elem: int) -> FaPlan:
                              if fa_smem_bytes(dp, b, elem) <= MAX_SMEM)
     return FaPlan(dp, FA_BQ, bkv, FA_STAGES, fa_smem_bytes(dp, bkv, elem),
                   32 * FA_WARPS)
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedPlan:
+    dp: int           # head dim of the instantiation (d padded with zeros)
+    bq: int           # query rows of a CTA
+    row_tiles: int    # query tiles of one (slot, kv head): ceil(g * sq / bq)
+    split: int        # CTAs of a cluster sharing one tile's live pages
+    stages: int       # K/V tiles in flight per warp
+    smem_bytes: int   # dynamic shared memory
+    threads: int
+
+
+def paged_smem_bytes(dp: int, elem: int, stages: int) -> int:
+    """Q (BQ rows of dp + 4 floats); each warp's ring of `stages` K and V
+    tiles (BK rows of dp elements plus 16 bytes), whose bytes hold the
+    warps' (m, l, O) partials after the walk where those are larger; and
+    the CTA's merged (m, l, O), read by the cluster."""
+    ldq = dp + 4
+    ring = PAGED_WARPS * stages * 2 * PAGED_BK * (dp + 16 // elem) * elem
+    merge = PAGED_WARPS * PAGED_BQ * (ldq + 2) * 4
+    return PAGED_BQ * ldq * 4 + max(ring, merge) + PAGED_BQ * (dp + 2) * 4
+
+
+def paged_ctas_per_sm(smem: int) -> int:
+    """CTAs of the paged kernel that share an SM by shared memory (228 KB,
+    1 KB reserved per CTA)."""
+    return SM_SMEM // (smem + 1024)
+
+
+@functools.lru_cache(maxsize=None)
+def paged_plan(b: int, h: int, h_kv: int, sq: int, d: int, page: int,
+               pp: int, elem: int) -> PagedPlan:
+    """The decode kernel's plan for b slots of a pp-page table (page
+    positions a page; elem the K/V element size, 4 f32 or 2 bf16).
+
+    A warp's ring holds 2 tiles where that lets as many CTAs share an SM
+    as 1 tile does, else 1. Each (slot, kv head, query tile)'s live pages
+    split over the largest power-of-two number of CTAs of a cluster (at
+    most 8) that keeps the grid within one wave of the card and leaves each
+    warp at least 2 key tiles of a full table: more splits cost a merge and
+    a wave each and shorten a walk that is already short."""
+    if min(b, h, h_kv, sq, page, pp) < 1 or h % h_kv:
+        raise ValueError(f"paged plan: b {b}, heads {h}/{h_kv}, sq {sq}, "
+                         f"page {page}, pages {pp}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"paged plan: head_dim {d} not in "
+                         f"[1, {MAX_HEAD_DIM}]")
+    if elem not in (4, 2):
+        raise ValueError(f"paged plan: element size {elem}")
+    dp = next(x for x in FA_DP if d <= x)
+    row_tiles = -(-(h // h_kv) * sq // PAGED_BQ)
+    if row_tiles * h_kv > 65535 or b > 65535:
+        raise ValueError(f"paged plan: grid ({row_tiles} x {h_kv}, {b})")
+    stages = PAGED_MAX_STAGES if paged_ctas_per_sm(
+        paged_smem_bytes(dp, elem, PAGED_MAX_STAGES)) == paged_ctas_per_sm(
+        paged_smem_bytes(dp, elem, 1)) else 1
+    smem = paged_smem_bytes(dp, elem, stages)
+    wave = SM_COUNT * paged_ctas_per_sm(smem)
+    ctas = b * h_kv * row_tiles
+    full_tiles = -(-pp * page // PAGED_BK)
+    split = 1
+    while (split < PAGED_MAX_SPLIT and ctas * split * 2 <= wave
+           and full_tiles >= split * 2 * 2 * PAGED_WARPS):
+        split *= 2
+    return PagedPlan(dp, PAGED_BQ, row_tiles, split, stages, smem,
+                     32 * PAGED_WARPS)
 
 
 def _check_options(name, window, softcap):
@@ -189,14 +269,17 @@ def paged_flash_attention(q: torch.Tensor, k_pages: torch.Tensor,
                               k_pages, v_pages, q, table, last)
     build.check_cuda_operands("paged_flash_attention", q.dtype, q)
     scale = (d ** -0.5) if scale is None else scale
+    pp = table.shape[1]
+    pl = paged_plan(b, h, h_kv, sq, d, page, pp, k_pages.element_size())
     o = torch.empty_like(q)
     rc = _lib_paged()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                       table.data_ptr(), last.data_ptr(), o.data_ptr(), b, h,
-                      h_kv, sq, page, table.shape[1], d, float(scale),
+                      h_kv, sq, page, pp, d, float(scale),
                       0 if window is None else int(window),
                       0.0 if softcap is None else float(softcap),
                       int(q.dtype == torch.bfloat16),
-                      int(k_pages.dtype == torch.bfloat16),
+                      int(k_pages.dtype == torch.bfloat16), pl.dp, pl.split,
+                      pl.stages, pl.smem_bytes,
                       torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "paged_flash_attention")
     paged_flash_attention.launches += 1

@@ -14,29 +14,39 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax
-import jax.numpy as jnp
+try:
+    import jax
+except ImportError:     # a GPU machine without JAX runs the `cuda` tests only
+    jax = None
+if jax is not None:
+    import jax.numpy as jnp
 
-from repro import configs as JC
-from repro.checkpoint.manager import save_pytree
-from repro.core import kratos as jkr
-from repro.kernels import ops as jops
-from repro.models import transformer as JT
-from repro.serve import EngineConfig as JEngineConfig
-from repro.serve import InferenceEngine as JEngine
-from repro.serve import ModelRegistry as JRegistry
-from repro.serve import PagedCachePool as JPool
-from repro.serve import PoolExhausted as JPoolExhausted
+    from repro import configs as JC
+    from repro.checkpoint.manager import save_pytree
+    from repro.core import kratos as jkr
+    from repro.kernels import ops as jops
+    from repro.models import transformer as JT
+    from repro.serve import EngineConfig as JEngineConfig
+    from repro.serve import InferenceEngine as JEngine
+    from repro.serve import ModelRegistry as JRegistry
+    from repro.serve import PagedCachePool as JPool
+    from repro.serve import PoolExhausted as JPoolExhausted
+
+    from test_torch_serve import _record_decode_host_reads
+
 from repro_torch import configs as PC
 from repro_torch.checkpoint.convert import convert
 from repro_torch.core import kratos as pkr
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops as pops
+from repro_torch.kernels import ref as pref
 from repro_torch.serve import (EngineConfig, InferenceEngine, ModelRegistry,
                                PagedCachePool, PoolExhausted,
                                prefix_supported)
 
-from test_torch_serve import _record_decode_host_reads
-
+needs_jax = pytest.mark.skipif(
+    jax is None, reason="compares the port with the JAX package, and JAX is "
+    "not installed")
 NEMOTRON, DANUBE = "nemotron-4-340b", "h2o-danube-1.8b"
 SPECS = {"dense": {}, "w4": dict(bits=4), "w8a8": dict(bits=8, act_bits=8)}
 # reuse counters that do not depend on the dispatch grouping K, and the two
@@ -67,6 +77,7 @@ def rnd(seed, shape, scale=1.0):
 # kernel: plain version vs Pallas interpret
 # ---------------------------------------------------------------------------
 
+@needs_jax
 @pytest.mark.parametrize("h,h_kv,sq,window,softcap", [
     (4, 4, 1, None, None),
     (8, 2, 1, None, None),                 # GQA
@@ -97,6 +108,74 @@ def test_paged_attention_plain_vs_pallas(h, h_kv, sq, window, softcap):
                                atol=2e-3)
 
 
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only there")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_paged_attention_matches_plain_version(cuda_device):
+    """The page-table kernel against its plain version on the card, at
+    FA_TOL: f32, bf16 and both mixed pairs; head dims 80 and 192 (h2o-danube
+    and nemotron widths) and 16; sq 1 and 3; window and softcap. Over 8
+    slots the plan splits a slot's pages 4 ways (d 80), 1-4 ways (d 192)
+    and not at all (d 16): slot 3 is idle on the sink page, slot 5 holds 2
+    live pages, fewer than 4 splits, slot 6's first query row sits at
+    position 0. Over 2 slots of a 128-page table the plan splits 8 ways:
+    slot 0 is long, slot 1 holds 2 live pages, so 6 of its 8 ranks get an
+    empty share (window 64 leaves empty ranks in slot 0 too). A second call
+    is bitwise equal."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    page = 16
+    for b, heads, h_kv, d, pp in ((8, 32, 8, 80, 34), (8, 96, 8, 192, 48),
+                                  (8, 8, 2, 16, 12), (2, 32, 8, 80, 128)):
+        n_pages = b * pp + 1
+        perm = torch.randperm(n_pages - 1, generator=gen,
+                              device=cuda_device) + 1
+        table = perm.reshape(b, pp).to(torch.int32)
+        last = torch.randint(pp * page // 4, pp * page, (b,), generator=gen,
+                             device=cuda_device).to(torch.int32)
+        if b == 8:
+            table[3] = 0
+            last[5], last[6] = 20, 2
+        else:
+            last[0], last[1] = pp * page - 5, 20
+            assert all(fa.paged_plan(b, heads, h_kv, sq, d, page, pp,
+                                     elem).split == 8
+                       for sq in (1, 3) for elem in (4, 2))
+        kp32 = torch.randn((n_pages, h_kv, page, d), generator=gen,
+                           device=cuda_device)
+        vp32 = torch.randn((n_pages, h_kv, page, d), generator=gen,
+                           device=cuda_device)
+        for q_dt, kv_dt in ((torch.float32, torch.float32),
+                            (torch.bfloat16, torch.bfloat16),
+                            (torch.float32, torch.bfloat16),
+                            (torch.bfloat16, torch.float32)):
+            atol, rtol = (2e-3, 2e-3) if torch.bfloat16 not in (q_dt, kv_dt) \
+                else (8e-3, 2.0 ** -7)
+            kp, vp = kp32.to(kv_dt), vp32.to(kv_dt)
+            for sq in (1, 3):
+                q = torch.randn((b, heads, sq, d), generator=gen,
+                                device=cuda_device).to(q_dt)
+                for window, cap in ((None, None), (64, None), (None, 50.0),
+                                    (64, 50.0)):
+                    args = (q, kp, vp, table, last)
+                    kw = dict(window=window, softcap=cap)
+                    pops.reset_launch_counts()
+                    got = pops.paged_attention(*args, **kw)
+                    assert pops.launch_counts()["paged_flash_attention"] == 1
+                    assert got.dtype == q_dt
+                    want = pref.paged_attention_ref(*args, **kw)
+                    torch.testing.assert_close(
+                        got.float(), want.float(), atol=atol, rtol=rtol,
+                        msg=lambda m: f"d {d} {q_dt}/{kv_dt} sq {sq} {kw}: {m}")
+                    assert torch.equal(got,
+                                       pops.paged_attention(*args, **kw))
+    torch.cuda.synchronize()
+
+
 # ---------------------------------------------------------------------------
 # pool: identical bookkeeping on one random sequence
 # ---------------------------------------------------------------------------
@@ -107,6 +186,7 @@ def _pool_state(pool):
             list(pool._free_slots), pool.index.n_nodes)
 
 
+@needs_jax
 def test_pool_matches_jax_on_random_sequence():
     cfg_j, cfg_p = JC.get_smoke(NEMOTRON), PC.get_smoke(NEMOTRON)
     kw = dict(page_size=8, n_pages=10)
@@ -154,6 +234,7 @@ def test_pool_matches_jax_on_random_sequence():
     assert all(events.values()), events       # every path was exercised
 
 
+@needs_jax
 def test_pool_refuses_too_few_pages():
     for pool, cfg, extra in ((JPool, JC.get_smoke(NEMOTRON), ()),
                              (PagedCachePool, PC.get_smoke(NEMOTRON),
@@ -212,6 +293,7 @@ def _port_engine(arch, name, params, tmp_path, **kw):
                                                device="cpu", **kw))
 
 
+@needs_jax
 @pytest.mark.parametrize("k", [1, 2])
 @pytest.mark.parametrize("name", list(SPECS))
 def test_paged_engine_matches_jax(name, k, tmp_path, monkeypatch):
@@ -239,6 +321,7 @@ def test_paged_engine_matches_jax(name, k, tmp_path, monkeypatch):
     assert len(pool._free_pages) == pool.n_usable_pages
 
 
+@needs_jax
 def test_paged_engine_matches_slab_engine(tmp_path):
     """The port's own paged and slab engines agree token for token."""
     *_, params = _jax_side(NEMOTRON, "w4", 1)
@@ -250,6 +333,7 @@ def test_paged_engine_matches_slab_engine(tmp_path):
     assert out[0] == out[1]
 
 
+@needs_jax
 def test_windowed_arch_pages_nothing_and_matches_jax(tmp_path):
     """h2o-danube's window-8 leaves are shorter than max_len: they stay
     resident in the store, the prefix index is off, and the paged engine
@@ -266,6 +350,7 @@ def test_windowed_arch_pages_nothing_and_matches_jax(tmp_path):
     assert rep["prefix_hit_rate"] == want_rep["prefix_hit_rate"] == 0.0
 
 
+@needs_jax
 def test_pool_pressure_requeues_and_release_parks_slot(tmp_path):
     """With pages for one request at a time, the second admission bounces
     (pool_waits), is requeued at the front and completes after the first

@@ -19,20 +19,27 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax
-import jax.numpy as jnp
+try:
+    import jax
+except ImportError:     # a GPU machine without JAX runs the `cuda` tests only
+    jax = None
+if jax is not None:
+    import jax.numpy as jnp
 
-from repro import configs as JC
-from repro.checkpoint.manager import save_pytree
-from repro.core import kratos as jkr
-from repro.kernels import ops as jops
-from repro.kernels.ssm_scan import ssm_scan_ref as jssm_ref
-from repro.models import ssm as JS
-from repro.models import transformer as JT
-from repro.serve import EngineConfig as JEngineConfig
-from repro.serve import InferenceEngine as JEngine
-from repro.serve import ModelRegistry as JRegistry
-from repro.serve.registry import pack_model_params as jpack
+    from repro import configs as JC
+    from repro.checkpoint.manager import save_pytree
+    from repro.core import kratos as jkr
+    from repro.kernels import ops as jops
+    from repro.kernels.ssm_scan import ssm_scan_ref as jssm_ref
+    from repro.models import ssm as JS
+    from repro.models import transformer as JT
+    from repro.serve import EngineConfig as JEngineConfig
+    from repro.serve import InferenceEngine as JEngine
+    from repro.serve import ModelRegistry as JRegistry
+    from repro.serve.registry import pack_model_params as jpack
+
+    from test_torch_serve import _record_decode_host_reads
+
 from repro_torch import configs as PC
 from repro_torch.checkpoint.convert import convert
 from repro_torch.core import kratos as pkr
@@ -44,11 +51,11 @@ from repro_torch.serve import (EngineConfig, InferenceEngine, ModelRegistry,
                                PageLayout, prefix_supported)
 from repro_torch.serve.registry import pack_model_params
 
-from test_torch_serve import _record_decode_host_reads
-
+needs_jax = pytest.mark.skipif(
+    jax is None, reason="compares the port with the JAX package, and JAX is "
+    "not installed")
 ARCH = "falcon-mamba-7b"
-SPECS = {"dense": jkr.KratosSpec(),
-         "s0.5w8": jkr.KratosSpec(sparsity=0.5, bits=8, bk=8, bn=8)}
+SPECS = {"dense": {}, "s0.5w8": dict(sparsity=0.5, bits=8, bk=8, bn=8)}
 MAX_LEN = 32
 # (prompt length, new tokens, arrival step): lengths off every pow2 bucket
 # and below the conv tail (2), staggered arrivals, and 9 + 30 positions,
@@ -64,6 +71,10 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def jax_spec(name):
+    return jkr.KratosSpec(**SPECS[name])
 
 
 def port_spec(s):
@@ -86,6 +97,7 @@ def scan_inputs(seed, bsz, s, di, st):
 # kernel: plain version vs Pallas interpret and vs the sequential oracle
 # ---------------------------------------------------------------------------
 
+@needs_jax
 @pytest.mark.parametrize("bsz,s,di,st,bd,ck,dtype", [
     (1, 16, 8, 4, 8, 4, "float32"),
     (2, 32, 16, 4, 8, 8, "float32"),
@@ -111,6 +123,7 @@ def test_ssm_scan_plain_vs_pallas(bsz, s, di, st, bd, ck, dtype):
                                atol=tol)
 
 
+@needs_jax
 @pytest.mark.parametrize("s", [7, 1])
 def test_ssm_scan_plain_vs_jax_oracle(s):
     """Lengths the Pallas kernel's chunking does not take (the port's
@@ -136,10 +149,15 @@ def cuda_device():
 def test_cuda_ssm_scan_matches_plain_version(cuda_device, dtype):
     """The kernel against its plain version on the card: 1-token and
     ragged lengths, a d_inner off the CTA's channel count, d_state 16, 8
-    and 5."""
+    and 5; falcon-mamba's d_inner 8192 at lengths within, at and across
+    the kernel's staged 32-position blocks (1, 31, 64, 65, 512) and a
+    narrow d_inner at 512 positions. A second call is bitwise equal."""
     td = getattr(torch, dtype)
     tol = (1e-4, 1e-4) if dtype == "float32" else (3e-2, 3e-2)
-    for bsz, s, di, st in ((1, 1, 256, 16), (2, 33, 128, 8), (1, 130, 72, 5)):
+    for bsz, s, di, st in ((1, 1, 256, 16), (2, 33, 128, 8), (1, 130, 72, 5),
+                           (1, 1, 8192, 16), (1, 31, 8192, 16),
+                           (1, 64, 8192, 16), (1, 65, 8192, 16),
+                           (1, 512, 8192, 16), (1, 512, 512, 16)):
         u, dt, b, c, a = (torch.from_numpy(x).to(cuda_device)
                           for x in scan_inputs(2, bsz, s, di, st))
         args = [x.to(td) for x in (u, dt, b, c)] + [a]
@@ -150,6 +168,8 @@ def test_cuda_ssm_scan_matches_plain_version(cuda_device, dtype):
         torch.testing.assert_close(y.float(), want_y.float(), atol=tol[0],
                                    rtol=tol[1])
         torch.testing.assert_close(h, want_h, atol=tol[0], rtol=tol[1])
+        y2, h2 = pops.ssm_scan(*args)
+        assert torch.equal(y, y2) and torch.equal(h, h2)
     torch.cuda.synchronize()
 
 
@@ -163,6 +183,7 @@ def to_torch(tree):
     return torch.from_numpy(np.array(tree))
 
 
+@needs_jax
 @pytest.mark.parametrize("s", [12, 2])
 def test_mamba_apply_matches_jax(s):
     """Full sequence without a cache, prefill into a cache (conv tail and
@@ -203,6 +224,7 @@ def test_mamba_apply_matches_jax(s):
         close(pc[name].numpy(), np.asarray(jc[name]), err_msg=name)
 
 
+@needs_jax
 def test_falcon_config_matches_jax():
     """The published and smoke configs, field for field where both
     packages have the field."""
@@ -228,8 +250,9 @@ def carried(spec, path):
     return cfg, params, jpack(params, spec)[0], model
 
 
+@needs_jax
 def test_convert_carries_the_mamba_tree(tmp_path):
-    _, params, _, model = carried(SPECS["dense"], tmp_path)
+    _, params, _, model = carried(jax_spec("dense"), tmp_path)
     ported = convert(str(tmp_path), 4)
     mixer = params["blocks"][0]["mixer"]
     for i in range(4):
@@ -245,9 +268,10 @@ def test_convert_carries_the_mamba_tree(tmp_path):
     assert model.n_packed == 3 * 4        # in/x/out per layer; dt_proj stays
 
 
+@needs_jax
 @pytest.mark.parametrize("name", list(SPECS))
 def test_falcon_prefill_and_decode_logits_match_jax(name, tmp_path):
-    cfg, _, jparams, model = carried(SPECS[name], tmp_path)
+    cfg, _, jparams, model = carried(jax_spec(name), tmp_path)
     bsz, s0, steps = 2, 10, 4
     tokens = np.random.default_rng(0).integers(0, cfg.vocab, (bsz, s0)) \
         .astype(np.int32)
@@ -295,7 +319,7 @@ def _run(engine, prompts):
 @functools.lru_cache(maxsize=None)
 def _jax_side(name):
     """(JAX greedy tokens, JAX params) for one spec."""
-    spec = SPECS[name]
+    spec = jax_spec(name)
     cfg = JC.get_smoke(ARCH, kratos=spec)
     params = JT.init(jax.random.PRNGKey(0), cfg)
     model = JRegistry().load(ARCH, spec, params=params)
@@ -306,12 +330,13 @@ def _jax_side(name):
 def _port_model(name, tmp_path):
     want, params = _jax_side(name)
     save_pytree(str(tmp_path), params)
-    model = ModelRegistry().load(ARCH, port_spec(SPECS[name]),
+    model = ModelRegistry().load(ARCH, port_spec(jax_spec(name)),
                                  params=convert(str(tmp_path), 4),
                                  device="cpu")
     return want, model
 
 
+@needs_jax
 @pytest.mark.parametrize("k", [1, 4])
 @pytest.mark.parametrize("name", list(SPECS))
 def test_falcon_greedy_tokens_match_jax_engine(name, k, tmp_path,
@@ -339,6 +364,7 @@ def test_falcon_greedy_tokens_match_jax_engine(name, k, tmp_path,
     assert rep["requests_completed"] == len(TRACE)
 
 
+@needs_jax
 def test_paged_falcon_engine_serves_the_slab_tokens(tmp_path):
     """Through the page pool (page_size 16) the recurrent leaves stay
     resident, no page is allocated and no prefix is shared; the tokens
