@@ -21,7 +21,8 @@ Phases, in order; any failure raises and exits non-zero:
      SDPA runs for f32 at d = 192. quant_matmul_w8a8 (its activation
      quantization inside the launch) is held bit for bit to its plain
      version; the paged attention and scan kernels are each held to two
-     bitwise-equal calls;
+     bitwise-equal calls; paged attention also at the speculative verify
+     block (sq 5);
   4. model parity: the port's forward on the card against the same forward
      on the CPU (plain versions), full width cut to 2 layers, one prefill
      batch and 4 greedy decode steps;
@@ -55,7 +56,20 @@ Phases, in order; any failure raises and exits non-zero:
      run), each spec launches only its own GEMMs, no attention kernel
      runs, and a traced decode dispatch copies to the host once; 3 decode
      dispatches and 3 512-token prefills are traced, and each prefill shows
-     the scan's device ms.
+     the scan's device ms;
+  9. speculative self-draft decode, phase 5's traffic, greedy:
+     h2o-danube-1.8b at full width and depth (dense target, s0.5 x int8
+     draft, K 4) from the slab and the page pool, and falcon-mamba-7b at
+     full width and depth (dense target, w8 draft, K 2). Tokens equal the
+     same model's plain decode (or the first divergent step's top-2 gap is
+     below 1e-3); acceptance rate, commits per cycle, wall and device ms
+     per cycle and per committed token, idle share.
+Every decode dispatch of phases 5-9 replays the CUDA graph the engine
+captured at build: each of those phases times it against the eager step on
+the same state, in alternating turns within this process, traces both
+(device ms and ops, idle share, one device-to-host copy each), and serves
+one of its configurations a second time through the eager step, which must
+give the same tokens.
 The last lines are the kernels JSON line, the card line and
 {"ok": true, "device": {...}}. Per-case numbers go to
 chiprun_out/chip_smoke.json. Without a CUDA device it exits 2.
@@ -63,6 +77,7 @@ chiprun_out/chip_smoke.json. Without a CUDA device it exits 2.
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import statistics
@@ -320,6 +335,101 @@ def profile_calls(torch, fn, n, dtoh=None, retries=3):
     return kept, retaken
 
 
+def dispatch_fn(eng):
+    """The engine's decode dispatch on its backend: `decode_block`, or
+    `spec_decode_block` when it speculates. Both replay the CUDA graph
+    captured at build and take eager=True to run the eager step instead,
+    on the same state."""
+    bk = eng.backend
+    return bk.spec_decode_block if eng.cfg.speculate else bk.decode_block
+
+
+def run_eager(eng):
+    """Route every dispatch of `eng` through its eager step (the graph's
+    A/B partner)."""
+    bk = eng.backend
+    name = "spec_decode_block" if eng.cfg.speculate else "decode_block"
+    setattr(bk, name, functools.partial(getattr(bk, name), eager=True))
+    return eng
+
+
+def graph_vs_eager(torch, eng, per, turns=3, n=3, traces=2):
+    """Wall ms per micro-step (`per` micro-steps a dispatch; 1 for a
+    speculative cycle) of the graphed dispatch against the eager step on
+    the same state, in alternating turns of n dispatches each, in this one
+    process; then `traces` traced graph dispatches and one traced eager
+    one, each with exactly one device-to-host copy."""
+    fn = dispatch_fn(eng)
+    fn()
+    fn(eager=True)
+    torch.cuda.synchronize()
+    ms = {"graph": [], "eager": []}
+    for _ in range(turns):
+        for mode, out in ms.items():
+            t = time.perf_counter()
+            for _ in range(n):
+                fn(eager=mode == "eager")
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) * 1e3 / (n * per))
+    graph_prof, retaken = profile_calls(torch, fn, traces, dtoh=1)
+    eager_prof, eager_retaken = profile_calls(
+        torch, lambda: fn(eager=True), 1, dtoh=1)
+    return dict(graph_ms=ms["graph"], eager_ms=ms["eager"],
+                graph_prof=graph_prof, eager_prof=eager_prof,
+                retaken_graph_traces=len(retaken),
+                retaken_eager_traces=len(eager_retaken))
+
+
+def ab_summary(ab, per):
+    """The A/B's numbers without the raw traces: wall ms per micro-step,
+    and per micro-step device ms, device ops and the idle share of each
+    traced dispatch."""
+    out = dict(graph_ms=ab["graph_ms"], eager_ms=ab["eager_ms"],
+               retaken_graph_traces=ab["retaken_graph_traces"],
+               retaken_eager_traces=ab["retaken_eager_traces"])
+    for mode in ("graph", "eager"):
+        prof = ab[mode + "_prof"]
+        out[mode + "_idle_share"] = [c["idle_share"] for c in prof]
+        out[mode + "_device_ms"] = [c["busy_ms"] / per for c in prof]
+        out[mode + "_device_ops"] = [c["device_ops"] / per for c in prof]
+    return out
+
+
+def print_ab(card, ab, per, unit="micro-step"):
+    s = ab_summary(ab, per)
+    r = lambda xs, d=3: [round(x, d) for x in xs]
+    print(f"    graph against eager [{card}], wall ms / {unit} in "
+          f"alternating turns: graph {r(s['graph_ms'])} (median "
+          f"{statistics.median(s['graph_ms']):.3f}), eager "
+          f"{r(s['eager_ms'])} (median {statistics.median(s['eager_ms']):.3f}"
+          f"); device ms / {unit} graph {r(s['graph_device_ms'])} eager "
+          f"{r(s['eager_device_ms'])}; device ops / {unit} graph "
+          f"{s['graph_device_ops']} eager {s['eager_device_ops']}; idle share "
+          f"graph {r(s['graph_idle_share'], 4)} eager "
+          f"{r(s['eager_idle_share'], 4)}; traces retaken graph "
+          f"{s['retaken_graph_traces']} eager {s['retaken_eager_traces']}",
+          flush=True)
+    return s
+
+
+def eager_identity(torch, model, ecfg, prompts, gen_len, want):
+    """Serve the same traffic through a fresh engine whose every dispatch
+    runs the eager step: its tokens must equal the graphed run's."""
+    from repro_torch.serve import InferenceEngine
+    eng = run_eager(InferenceEngine(model, ecfg))
+    reqs = [eng.submit(p, gen_len) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    got = [list(r.generated) for r in reqs]
+    bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    print(f"    graph against eager tokens over {len(want)} requests: "
+          f"{'identical' if not bad else f'requests {bad} differ'}",
+          flush=True)
+    if bad:
+        raise AssertionError(f"graphed and eager tokens differ: {bad}")
+    return True
+
+
 def phase_kernels(torch, timer):
     from repro_torch.core import kratos as kr
     from repro_torch.core import quantize as qz
@@ -524,7 +634,9 @@ def phase_kernels(torch, timer):
             last_np, table_np = last.cpu().numpy(), table.cpu().numpy()
             kview = ref.paged_view(kp, table)
             vview = ref.paged_view(vp, table)
-            for sq in (1, 3):
+            # sq 5: h2o-danube's speculative verify block (K = 4), 4 x 5 =
+            # 20 query rows a kv head, two 16-row tiles
+            for sq in (1, 3, 5) if heads == 32 else (1, 3):
                 q = torch.randn((b, heads, sq, d), generator=gen,
                                 device=dev).to(dt)
                 kpos = np.arange(pp * page)
@@ -795,17 +907,10 @@ def phase_serving(torch, card, params):
         # traced device-to-host copies below
         assert rep["host_syncs_decode"] == rep["decode_steps"], rep
         # decode dispatch time at full slab width (masks make the work the
-        # same whether slots are live or parked)
-        n_disp = 5
-        eng.backend.decode_block()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        for _ in range(n_disp):
-            eng.backend.decode_block()
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t1) * 1e3 / (n_disp * k)
-        decode_prof, retaken = profile_calls(
-            torch, eng.backend.decode_block, 3, dtoh=1)
+        # same whether slots are live or parked), graph against eager
+        ab = graph_vs_eager(torch, eng, k, traces=3)
+        step_ms = statistics.median(ab["graph_ms"])
+        decode_prof, retaken = ab["graph_prof"], ab["retaken_graph_traces"]
         # one 512-token prefill (the largest bucket), wall and device time
         batch = {"tokens": torch.from_numpy(
             np.resize(prompts[0], (1, 512)).astype(np.int32)).cuda()}
@@ -838,6 +943,8 @@ def phase_serving(torch, card, params):
             host_syncs_prefill=rep["host_syncs_prefill"],
             tokens=rep["tokens_generated"],
             decode_micro_step_ms=step_ms,
+            eager_decode_micro_step_ms=statistics.median(ab["eager_ms"]),
+            eager_decode_dispatch_profiled=ab["eager_prof"],
             packed_mb=model.packed_bytes / 2 ** 20,
             dense_mb=model.dense_bytes / 2 ** 20, launches=counts)
         print(f"  serve {tag:8s} [{card}] tok/s={results[tag]['tok_per_s']:.1f} "
@@ -863,7 +970,13 @@ def phase_serving(torch, card, params):
               f"GEMM device ms / micro-step {[round(v, 3) for v in gemm]}, "
               f"non-GEMM {[round(v, 3) for v in other]}, device ops / "
               f"micro-step {n_ops}", flush=True)
+        results[tag]["graph_vs_eager"] = print_ab(card, ab, k)
+        if tag == "dense":
+            results[tag]["eager_tokens_identical"] = eager_identity(
+                torch, model, ecfg, prompts, gen_len,
+                [list(r.generated) for r in reqs])
         del eng, model
+        gc.collect()
     return totals, results
 
 
@@ -947,16 +1060,9 @@ def phase_paged_serving(torch, card, params):
                 == layers * rep["micro_steps"], (counts, rep["micro_steps"])
         else:
             assert counts["paged_flash_attention"] == 0, counts
-        n_disp = 5
-        eng.backend.decode_block()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        for _ in range(n_disp):
-            eng.backend.decode_block()
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t1) * 1e3 / (n_disp * k)
-        prof, retaken = profile_calls(torch, eng.backend.decode_block, 2,
-                                      dtoh=1)
+        ab = graph_vs_eager(torch, eng, k)
+        step_ms = statistics.median(ab["graph_ms"])
+        prof, retaken = ab["graph_prof"], ab["retaken_graph_traces"]
         other = [non_gemm_ms(c) / k for c in prof]
         gemm = [gemm_ms(c) / k for c in prof]
         n_ops = [c["device_ops"] / k for c in prof]
@@ -994,10 +1100,13 @@ def phase_paged_serving(torch, card, params):
               f"dispatches={rep['decode_steps']:.0f} "
               f"micro_steps={rep['micro_steps']:.0f} launches={counts}",
               flush=True)
+        results[tag]["graph_vs_eager"] = print_ab(card, ab, k)
         if tag == "dense-paged":
             print("  dense paged against dense slab tokens:", flush=True)
             results[tag]["divergences"] = first_divergence(
                 torch, model, prompts, tokens[tag], tokens["dense-slab"])
+            results[tag]["eager_tokens_identical"] = eager_identity(
+                torch, model, ecfg, prompts, gen_len, tokens[tag])
         del eng, model
         gc.collect()
     return totals, results
@@ -1048,10 +1157,12 @@ def phase_prefix_reuse(torch, card):
     follow_new = [rng.integers(0, cfg.vocab, 32).astype(np.int32)
                   for _ in sources]
 
-    def serve(page_size):
+    def serve(page_size, eager=False):
         eng = InferenceEngine(model, EngineConfig(
             n_slots=n_slots, max_len=max_len, decode_chunk=k, seed=SEED,
             page_size=page_size))
+        if eager:
+            run_eager(eng)
         admit_ms = []
         start = eng._start
 
@@ -1104,7 +1215,15 @@ def phase_prefix_reuse(torch, card):
     print(f"  admission wall ms: unmatched {[round(v, 1) for v in miss]}, "
           f"matched {[round(v, 1) for v in hit]}", flush=True)
     paged_tokens = [list(r.generated) for r in reqs]
+    ab = print_ab(card, graph_vs_eager(torch, eng, k), k)
     del eng
+    _, eager_reqs, _, _ = serve(page, eager=True)
+    eager_same = [list(r.generated) for r in eager_reqs] == paged_tokens
+    print(f"    graph against eager tokens over {len(reqs)} requests: "
+          f"{'identical' if eager_same else 'different'}", flush=True)
+    assert eager_same, "graphed and eager tokens differ"
+    del eager_reqs
+    gc.collect()
     slab, slab_reqs, _, slab_admit = serve(None)
     print("  paged against slab tokens:", flush=True)
     div = first_divergence(torch, model, wave + follow, paged_tokens,
@@ -1112,6 +1231,7 @@ def phase_prefix_reuse(torch, card):
     result = dict(wall_s=wall, prefix_matched=matched, launches=counts,
                   max_memory_allocated=peak, admission_ms=admit_ms,
                   slab_admission_ms=slab_admit, divergences=div,
+                  graph_vs_eager=ab, eager_tokens_identical=eager_same,
                   report={key: rep[key] for key in (
                       "prefix_hit_rate", "prefill_skip_fraction",
                       "prefill_tokens_skipped", "conversation_prefix_hits",
@@ -1185,16 +1305,9 @@ def phase_mamba_serving(torch, card):
         assert counts["flash_attention"] == 0, counts
         assert counts["paged_flash_attention"] == 0, counts
         assert rep["host_syncs_decode"] == rep["decode_steps"], rep
-        n_disp = 5
-        eng.backend.decode_block()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        for _ in range(n_disp):
-            eng.backend.decode_block()
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t1) * 1e3 / (n_disp * k)
-        decode_prof, retaken = profile_calls(
-            torch, eng.backend.decode_block, 3, dtoh=1)
+        ab = graph_vs_eager(torch, eng, k, traces=3)
+        step_ms = statistics.median(ab["graph_ms"])
+        decode_prof, retaken = ab["graph_prof"], ab["retaken_graph_traces"]
         batch = {"tokens": torch.from_numpy(
             np.resize(prompts[0], (1, 512)).astype(np.int32)).cuda()}
         eng.backend.prefill(batch, exact=True)
@@ -1226,6 +1339,8 @@ def phase_mamba_serving(torch, card):
             prefill_512_gemm_device_ms=prefill_gemm,
             decode_dispatch_profiled=decode_prof,
             retaken_decode_traces=retaken,
+            eager_decode_micro_step_ms=statistics.median(ab["eager_ms"]),
+            eager_decode_dispatch_profiled=ab["eager_prof"],
             prefill_512_profiled=prefill_prof,
             packed_mb=model.packed_bytes / 2 ** 20,
             dense_mb=model.dense_bytes / 2 ** 20, launches=counts)
@@ -1237,10 +1352,15 @@ def phase_mamba_serving(torch, card):
               f"micro-step {[round(v, 3) for v in gemm]} non-GEMM "
               f"{[round(v, 3) for v in other]} idle share "
               f"{[round(v, 4) for v in idle]} (decode traces retaken: "
-              f"{len(retaken)}) "
+              f"{retaken}) "
               f"dispatches="
               f"{rep['decode_steps']:.0f} micro_steps="
               f"{rep['micro_steps']:.0f} launches={counts}", flush=True)
+        results[tag]["graph_vs_eager"] = print_ab(card, ab, k)
+        if tag == "dense":
+            results[tag]["eager_tokens_identical"] = eager_identity(
+                torch, model, ecfg, prompts, gen_len,
+                [list(r.generated) for r in reqs])
         print(f"    512-token prefill: untraced wall {prefill_ms:.2f} ms, "
               f"ssm_scan device ms {[round(v, 3) for v in scan]} against "
               f"GEMM device ms {[round(v, 3) for v in prefill_gemm]}, idle "
@@ -1262,6 +1382,172 @@ def phase_mamba_serving(torch, card):
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    return totals, results
+
+
+def spec_cell(torch, card, model, prompts, k, page_size, gemms):
+    """One speculative cell: `model` (a drafted artifact) serves `prompts`
+    greedy with speculate=k, after the same model's plain decode (K =
+    CHUNK) on the same traffic; the launch counts of the speculative run
+    are returned."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import EngineConfig, InferenceEngine
+    from repro_torch.models import transformer as T
+    cfg = model.cfg
+    base = dict(n_slots=N_SLOTS, max_len=512 + GEN_LEN, seed=SEED,
+                page_size=page_size)
+    # how far the draft's repack moves this network's argmax: top-1
+    # agreement of draft and target over the prompts' first 32 positions
+    tokens = torch.from_numpy(np.stack([p[:32] for p in prompts])).cuda()
+    top1 = [T.forward(params, tokens, c)[0].argmax(-1) for params, c in (
+        (model.params, cfg), (model.draft_params, model.draft_cfg))]
+    agreement = float((top1[0] == top1[1]).float().mean())
+    del top1
+    spec_cfg = EngineConfig(speculate=k, **base)
+
+    def serve(ecfg):
+        eng = InferenceEngine(model, ecfg)
+        reqs = [eng.submit(p, GEN_LEN) for p in prompts]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        return eng, [list(r.generated) for r in reqs], wall, counts
+
+    plain_eng, plain, plain_wall, _ = serve(EngineConfig(decode_chunk=CHUNK,
+                                                         **base))
+    plain_ms = graph_vs_eager(torch, plain_eng, CHUNK, turns=2, traces=1)
+    plain_tok_s = plain_eng.metrics.report()["tokens_generated"] / plain_wall
+    del plain_eng
+    warm = InferenceEngine(model, spec_cfg)          # allocator warm-up
+    warm.submit(prompts[0][:32], 4)
+    warm.run()
+    del warm
+    gc.collect()
+    eng, got, wall, counts = serve(spec_cfg)       # the main path
+    rep = eng.metrics.report()
+    layers = cfg.n_layers
+    assert all(len(t) == GEN_LEN for t in got)
+    for name in GEMM_KERNELS:
+        assert (counts[name] > 0) == (name in gemms), counts
+    if cfg.is_ssm:
+        # one scan a layer in the target's and in the draft's prefill
+        assert counts["ssm_scan"] == (layers + model.draft_cfg.n_layers) \
+            * len(prompts), counts
+        assert counts["flash_attention"] == counts["paged_flash_attention"] \
+            == 0, counts
+    else:
+        assert counts["flash_attention"] > 0, counts
+        # one verify block a layer a cycle through the page table
+        assert counts["paged_flash_attention"] == (
+            layers * rep["spec_dispatches"] if page_size else 0), \
+            (counts, rep["spec_dispatches"])
+    assert rep["host_syncs_decode"] == rep["spec_dispatches"], rep
+    print("    speculative against plain tokens:", flush=True)
+    div = first_divergence(torch, model, prompts, got, plain)
+    decoded = rep["tokens_generated"] - len(prompts)   # first tokens aside
+    slot_cycles = sum(eng.metrics.occupancy) * N_SLOTS
+    commits = decoded / slot_cycles             # per live slot and cycle
+    ab = graph_vs_eager(torch, eng, 1)
+    s = ab_summary(ab, 1)
+    cycle_ms = statistics.median(s["graph_ms"])
+    plain_step = statistics.median(plain_ms["graph_ms"])
+    res = dict(
+        k=k, page_size=page_size, draft=model.draft_spec.tag,
+        wall_s=wall, tok_per_s=rep["tokens_generated"] / wall,
+        plain_wall_s=plain_wall, plain_tok_per_s=plain_tok_s,
+        spec_dispatches=rep["spec_dispatches"],
+        acceptance_rate=rep["acceptance_rate"],
+        draft_proposed=rep["draft_proposed"],
+        draft_accepted=rep["draft_accepted"],
+        draft_verify_flop_ratio=rep["draft_verify_flop_ratio"],
+        commits_per_slot_cycle=commits, draft_top1_agreement=agreement,
+        committed_per_cycle=decoded / rep["spec_dispatches"],
+        cycle_ms=cycle_ms, eager_cycle_ms=statistics.median(s["eager_ms"]),
+        # at full occupancy: every slot live, `commits` tokens each
+        ms_per_committed_token=cycle_ms / (N_SLOTS * commits),
+        plain_micro_step_ms=plain_step,
+        plain_ms_per_token=plain_step / N_SLOTS,
+        cycle_device_ms=s["graph_device_ms"],
+        cycle_idle_share=s["graph_idle_share"],
+        cycle_device_ops=s["graph_device_ops"],
+        cycle_device_ms_by_kernel=[c["device_ms_by_kernel"]
+                                   for c in ab["graph_prof"]],
+        graph_vs_eager=s, plain_graph_vs_eager=ab_summary(plain_ms, CHUNK),
+        latency_s_p50=rep["latency_s_p50"],
+        latency_s_p99=rep["latency_s_p99"], divergences=div,
+        launches=counts)
+    print(f"  spec {cfg.name} {'paged' if page_size else 'slab'} K={k} draft "
+          f"{res['draft']} [{card}] acceptance {res['acceptance_rate']:.4f} "
+          f"({rep['draft_accepted']:.0f} of {rep['draft_proposed']:.0f}; "
+          f"draft top-1 agreement over {tokens.numel()} prompt positions "
+          f"{agreement:.4f}), "
+          f"commits / slot-cycle {commits:.3f}, cycles "
+          f"{rep['spec_dispatches']:.0f}, wall ms / cycle {cycle_ms:.3f} "
+          f"(eager {res['eager_cycle_ms']:.3f}), ms / committed token at "
+          f"{N_SLOTS} slots {res['ms_per_committed_token']:.3f} against "
+          f"plain {res['plain_ms_per_token']:.3f} (micro-step "
+          f"{plain_step:.3f}), device ms / cycle "
+          f"{[round(v, 3) for v in s['graph_device_ms']]}, idle share "
+          f"{[round(v, 4) for v in s['graph_idle_share']]}, tok/s "
+          f"{res['tok_per_s']:.1f} (plain {plain_tok_s:.1f}), launches "
+          f"{counts}", flush=True)
+    print_ab(card, ab, 1, unit="cycle")
+    for c in ab["graph_prof"]:
+        by = {n: round(v, 3) for n, v in c["device_ms_by_kernel"].items()}
+        print(f"    traced cycle: device ms by kernel {by}", flush=True)
+    del eng
+    gc.collect()
+    res["eager_tokens_identical"] = eager_identity(torch, model, spec_cfg,
+                                                   prompts, GEN_LEN, got)
+    return counts, res
+
+
+def phase_speculative(torch, card):
+    """Speculative self-draft decode at full width, random f32 weights from
+    the seed, phase 5's traffic, greedy: h2o-danube-1.8b (24 layers, dense
+    target, s0.5 x int8 draft through bsr_quant_matmul, K 4) from the slab
+    and the page pool; falcon-mamba-7b (64 layers, dense target, w8 draft
+    through quant_matmul, K 2: the recurrent rollback)."""
+    from repro_torch import configs as C
+    from repro_torch.core import kratos as kr
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import DraftSpec, ModelRegistry
+
+    cells = ((DANUBE, DraftSpec(bits=8, sparsity=0.5), 4, (None, 16),
+              {"dense_matmul", "bsr_quant_matmul"}),
+             (FALCON, DraftSpec(bits=8), 2, (None,),
+              {"dense_matmul", "quant_matmul"}))
+    totals = {name: 0 for name in ops.KERNELS}
+    results = {}
+    for arch, dspec, k, pages, gemms in cells:
+        cfg = C.get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        params = T.init(cfg, seed=SEED, device="cuda")
+        t0 = time.perf_counter()
+        model = ModelRegistry().load(arch, kr.DENSE, smoke=False,
+                                     params=params, seed=SEED,
+                                     draft_spec=dspec)
+        torch.cuda.synchronize()
+        print(f"  {model.name}: draft packed in "
+              f"{time.perf_counter() - t0:.1f} s, memory_allocated "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+        prompts = serving_traffic(cfg.vocab)
+        for page_size in pages:
+            counts, res = spec_cell(torch, card, model, prompts, k,
+                                    page_size, gemms)
+            results[f"{arch} {'paged' if page_size else 'slab'}"] = res
+            for name, c in counts.items():
+                totals[name] += c
+        results[arch + " max_memory_allocated"] = \
+            torch.cuda.max_memory_allocated()
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
     return totals, results
 
 
@@ -1321,7 +1607,11 @@ def main() -> int:
     assert parity_launches["ssm_scan"] == 2 * 2, parity_launches
     print(f"  {FALCON} full width and depth", flush=True)
     mamba_launches, mamba = phase_mamba_serving(torch, card)
-    for more in (paged_launches, reuse_launches, mamba_launches):
+    print("[9] speculative self-draft decode: h2o-danube-1.8b (slab, paged) "
+          f"and {FALCON}, full width and depth", flush=True)
+    spec_launches, spec = phase_speculative(torch, card)
+    for more in (paged_launches, reuse_launches, mamba_launches,
+                 spec_launches):
         for name, c in more.items():
             launches[name] += c
 
@@ -1342,7 +1632,7 @@ def main() -> int:
          "kernels": kernels,
          "cases": [{k: v for k, v in c.items() if k != "key"} for c in cases],
          "serving": serving, "paged_serving": paged, "prefix_reuse": reuse,
-         "mamba_serving": mamba},
+         "mamba_serving": mamba, "speculative": spec},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

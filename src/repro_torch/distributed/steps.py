@@ -6,20 +6,32 @@ per-slot EOS and length masking with `torch.where` — and nothing inside
 the loop reads a value back to the host (no `.item()`, `.cpu()` or
 `nonzero`). The stacked (K, B) int32 token block is the one thing the
 caller copies out per dispatch. The KV slab (or page store) and the loop
-state are updated in place on the device. `make_paged_decode_step` is the
-native paged form — the page table rides into every forward as device
-state — and `make_suffix_prefill_step` prefills only the unmatched suffix
-of a prefix-reuse admission. Training steps and speculative decode are not
-ported yet (ROADMAP.md queue 1, items 6 and 9).
+state are updated in place on the device: every step ends by `copy_`-ing
+its results into the state's own tensors, so a CUDA graph of the step
+(serve.backend) reads and writes fixed addresses. `make_paged_decode_step`
+is the native paged form — the page table rides into every forward as
+device state — and `make_suffix_prefill_step` prefills only the unmatched
+suffix of a prefix-reuse admission.
+
+`make_speculative_decode_step` (and its paged form) is the fused
+propose-then-verify cycle of speculative decode (serve.speculative): the
+draft proposes K tokens, the target verifies them in one dispatch,
+`accept_tokens` picks each slot's commit, and rejected suffixes roll back
+(an index rewind; recurrent leaves select the state at the accepted step).
+Training steps are not ported yet (ROADMAP.md queue 1, item 9).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.models import transformer as T
+
+# the loop-state entries a decode step advances (the rest are written only
+# at admission)
+LOOP_STATE = ("tokens", "index", "remaining", "active")
 
 
 def make_prefill_step(cfg: T.ModelConfig, last_only: bool = True, *,
@@ -57,24 +69,26 @@ def make_decode_step(cfg: T.ModelConfig, *, n_steps: int,
         pages = None if page_table is None else dict(pages_meta,
                                                      table=page_table)
         toks = []
-        st = state
+        st = {name: state[name] for name in LOOP_STATE}
+        eos = state["eos"]
         for _ in range(n_steps):
             logits, caches = T.forward(params, st["tokens"][:, None], cfg,
                                        caches=caches, index=st["index"],
                                        pages=pages)
-            tok = T.sample_tokens(logits[:, -1], st["generator"],
-                                  st["temperature"])
+            tok = T.sample_tokens(logits[:, -1], state["generator"],
+                                  state["temperature"])
             active = st["active"]
             tok = torch.where(active, tok, st["tokens"])
             remaining = torch.where(active, st["remaining"] - 1,
                                     st["remaining"])
-            hit_eos = active & (st["eos"] >= 0) & (tok == st["eos"])
-            st = dict(st, tokens=tok,
+            hit_eos = active & (eos >= 0) & (tok == eos)
+            st = dict(tokens=tok,
                       index=torch.where(active, st["index"] + 1, st["index"]),
                       remaining=remaining,
                       active=active & (remaining > 0) & ~hit_eos)
             toks.append(tok)
-        return torch.stack(toks), caches, st
+        write_state(state, st)
+        return torch.stack(toks), caches, state
 
     if pages_meta is not None:
         def paged_decode(params, caches, page_table, state):
@@ -134,8 +148,10 @@ def make_suffix_prefill_step(cfg: T.ModelConfig, *, layout):
 def make_decode_state(n_slots: int, seed: int = 0,
                       device="cuda") -> Dict[str, object]:
     """Device-resident per-slot loop state: the token/index feedback loop,
-    per-slot temperature / EOS / remaining budget / active flag (written
-    only at admission) and the sampling generator."""
+    per-slot temperature / EOS / remaining budget / active flag and
+    speculation cap `spec_limit` (written only at admission; 0 opts a slot
+    out of drafting, and the plain step ignores it) and the sampling
+    generator. Every row starts parked (remaining 0, inactive)."""
     z = dict(device=device)
     return {
         "tokens": torch.zeros(n_slots, dtype=torch.int32, **z),
@@ -145,16 +161,283 @@ def make_decode_state(n_slots: int, seed: int = 0,
         "eos": torch.full((n_slots,), -1, dtype=torch.int32, **z),
         "remaining": torch.zeros(n_slots, dtype=torch.int32, **z),
         "active": torch.zeros(n_slots, dtype=torch.bool, **z),
+        "spec_limit": torch.zeros(n_slots, dtype=torch.int32, **z),
     }
 
 
+def write_state(state: Dict[str, object], new: Dict[str, torch.Tensor]) -> None:
+    """Copy a step's advanced loop state into the state's own tensors (the
+    fixed addresses a captured graph reads at its next replay)."""
+    for name, t in new.items():
+        state[name].copy_(t)
+
+
 def install_slot(state: Dict[str, object], slot: int, token: int, index: int,
-                 temperature: float, eos: int, remaining: int) -> None:
+                 temperature: float, eos: int, remaining: int,
+                 spec_limit: int = 0) -> None:
     """Write one admitted request's row of the decode state, in place.
-    eos < 0 means no EOS; remaining <= 0 installs an inactive row."""
+    eos < 0 means no EOS; remaining <= 0 installs an inactive row;
+    spec_limit caps the draft tokens a dispatch may accept (speculative
+    decode only)."""
     state["tokens"][slot] = token
     state["index"][slot] = index
     state["temperature"][slot] = temperature
     state["eos"][slot] = eos
     state["remaining"][slot] = remaining
     state["active"][slot] = remaining > 0
+    state["spec_limit"][slot] = spec_limit
+
+
+# ---------------------------------------------------------------------------
+# Speculative decode: fused propose-then-verify (serve.speculative)
+# ---------------------------------------------------------------------------
+
+RECURRENT_LEAVES = ("conv", "ssm")
+
+
+def recurrent_cache_paths(caches) -> List[Tuple[int, str]]:
+    """(layer, leaf name) of every NON-POSITIONAL cache leaf: a Mamba
+    layer's `conv` tail and `ssm` state (models.ssm.make_mamba_cache),
+    slot-major on the slab and resident in a page store alike.
+
+    Attention caches are positional: a rolled-back write lands past the
+    rewound clock, masked until it is overwritten. A recurrent state after
+    K tokens cannot be rewound, so the speculative step keeps a per-step
+    stack of these leaves and selects each slot's accepted step."""
+    return [(li, name) for li, layer in enumerate(caches)
+            for name in layer if name in RECURRENT_LEAVES]
+
+
+def accept_tokens(z: torch.Tensor, dlog: torch.Tensor, d_block: torch.Tensor,
+                  temperature: torch.Tensor, spec_limit: torch.Tensor,
+                  generator: torch.Generator):
+    """Per-slot accept/reject and bonus token, pure on tensors.
+
+    z: (B, K+1, V) target logits on [t0, d_1..d_K]; dlog: (B, K, V) the
+    draft logits d_i was drawn from; d_block: (B, K) int32 drafts;
+    temperature: (B,) f32 (<= 0 greedy); spec_limit: (B,) int32 cap.
+    Returns (l_acc (B,) int32 accepted drafts, l_run (B,) int32 the
+    uncapped accepted run, bonus (B,) int32).
+
+    Greedy rows accept the longest prefix where d_i equals the target's
+    argmax; sampled rows accept d_i while u < p(d_i) / q(d_i). The bonus is
+    drawn from the target's column l_acc: its argmax (greedy), the residual
+    (p - q)+ after a true rejection, else p itself (a run that was capped
+    or fully accepted), so the committed stream follows p."""
+    b, k = d_block.shape
+    dev = z.device
+    greedy = temperature <= 0.0
+    tgt_next = torch.argmax(z, dim=-1).to(torch.int32)          # (B, K+1)
+    match = d_block == tgt_next[:, :k]
+    safe_t = temperature.clamp(min=1e-6)[:, None, None]
+    logp = torch.log_softmax(z[:, :k].float() / safe_t, dim=-1)
+    logq = torch.log_softmax(dlog.float() / safe_t, dim=-1)
+    d_idx = d_block.long()[..., None]
+    p_d = torch.gather(logp, 2, d_idx)[..., 0]
+    q_d = torch.gather(logq, 2, d_idx)[..., 0]
+    u = torch.rand((b, k), generator=generator, device=dev).clamp_(min=1e-20)
+    accept = torch.where(greedy[:, None], match, torch.log(u) < p_d - q_d)
+    l_run = torch.cumprod(accept.to(torch.int32), dim=1).sum(dim=1) \
+        .to(torch.int32)
+    l_acc = torch.minimum(l_run, spec_limit.to(torch.int32))
+    rows = torch.arange(b, device=dev)
+    lacc = l_acc.long()
+    z_l = z[rows, lacc].float()                                 # (B, V)
+    bonus_g = torch.argmax(z_l, dim=-1).to(torch.int32)
+    q_l = torch.cat([dlog, torch.zeros_like(dlog[:, :1])], 1)[rows, lacc]
+    logp_l = torch.log_softmax(z_l / safe_t[:, 0], dim=-1)
+    logq_l = torch.log_softmax(q_l.float() / safe_t[:, 0], dim=-1)
+    resid = torch.log((logp_l.exp() - logq_l.exp()).clamp(min=1e-30))
+    # the residual conditions on "an ELIGIBLE draft token was rejected": a
+    # column past the cap could never commit, so its bonus is a plain draw
+    # from p (a capped or opted-out slot takes one plain target step)
+    use_resid = (l_acc == l_run) & (l_run < k) & (l_run < spec_limit)
+    t_logits = torch.where(use_resid[:, None], resid, logp_l)
+    g = torch.rand(z_l.shape, generator=generator, device=dev)
+    gum = -torch.log(-torch.log(g.clamp_(min=torch.finfo(torch.float32).tiny)))
+    bonus_t = torch.argmax(t_logits + gum, dim=-1).to(torch.int32)
+    return l_acc, l_run, torch.where(greedy, bonus_g, bonus_t)
+
+
+def _stacks(bufs: Dict, tag: str, caches, paths, depth: int) -> List:
+    """The per-step stacks of the recurrent leaves, (depth, *leaf) each,
+    allocated once per step function and reused by every call (a captured
+    graph writes the same buffers at every replay)."""
+    out = []
+    for li, name in paths:
+        leaf = caches[li][name]
+        key = (tag, li, name)
+        want = (depth,) + tuple(leaf.shape)
+        buf = bufs.get(key)
+        if buf is None or tuple(buf.shape) != want or buf.device != leaf.device:
+            buf = bufs[key] = torch.empty(want, dtype=leaf.dtype,
+                                          device=leaf.device)
+        out.append(buf)
+    return out
+
+
+def _snapshot(caches, paths, stacks, j: int) -> None:
+    for (li, name), stack in zip(paths, stacks):
+        stack[j].copy_(caches[li][name])
+
+
+def _restore(caches, paths, stacks, g: torch.Tensor) -> None:
+    """Each slot's recurrent leaves <- its row of the stack at step g[b]
+    (0 = the pre-dispatch state): an exact select, no arithmetic."""
+    rows = torch.arange(g.shape[0], device=g.device)
+    for (li, name), stack in zip(paths, stacks):
+        caches[li][name].copy_(stack[g, rows])
+
+
+def make_speculative_decode_step(cfg: T.ModelConfig,
+                                 draft_cfg: T.ModelConfig, *, n_draft: int,
+                                 pages_meta: Optional[Dict[str, int]] = None):
+    """Fused propose-then-verify decode:
+
+        spec_decode(params, draft_params, caches, draft_caches, state)
+            -> (commit (B, K+1), n_commit (B,), n_accept (B,),
+                caches, draft_caches, state)
+
+    all int32 on the device; caches, draft caches and state are updated in
+    place. pages_meta={'size', 'len'} builds the native paged form, which
+    takes the target's page table after `caches` and returns it after
+    them (the draft keeps its slab).
+
+    One dispatch per cycle, nothing read back to the host:
+      1. DRAFT: K+1 micro-steps (proposals d_1..d_K, then one feed of d_K
+         so the draft's cache covers a fully accepted block), sampling
+         with each slot's temperature from the state's generator.
+      2. VERIFY: the target scores [t0, d_1..d_K] in ONE (B, K+1) forward
+         with per-slot index clocks; a recurrent arch (whose decode takes
+         one token) runs K+1 single-token forwards and stacks its `conv` /
+         `ssm` leaves after each.
+      3. ACCEPT: `accept_tokens`, capped per slot by `spec_limit`.
+      4. COMMIT: EOS and budget truncate the commit on the device; the
+         index advances by the commit count (the rollback of a positional
+         cache); recurrent leaves of target and draft select each slot's
+         state after step l_acc + 1 (inactive slots keep step 0).
+
+    Greedy output equals plain greedy decode for any draft and any K."""
+    if n_draft < 1:
+        raise ValueError(f"n_draft must be >= 1, got {n_draft}")
+    k = n_draft
+    recurrent = cfg.is_ssm
+    bufs: Dict = {}
+
+    def spec_decode(params, draft_params, caches, draft_caches, state,
+                    page_table=None):
+        pages = None if page_table is None else dict(pages_meta,
+                                                     table=page_table)
+        gen, temp = state["generator"], state["temperature"]
+        active, idx0, tok0 = state["active"], state["index"], state["tokens"]
+
+        # ---- 1. draft proposes (K+1 micro-steps) -------------------------
+        d_paths = recurrent_cache_paths(draft_caches)
+        d_stacks = _stacks(bufs, "draft", draft_caches, d_paths, k + 2)
+        _snapshot(draft_caches, d_paths, d_stacks, 0)
+        tok, idx, props, dlogits = tok0, idx0, [], []
+        for j in range(k + 1):
+            logits, _ = T.forward(draft_params, tok[:, None], draft_cfg,
+                                  caches=draft_caches, index=idx)
+            _snapshot(draft_caches, d_paths, d_stacks, j + 1)
+            idx = torch.where(active, idx + 1, idx)
+            if j == k:              # the trailing feed of d_K: cache only
+                break
+            nxt = torch.where(active, T.sample_tokens(logits[:, -1], gen,
+                                                      temp), tok)
+            props.append(nxt)
+            dlogits.append(logits[:, -1])
+            tok = nxt
+        d_block = torch.stack(props, dim=1)                     # (B, K)
+        dlog = torch.stack(dlogits, dim=1)                      # (B, K, V)
+
+        # ---- 2. target verifies the block --------------------------------
+        tok_in = torch.cat([tok0[:, None], d_block], dim=1)     # (B, K+1)
+        t_paths = recurrent_cache_paths(caches)
+        if not recurrent:
+            z, _ = T.forward(params, tok_in, cfg, caches=caches, index=idx0,
+                             pages=pages)
+        else:
+            t_stacks = _stacks(bufs, "target", caches, t_paths, k + 2)
+            _snapshot(caches, t_paths, t_stacks, 0)
+            zs = []
+            for j in range(k + 1):
+                idx_j = torch.where(active, idx0 + j, idx0)
+                lg, _ = T.forward(params, tok_in[:, j:j + 1], cfg,
+                                  caches=caches, index=idx_j, pages=pages)
+                _snapshot(caches, t_paths, t_stacks, j + 1)
+                zs.append(lg[:, -1])
+            z = torch.stack(zs, dim=1)
+
+        # ---- 3. per-slot accept/reject -----------------------------------
+        l_acc, _, bonus = accept_tokens(z, dlog, d_block, temp,
+                                        state["spec_limit"], gen)
+
+        # ---- 4. commit, on-device lifecycle, rollback --------------------
+        ar = torch.arange(k + 1, dtype=torch.int32, device=tok0.device)[None]
+        d_pad = torch.cat([d_block, torch.zeros_like(d_block[:, :1])], 1)
+        lc = l_acc[:, None]
+        commit = torch.where(ar < lc, d_pad, torch.zeros_like(d_pad))
+        commit = torch.where(ar == lc, bonus[:, None], commit)
+        m_full = l_acc + 1
+        eos = state["eos"][:, None]
+        is_eos = (eos >= 0) & (commit == eos) & (ar < m_full[:, None])
+        first_eos = torch.where(is_eos, ar, torch.full_like(ar, k + 1)) \
+            .amin(dim=1)
+        m = torch.minimum(m_full, torch.minimum(first_eos + 1,
+                                                state["remaining"]))
+        m = torch.where(active, m, torch.zeros_like(m)).to(torch.int32)
+        hit_eos = (first_eos + 1) <= m
+        remaining = state["remaining"] - m
+        last = torch.gather(commit, 1, (m - 1).clamp(min=0).long()[:, None])
+        # accepted = draft tokens actually COMMITTED (EOS and budget may cut
+        # an accepted run; the bonus commits only when m == l_acc + 1)
+        n_accept = torch.where(active, torch.minimum(l_acc, m),
+                               torch.zeros_like(m))
+        if recurrent:
+            # committed state = after consuming [t0, d_1..d_L] = step L+1,
+            # for the draft and the target alike (both fed that prefix)
+            g = torch.where(active, l_acc + 1, torch.zeros_like(l_acc)).long()
+            _restore(caches, t_paths, t_stacks, g)
+            _restore(draft_caches, d_paths, d_stacks, g)
+        write_state(state, dict(
+            tokens=torch.where(active, last[:, 0], tok0),
+            index=idx0 + m,                   # the rollback: rewind the clock
+            remaining=remaining,
+            active=active & (remaining > 0) & ~hit_eos))
+        return commit, m, n_accept, caches, draft_caches, state
+
+    if pages_meta is not None:
+        def paged_spec_decode(params, draft_params, caches, page_table,
+                              draft_caches, state):
+            commit, m, acc, caches, draft_caches, state = spec_decode(
+                params, draft_params, caches, draft_caches, state, page_table)
+            return commit, m, acc, caches, page_table, draft_caches, state
+        return paged_spec_decode
+    return spec_decode
+
+
+def make_paged_speculative_decode_step(cfg: T.ModelConfig,
+                                       draft_cfg: T.ModelConfig, *,
+                                       n_draft: int, layout):
+    """Native paged form of the propose-then-verify cycle:
+
+        spec_decode(params, draft_params, store, page_table, draft_caches,
+                    state) -> (commit, n_commit, n_accept, store,
+                               page_table, draft_caches, state)
+
+    Only the target's cache is paged; the draft keeps its slab. A rejected
+    suffix is an index rewind that frees no page, and the speculative
+    headroom lands in the slot's private tail pages (prefix sharing only
+    publishes pages of final KV), so a rolled-back write never touches a
+    shared page."""
+    meta = {"size": layout.page_size, "len": layout.cache_len}
+    inner = make_speculative_decode_step(cfg, draft_cfg, n_draft=n_draft,
+                                         pages_meta=meta)
+
+    def spec_decode(params, draft_params, store, page_table, draft_caches,
+                    state):
+        return inner(params, draft_params, layout.as_tree(store), page_table,
+                     draft_caches, state)
+
+    return spec_decode

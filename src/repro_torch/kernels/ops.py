@@ -6,12 +6,16 @@ Counterpart of `repro.kernels.ops` (same contracts as its `matmul`,
 knob has no counterpart: a CUDA tensor launches the hand-written Hopper
 kernel, a CPU tensor takes its plain version, inside each wrapper.
 `launch_counts` / `reset_launch_counts` read and zero the wrappers'
-launch counters, so a run can show which kernels it went through.
+launch counters, so a run can show which kernels it went through. A CUDA
+graph calls no wrapper when it replays: `captured_launches` takes the
+calls recorded at capture off the counters and `count_replay` adds them
+back at every replay, so the counts stay launches on the device.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -38,6 +42,28 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+@contextlib.contextmanager
+def captured_launches() -> Iterator[Dict[str, int]]:
+    """Around a CUDA graph capture: yields a dict that, on exit, holds the
+    wrapper calls the capture recorded by kernel (one replay's launches),
+    and restores the counters, since a capture launches nothing."""
+    before = launch_counts()
+    per_replay: Dict[str, int] = {}
+    try:
+        yield per_replay
+    finally:
+        for name, fn in KERNELS.items():
+            if fn.launches != before[name]:
+                per_replay[name] = fn.launches - before[name]
+            fn.launches = before[name]
+
+
+def count_replay(per_replay: Dict[str, int]) -> None:
+    """One replay of a captured graph: its kernels launched once more."""
+    for name, n in per_replay.items():
+        KERNELS[name].launches += n
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -86,6 +86,24 @@ class ModelConfig:
     def adtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    def param_count(self) -> int:
+        """Analytic parameter count, the JAX package's formula for the
+        ported families (dense GQA + MLP, pure Mamba-1)."""
+        d, v = self.d_model, self.vocab
+        total = v * d * (1 if self.tie_embeddings else 2)
+        for i in range(self.n_layers):
+            kind = layer_kind(self, i)
+            if kind["mixer"] == "attn":
+                total += 2 * d * self.n_heads * self.dh \
+                    + 2 * d * self.n_kv_heads * self.dh
+            else:
+                di, r, st = self.d_inner, max(1, -(-d // 16)), self.d_state
+                total += d * 2 * di + self.d_conv * di + di * (r + 2 * st) \
+                    + r * di + di * st + di + di * d
+            if kind["ffn"] == "mlp":
+                total += (3 if self.gated else 2) * d * self.d_ff
+        return int(total)
+
 
 def layer_kind(cfg: ModelConfig, i: int) -> Dict[str, Any]:
     """What lives at layer i; every layer of a ported decoder is alike:

@@ -1,5 +1,6 @@
 """Continuous-batching serving over packed Kratos weights (port of
-`repro.serve`, slab and native paged forms)."""
+`repro.serve`, slab and native paged forms, speculative self-draft
+decode)."""
 
 from repro_torch.serve.cache_pool import CachePool, PoolExhausted
 from repro_torch.serve.engine import (EngineConfig, EngineSaturated,
@@ -11,8 +12,9 @@ from repro_torch.serve.prefix import PrefixIndex
 from repro_torch.serve.registry import (ModelRegistry, PackedModel,
                                         pack_model_params)
 from repro_torch.serve.scheduler import ContinuousScheduler, Request
+from repro_torch.serve.speculative import DraftSpec
 
-__all__ = ["CachePool", "ContinuousScheduler", "EngineConfig",
+__all__ = ["CachePool", "ContinuousScheduler", "DraftSpec", "EngineConfig",
            "EngineSaturated", "InferenceEngine", "ModelRegistry",
            "PackedModel", "PageLayout", "PagedCachePool", "PoolExhausted",
            "PrefixIndex", "ReplicaFault", "Request", "ServeMetrics",

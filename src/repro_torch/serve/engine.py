@@ -14,16 +14,25 @@ Step loop (`step()`):
      The first token is sampled from the prefill logits (one host sync)
      and the slot's row of the device loop state is installed.
   2. decode — ONE dispatch of `decode_chunk` (K) micro-steps over all
-     slots, sampling and EOS / length masking on the device; the (K, B)
-     int32 token block is the dispatch's one host sync.
+     slots, sampling and EOS / length masking on the device (on the card a
+     CUDA graph replay, serve.backend); the (K, B) int32 token block is the
+     dispatch's one host sync.
   3. lifecycle — the block is emitted per request in micro-step order,
      finished requests publish their conversation to the prefix index
      (paged) and free their slots for the next step.
 
+Speculative decode (`EngineConfig.speculate=K`, serve.speculative): the
+dispatch becomes one propose-then-verify cycle. A self-draft (the target's
+weights re-packed at a cheaper Kratos point, `registry.load(...,
+draft_spec=...)`) proposes K tokens, the target verifies them, and every
+live slot commits 1..K+1 tokens (the caches are padded by K positions).
+Greedy output is token-identical to plain decode for any draft and any K;
+a request may cap or refuse drafting with `submit(speculate=...)`.
+
 Greedy output is independent of K, of what else shares the slab, and of
-paging. Speculation, QoS tiers, deadlines, bounded pool-wait retries, the
-legacy gather/scatter paged decode, the ineffectual-work ledger, tracing
-and the host-side decode loop are not ported yet; asking for them raises
+paging. QoS tiers, deadlines, bounded pool-wait retries, the legacy
+gather/scatter paged decode, the ineffectual-work ledger, tracing and the
+host-side decode loop are not ported yet; asking for them raises
 `NotImplementedError` naming the ROADMAP.md item.
 """
 
@@ -36,6 +45,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.serve import speculative as SP
 from repro_torch.serve.backend import LocalBackend
 from repro_torch.serve.cache_pool import PoolExhausted
 from repro_torch.serve.metrics import ServeMetrics
@@ -54,7 +64,6 @@ class ReplicaFault(RuntimeError):
 # field -> (value meaning "off", ROADMAP.md item that ports it)
 _NOT_PORTED = {
     "device_loop": (True, "the host-side decode loop baseline: queue 1, item 8"),
-    "speculate": (0, "speculative decode: queue 1, item 6"),
     "paged_native": (True, "the legacy gather/scatter paged decode (an A/B "
                      "baseline): queue 1, item 10"),
     "pool_wait_retries": (None, "bounded pool-wait retries: queue 1, item 8"),
@@ -76,7 +85,11 @@ class EngineConfig:
     decode_chunk: int = 1              # K micro-steps per dispatch
     max_waiting: Optional[int] = None  # waiting-deque bound (None = open)
     device_loop: bool = True
+    # speculative decode (serve.speculative): K draft tokens per propose-
+    # then-verify dispatch (0 = off); needs a model loaded with
+    # `draft_spec=` and replaces the decode_chunk loop
     speculate: int = 0
+    draft_cache_dtype: Optional[str] = None   # None = cache_dtype
     # paged KV + prefix reuse (serve.paging): page_size carves the cache
     # into fixed pages behind per-slot page tables (None = the slab);
     # n_pages sizes the pool (None = slab capacity, n_slots *
@@ -101,6 +114,8 @@ class EngineConfig:
         if self.decode_chunk < 1:
             raise ValueError(f"decode_chunk must be >= 1, got "
                              f"{self.decode_chunk}")
+        if self.speculate < 0:
+            raise ValueError(f"speculate must be >= 0, got {self.speculate}")
         if self.max_waiting is not None and self.max_waiting < 0:
             raise ValueError(f"max_waiting must be >= 0 or None, got "
                              f"{self.max_waiting}")
@@ -119,11 +134,27 @@ class InferenceEngine:
         if device.type != model.device.type:
             raise ValueError(f"engine device {device} but model "
                              f"'{model.name}' lives on {model.device}")
+        if cfg.speculate:
+            if cfg.decode_chunk != 1:
+                raise ValueError("speculate replaces decode_chunk: one spec "
+                                 "cycle IS the multi-token dispatch; set "
+                                 "decode_chunk=1")
+            if not model.has_draft:
+                raise ValueError(
+                    f"speculate={cfg.speculate} needs a self-draft artifact: "
+                    f"load the model with registry.load(..., draft_spec=Draft"
+                    f"Spec(...)); '{model.name}' has none")
+            SP.check_supported(model.cfg, cfg.max_len + cfg.speculate)
         self.model = model
         self.cfg = cfg
         mcfg = model.cfg
         self.scheduler = ContinuousScheduler()
         self.metrics = ServeMetrics()
+        if cfg.speculate:
+            self.metrics.draft_flop_fraction = model.draft_cost_fraction()
+            # target forwards a cycle: one (B, K+1) verify, or K+1
+            # single-token steps on a recurrent arch (the steps builder)
+            self._verify_steps = cfg.speculate + 1 if mcfg.is_ssm else 1
         self.backend = LocalBackend()
         self.backend.build(model, cfg)
         self.pool = self.backend.pool
@@ -148,10 +179,12 @@ class InferenceEngine:
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int, *,
                arrival_step: int = 0, temperature: float = 0.0,
-               eos_id: Optional[int] = None) -> Request:
+               eos_id: Optional[int] = None,
+               speculate: Optional[int] = None) -> Request:
         r = Request(id=-1, prompt=np.asarray(prompt, np.int32).reshape(-1),
                     max_new_tokens=max_new_tokens, arrival_step=arrival_step,
-                    temperature=temperature, eos_id=eos_id)
+                    temperature=temperature, eos_id=eos_id,
+                    speculate=speculate)
         if r.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         need = len(r.prompt) + r.max_new_tokens
@@ -193,7 +226,8 @@ class InferenceEngine:
                     self.metrics.on_pool_wait()
                     break
         if self.pool.n_active:
-            advanced = self._decode_block()
+            advanced = self._decode_spec() if self.cfg.speculate \
+                else self._decode_block()
             stats = self.backend.page_stats()
             if stats is not None:           # per-dispatch page-pool gauge
                 self.metrics.on_pages(*stats)
@@ -260,32 +294,34 @@ class InferenceEngine:
         dev = self.backend.device
         # paged admission: the longest page-aligned cached prefix, then the
         # slot's page-table row (shared prefix pages by refcount, fresh
-        # private pages for the rest of prompt + budget). Pages are sized
-        # from the true footprint, never from the prefill bucket: padded
-        # writes past it land in the sink page. PoolExhausted propagates
-        # to step(), which requeues.
+        # private pages for the rest of prompt + budget + speculative
+        # headroom). Pages are sized from the true footprint, never from the
+        # prefill bucket: padded writes past it land in the sink page.
+        # PoolExhausted propagates to step(), which requeues.
         matched, shared, conv = self.backend.prefix_match(r.prompt)
         try:
-            self.backend.alloc_slot_pages(slot, s0 + r.max_new_tokens,
-                                          shared)
+            self.backend.alloc_slot_pages(
+                slot, s0 + r.max_new_tokens + self.cfg.speculate, shared)
         except PoolExhausted:
             self.pool.free(slot)
             raise
+        sp = self._prefill_len(s0)
+        tokens = np.zeros((1, sp), np.int32)
+        tokens[0, :s0] = r.prompt
+        batch = {"tokens": torch.from_numpy(tokens).to(dev)}
         if matched:
             # prefix hit: only the unmatched suffix runs, right-padded into
-            # the same pow2 buckets as full prefills
+            # the same pow2 buckets as full prefills (`batch` still carries
+            # the whole prompt for a speculating backend's draft)
             s_sfx = s0 - matched
             sfx = np.zeros((1, self._suffix_len(s_sfx, matched)), np.int32)
             sfx[0, :s_sfx] = r.prompt[matched:]
             logits = self.backend.prefill_suffix(
-                {"tokens": torch.from_numpy(sfx).to(dev)}, slot, matched)
+                {"tokens": torch.from_numpy(sfx).to(dev)}, batch, slot,
+                matched)
             row = logits[:, s_sfx - 1]
         else:
-            sp = self._prefill_len(s0)
-            tokens = np.zeros((1, sp), np.int32)
-            tokens[0, :s0] = r.prompt
-            logits, caches = self.backend.prefill(
-                {"tokens": torch.from_numpy(tokens).to(dev)}, exact=sp == s0)
+            logits, caches = self.backend.prefill(batch, exact=sp == s0)
             row = logits[:, -1] if sp == s0 else logits[:, s0 - 1]
             self.backend.write_slot(slot, caches)
         if self.backend.paged:
@@ -304,7 +340,8 @@ class InferenceEngine:
         eos = -1 if r.eos_id is None else int(r.eos_id)
         rem = 0 if (r.eos_id is not None and tok == r.eos_id) \
             else r.max_new_tokens - 1
-        self.backend.install(slot, tok, r.index, r.temperature, eos, rem)
+        self.backend.install(slot, tok, r.index, r.temperature, eos, rem,
+                             self._spec_limit(r))
         self._emit(r, tok, self.step_count)   # may finish (max_new_tokens 1)
 
     def _decode_block(self) -> int:
@@ -329,3 +366,64 @@ class InferenceEngine:
                 r.index += 1
                 self._emit(r, int(block[j, slot]), self.step_count + j)
         return k
+
+    def _spec_limit(self, r: Request) -> int:
+        """Per-slot speculation cap: the engine's K, clamped by the
+        request's own `speculate` (0 = opt out). It is installed on the
+        device and is the metrics' proposed-token count, so a capped slot
+        proposes only up to its cap."""
+        if not self.cfg.speculate:
+            return 0
+        if r.speculate is None:
+            return self.cfg.speculate
+        return max(0, min(r.speculate, self.cfg.speculate))
+
+    def _decode_spec(self) -> int:
+        """ONE propose-then-verify dispatch commits 1..K+1 tokens per live
+        slot. Its one host sync carries (commit block, commit counts,
+        accepted counts); the host replays each slot's committed prefix in
+        order, and the engine clock advances by the deepest commit."""
+        k = self.cfg.speculate
+        n = self.cfg.n_slots
+        self.metrics.on_decode_step(self.pool.n_active, n,
+                                    micro_steps=(k + 1) + self._verify_steps)
+        block, n_commit, n_accept = self.backend.spec_decode_block()
+        self.metrics.on_host_sync("decode")
+        # fault detection: every live slot's committed prefix is checked
+        # BEFORE anything is emitted
+        for slot in range(n):
+            if self._slots[slot] is None:
+                continue
+            m = int(n_commit[slot])
+            if not 0 <= m <= k + 1 or (m and (
+                    int(block[slot, :m].min()) < 0
+                    or int(block[slot, :m].max()) >= self._vocab)):
+                raise ReplicaFault(
+                    f"speculative sync outside [0, {self._vocab}) or commit "
+                    f"count {m} out of [0, {k + 1}]: corrupted dispatch")
+        advanced, proposed, accepted = 1, 0, 0
+        for slot in range(n):
+            r = self._slots[slot]
+            if r is None:
+                continue
+            m = int(n_commit[slot])
+            # a draft token could commit only within the slot's remaining
+            # budget: the proposed count is clamped to it
+            lim = min(self._spec_limit(r),
+                      r.max_new_tokens - len(r.generated))
+            advanced = max(advanced, m)
+            for j in range(m):
+                r.index += 1
+                self._emit(r, int(block[slot, j]), self.step_count + j)
+            if r.done and r.eos_id is not None and m \
+                    and int(block[slot, m - 1]) == r.eos_id:
+                # EOS ended the request mid-block: later columns never had
+                # a chance to commit either
+                lim = min(lim, m)
+            proposed += lim
+            acc = int(n_accept[slot])
+            accepted += acc
+            if lim:
+                self.metrics.on_slot_speculation(slot, acc, lim)
+        self.metrics.on_spec_dispatch(proposed=proposed, accepted=accepted)
+        return advanced

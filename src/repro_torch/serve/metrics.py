@@ -1,6 +1,7 @@
 """Serving metrics: throughput, latency percentiles, occupancy, host syncs,
-prefix reuse and page occupancy (the slab and paged engine's subset of
-`repro.serve.metrics`, same report keys).
+prefix reuse, page occupancy and speculative acceptance (the slab, paged
+and speculative engine's subset of `repro.serve.metrics`, same report
+keys).
 
 Two clocks: wall seconds (time.perf_counter, monotonic) and engine steps
 (one slab decode micro-step per step). `decode_steps` counts DISPATCHES (K
@@ -63,6 +64,12 @@ class ServeMetrics:
         self.page_capacity = 0                # usable pages in the pool
         self.conversation_prefix_hits = 0     # admissions resuming a chat
         self.conversation_tokens_reused = 0   # ... tokens matched there
+        # speculative decode (serve.speculative)
+        self.spec_dispatches = 0              # propose-then-verify cycles
+        self.draft_proposed = 0               # draft tokens offered
+        self.draft_accepted = 0               # ... committed by the verify
+        self.draft_flop_fraction = 0.0        # analytic draft/target FLOPs
+        self.slot_acceptance: Dict[int, List[int]] = {}   # slot: [acc, prop]
 
     def on_submit(self, request_id: int, arrival_step: int, n_prompt: int) -> None:
         self.records[request_id] = RequestRecord(
@@ -100,6 +107,22 @@ class ServeMetrics:
 
     def on_host_sync(self, kind: str, n: int = 1) -> None:
         self.host_syncs[kind] = self.host_syncs.get(kind, 0) + n
+
+    def on_spec_dispatch(self, proposed: int, accepted: int) -> None:
+        """One propose-then-verify cycle: `proposed` draft tokens offered
+        across live slots, `accepted` of them committed. Rolled-back tokens
+        (proposed - accepted) cost draft work and an index rewind, no host
+        traffic."""
+        self.spec_dispatches += 1
+        self.draft_proposed += proposed
+        self.draft_accepted += accepted
+
+    def on_slot_speculation(self, slot: int, accepted: int,
+                            proposed: int) -> None:
+        """Per-slot acceptance accounting."""
+        acc = self.slot_acceptance.setdefault(slot, [0, 0])
+        acc[0] += accepted
+        acc[1] += proposed
 
     def on_prefix(self, matched: int, n_prompt: int) -> None:
         """One paged admission: `matched` of `n_prompt` prompt tokens came
@@ -176,4 +199,13 @@ class ServeMetrics:
                                / (len(self.page_samples)
                                   * self.page_capacity))
             if (self.page_samples and self.page_capacity) else 0.0,
+            # speculative decode: acceptance, rollback, cost ratio
+            "spec_dispatches": float(self.spec_dispatches),
+            "draft_proposed": float(self.draft_proposed),
+            "draft_accepted": float(self.draft_accepted),
+            "draft_rolled_back": float(self.draft_proposed
+                                       - self.draft_accepted),
+            "acceptance_rate": self.draft_accepted
+            / max(1, self.draft_proposed),
+            "draft_verify_flop_ratio": self.draft_flop_fraction,
         }

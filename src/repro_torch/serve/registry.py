@@ -4,7 +4,9 @@
 `pack_model_params` replaces every projection leaf `{"w"}` named in
 `PACKABLE` with a `kratos.PackedLinear`; the model code calls
 `kratos.apply` on either, so the packed tree is a drop-in for the dense
-one. Models are keyed by (arch, KratosSpec, smoke, seed, device).
+one. Models are keyed by (arch, KratosSpec, smoke, seed, device,
+DraftSpec). A `draft_spec` (serve.speculative) also derives a self-draft
+from the same dense weights, part of the artifact's identity.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from repro_torch import configs as C
 from repro_torch.core import kratos as kr
 from repro_torch.models import transformer as T
+from repro_torch.serve import speculative as SP
 
 # Mamba's dt_proj ({"w", "b"}) stays a plain matmul, as in the JAX package
 PACKABLE = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
@@ -82,7 +85,12 @@ def tree_to(node, device):
 
 @dataclasses.dataclass
 class PackedModel:
-    """A named serving artifact: config + packed parameter tree + stats."""
+    """A named serving artifact: config + packed parameter tree + stats.
+
+    With `draft_spec` (speculative.DraftSpec) the artifact also carries a
+    self-draft: the same dense weights re-packed at the draft's (sparsity,
+    bits) point, optionally cut to a leading layer prefix, for the
+    speculative decode path."""
 
     name: str
     cfg: T.ModelConfig
@@ -92,10 +100,25 @@ class PackedModel:
     packed_bytes: int               # serving bytes of the packed projections
     dense_bytes: int                # bytes of the same dense projections
     device: torch.device
+    draft_spec: Any = None          # speculative.DraftSpec or None
+    draft_cfg: Optional[T.ModelConfig] = None
+    draft_params: Optional[Dict[str, Any]] = None
+    draft_packed: int = 0           # projections packed in the draft tree
 
     @property
     def compression(self) -> float:
         return self.dense_bytes / max(1, self.packed_bytes)
+
+    @property
+    def has_draft(self) -> bool:
+        return self.draft_params is not None
+
+    def draft_cost_fraction(self) -> float:
+        """Analytic draft/target FLOPs-per-token ratio (1.0 without a
+        draft)."""
+        if not self.has_draft:
+            return 1.0
+        return SP.draft_cost_fraction(self.cfg, self.draft_cfg)
 
 
 class ModelRegistry:
@@ -114,10 +137,10 @@ class ModelRegistry:
         params: dense parameter tree (e.g. from checkpoint.convert); freshly
         initialized from `seed` when omitted. smoke=True uses the reduced
         config. device: where the model lives and runs ('cuda' by default).
+        draft_spec (speculative.DraftSpec): also derive a self-draft from
+        the same dense weights, which `EngineConfig.speculate` requires; it
+        joins the cache key and the default name (`+draft[<tag>]`).
         """
-        if draft_spec is not None:
-            raise NotImplementedError("speculative self-drafts are not ported "
-                                      "yet (ROADMAP.md queue 1, item 6)")
         if tier_specs:
             raise NotImplementedError("QoS tier ladders are not ported yet "
                                       "(ROADMAP.md queue 1, item 8)")
@@ -125,25 +148,33 @@ class ModelRegistry:
         cfg = (C.get_smoke if smoke else C.get_config)(arch)
         spec = cfg.kratos if spec is None else spec
         cfg = dataclasses.replace(cfg, kratos=spec)
-        key = (arch, spec, smoke, seed, str(device))
+        key = (arch, spec, smoke, seed, str(device), draft_spec)
         if params is None and key in self._models:
             return self._models[key]
         if params is None:
             params = T.init(cfg, seed=seed, device=device)
         else:
             params = tree_to(params, device)
+        draft = {}
+        if draft_spec is not None:
+            dcfg, dparams, dn = SP.derive_draft(params, cfg, spec, draft_spec)
+            draft = dict(draft_spec=draft_spec, draft_cfg=dcfg,
+                         draft_params=dparams, draft_packed=dn)
         packed, n_packed = pack_model_params(params, spec)
         linears = list(_leaves(packed, lambda n: isinstance(n, kr.PackedLinear)))
         itemsize = torch.empty((), dtype=cfg.pdtype()).element_size()
         dense_bytes = sum(pl.n_in * pl.n_out for pl in linears) * itemsize
         packed_bytes = sum(pl.packed_bytes for pl in linears)
-        default_name = (f"{arch}@{kr.spec_tag(spec)}"
+        tag = kr.spec_tag(spec)
+        if draft_spec is not None:
+            tag += f"+draft[{draft_spec.tag}]"
+        default_name = (f"{arch}@{tag}"
                         + ("" if smoke else "-full")
                         + (f"#s{seed}" if seed else ""))
         model = PackedModel(name=name or default_name, cfg=cfg, params=packed,
                             spec=spec, n_packed=n_packed,
                             packed_bytes=packed_bytes,
-                            dense_bytes=dense_bytes, device=device)
+                            dense_bytes=dense_bytes, device=device, **draft)
         self._models[key] = model
         self._by_name[model.name] = model
         return model

@@ -22,6 +22,10 @@ class Request:
     arrival_step: int = 0                   # simulated-trace admission gate
     temperature: float = 0.0                # 0 => greedy
     eos_id: Optional[int] = None
+    # per-request speculation cap on a speculating engine: the most draft
+    # tokens a dispatch may accept for it (None = the engine's K, 0 = opt
+    # out: the slot takes one plain target step a dispatch)
+    speculate: Optional[int] = None
 
     # engine-managed
     state: str = "waiting"                  # waiting | running | done

@@ -140,8 +140,8 @@ def test_cuda_device_refused_without_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("speculate", 2, "item 6"), ("paged_native", False, "item 10"),
-    ("pool_wait_retries", 2, "item 8"),
+    ("qos", object(), "item 8"), ("paged_native", False, "item 10"),
+    ("pool_wait_retries", 2, "item 8"), ("ledger", object(), "item 8"),
     ("device_loop", False, "item 8"), ("trace", object(), "item 8")])
 def test_unported_engine_features_raise(field, value, item):
     with pytest.raises(NotImplementedError, match=item):
