@@ -9,8 +9,10 @@ Phases, in order; any failure raises and exits non-zero:
   2. build: every kernel under src/repro_torch/csrc, one nvcc each, all at
      once (timed);
   3. kernels: each hand-written kernel against its plain PyTorch version on
-     the card, at the shapes the h2o-danube-1.8b, nemotron-4-340b and
-     falcon-mamba-7b serving paths give it, with
+     the card, at the shapes the h2o-danube-1.8b, nemotron-4-340b,
+     falcon-mamba-7b, gemma2-27b (attention at d = 128 with softcap 50)
+     and minicpm3-4b (the MLA GEMMs, the expansion at m = 8 x 544) serving
+     paths give it, with
      its time (CUDA events, L2 flushed before each launch), the plain
      version's, one PyTorch library call's and the least time the card
      could take (the bound; flash attention also at the rate of the tensor
@@ -58,13 +60,33 @@ Phases, in order; any failure raises and exits non-zero:
      dispatches and 3 512-token prefills are traced, and each prefill shows
      the scan's device ms;
   9. speculative self-draft decode, phase 5's traffic, greedy:
-     h2o-danube-1.8b at full width and depth (dense target, s0.5 x int8
-     draft, K 4) from the slab and the page pool, and falcon-mamba-7b at
-     full width and depth (dense target, w8 draft, K 2). Tokens equal the
+     h2o-danube-1.8b at full width, depth cut to 8 layers (dense target,
+     s0.5 x int8 draft, K 4) from the slab and the page pool, and
+     falcon-mamba-7b at full width, depth cut to 16 layers (dense target,
+     w8 draft, K 2). Tokens equal the
      same model's plain decode (or the first divergent step's top-2 gap is
      below 1e-3); acceptance rate, commits per cycle, wall and device ms
-     per cycle and per committed token, idle share.
-Every decode dispatch of phases 5-9 replays the CUDA graph the engine
+     per cycle and per committed token, idle share;
+ 10. gemma2-27b (local/global windows, softcaps 50 and 30, sandwich norms,
+     head_dim 128, query scale 1/12). Card-vs-CPU parity at full width cut
+     to 2 layers; then full width, depth cut from 46 to 8 layers (22.8 GB
+     in f32), phase 5's traffic: dense and s0.5-w8 from the slab, dense
+     from the page pool (every layer page-major: the page-table kernel
+     once a layer a micro-step, with softcap 50, and window 4096 on local
+     layers), and one long run of 2 x 4160 prompt tokens past the local
+     window (max_len 4224). tok/s, GEMM / non-GEMM / paged-attention
+     device ms per micro-step, the 512-token prefill's flash device ms;
+     paged tokens equal slab tokens (near-tie rule), and every run's equal
+     the eager step's;
+ 11. minicpm3-4b (MLA): card-vs-CPU parity at 2 layers; then full width and
+     depth (62 layers, 16.3 GB): phase 5's traffic from the slab, dense and
+     s0.5-w8, with the naive expansion's share of decode device time;
+     speculative decode (K 4, w8 draft) from the slab and the page pool
+     against plain decode; phase 7's prefix traffic from the page pool,
+     whose skipped share of prompt tokens must be no lower than
+     nemotron's. No attention kernel runs on MLA's path (as in the JAX
+     package). Every run's tokens equal the eager step's.
+Every decode dispatch of phases 5-11 replays the CUDA graph the engine
 captured at build: each of those phases times it against the eager step on
 the same state, in alternating turns within this process, traces both
 (device ms and ops, idle share, one device-to-host copy each), and serves
@@ -77,6 +99,7 @@ chiprun_out/chip_smoke.json. Without a CUDA device it exits 2.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import gc
 import json
@@ -154,6 +177,16 @@ SOURCES = {
     "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                  "src/repro/kernels/ssm_scan.py:64"),
 }
+GEMMA, MINICPM = "gemma2-27b", "minicpm3-4b"
+GEMMA_LAYERS = 8                       # of 46 (phase 10's depth cut)
+GEMMA_SCALE = (4608 / 32) ** -0.5      # gemma2's query scale, 1/12
+# minicpm3's projections (n_in, n_out): MLA's low-rank factors, wo and the
+# MLP; wkv_b also runs at m = n_slots x max_len, the naive expansion of the
+# whole latent cache at every decode micro-step
+MLA_SHAPES = {"wq_a": (2560, 768), "wq_b": (768, 3840), "wkv_a": (2560, 288),
+              "wkv_b": (256, 5120), "wo": (2560, 2560), "w_up": (2560, 6400),
+              "w_down": (6400, 2560)}
+EXPANSION_ROWS = 8 * 544
 GEMM_KERNELS = ("dense_matmul", "bsr_matmul", "quant_matmul",
                 "quant_matmul_w8a8", "bsr_quant_matmul")
 # a divergent greedy token is accepted only at a near-tie of the top two
@@ -260,6 +293,11 @@ GEMM_FAMILIES = ("gemv_cluster_kernel", "gemm_pipe_kernel", "gemm_tile_kernel",
                  "w8a8_gemv_kernel", "act_quant_kernel", "w8a8_mma_kernel")
 KERNEL_FAMILIES = GEMM_FAMILIES + ("fa_tc_kernel", "paged_kernel",
                                    "ssm_scan_kernel")
+# device-kernel families of the GEMMs' tiled forms: at decode (m = n_slots
+# = 8) every projection runs a GEMV form, so in an MLA decode dispatch these
+# are the expansion of the latent cache through wkv_b (m = n_slots x max_len)
+TILE_FAMILIES = ("gemm_pipe_kernel", "gemm_tile_kernel", "act_quant_kernel",
+                 "w8a8_mma_kernel")
 # instantiations held to no register spill: every family but the old GEMM
 # mainloop
 NO_SPILL = tuple(f for f in KERNEL_FAMILIES if f != "gemm_tile_kernel")
@@ -428,6 +466,21 @@ def eager_identity(torch, model, ecfg, prompts, gen_len, want):
     if bad:
         raise AssertionError(f"graphed and eager tokens differ: {bad}")
     return True
+
+
+def plain_packed(ref, lin, x):
+    """The plain version of the kernel `apply_packed` picks for `lin`."""
+    b = lin.buffers
+    if "w" in b:
+        return ref.dense_matmul_ref(x, b["w"])
+    if "qt" in b:
+        if lin.spec.act_bits == 8:
+            return ref.quant_matmul_w8a8_ref(x, b["qt"])
+        return ref.quant_matmul_ref(x, b["qt"])
+    if "blocks" in b:
+        return ref.bsr_matmul_ref(x, b["blocks"], lin.indices)
+    return ref.bsr_quant_matmul_ref(x, b["qblocks"], b["qscale"],
+                                    lin.indices, lin.spec.bits)
 
 
 def phase_kernels(torch, timer):
@@ -704,6 +757,111 @@ def phase_kernels(torch, timer):
                    lambda: ops.ssm_scan(*args),
                    lambda: ref.ssm_scan_ref(*args), None, peak="float32",
                    batch=bsz, s=s, d_inner=di, d_state=st)
+
+    # gemma2-27b's attention: 32 q over 16 kv heads, d = 128, softcap 50,
+    # query scale 1/12. Flash prefill at sq 512 and 4160 (past the local
+    # layers' 4096 window: tiles wholly behind it are skipped); paged decode
+    # over 8 slots of 34 pages of 16, sq 1 and the verify block sq 5. SDPA
+    # has no softcap: its time on the same inputs, mask and scale without
+    # the cap is the yardstick
+    for sq in (512, 4160):
+        q = torch.randn((1, 32, sq, 128), generator=gen, device=dev)
+        k = torch.randn((1, 16, sq, 128), generator=gen, device=dev)
+        v = torch.randn((1, 16, sq, 128), generator=gen, device=dev)
+        qf, kf, vf = q[0], k[0], v[0]
+        pos = torch.arange(sq, device=dev)
+        for window in (None, 4096):
+            live = pos[None, :] <= pos[:, None]
+            if window is not None:
+                live &= pos[None, :] > pos[:, None] - window
+            n_live = int(live.sum())
+            kw = dict(window=window, softcap=50.0, scale=GEMMA_SCALE)
+            library = (lambda: sdpa(q, k, v, is_causal=True, scale=GEMMA_SCALE,
+                                    enable_gqa=True)) if window is None else (
+                lambda: sdpa(q, k, v, attn_mask=live, scale=GEMMA_SCALE,
+                             enable_gqa=True))
+            record("flash_attention", "float32",
+                   ops.flash_attention(q, k, v, **kw),
+                   flash_attention_plain(qf, kf, vf, **kw)[None],
+                   FA_TOL["float32"],
+                   ("flash_attention", "float32", sq, window, 50.0, 128),
+                   nbytes(q, k, v, q), 4 * 128 * n_live * 32,
+                   lambda: ops.flash_attention(q, k, v, **kw),
+                   lambda: flash_attention_plain(qf, kf, vf, **kw),
+                   library, tc_peak=TC_FLOPS["float32"], sq=sq, heads=32,
+                   kv_heads=16, d=128, window=window, softcap=50.0,
+                   scale=GEMMA_SCALE, library_without_softcap=True,
+                   bkv=fa_plan(128, 4).bkv)
+            del live
+    b, page, pp, h_kv = 8, 16, 34, 16
+    n_pages = b * pp + 1
+    kp = torch.randn((n_pages, h_kv, page, 128), generator=gen, device=dev)
+    vp = torch.randn((n_pages, h_kv, page, 128), generator=gen, device=dev)
+    table = (torch.randperm(n_pages - 1, generator=gen, device=dev)
+             + 1).reshape(b, pp).to(torch.int32)
+    table[3] = 0
+    last = torch.randint(pp * page // 4, pp * page, (b,), generator=gen,
+                         device=dev).to(torch.int32)
+    last_np, table_np = last.cpu().numpy(), table.cpu().numpy()
+    kview, vview = ref.paged_view(kp, table), ref.paged_view(vp, table)
+    kpos = np.arange(pp * page)
+    pages_read = set()
+    for bb in range(b):
+        pages_read.update(table_np[bb, :last_np[bb] // page + 1])
+    kv_bytes = len(pages_read) * 2 * h_kv * page * 128 * 4
+    for sq in (1, 5):
+        q = torch.randn((b, 32, sq, 128), generator=gen, device=dev)
+        qpos = last_np[:, None] - (sq - 1) + np.arange(sq)[None, :]
+        live = kpos[None, None, :] <= qpos[:, :, None]
+        mask = torch.as_tensor(live, device=dev)[:, None]
+        kw = dict(softcap=50.0, scale=GEMMA_SCALE)
+        args = (q, kp, vp, table, last)
+        record("paged_flash_attention", "float32",
+               ops.paged_attention(*args, **kw),
+               ref.paged_attention_ref(*args, **kw), FA_TOL["float32"],
+               ("paged_flash_attention", "float32", 128, sq, None, 50.0),
+               kv_bytes + nbytes(q, q, table, last),
+               4 * 128 * 32 * int(live.sum()),
+               lambda: ops.paged_attention(*args, **kw),
+               lambda: ref.paged_attention_ref(*args, **kw),
+               lambda: sdpa(q, kview, vview, attn_mask=mask,
+                            scale=GEMMA_SCALE, enable_gqa=True),
+               slots=b, heads=32, kv_heads=h_kv, d=128, page=page,
+               pages_per_slot=pp, sq=sq, window=None, softcap=50.0,
+               scale=GEMMA_SCALE, library_without_softcap=True)
+
+    # minicpm3-4b's projections at decode (m = 8 slots), and wkv_b at the
+    # naive MLA expansion's m = 8 x 544: packed dense, s0.5-w8 (wkv_a's 288
+    # outputs are off the 128 grid: no plan, w8 codes) and w8 (the
+    # speculative draft's), each through the kernel `apply_packed` picks.
+    # The library time is torch.matmul on the effective weight (masked
+    # and/or dequantized), which the plain version gives from an identity
+    for leaf, (n, p) in MLA_SHAPES.items():
+        w32 = torch.randn((n, p), generator=gen, device=dev) * n ** -0.5
+        for spec in (kr.DENSE, kr.KratosSpec(sparsity=0.5, bits=8),
+                     kr.KratosSpec(bits=8)):
+            lin = kr.pack_linear({"w": w32}, spec)
+            w_eff = plain_packed(ref, lin, torch.eye(n, device=dev))
+            plan = kr.plan_for(n, p, lin.spec)
+            keep = n if plan is None or "qt" in lin.buffers \
+                else plan.nnz * plan.bk
+            for m in (8,) + ((EXPANSION_ROWS,) if leaf == "wkv_b" else ()):
+                x = torch.randn((m, n), generator=gen, device=dev)
+                y = torch.empty((m, p), device=dev)
+                ops.reset_launch_counts()
+                got = kr.apply_packed(lin, x)
+                kernel = next(name for name, c in ops.launch_counts().items()
+                              if c)
+                idx = () if lin.indices is None else (lin.indices,)
+                record(kernel, "float32", got, plain_packed(ref, lin, x),
+                       TOL["float32"], ("mla", leaf, kr.spec_tag(spec), m),
+                       nbytes(x, y, *idx) + lin.packed_bytes,
+                       2 * m * keep * p,
+                       lambda: kr.apply_packed(lin, x),
+                       lambda: plain_packed(ref, lin, x),
+                       lambda: torch.matmul(x, w_eff), m=m, n=n, p=p,
+                       leaf=leaf, spec=kr.spec_tag(lin.spec))
+            del w_eff
 
     # the event pair against the profiler's own kernel duration at the
     # headline rows of the redesigned kernels (same shapes, fresh inputs):
@@ -1112,10 +1270,10 @@ def phase_paged_serving(torch, card, params):
     return totals, results
 
 
-def phase_prefix_reuse(torch, card):
-    """nemotron-4-340b at full width, depth cut to 1 layer (one layer plus
-    the untied embedding and head is ~52 GB in f32), dense: a shared
-    512-token system prompt, then two follow-up turns of finished
+def phase_prefix_reuse(torch, card, arch="nemotron-4-340b", n_layers=1):
+    """`arch` at full width, depth cut to `n_layers` (nemotron-4-340b: one
+    layer plus the untied embedding and head is ~52 GB in f32), dense: a
+    shared 512-token system prompt, then two follow-up turns of finished
     conversations; paged engine with the prefix index against a slab
     engine over the same model."""
     from repro_torch import configs as C
@@ -1125,8 +1283,8 @@ def phase_prefix_reuse(torch, card):
     from repro_torch.serve import EngineConfig, InferenceEngine
     from repro_torch.serve.registry import PackedModel, pack_model_params
 
-    arch, page, n_slots, max_len, k, gen = "nemotron-4-340b", 16, 8, 768, 4, 16
-    cfg = C.get_config(arch, n_layers=1)
+    page, n_slots, max_len, k, gen = 16, 8, 768, 4, 16
+    cfg = C.get_config(arch, n_layers=n_layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = T.init(cfg, seed=SEED, device="cuda")
@@ -1136,13 +1294,13 @@ def phase_prefix_reuse(torch, card):
                   for layer in packed["layers"] for group in layer.values()
                   for leaf in group.values()
                   for t in getattr(leaf, "buffers", {}).values())
-    model = PackedModel(name=f"{arch}-1layer", cfg=cfg, params=packed,
+    model = PackedModel(name=f"{arch}-{n_layers}layer", cfg=cfg, params=packed,
                         spec=kr.DENSE, n_packed=n_packed,
                         packed_bytes=n_bytes, dense_bytes=n_bytes,
                         device=torch.device("cuda"))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    print(f"  init {arch} full width, 1 layer (f32): "
+    print(f"  init {arch} full width, {n_layers} layers (f32): "
           f"{time.perf_counter() - t0:.1f} s, max_memory_allocated "
           f"{peak / 2 ** 30:.2f} GiB", flush=True)
     rng = np.random.default_rng(SEED + 1)
@@ -1201,7 +1359,11 @@ def phase_prefix_reuse(torch, card):
             (r.prefix_matched, conv_len)
     assert eng.pool.pages_in_use == eng.pool.index.n_nodes, \
         (eng.pool.pages_in_use, eng.pool.index.n_nodes)
-    assert counts["paged_flash_attention"] > 0 and counts["dense_matmul"] > 0
+    assert counts["dense_matmul"] > 0, counts
+    # MLA attends on the table view of its latent pages, as in the JAX
+    # package: no attention kernel
+    assert (counts["paged_flash_attention"] > 0) != cfg.mla, counts
+    assert (counts["flash_attention"] > 0) != cfg.mla, counts
     hit = [ms for m_, _, ms in admit_ms if m_]
     miss = [ms for m_, _, ms in admit_ms if not m_]
     print(f"  paged [{card}] {len(reqs)} requests in {wall:.2f} s, prefix_"
@@ -1439,6 +1601,10 @@ def spec_cell(torch, card, model, prompts, k, page_size, gemms):
             * len(prompts), counts
         assert counts["flash_attention"] == counts["paged_flash_attention"] \
             == 0, counts
+    elif cfg.mla:
+        # MLA reaches no attention kernel, as in the JAX package
+        assert counts["flash_attention"] == counts["paged_flash_attention"] \
+            == 0, counts
     else:
         assert counts["flash_attention"] > 0, counts
         # one verify block a layer a cycle through the page table
@@ -1508,30 +1674,30 @@ def spec_cell(torch, card, model, prompts, k, page_size, gemms):
 
 def phase_speculative(torch, card):
     """Speculative self-draft decode at full width, random f32 weights from
-    the seed, phase 5's traffic, greedy: h2o-danube-1.8b (24 layers, dense
-    target, s0.5 x int8 draft through bsr_quant_matmul, K 4) from the slab
-    and the page pool; falcon-mamba-7b (64 layers, dense target, w8 draft
-    through quant_matmul, K 2: the recurrent rollback)."""
+    the seed, phase 5's traffic, greedy: h2o-danube-1.8b (depth cut from 24
+    to 8 layers, dense target, s0.5 x int8 draft through bsr_quant_matmul,
+    K 4) from the slab and the page pool; falcon-mamba-7b (depth cut from 64
+    to 16 layers, dense target, w8 draft through quant_matmul, K 2: the
+    recurrent rollback). The cuts keep the script inside its time limit
+    with phases 10-11 (their eager A/B partners are host-bound)."""
     from repro_torch import configs as C
     from repro_torch.core import kratos as kr
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
-    from repro_torch.serve import DraftSpec, ModelRegistry
+    from repro_torch.serve import DraftSpec
 
-    cells = ((DANUBE, DraftSpec(bits=8, sparsity=0.5), 4, (None, 16),
+    cells = ((DANUBE, 8, DraftSpec(bits=8, sparsity=0.5), 4, (None, 16),
               {"dense_matmul", "bsr_quant_matmul"}),
-             (FALCON, DraftSpec(bits=8), 2, (None,),
+             (FALCON, 16, DraftSpec(bits=8), 2, (None,),
               {"dense_matmul", "quant_matmul"}))
     totals = {name: 0 for name in ops.KERNELS}
     results = {}
-    for arch, dspec, k, pages, gemms in cells:
-        cfg = C.get_config(arch)
+    for arch, n_layers, dspec, k, pages, gemms in cells:
+        cfg = C.get_config(arch, n_layers=n_layers)
         torch.cuda.reset_peak_memory_stats()
         params = T.init(cfg, seed=SEED, device="cuda")
         t0 = time.perf_counter()
-        model = ModelRegistry().load(arch, kr.DENSE, smoke=False,
-                                     params=params, seed=SEED,
-                                     draft_spec=dspec)
+        model = load_cut(arch, kr.DENSE, params, n_layers, draft_spec=dspec)
         torch.cuda.synchronize()
         print(f"  {model.name}: draft packed in "
               f"{time.perf_counter() - t0:.1f} s, memory_allocated "
@@ -1551,6 +1717,308 @@ def phase_speculative(torch, card):
     return totals, results
 
 
+
+
+def load_cut(arch, spec, params, n_layers, **kw):
+    """The registry's full-config artifact over a depth-cut parameter tree
+    (the first `n_layers` layers): its config, and its draft's, cut to
+    match."""
+    from repro_torch.serve import ModelRegistry
+    model = ModelRegistry().load(arch, spec, smoke=False, params=params,
+                                 seed=SEED, **kw)
+    model.cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
+    if model.has_draft:
+        model.draft_cfg = dataclasses.replace(model.draft_cfg,
+                                              n_layers=n_layers)
+    return model
+
+
+def serve_run(torch, card, model, prompts, ecfg, gemms, tag):
+    """Serve `prompts` (GEN_LEN new tokens each, greedy) through a fresh
+    engine after an allocator warm-up, as the main path; check that only
+    the spec's GEMMs ran and which attention kernels did (flash at prefill
+    for GQA, the page-table kernel once a layer a micro-step when paged;
+    none for MLA); time and trace the graphed dispatch against the eager
+    step, and trace a 512-token prefill. Returns (launches, result,
+    engine, tokens)."""
+    from repro_torch.core import kratos as kr
+    from repro_torch.kernels import gemm_plan, ops
+    from repro_torch.serve import InferenceEngine
+    cfg, k = model.cfg, ecfg.decode_chunk
+    warm = InferenceEngine(model, ecfg)          # allocator warm-up
+    warm.submit(prompts[0][:32], 4)
+    warm.run()
+    del warm
+    gc.collect()
+    eng = InferenceEngine(model, ecfg)
+    reqs = [eng.submit(p, GEN_LEN) for p in prompts]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    rep = eng.metrics.report()
+    tokens = [list(r.generated) for r in reqs]
+    assert all(len(t) == GEN_LEN and all(0 <= x < cfg.vocab for x in t)
+               for t in tokens)
+    for name in GEMM_KERNELS:
+        assert (counts[name] > 0) == (name in gemms), (tag, counts)
+    paged = ecfg.page_size is not None
+    assert (counts["flash_attention"] > 0) != cfg.mla, counts
+    assert counts["paged_flash_attention"] == (
+        cfg.n_layers * rep["micro_steps"] if paged and not cfg.mla else 0), \
+        (counts, rep["micro_steps"])
+    assert rep["host_syncs_decode"] == rep["decode_steps"], rep
+    ab = graph_vs_eager(torch, eng, k)
+    prof = ab["graph_prof"]
+    gemm = [gemm_ms(c) / k for c in prof]
+    other = [non_gemm_ms(c) / k for c in prof]
+    attn = [c["device_ms_by_kernel"].get("paged_kernel", 0.0) / k
+            for c in prof]
+    if counts["paged_flash_attention"]:
+        assert all(a > 0 for a in attn), (tag, attn)
+    tile = [sum(c["device_ms_by_kernel"].get(f, 0.0) for f in TILE_FAMILIES)
+            / k for c in prof]
+    busy = [c["busy_ms"] / k for c in prof]
+    batch = {"tokens": torch.from_numpy(
+        np.resize(prompts[0], (1, 512)).astype(np.int32)).cuda()}
+    eng.backend.prefill(batch, exact=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eng.backend.prefill(batch, exact=True)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t1) * 1e3
+    prefill_prof, _ = profile_calls(
+        torch, lambda: eng.backend.prefill(batch, exact=True), 2)
+    flash = [c["device_ms_by_kernel"].get("fa_tc_kernel", 0.0)
+             for c in prefill_prof]
+    if not cfg.mla:
+        assert all(f > 0 for f in flash), (tag, flash)
+    res = dict(
+        spec=kr.spec_tag(model.spec), page_size=ecfg.page_size, wall_s=wall,
+        tok_per_s=rep["tokens_generated"] / wall,
+        latency_s_p50=rep["latency_s_p50"],
+        latency_s_p99=rep["latency_s_p99"],
+        decode_dispatches=rep["decode_steps"], micro_steps=rep["micro_steps"],
+        decode_micro_step_ms=statistics.median(ab["graph_ms"]),
+        gemm_device_ms_per_micro_step=gemm,
+        non_gemm_device_ms_per_micro_step=other,
+        paged_attention_device_ms_per_micro_step=attn,
+        device_ms_per_micro_step=busy,
+        tile_gemm_device_ms_per_micro_step=tile,
+        idle_share=[c["idle_share"] for c in prof],
+        device_ops_per_micro_step=[c["device_ops"] / k for c in prof],
+        prefill_512_ms=prefill_ms,
+        prefill_512_flash_device_ms=flash,
+        prefill_512_gemm_device_ms=[gemm_ms(c) for c in prefill_prof],
+        decode_dispatch_profiled=prof, prefill_512_profiled=prefill_prof,
+        packed_mb=model.packed_bytes / 2 ** 20, launches=counts)
+    if cfg.mla:
+        # the expansion is the only tiled GEMM of an MLA decode dispatch
+        assert gemm_plan.plan(ecfg.n_slots * ecfg.max_len, cfg.kv_lora_rank,
+                              cfg.n_heads * (cfg.qk_nope_dim
+                                             + cfg.v_head_dim)).form == "tile"
+        res["expansion_share_of_device_time"] = [t / b_ for t, b_ in
+                                                 zip(tile, busy)]
+    r = lambda xs, d=3: [round(x, d) for x in xs]
+    print(f"  {cfg.name} {tag:12s} [{card}] tok/s={res['tok_per_s']:.1f} "
+          f"p50={rep['latency_s_p50']:.3f}s p99={rep['latency_s_p99']:.3f}s "
+          f"packed={res['packed_mb']:.0f} MB micro-step="
+          f"{res['decode_micro_step_ms']:.2f} ms; device ms / micro-step "
+          f"{r(busy)}: GEMM {r(gemm)} (tiled {r(tile)}), non-GEMM {r(other)} "
+          f"(of it paged attention {r(attn)}); device ops / micro-step "
+          f"{res['device_ops_per_micro_step']}; idle share "
+          f"{r(res['idle_share'], 4)}; dispatches {rep['decode_steps']:.0f}, "
+          f"micro-steps {rep['micro_steps']:.0f}; launches {counts}",
+          flush=True)
+    if cfg.mla:
+        print(f"    naive MLA expansion (wkv_b at m = "
+              f"{ecfg.n_slots * ecfg.max_len}): share of decode device time "
+              f"{r(res['expansion_share_of_device_time'], 4)}", flush=True)
+    print(f"    512-token prefill: untraced wall {prefill_ms:.2f} ms, flash "
+          f"device ms {r(flash, 4)}, GEMM device ms "
+          f"{r(res['prefill_512_gemm_device_ms'])}", flush=True)
+    res["graph_vs_eager"] = print_ab(card, ab, k)
+    return counts, res, eng, tokens
+
+
+def add_counts(totals, counts):
+    for name, c in counts.items():
+        totals[name] += c
+
+
+def phase_gemma2(torch, card):
+    """gemma2-27b at its published width (d_model 4608, 32/16 heads,
+    head_dim 128, d_ff 36864 gelu_tanh, vocab 256000 tied), depth cut from
+    46 to 8 layers (4 local/global pairs; 46 layers are 108.9 GB in f32, and
+    16 would not leave the script its time limit),
+    random f32 weights from the seed, phase 5's traffic in its vocab:
+    dense and s0.5-w8 from the slab, dense from the page pool (page 16:
+    the local window 4096 exceeds max_len, so every layer is page-major
+    and the page-table kernel runs with softcap 50 and window 4096 on
+    local layers). Then one long run past the window: 2 requests of 4160
+    prompt tokens (flash prefill at sq 4160, window 4096 on local layers)
+    and 32 new tokens, max_len 4224 (local layers hold a 4096-row
+    circular cache), whose tokens must equal the eager step's."""
+    from repro_torch import configs as C
+    from repro_torch.core import kratos as kr
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import EngineConfig, InferenceEngine
+
+    cfg = C.get_config(GEMMA, n_layers=GEMMA_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  init {GEMMA} full width, {cfg.n_layers} layers (f32): "
+          f"{time.perf_counter() - t0:.1f} s, memory_allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    prompts = serving_traffic(cfg.vocab)
+    totals = {name: 0 for name in ops.KERNELS}
+    results, tokens = {}, {}
+    runs = {"dense-slab": (kr.DENSE, None, {"dense_matmul"}),
+            "s0.5-w8-slab": (kr.KratosSpec(sparsity=0.5, bits=8), None,
+                             {"bsr_quant_matmul"}),
+            "dense-paged": (kr.DENSE, 16, {"dense_matmul"})}
+    for tag, (spec, page_size, gemms) in runs.items():
+        model = load_cut(GEMMA, spec, params, cfg.n_layers)
+        ecfg = EngineConfig(n_slots=N_SLOTS, max_len=512 + GEN_LEN,
+                            decode_chunk=CHUNK, seed=SEED,
+                            page_size=page_size)
+        counts, res, eng, tokens[tag] = serve_run(torch, card, model,
+                                                  prompts, ecfg, gemms, tag)
+        add_counts(totals, counts)
+        if page_size:
+            assert all(eng.pool.layout.paged[i]["k"]
+                       for i in range(cfg.n_layers))
+            assert eng.pool.index is None     # a windowed arch shares none
+        del eng
+        gc.collect()
+        res["eager_tokens_identical"] = eager_identity(
+            torch, model, ecfg, prompts, GEN_LEN, tokens[tag])
+        if tag == "dense-paged":
+            print("  dense paged against dense slab tokens:", flush=True)
+            res["divergences"] = first_divergence(
+                torch, model, prompts, tokens[tag], tokens["dense-slab"])
+        results[tag] = res
+        del model
+        gc.collect()
+
+    # the long run: past the local layers' window
+    model = load_cut(GEMMA, kr.DENSE, params, cfg.n_layers)
+    rng = np.random.default_rng(SEED + 2)
+    long_prompts = [rng.integers(0, cfg.vocab, 4160).astype(np.int32)
+                    for _ in range(2)]
+    ecfg = EngineConfig(n_slots=2, max_len=4160 + GEN_LEN + 32,
+                        decode_chunk=CHUNK, seed=SEED)
+    eng = InferenceEngine(model, ecfg)
+    assert tuple(eng.pool.caches[0]["k"].shape[2:]) == (4096, 128)
+    assert tuple(eng.pool.caches[1]["k"].shape[2:]) == (ecfg.max_len, 128)
+    reqs = [eng.submit(p, GEN_LEN) for p in long_prompts]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    add_counts(totals, counts)
+    rep = eng.metrics.report()
+    long_tokens = [list(r.generated) for r in reqs]
+    assert all(len(t) == GEN_LEN for t in long_tokens)
+    assert counts["flash_attention"] == cfg.n_layers * 2, counts
+    ab = graph_vs_eager(torch, eng, CHUNK, turns=2, traces=1)
+    del eng
+    gc.collect()
+    results["long"] = dict(
+        prompt_tokens=4160, max_len=ecfg.max_len, wall_s=wall,
+        tok_per_s=rep["tokens_generated"] / wall,
+        latency_s_p50=rep["latency_s_p50"], launches=counts,
+        micro_steps=rep["micro_steps"], tokens=long_tokens)
+    print(f"  {cfg.name} long [{card}] 2 x 4160 prompt tokens past the "
+          f"4096 window, max_len {ecfg.max_len}: wall {wall:.2f} s, tok/s "
+          f"{results['long']['tok_per_s']:.1f}, launches {counts}",
+          flush=True)
+    results["long"]["graph_vs_eager"] = print_ab(card, ab, CHUNK)
+    results["long"]["eager_tokens_identical"] = eager_identity(
+        torch, model, ecfg, long_prompts, GEN_LEN, long_tokens)
+    results["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals, results
+
+
+def phase_minicpm3(torch, card):
+    """minicpm3-4b (MLA) at its published width and full depth (62 layers,
+    d_model 2560, 40 heads, q_lora 768, kv_lora 256, nope 64 / rope 32 / v
+    64, d_ff 6400, vocab 73448 tied; 4.08 B parameters, 16.3 GB in f32),
+    random f32 weights from the seed: phase 5's traffic from the slab,
+    dense and s0.5-w8; phase 7's prefix traffic from the page pool;
+    speculative decode (K 4, draft DraftSpec(bits=8)) from the slab and
+    the page pool against plain decode. MLA is the reference's naive form:
+    every decode micro-step expands the whole latent cache through wkv_b
+    (m = n_slots x max_len), and no attention kernel runs."""
+    from repro_torch import configs as C
+    from repro_torch.core import kratos as kr
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import DraftSpec, EngineConfig, ModelRegistry
+
+    cfg = C.get_config(MINICPM)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  init {MINICPM} full width and depth ({cfg.n_layers} layers, "
+          f"f32): {time.perf_counter() - t0:.1f} s, memory_allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    prompts = serving_traffic(cfg.vocab)
+    totals = {name: 0 for name in ops.KERNELS}
+    results = {}
+    for tag, spec, gemms in (
+            ("dense-slab", kr.DENSE, {"dense_matmul"}),
+            ("s0.5-w8-slab", kr.KratosSpec(sparsity=0.5, bits=8),
+             {"bsr_quant_matmul", "quant_matmul"})):
+        model = ModelRegistry().load(MINICPM, spec, smoke=False,
+                                     params=params, seed=SEED)
+        ecfg = EngineConfig(n_slots=N_SLOTS, max_len=512 + GEN_LEN,
+                            decode_chunk=CHUNK, seed=SEED)
+        counts, res, eng, toks = serve_run(torch, card, model, prompts, ecfg,
+                                           gemms, tag)
+        add_counts(totals, counts)
+        del eng
+        gc.collect()
+        res["eager_tokens_identical"] = eager_identity(
+            torch, model, ecfg, prompts, GEN_LEN, toks)
+        results[tag] = res
+        del model
+        gc.collect()
+    model = ModelRegistry().load(MINICPM, kr.DENSE, smoke=False,
+                                 params=params, seed=SEED,
+                                 draft_spec=DraftSpec(bits=8))
+    print(f"  {model.name}: memory_allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    for page_size in (None, 16):
+        counts, res = spec_cell(torch, card, model, prompts, 4, page_size,
+                                {"dense_matmul", "quant_matmul"})
+        results[f"spec {'paged' if page_size else 'slab'}"] = res
+        add_counts(totals, counts)
+    results["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  {MINICPM} prefix and conversation reuse through the page pool",
+          flush=True)
+    counts, results["prefix_reuse"] = phase_prefix_reuse(
+        torch, card, MINICPM, cfg.n_layers)
+    add_counts(totals, counts)
+    return totals, results
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1559,6 +2027,13 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
+    t_main = time.perf_counter()
+    marks = {}
+
+    def mark(phase):
+        """Seconds since the start, printed before each phase."""
+        marks[phase] = time.perf_counter() - t_main
+        print(f"  [t = {marks[phase]:.0f} s]", flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1570,6 +2045,7 @@ def main() -> int:
     print(f"[1] env: {env}; card: {card}", flush=True)
 
     secs = build.build_all()
+    mark(2)
     print(f"[2] build: {len(build.SOURCES)} sources in {secs:.1f} s", flush=True)
     ptxas = {name: build.ptxas_kernels(name) for name in build.SOURCES}
     for name, kernels in ptxas.items():
@@ -1583,23 +2059,29 @@ def main() -> int:
               and (k["spill_stores"] or k["spill_loads"])]
     assert not spills, f"register spills in {spills}"
 
+    mark(3)
     print("[3] kernels against their plain versions", flush=True)
     cases = phase_kernels(torch, Timer(torch))
+    mark(4)
     print("[4] model parity: card vs CPU, h2o-danube-1.8b width, 2 layers",
           flush=True)
     phase_parity(torch, DANUBE, 100, 128)
     params = init_danube(torch)
+    mark(5)
     print("[5] serving h2o-danube-1.8b, full width and depth", flush=True)
     launches, serving = phase_serving(torch, card, params)
+    mark(6)
     print("[6] paged serving h2o-danube-1.8b, full width and depth",
           flush=True)
     paged_launches, paged = phase_paged_serving(torch, card, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    mark(7)
     print("[7] prefix and conversation reuse, nemotron-4-340b full width, "
           "1 layer", flush=True)
     reuse_launches, reuse = phase_prefix_reuse(torch, card)
+    mark(8)
     print(f"[8] Mamba serving, {FALCON}: memory_allocated before "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; card vs CPU at "
           "full width, 2 layers", flush=True)
@@ -1607,14 +2089,34 @@ def main() -> int:
     assert parity_launches["ssm_scan"] == 2 * 2, parity_launches
     print(f"  {FALCON} full width and depth", flush=True)
     mamba_launches, mamba = phase_mamba_serving(torch, card)
+    mark(9)
     print("[9] speculative self-draft decode: h2o-danube-1.8b (slab, paged) "
-          f"and {FALCON}, full width and depth", flush=True)
+          f"and {FALCON}, full width, depth cut to 8 and 16 layers",
+          flush=True)
     spec_launches, spec = phase_speculative(torch, card)
+    mark(10)
+    print(f"[10] {GEMMA}: card vs CPU at full width, 2 layers; then full "
+          f"width, {GEMMA_LAYERS} layers", flush=True)
+    parity_launches = phase_parity(torch, GEMMA, 48, 128)
+    assert parity_launches["flash_attention"] == 2 * 2, parity_launches
+    gemma_launches, gemma = phase_gemma2(torch, card)
+    mark(11)
+    print(f"[11] {MINICPM} (MLA): card vs CPU at full width, 2 layers; then "
+          "full width and depth", flush=True)
+    parity_launches = phase_parity(torch, MINICPM, 48, 128)
+    assert parity_launches["flash_attention"] == 0, parity_launches
+    mla_launches, mla = phase_minicpm3(torch, card)
+    skip = (reuse["report"]["prefill_skip_fraction"],
+            mla["prefix_reuse"]["report"]["prefill_skip_fraction"])
+    print(f"  prefill skip fraction: {MINICPM} {skip[1]:.4f} against "
+          f"nemotron-4-340b's {skip[0]:.4f} (phase 7)", flush=True)
+    assert skip[1] >= skip[0], skip
     for more in (paged_launches, reuse_launches, mamba_launches,
-                 spec_launches):
+                 spec_launches, gemma_launches, mla_launches):
         for name, c in more.items():
             launches[name] += c
 
+    mark("end")
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         mine = [c for c in cases if c["kernel"] == name]
@@ -1632,7 +2134,8 @@ def main() -> int:
          "kernels": kernels,
          "cases": [{k: v for k, v in c.items() if k != "key"} for c in cases],
          "serving": serving, "paged_serving": paged, "prefix_reuse": reuse,
-         "mamba_serving": mamba, "speculative": spec},
+         "mamba_serving": mamba, "speculative": spec, "gemma2": gemma,
+         "minicpm3": mla, "phase_start_s": marks},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,7 +5,9 @@ save_pytree` writes (`<dir>/arrays.npz`), or the same dict in memory, and
 returns the port's parameter tree (`models.transformer`): the JAX
 package's layer-stacked `blocks/#s/...` arrays (leading layer axis, scan
 slot s) are unstacked into the per-layer list, layer `prelude + t *
-period + s` taking row t. Weights keep their (n_in, n_out) layout.
+period + s` taking row t (gemma2's two slots interleave local and global
+layers). Weights keep their (n_in, n_out) layout. A layer parameter the
+port's families do not have (an MoE router, a cross-attention) is refused.
 """
 
 from __future__ import annotations
@@ -23,6 +25,27 @@ def read_flat(src: Union[str, Mapping[str, np.ndarray]]) -> Dict[str, np.ndarray
         return {k: np.asarray(v) for k, v in src.items()}
     with np.load(os.path.join(src, "arrays.npz")) as z:
         return {k: z[k] for k in z.files}
+
+
+# per-layer parameter names of the ported families: the (sandwich) norms,
+# the GQA and MLA mixers, the Mamba mixer and the MLP
+_LAYER_MODULES = frozenset({"pre_norm", "post_norm", "mixer", "ffn_norm",
+                            "ffn_post_norm", "ffn"})
+_MEMBERS = frozenset({
+    "scale", "bias",
+    "wq", "wk", "wv", "wo", "q_norm", "k_norm",
+    "wq_a", "wq_b", "wkv_a", "kv_norm", "wkv_b",
+    "in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "A_log", "D",
+    "out_proj", "b_norm", "c_norm", "dt_norm",
+    "w_gate", "w_up", "w_down"})
+
+
+def _layer_path(key: str, path):
+    if path[0] not in _LAYER_MODULES or path[1] not in _MEMBERS:
+        raise NotImplementedError(
+            f"parameter '{key}' belongs to a model family the port does "
+            "not have yet (ROADMAP.md queue 1, item 7)")
+    return path
 
 
 def _put(tree: Dict[str, Any], path, value) -> None:
@@ -46,11 +69,13 @@ def convert(src: Union[str, Mapping[str, np.ndarray]], n_layers: int, *,
     for key, arr in flat.items():
         parts = key.split("/")
         if parts[0] == "prelude":
-            _put(layers[int(parts[1].lstrip("#"))], parts[2:], tensor(arr))
+            _put(layers[int(parts[1].lstrip("#"))], _layer_path(key, parts[2:]),
+                 tensor(arr))
         elif parts[0] == "blocks":
             s = int(parts[1].lstrip("#"))
+            path = _layer_path(key, parts[2:])
             for t in range(arr.shape[0]):
-                _put(layers[n_prelude + t * period + s], parts[2:],
+                _put(layers[n_prelude + t * period + s], path,
                      tensor(arr[t]))
         elif parts[0] in ("embed", "final_norm", "head"):
             _put(params, parts, tensor(arr))

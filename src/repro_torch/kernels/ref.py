@@ -76,14 +76,14 @@ def quant_matmul_w8a8_ref(x: torch.Tensor,
 
 
 def paged_view(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Contiguous per-slot view of a page-major K/V leaf.
+    """Contiguous per-slot view of a page-major cache leaf.
 
-    pages: (n_pages, h_kv, P, d); table: (b, pp) int page ids. Returns
-    (b, h_kv, pp * P, d), slot b's positions in order. Sink-page (page 0)
+    pages: (n_pages, ..., P, d), e.g. a K/V leaf (n_pages, h_kv, P, d) or
+    MLA's latent (n_pages, P, r); table: (b, pp) int page ids. Returns
+    (b, ..., pp * P, d), slot b's positions in order. Sink-page (page 0)
     entries yield garbage rows the caller's position mask excludes."""
-    g = pages[table.long()]                      # (b, pp, h_kv, P, d)
-    b, pp, h_kv, p, d = g.shape
-    return g.permute(0, 2, 1, 3, 4).reshape(b, h_kv, pp * p, d)
+    g = pages[table.long()].movedim(1, -3)       # (b, ..., pp, P, d)
+    return g.reshape(*g.shape[:-3], g.shape[-3] * g.shape[-2], g.shape[-1])
 
 
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,

@@ -1,12 +1,16 @@
-"""GQA attention with sliding windows and circular KV caches (the GQA half
-of `repro.models.attention`).
+"""GQA attention with sliding windows, circular KV caches and softcaps,
+and MLA (multi-head latent attention; port of `repro.models.attention`
+without the whisper cross-attention).
 
 Caches, per layer, batch-major:
   full window:    k/v (B, KV, S_max, dh), position p at row p
   sliding window: circular buffer of W rows, position p at row p % W
+  MLA:            compressed c_kv (B, S_max, r) + shared rotary key
+                  k_rope (B, 1, S_max, dr), position p at row p
 
-  paged (serve.paging): page-major (n_pages, KV, P, dh) store leaves read
-                  and written through a (B, pp) page table
+  paged (serve.paging): page-major (n_pages, KV, P, dh) store leaves (MLA:
+                  (n_pages, P, r) and (n_pages, 1, P, dr)) read and
+                  written through a (B, pp) page table
 
 Prefill (contiguous positions) runs the flash kernel through
 `kernels.ops.flash_attention`. Decode writes the new K/V rows IN PLACE into
@@ -43,12 +47,28 @@ class AttnConfig:
     window: Optional[int] = None
     softcap: Optional[float] = None
     qk_norm: bool = False
-    attn_scale: Optional[float] = None
+    attn_scale: Optional[float] = None   # override 1/sqrt(dh) (gemma2)
+    # MLA
+    mla: bool = False
+    q_lora_rank: Optional[int] = None
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+
+    @property
+    def q_head_dim(self) -> int:
+        return (self.qk_nope_dim + self.qk_rope_dim) if self.mla \
+            else self.head_dim
+
+    @property
+    def v_dim(self) -> int:
+        return self.v_head_dim if self.mla else self.head_dim
 
     @property
     def scale(self) -> float:
         return self.attn_scale if self.attn_scale is not None \
-            else self.head_dim ** -0.5
+            else self.q_head_dim ** -0.5
 
 
 def attention_positional(q, k, v, q_pos, kv_pos, *, causal=True, window=None,
@@ -82,6 +102,26 @@ def attention_positional(q, k, v, q_pos, kv_pos, *, causal=True, window=None,
     s = s.masked_fill(~mask, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
+
+
+# Above this many query rows the plain path streams over q-chunks instead
+# of materializing the full (Sq, Skv) score matrix.
+CHUNKED_ATTN_THRESHOLD = 4096
+CHUNK_Q = 1024
+
+
+def attention_chunked(q, k, v, q_pos, kv_pos, *, causal=True, window=None,
+                      softcap=None, scale=None, extra_mask=None,
+                      chunk: int = CHUNK_Q):
+    """`attention_positional` over q-chunks of `chunk` rows (and the
+    remainder), each attending to the whole k/v: peak memory is
+    (B, H, chunk, Skv) scores."""
+    sq = q.shape[2]
+    outs = [attention_positional(
+        q[:, :, i:i + chunk], k, v, q_pos[..., i:i + chunk], kv_pos,
+        causal=causal, window=window, softcap=softcap, scale=scale,
+        extra_mask=extra_mask) for i in range(0, sq, min(chunk, sq))]
+    return torch.cat(outs, dim=2)
 
 
 def _sdpa(q, k, v, cfg: AttnConfig):
@@ -129,10 +169,10 @@ def _merge_heads(x):
 
 
 def _paged_leaf_view(leaf, table, cache_len: int):
-    """Contiguous (B, KV, cache_len, dh) view of a page-major leaf
-    (n_pages, KV, P, dh) through the (B, pp) table: value-identical to the
+    """Contiguous (B, ..., cache_len, d) view of a page-major leaf
+    (n_pages, ..., P, d) through the (B, pp) table: value-identical to the
     slab rows on every position the validity masks admit."""
-    return ref.paged_view(leaf, table)[:, :, :cache_len]
+    return ref.paged_view(leaf, table)[..., :cache_len, :]
 
 
 def _page_offsets(pages, index, b: int, s: int):
@@ -266,3 +306,138 @@ def _decode_cache_write(cache, k, v, cfg: AttnConfig, index):
         kv_pos = slots
         valid = slots <= lastc
     return kv_pos, valid
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention): minicpm3, deepseek-v2
+# ---------------------------------------------------------------------------
+
+def mla_init(cfg: AttnConfig, spec: kr.KratosSpec, *, generator, device,
+             dtype) -> Dict:
+    d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    ones = lambda n: {"scale": torch.ones(n, device=device, dtype=dtype)}
+    p: Dict = {}
+    if cfg.q_lora_rank:
+        p["wq_a"] = kr.init(d, cfg.q_lora_rank, spec, **kw)
+        p["q_norm"] = ones(cfg.q_lora_rank)
+        p["wq_b"] = kr.init(cfg.q_lora_rank, h * cfg.q_head_dim, spec, **kw)
+    else:
+        p["wq"] = kr.init(d, h * cfg.q_head_dim, spec, **kw)
+    p["wkv_a"] = kr.init(d, r + cfg.qk_rope_dim, spec, **kw)
+    p["kv_norm"] = ones(r)
+    p["wkv_b"] = kr.init(r, h * (cfg.qk_nope_dim + cfg.v_head_dim), spec,
+                         **kw)
+    p["wo"] = kr.init(h * cfg.v_head_dim, d, spec, **kw)
+    return p
+
+
+def _mla_q(params, x, cfg: AttnConfig):
+    """(q_nope (B,H,S,nope), q_rope (B,H,S,dr)), through the low-rank
+    factors and q_norm when q_lora_rank is set, else one projection."""
+    if cfg.q_lora_rank:
+        qa = kr.apply(params["wq_a"], x)
+        q = kr.apply(params["wq_b"], L.rmsnorm(params["q_norm"], qa))
+    else:
+        q = kr.apply(params["wq"], x)
+    q = _split_heads(q, cfg.n_heads, cfg.q_head_dim)
+    return q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
+
+
+def _mla_expand_kv(params, c_kv, cfg: AttnConfig):
+    """(B, S, r) latent -> k_nope (B,H,S,nope), v (B,H,S,vd)."""
+    kvb = _split_heads(kr.apply(params["wkv_b"], c_kv), cfg.n_heads,
+                       cfg.qk_nope_dim + cfg.v_head_dim)
+    return kvb[..., :cfg.qk_nope_dim], kvb[..., cfg.qk_nope_dim:]
+
+
+def mla_apply(params, x, cfg: AttnConfig, *, positions=None, cache=None,
+              index=None, pages=None) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """MLA over a full sequence (cache None, or prefill into `cache` with
+    index None) or decode (cache and index: the s new latents are written
+    in place at index.., s > 1 being the speculative block or suffix
+    write). With `pages` the cache leaves are page-major and the latents
+    land in their pages; attention reads the sliced table view. Every call
+    expands the whole latent history through `wkv_b`. Returns (y, cache)."""
+    b, s, _ = x.shape
+    h, r, dr = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_dim
+    dev = x.device
+    if positions is None:
+        positions = _positions_for(index, s, dev)
+    q_nope, q_rope = _mla_q(params, x, cfg)
+    q = torch.cat([q_nope, L.apply_rope(q_rope, positions, cfg.rope_theta)],
+                  dim=-1)
+    kv_a = kr.apply(params["wkv_a"], x)
+    c_kv = L.rmsnorm(params["kv_norm"], kv_a[..., :r])          # (B,S,r)
+    k_rope = L.apply_rope(kv_a[..., r:][:, None], positions,
+                          cfg.rope_theta)                      # (B,1,S,dr)
+
+    kv_pos, valid = positions, None
+    if index is not None and pages is not None:
+        page, off, last = _page_offsets(pages, index, b, s)
+        page, off = page.long(), off.long()
+        cache["c_kv"][page, off] = c_kv.to(cache["c_kv"].dtype)
+        # advanced indices at axes 0 and 2 around the singleton head axis:
+        # the written block is (B, s, 1, dr)
+        cache["k_rope"][page, :, off] = k_rope.transpose(1, 2).to(
+            cache["k_rope"].dtype)
+        c_all = _paged_leaf_view(cache["c_kv"], pages["table"], pages["len"])
+        kr_all = _paged_leaf_view(cache["k_rope"], pages["table"],
+                                  pages["len"])
+        kv_pos = torch.arange(pages["len"], dtype=torch.int32, device=dev)
+        valid = kv_pos[None] <= last[:, None]
+    elif index is not None:
+        # slab decode: append the latents, expand the whole cache
+        pos = _positions_for(index, s, dev).long()
+        cu = c_kv.to(cache["c_kv"].dtype)
+        ru = k_rope.to(cache["k_rope"].dtype)
+        if index.ndim == 0:
+            cache["c_kv"][:, pos] = cu
+            cache["k_rope"][:, :, pos] = ru
+        else:                       # per-slot clocks (continuous batching)
+            bidx = torch.arange(b, device=dev)[:, None]
+            cache["c_kv"][bidx, pos] = cu
+            cache["k_rope"][bidx, :, pos] = ru.transpose(1, 2)
+        c_all, kr_all = cache["c_kv"], cache["k_rope"]
+        kv_pos = torch.arange(c_all.shape[1], dtype=torch.int32, device=dev)
+        valid = kv_pos <= (index + (s - 1))[..., None]
+    else:
+        if cache is not None:
+            cache["c_kv"][:, :s] = c_kv.to(cache["c_kv"].dtype)
+            cache["k_rope"][:, :, :s] = k_rope.to(cache["k_rope"].dtype)
+        c_all, kr_all = c_kv, k_rope
+
+    k_nope, v = _mla_expand_kv(params, c_all.to(x.dtype), cfg)
+    k = torch.cat([k_nope, kr_all.to(x.dtype).expand(b, h, k_nope.shape[2],
+                                                      dr)], dim=-1)
+    attn = attention_chunked if s > CHUNKED_ATTN_THRESHOLD \
+        else attention_positional
+    o = attn(q, k, v, positions, kv_pos, causal=cfg.causal, window=cfg.window,
+             softcap=cfg.softcap, extra_mask=valid, scale=cfg.scale)
+    return kr.apply(params["wo"], _merge_heads(o)), cache
+
+
+def make_mla_cache(cfg: AttnConfig, batch: int, max_len: int, dtype,
+                   device) -> Dict[str, torch.Tensor]:
+    return {"c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, 1, max_len, cfg.qk_rope_dim),
+                                  dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Unified entry
+# ---------------------------------------------------------------------------
+
+def attn_init(cfg: AttnConfig, spec: kr.KratosSpec, **kw) -> Dict:
+    return (mla_init if cfg.mla else gqa_init)(cfg, spec, **kw)
+
+
+def attn_apply(params, x, cfg: AttnConfig, **kw):
+    return (mla_apply if cfg.mla else gqa_apply)(params, x, cfg, **kw)
+
+
+def make_cache(cfg: AttnConfig, batch: int, max_len: int, dtype,
+               device) -> Dict[str, torch.Tensor]:
+    return (make_mla_cache if cfg.mla else make_gqa_cache)(
+        cfg, batch, max_len, dtype, device)

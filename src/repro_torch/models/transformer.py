@@ -1,21 +1,26 @@
-"""Dense GQA and pure Mamba-1 decoders (the dense and `is_ssm` halves of
-`repro.models.transformer`).
+"""Dense GQA, MLA and pure Mamba-1 decoders (the dense, MLA and `is_ssm`
+parts of `repro.models.transformer`).
 
 Parameters are a plain dict with a per-layer list in place of the JAX
 package's stacked `blocks` consumed by `lax.scan`:
 
     {"embed": {"emb": (vocab, d)}, "final_norm": {"scale"},
      "head": {"w": (d, vocab)}            (untied embeddings only),
-     "layers": [{"pre_norm", "mixer": {wq, wk, wv, wo}, "ffn_norm",
+     "layers": [{"pre_norm", "post_norm"?, "mixer": {wq, wk, wv, wo},
+                 "ffn_norm", "ffn_post_norm"?,
                  "ffn": {w_gate?, w_up, w_down}}, ...]}
 
-An `is_ssm` model (falcon-mamba) has a Mamba mixer (models.ssm) and no
-FFN in every layer: {"pre_norm", "mixer": {in_proj, conv_w, ...}}.
-Caches are a per-layer list of {"k", "v"} tensors (models.attention),
-slab rows or, under a paged pool, page-major store leaves; a Mamba layer's
-is {"conv", "ssm"}, always slot-major. MoE, MLA, the jamba hybrid,
-encoder-decoder and the gemma2 norms are not ported yet (ROADMAP.md
-queue 1, item 7).
+gemma2's sandwich norms (`post_norm`, `ffn_post_norm`) normalize the
+mixer's and the MLP's output before the residual add; its layers alternate
+local (the config's window, layer 0 first) and global (no window). An MLA
+model (minicpm3) has {wq_a, q_norm, wq_b | wq, wkv_a, kv_norm, wkv_b, wo}
+as its mixer. An `is_ssm` model (falcon-mamba) has a Mamba mixer
+(models.ssm) and no FFN in every layer: {"pre_norm", "mixer": {in_proj,
+conv_w, ...}}. Caches are a per-layer list of {"k", "v"} tensors (MLA:
+{"c_kv", "k_rope"}; models.attention), slab rows or, under a paged pool,
+page-major store leaves; a Mamba layer's is {"conv", "ssm"}, always
+slot-major. MoE, the jamba hybrid, encoder-decoder and the vision stub
+are not ported yet (ROADMAP.md queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -45,7 +50,8 @@ class ModelConfig:
     gated_mlp: Optional[bool] = None      # None -> infer from activation
     norm: str = "rmsnorm"                 # 'rmsnorm' | 'layernorm'
     norm_eps: float = 1e-6
-    rmsnorm_plus_one: bool = False
+    rmsnorm_plus_one: bool = False        # gemma convention
+    sandwich_norm: bool = False           # gemma2 pre+post norms
     tie_embeddings: bool = True
     use_rope: bool = True
     rope_theta: float = 10000.0
@@ -55,7 +61,18 @@ class ModelConfig:
     attn_softcap: Optional[float] = None
     attn_scale: Optional[float] = None
     qk_norm: bool = False
-    window: Optional[int] = None          # sliding window on every layer
+    # windows: `window` applies to every attention layer, unless
+    # local_global_period=2 alternates local(window)/global (gemma2,
+    # local first)
+    window: Optional[int] = None
+    local_global_period: Optional[int] = None
+    # MLA
+    mla: bool = False
+    q_lora_rank: Optional[int] = None
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
     # Mamba (pure SSM: every layer a Mamba-1 mixer without FFN)
     is_ssm: bool = False
     d_state: int = 16
@@ -63,6 +80,9 @@ class ModelConfig:
     mamba_expand: int = 2
     bcdt_rms: bool = False
     ssm_chunk: int = 256                  # JAX's XLA scan chunk (no use here)
+    # the JAX package stacks layers of one pattern slot and runs the slots'
+    # stacks in turn; `layer_order` reproduces the order that gives
+    scan_period: int = 1
     kratos: kr.KratosSpec = kr.DENSE
     param_dtype: str = "float32"
     dtype: str = "float32"                # activation dtype
@@ -88,12 +108,23 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count, the JAX package's formula for the
-        ported families (dense GQA + MLP, pure Mamba-1)."""
+        ported families (dense GQA or MLA + MLP, pure Mamba-1; norms are
+        not counted, as there)."""
         d, v = self.d_model, self.vocab
         total = v * d * (1 if self.tie_embeddings else 2)
         for i in range(self.n_layers):
             kind = layer_kind(self, i)
-            if kind["mixer"] == "attn":
+            if kind["mixer"] == "attn" and self.mla:
+                h, qd = self.n_heads, self.qk_nope_dim + self.qk_rope_dim
+                if self.q_lora_rank:
+                    total += d * self.q_lora_rank + self.q_lora_rank * h * qd
+                else:
+                    total += d * h * qd
+                total += d * (self.kv_lora_rank + self.qk_rope_dim)
+                total += self.kv_lora_rank * h * (self.qk_nope_dim
+                                                  + self.v_head_dim)
+                total += h * self.v_head_dim * d
+            elif kind["mixer"] == "attn":
                 total += 2 * d * self.n_heads * self.dh \
                     + 2 * d * self.n_kv_heads * self.dh
             else:
@@ -106,11 +137,27 @@ class ModelConfig:
 
 
 def layer_kind(cfg: ModelConfig, i: int) -> Dict[str, Any]:
-    """What lives at layer i; every layer of a ported decoder is alike:
-    attention + MLP, or (is_ssm) a Mamba mixer without FFN."""
+    """What lives at layer i: attention + MLP, or (is_ssm) a Mamba mixer
+    without FFN. With local_global_period the attention layer i is local
+    (the config's window) when i % period == 0, else global (no window)."""
     if cfg.is_ssm:
         return {"mixer": "mamba", "window": cfg.window, "ffn": "none"}
-    return {"mixer": "attn", "window": cfg.window, "ffn": "mlp"}
+    window = cfg.window
+    if cfg.local_global_period:
+        window = cfg.window if i % cfg.local_global_period == 0 else None
+    return {"mixer": "attn", "window": window, "ffn": "mlp"}
+
+
+def layer_order(cfg: ModelConfig) -> List[int]:
+    """The order the layers run in, the JAX package's: its forward runs
+    each scan slot's stack in turn, so with scan_period p it runs layers
+    s, s + p, s + 2p, ... for s = 0 .. p-1 (gemma2: every local layer,
+    then every global one). Parameters and caches stay in layer order."""
+    p = cfg.scan_period
+    if cfg.n_layers % p:
+        raise ValueError(f"n_layers {cfg.n_layers} not divisible by "
+                         f"scan_period {p}")
+    return [t * p + s for s in range(p) for t in range(cfg.n_layers // p)]
 
 
 def attn_cfg_for(cfg: ModelConfig, kind: Dict) -> A.AttnConfig:
@@ -118,7 +165,10 @@ def attn_cfg_for(cfg: ModelConfig, kind: Dict) -> A.AttnConfig:
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.dh, rope_theta=cfg.rope_theta, use_rope=cfg.use_rope,
         causal=True, window=kind["window"], softcap=cfg.attn_softcap,
-        qk_norm=cfg.qk_norm, attn_scale=cfg.attn_scale)
+        qk_norm=cfg.qk_norm, attn_scale=cfg.attn_scale, mla=cfg.mla,
+        q_lora_rank=cfg.q_lora_rank, kv_lora_rank=cfg.kv_lora_rank,
+        qk_nope_dim=cfg.qk_nope_dim, qk_rope_dim=cfg.qk_rope_dim,
+        v_head_dim=cfg.v_head_dim)
 
 
 def mamba_cfg_for(cfg: ModelConfig) -> S.MambaConfig:
@@ -150,13 +200,17 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict:
     for i in range(cfg.n_layers):
         kind = layer_kind(cfg, i)
         layer = {"pre_norm": _norm_params(cfg, device)}
+        if cfg.sandwich_norm:
+            layer["post_norm"] = _norm_params(cfg, device)
         if kind["mixer"] == "mamba":
             layer["mixer"] = S.mamba_init(mamba_cfg_for(cfg), cfg.kratos, **kw)
         else:
-            layer["mixer"] = A.gqa_init(attn_cfg_for(cfg, kind), cfg.kratos,
-                                        **kw)
+            layer["mixer"] = A.attn_init(attn_cfg_for(cfg, kind), cfg.kratos,
+                                         **kw)
         if kind["ffn"] == "mlp":
             layer["ffn_norm"] = _norm_params(cfg, device)
+            if cfg.sandwich_norm:
+                layer["ffn_post_norm"] = _norm_params(cfg, device)
             layer["ffn"] = L.mlp_init(cfg.d_model, cfg.d_ff, gated=cfg.gated,
                                       spec=cfg.kratos, **kw)
         layers.append(layer)
@@ -180,13 +234,17 @@ def _layer_apply(p: Dict, x, cfg: ModelConfig, kind: Dict, *, positions,
         h, cache = S.mamba_apply(p["mixer"], h, mamba_cfg_for(cfg),
                                  cache=cache, index=index)
     else:
-        h, cache = A.gqa_apply(p["mixer"], h, attn_cfg_for(cfg, kind),
-                               positions=positions, cache=cache, index=index,
-                               pages=pages)
+        h, cache = A.attn_apply(p["mixer"], h, attn_cfg_for(cfg, kind),
+                                positions=positions, cache=cache,
+                                index=index, pages=pages)
+    if cfg.sandwich_norm:
+        h = _norm(cfg, p["post_norm"], h)
     x = x + h * cfg.residual_scale
     if kind["ffn"] == "mlp":
         h = _norm(cfg, p["ffn_norm"], x)
         h = L.mlp_apply(p["ffn"], h, activation=cfg.activation)
+        if cfg.sandwich_norm:
+            h = _norm(cfg, p["ffn_post_norm"], h)
         x = x + h * cfg.residual_scale
     return x.to(cfg.adtype()), cache
 
@@ -201,14 +259,15 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     or None. index None runs the full sequence (filling `caches` when
     given: prefill); a 0-d or (B,) int32 tensor decodes at that position,
     writing the caches in place. pages: the page-table operand of native
-    paged decode ({'table', 'size', 'len'}), threaded to every GQA layer.
+    paged decode ({'table', 'size', 'len'}), threaded to every attention
+    layer.
     last_only: logits for the final position only."""
     x = L.embed(params["embed"], tokens, scale=cfg.emb_scale).to(cfg.adtype())
     positions = None if index is None or cfg.is_ssm else \
         A._positions_for(index, x.shape[1], x.device)
-    for li, lp in enumerate(params["layers"]):
+    for li in layer_order(cfg):
         c = caches[li] if caches is not None else None
-        x, _ = _layer_apply(lp, x, cfg, layer_kind(cfg, li),
+        x, _ = _layer_apply(params["layers"][li], x, cfg, layer_kind(cfg, li),
                             positions=positions, cache=c, index=index,
                             pages=pages)
     if last_only:
@@ -221,8 +280,10 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 def make_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.float32, device="cuda") -> List[Dict]:
-    """Per-layer decode caches: {"k", "v"} of `max_len` positions, or a
-    Mamba layer's {"conv", "ssm"} (independent of max_len)."""
+    """Per-layer decode caches: {"k", "v"} of `max_len` positions (of
+    min(max_len, window) rows, circular, on a windowed layer), MLA's
+    {"c_kv", "k_rope"}, or a Mamba layer's {"conv", "ssm"} (independent
+    of max_len)."""
     out = []
     for i in range(cfg.n_layers):
         kind = layer_kind(cfg, i)
@@ -230,8 +291,8 @@ def make_caches(cfg: ModelConfig, batch: int, max_len: int,
             out.append(S.make_mamba_cache(mamba_cfg_for(cfg), batch, dtype,
                                           device))
         else:
-            out.append(A.make_gqa_cache(attn_cfg_for(cfg, kind), batch,
-                                        max_len, dtype, device))
+            out.append(A.make_cache(attn_cfg_for(cfg, kind), batch, max_len,
+                                    dtype, device))
     return out
 
 

@@ -171,9 +171,13 @@ class InferenceEngine:
         # pad tokens would run through a recurrence and corrupt the cached
         # conv tail and state: recurrent archs prefill at exact length
         self._exact_prefill = mcfg.is_ssm
-        # pure-SSM state is O(1) and a uniformly windowed cache is
-        # circular: such requests may run longer than the slab
-        self._len_bounded = not (mcfg.is_ssm or mcfg.window is not None)
+        # pure-SSM state is O(1) and a cache windowed on EVERY layer is
+        # circular: such requests may run longer than the slab. gemma2's
+        # global layers and MLA's latent cache are positional: bounded
+        self._len_bounded = not (
+            mcfg.is_ssm
+            or (mcfg.window is not None and not mcfg.local_global_period
+                and not mcfg.mla))
 
     # ------------------------------------------------------------------ API
 

@@ -109,7 +109,7 @@ class PageLayout:
         return store
 
     def _gather_leaf(self, leaf, table):
-        return paged_view(leaf, table)[:, :, :self.cache_len]
+        return paged_view(leaf, table)[..., :self.cache_len, :]
 
     def _scatter_leaf(self, store_leaf, table, slab_leaf) -> None:
         pad = self.pp * self.page_size - self.cache_len

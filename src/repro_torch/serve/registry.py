@@ -21,9 +21,12 @@ from repro_torch.core import kratos as kr
 from repro_torch.models import transformer as T
 from repro_torch.serve import speculative as SP
 
+# the projections that route through kr.apply: attention, MLA's low-rank
+# factors, the MLP, Mamba's in/x/out. MLA's q_norm / kv_norm are norms and
 # Mamba's dt_proj ({"w", "b"}) stays a plain matmul, as in the JAX package
-PACKABLE = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
-                      "in_proj", "x_proj", "out_proj"})
+PACKABLE = frozenset({"wq", "wk", "wv", "wo", "wq_a", "wq_b", "wkv_a",
+                      "wkv_b", "w_gate", "w_up", "w_down", "in_proj",
+                      "x_proj", "out_proj"})
 
 
 def check_device(device) -> torch.device:

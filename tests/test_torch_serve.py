@@ -157,7 +157,7 @@ def test_unported_specs_and_archs_refused_up_front():
                                 bn=8)):
         assert reg.load(ARCH, spec, device="cpu").n_packed > 0
     with pytest.raises(NotImplementedError, match="item 7"):
-        reg.load("gemma2-27b", device="cpu")
+        reg.load("deepseek-moe-16b", device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         pkr.apply({"w": torch.zeros(4, 4)}, torch.zeros(1, 4))
 
