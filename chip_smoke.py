@@ -24,7 +24,11 @@ Phases, in order; any failure raises and exits non-zero:
      quantization inside the launch) is held bit for bit to its plain
      version; the paged attention and scan kernels are each held to two
      bitwise-equal calls; paged attention also at the speculative verify
-     block (sq 5);
+     block (sq 5); bsr_matmul_experts, bsr_matmul batched over an MoE
+     layer's 64 experts in one launch, at deepseek-moe-16b's routed
+     projections (2048 -> 1408 and 1408 -> 2048, s0.5) at C = 6 (decode)
+     and C = 60 (a 512-token prefill), against torch.bmm on the masked
+     dense stack;
   4. model parity: the port's forward on the card against the same forward
      on the CPU (plain versions), full width cut to 2 layers, one prefill
      batch and 4 greedy decode steps;
@@ -78,15 +82,31 @@ Phases, in order; any failure raises and exits non-zero:
      device ms per micro-step, the 512-token prefill's flash device ms;
      paged tokens equal slab tokens (near-tie rule), and every run's equal
      the eager step's;
- 11. minicpm3-4b (MLA): card-vs-CPU parity at 2 layers; then full width and
-     depth (62 layers, 16.3 GB): phase 5's traffic from the slab, dense and
-     s0.5-w8, with the naive expansion's share of decode device time;
+ 11. minicpm3-4b (MLA): card-vs-CPU parity at 2 layers; then full width,
+     depth cut from 62 to 16 layers (4.8 GB): phase 5's traffic from the
+     slab, dense and s0.5-w8, with the naive expansion's share of decode
+     device time;
      speculative decode (K 4, w8 draft) from the slab and the page pool
      against plain decode; phase 7's prefix traffic from the page pool,
      whose skipped share of prompt tokens must be no lower than
      nemotron's. No attention kernel runs on MLA's path (as in the JAX
-     package). Every run's tokens equal the eager step's.
-Every decode dispatch of phases 5-11 replays the CUDA graph the engine
+     package). Every run's tokens equal the eager step's;
+ 12. mixture-of-experts: deepseek-moe-16b, card-vs-CPU parity at 2 layers
+     (the dense prelude layer and one MoE layer); then full width, depth
+     cut from 28 to 8 layers (1 dense + 7 MoE, 18.5 GB in f32): phase 5's
+     traffic from the slab, dense (the routed experts a batched plain
+     product, as the JAX package's einsum) and s0.5-w8 (the routed experts
+     on bsr_matmul_experts over fake-quant float blocks: 21 launches a
+     micro-step), with decode device ms split, from each traced dispatch,
+     into the routed experts' GEMM kernels (found by name and grid in a
+     trace of one layer's expert FFN), the port's other GEMMs and the
+     rest; dense from the page pool without prefix
+     reuse (tokens equal the slab's, near-tie rule); phase 7's prefix
+     traffic (skip share, matched against unmatched admission). Then
+     deepseek-v2-lite-16b (MLA + MoE): parity at 2 layers, full width cut
+     from 27 to 4 layers, dense from the slab. Every run's tokens equal
+     the eager step's.
+Every decode dispatch of phases 5-12 replays the CUDA graph the engine
 captured at build: each of those phases times it against the eager step on
 the same state, in alternating turns within this process, traces both
 (device ms and ops, idle share, one device-to-host copy each), and serves
@@ -103,6 +123,7 @@ import dataclasses
 import functools
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -128,7 +149,8 @@ XPROJ = (8192, 288)
 # order (or as exact int32 sums): each is also held to two bitwise-equal
 # calls on the same inputs
 BITWISE = ("dense_matmul", "quant_matmul", "bsr_quant_matmul", "bsr_matmul",
-           "quant_matmul_w8a8", "paged_flash_attention", "ssm_scan")
+           "quant_matmul_w8a8", "paged_flash_attention", "ssm_scan",
+           "bsr_matmul_experts")
 GEMM_ROWS = [1, 8, 77, 512]
 BITS = [8, 4, 2, 1]
 SPARSITIES = [0.5, 0.75]
@@ -158,7 +180,9 @@ HEADLINE = {
     "paged_flash_attention": ("paged_flash_attention", "float32", 80, 1,
                               None, None),
     # one falcon-mamba layer's scan in a 512-token prefill
-    "ssm_scan": ("ssm_scan", "float32", 1, 512, 8192, 16)}
+    "ssm_scan": ("ssm_scan", "float32", 1, 512, 8192, 16),
+    # one deepseek-moe MoE layer's w_gate at decode: 64 experts x C = 6
+    "bsr_matmul_experts": ("bsr_matmul_experts", 6, (2048, 1408))}
 SOURCES = {
     "dense_matmul": ("src/repro_torch/csrc/dense_matmul.cu",
                      "src/repro/kernels/dense_matmul.py:38"),
@@ -176,9 +200,21 @@ SOURCES = {
                               "src/repro/kernels/flash_attention.py:213"),
     "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                  "src/repro/kernels/ssm_scan.py:64"),
+    # the same Pallas kernel, which the JAX package vmaps over an MoE
+    # layer's experts (src/repro/models/moe.py:90-97)
+    "bsr_matmul_experts": ("src/repro_torch/csrc/bsr_matmul.cu",
+                           "src/repro/kernels/bsr_matmul.py:47"),
 }
 GEMMA, MINICPM = "gemma2-27b", "minicpm3-4b"
 GEMMA_LAYERS = 8                       # of 46 (phase 10's depth cut)
+MINICPM_LAYERS = 16                    # of 62 (phase 11's depth cut)
+DEEPSEEK, LITE = "deepseek-moe-16b", "deepseek-v2-lite-16b"
+DEEPSEEK_LAYERS = 8                    # of 28: 1 dense + 7 MoE (phase 12)
+LITE_LAYERS = 4                        # of 27: 1 dense + 3 MoE (phase 12)
+# deepseek's routed projections (n_in, n_out) and the expert rows C of a
+# decode micro-step at 8 slots and of a 512-token prefill
+EXPERT_SHAPES = [(2048, 1408), (1408, 2048)]
+EXPERT_ROWS = (6, 60)
 GEMMA_SCALE = (4608 / 32) ** -0.5      # gemma2's query scale, 1/12
 # minicpm3's projections (n_in, n_out): MLA's low-rank factors, wo and the
 # MLP; wkv_b also runs at m = n_slots x max_len, the naive expansion of the
@@ -188,7 +224,7 @@ MLA_SHAPES = {"wq_a": (2560, 768), "wq_b": (768, 3840), "wkv_a": (2560, 288),
               "w_down": (6400, 2560)}
 EXPANSION_ROWS = 8 * 544
 GEMM_KERNELS = ("dense_matmul", "bsr_matmul", "quant_matmul",
-                "quant_matmul_w8a8", "bsr_quant_matmul")
+                "quant_matmul_w8a8", "bsr_quant_matmul", "bsr_matmul_experts")
 # a divergent greedy token is accepted only at a near-tie of the top two
 # logits (f32 kernels and plain versions sum in different orders)
 TOP2_GAP = 1e-3
@@ -314,13 +350,48 @@ def non_gemm_ms(call):
                if f not in GEMM_FAMILIES)
 
 
-def trace_call(torch, fn):
+def family(name):
+    """The kernel family of a traced device op's name."""
+    low = name.lower()
+    return next((f for f in KERNEL_FAMILIES if f in name),
+                "memcpy_memset" if "mem" in low else
+                "library_gemm" if "gemm" in low or "gemv" in low else "other")
+
+
+def gemm_kernels_by_grid(prof):
+    """Device ms and launches of each GEMM kernel (the port's and the
+    library's) of a finished profile, keyed by name and launch grid, so two
+    launches of one kernel at different shapes (a batched launch over an
+    MoE layer's experts, a head) tell apart. The grid is read from the
+    profile's Chrome trace (written under chiprun_out/ and removed): the
+    profiler's events do not carry it."""
+    path = ROOT / "chiprun_out" / f"trace-{os.getpid()}.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    try:
+        events = json.loads(path.read_text())["traceEvents"]
+    finally:
+        path.unlink()
+    ms, launches = {}, {}
+    for e in events:
+        if e.get("cat") != "kernel" or \
+                family(e["name"]) not in GEMM_FAMILIES + ("library_gemm",):
+            continue
+        key = f"{e['name']} grid {tuple(e['args']['grid'])}"
+        ms[key] = ms.get(key, 0.0) + e["dur"] / 1e3
+        launches[key] = launches.get(key, 0) + 1
+    return ms, launches
+
+
+def trace_call(torch, fn, grids=False):
     """Trace one call of `fn` (closed by a device sync) in its own
     torch.profiler session of device activity. Returns the device window
     (first device op's start to last one's end), the device ms by kernel
     family, the numbers of device ops and of device-to-host copies, the
     device idle share = 1 - (union of device activity) / (device window),
-    and the host wall time of the traced call (the tracing widens it)."""
+    and the host wall time of the traced call (the tracing widens it). With
+    `grids`, also the device ms and launches of each GEMM kernel by name
+    and grid (`gemm_kernels_by_grid`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -338,28 +409,31 @@ def trace_call(torch, fn):
     for s, e, name in device:
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
-        fam = next((f for f in KERNEL_FAMILIES if f in name),
-                   "memcpy_memset" if "mem" in name.lower() else
-                   "library_gemm" if "gemm" in name.lower() else "other")
+        fam = family(name)
         by_kernel[fam] = by_kernel.get(fam, 0.0) + (e - s) / 1e3
         dtoh += "DtoH" in name
-    return dict(window_ms=(t1 - t0) / 1e3, busy_ms=busy / 1e3,
-                idle_share=1.0 - busy / (t1 - t0),
-                traced_host_ms=t_host * 1e3, device_ms_by_kernel=by_kernel,
-                dtoh_copies=dtoh, device_ops=len(device))
+    out = dict(window_ms=(t1 - t0) / 1e3, busy_ms=busy / 1e3,
+               idle_share=1.0 - busy / (t1 - t0),
+               traced_host_ms=t_host * 1e3, device_ms_by_kernel=by_kernel,
+               dtoh_copies=dtoh, device_ops=len(device))
+    if grids:
+        out["gemm_device_ms_by_grid"], out["gemm_launches_by_grid"] = \
+            gemm_kernels_by_grid(prof)
+    return out
 
 
-def profile_calls(torch, fn, n, dtoh=None, retries=3):
+def profile_calls(torch, fn, n, dtoh=None, retries=3, grids=False):
     """`n` traces of `fn`, each by `trace_call`. With `dtoh`, every kept
     trace must hold exactly that many device-to-host copies. The tracer can
     lose records of a call with thousands of device ops (a falcon-mamba
     decode dispatch, ~15.5k ops, lost its host copy in one trace of
     three); a trace whose copy count differs is taken again, at most
     `retries` more times in all. A real extra or missing copy repeats in
-    every dispatch and still fails. Returns (kept traces, retaken ones)."""
+    every dispatch and still fails. `grids` goes to `trace_call`. Returns
+    (kept traces, retaken ones)."""
     kept, retaken = [], []
     while len(kept) < n:
-        c = trace_call(torch, fn)
+        c = trace_call(torch, fn, grids)
         if dtoh is not None and c["dtoh_copies"] != dtoh \
                 and len(retaken) < retries:
             retaken.append(c)
@@ -391,12 +465,13 @@ def run_eager(eng):
     return eng
 
 
-def graph_vs_eager(torch, eng, per, turns=3, n=3, traces=2):
+def graph_vs_eager(torch, eng, per, turns=3, n=3, traces=2, grids=False):
     """Wall ms per micro-step (`per` micro-steps a dispatch; 1 for a
     speculative cycle) of the graphed dispatch against the eager step on
     the same state, in alternating turns of n dispatches each, in this one
-    process; then `traces` traced graph dispatches and one traced eager
-    one, each with exactly one device-to-host copy."""
+    process; then `traces` traced graph dispatches (with `grids`, keyed as
+    `trace_call` says) and one traced eager one, each with exactly one
+    device-to-host copy."""
     fn = dispatch_fn(eng)
     fn()
     fn(eager=True)
@@ -409,7 +484,8 @@ def graph_vs_eager(torch, eng, per, turns=3, n=3, traces=2):
                 fn(eager=mode == "eager")
             torch.cuda.synchronize()
             out.append((time.perf_counter() - t) * 1e3 / (n * per))
-    graph_prof, retaken = profile_calls(torch, fn, traces, dtoh=1)
+    graph_prof, retaken = profile_calls(torch, fn, traces, dtoh=1,
+                                        grids=grids)
     eager_prof, eager_retaken = profile_calls(
         torch, lambda: fn(eager=True), 1, dtoh=1)
     return dict(graph_ms=ms["graph"], eager_ms=ms["eager"],
@@ -863,6 +939,38 @@ def phase_kernels(torch, timer):
                        leaf=leaf, spec=kr.spec_tag(lin.spec))
             del w_eff
 
+    # bsr_matmul batched over an MoE layer's experts: deepseek-moe-16b's 64
+    # routed experts, w_gate / w_up (2048 -> 1408) and w_down (1408 ->
+    # 2048) at s0.5, C = 6 rows an expert (decode at 8 slots) and C = 60 (a
+    # 512-token prefill); one launch a call. Bytes: x, the kept blocks, the
+    # index table and y once; operations: every expert's C rows against
+    # its kept k. The library time is torch.bmm on the masked dense stack
+    experts = 64
+    for n, p in EXPERT_SHAPES:
+        w = torch.randn((experts, n, p), generator=gen, device=dev) \
+            * n ** -0.5
+        spec = kr.KratosSpec(sparsity=0.5)
+        plan = kr.plan_for(n, p, spec)
+        packed = kr.pack_experts(w, spec)
+        w.mul_(torch.as_tensor(sp.plan_mask(plan), device=dev))
+        for c in EXPERT_ROWS:
+            x = torch.randn((experts, c, n), generator=gen, device=dev)
+            y = torch.empty((experts, c, p), device=dev)
+            args = (x, packed.blocks, packed.indices)
+            form = gemm_plan.bsr_plan(c, plan.n_pb, plan.nnz, plan.bk,
+                                      plan.bn, 0, batch=experts).form
+            record("bsr_matmul_experts", "float32",
+                   ops.bsr_matmul_experts(*args),
+                   ref.bsr_matmul_experts_ref(*args), TOL["float32"],
+                   ("bsr_matmul_experts", c, (n, p)),
+                   nbytes(x, packed.blocks, packed.indices, y),
+                   2 * experts * c * plan.nnz * plan.bk * p,
+                   lambda: ops.bsr_matmul_experts(*args),
+                   lambda: ref.bsr_matmul_experts_ref(*args),
+                   lambda: torch.bmm(x, w), experts=experts, m=c, n=n,
+                   p=p, sparsity=0.5, form=form)
+        del w, packed
+
     # the event pair against the profiler's own kernel duration at the
     # headline rows of the redesigned kernels (same shapes, fresh inputs):
     # the five decode GEMVs, flash attention at sq 512, paged decode
@@ -920,6 +1028,15 @@ def phase_kernels(torch, timer):
                -torch.exp(scan_in[4] * 0.3)]
     profiled.append(("ssm_scan", HEADLINE["ssm_scan"], "ssm_scan_kernel",
                      lambda: ops.ssm_scan(*scan_in)))
+    n, p = HEADLINE["bsr_matmul_experts"][2]
+    ex = kr.pack_experts(torch.randn((64, n, p), generator=gen, device=dev)
+                         * n ** -0.5, kr.KratosSpec(sparsity=0.5))
+    ex_x = torch.randn((64, HEADLINE["bsr_matmul_experts"][1], n),
+                       generator=gen, device=dev)
+    profiled.append(("bsr_matmul_experts", HEADLINE["bsr_matmul_experts"],
+                     "gemv_cluster_kernel",
+                     lambda: ops.bsr_matmul_experts(ex_x, ex.blocks,
+                                                    ex.indices)))
     for name, key, family, fn in profiled:
         case = next(c for c in cases if c["key"] == key)
         case["profiler_ms"] = profiled_kernel_ms(torch, fn, family)
@@ -1275,7 +1392,10 @@ def phase_prefix_reuse(torch, card, arch="nemotron-4-340b", n_layers=1):
     layer plus the untied embedding and head is ~52 GB in f32), dense: a
     shared 512-token system prompt, then two follow-up turns of finished
     conversations; paged engine with the prefix index against a slab
-    engine over the same model."""
+    engine over the same model. An MoE arch is not held to the slab: a
+    matched admission routes only its suffix (its capacity groups differ
+    from a full prefill's, as in the JAX package), so its tokens may
+    differ from the slab's; graph against eager still holds."""
     from repro_torch import configs as C
     from repro_torch.core import kratos as kr
     from repro_torch.kernels import ops
@@ -1386,10 +1506,15 @@ def phase_prefix_reuse(torch, card, arch="nemotron-4-340b", n_layers=1):
     assert eager_same, "graphed and eager tokens differ"
     del eager_reqs
     gc.collect()
-    slab, slab_reqs, _, slab_admit = serve(None)
-    print("  paged against slab tokens:", flush=True)
-    div = first_divergence(torch, model, wave + follow, paged_tokens,
-                           [list(r.generated) for r in slab_reqs])
+    slab, div, slab_admit = None, None, None
+    if cfg.n_experts:
+        print("  paged against slab tokens: not compared (an MoE suffix "
+              "prefill routes only the suffix)", flush=True)
+    else:
+        slab, slab_reqs, _, slab_admit = serve(None)
+        print("  paged against slab tokens:", flush=True)
+        div = first_divergence(torch, model, wave + follow, paged_tokens,
+                               [list(r.generated) for r in slab_reqs])
     result = dict(wall_s=wall, prefix_matched=matched, launches=counts,
                   max_memory_allocated=peak, admission_ms=admit_ms,
                   slab_admission_ms=slab_admit, divergences=div,
@@ -1733,7 +1858,7 @@ def load_cut(arch, spec, params, n_layers, **kw):
     return model
 
 
-def serve_run(torch, card, model, prompts, ecfg, gemms, tag):
+def serve_run(torch, card, model, prompts, ecfg, gemms, tag, grids=False):
     """Serve `prompts` (GEN_LEN new tokens each, greedy) through a fresh
     engine after an allocator warm-up, as the main path; check that only
     the spec's GEMMs ran and which attention kernels did (flash at prefill
@@ -1771,7 +1896,7 @@ def serve_run(torch, card, model, prompts, ecfg, gemms, tag):
         cfg.n_layers * rep["micro_steps"] if paged and not cfg.mla else 0), \
         (counts, rep["micro_steps"])
     assert rep["host_syncs_decode"] == rep["decode_steps"], rep
-    ab = graph_vs_eager(torch, eng, k)
+    ab = graph_vs_eager(torch, eng, k, grids=grids)
     prof = ab["graph_prof"]
     gemm = [gemm_ms(c) / k for c in prof]
     other = [non_gemm_ms(c) / k for c in prof]
@@ -1953,10 +2078,12 @@ def phase_gemma2(torch, card):
 
 
 def phase_minicpm3(torch, card):
-    """minicpm3-4b (MLA) at its published width and full depth (62 layers,
-    d_model 2560, 40 heads, q_lora 768, kv_lora 256, nope 64 / rope 32 / v
-    64, d_ff 6400, vocab 73448 tied; 4.08 B parameters, 16.3 GB in f32),
-    random f32 weights from the seed: phase 5's traffic from the slab,
+    """minicpm3-4b (MLA) at its published width (d_model 2560, 40 heads,
+    q_lora 768, kv_lora 256, nope 64 / rope 32 / v 64, d_ff 6400, vocab
+    73448 tied), depth cut from 62 to 16 layers (62 layers took 397 s of
+    the script's 1200, most of it the host-bound eager partners; the
+    residual scale stays the published 1.4 / sqrt(62)), random f32 weights
+    from the seed: phase 5's traffic from the slab,
     dense and s0.5-w8; phase 7's prefix traffic from the page pool;
     speculative decode (K 4, draft DraftSpec(bits=8)) from the slab and
     the page pool against plain decode. MLA is the reference's naive form:
@@ -1966,15 +2093,15 @@ def phase_minicpm3(torch, card):
     from repro_torch.core import kratos as kr
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
-    from repro_torch.serve import DraftSpec, EngineConfig, ModelRegistry
+    from repro_torch.serve import DraftSpec, EngineConfig
 
-    cfg = C.get_config(MINICPM)
+    cfg = C.get_config(MINICPM, n_layers=MINICPM_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = T.init(cfg, seed=SEED, device="cuda")
     torch.cuda.synchronize()
-    print(f"  init {MINICPM} full width and depth ({cfg.n_layers} layers, "
-          f"f32): {time.perf_counter() - t0:.1f} s, memory_allocated "
+    print(f"  init {MINICPM} full width, {cfg.n_layers} layers (f32): "
+          f"{time.perf_counter() - t0:.1f} s, memory_allocated "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
     prompts = serving_traffic(cfg.vocab)
     totals = {name: 0 for name in ops.KERNELS}
@@ -1983,8 +2110,7 @@ def phase_minicpm3(torch, card):
             ("dense-slab", kr.DENSE, {"dense_matmul"}),
             ("s0.5-w8-slab", kr.KratosSpec(sparsity=0.5, bits=8),
              {"bsr_quant_matmul", "quant_matmul"})):
-        model = ModelRegistry().load(MINICPM, spec, smoke=False,
-                                     params=params, seed=SEED)
+        model = load_cut(MINICPM, spec, params, cfg.n_layers)
         ecfg = EngineConfig(n_slots=N_SLOTS, max_len=512 + GEN_LEN,
                             decode_chunk=CHUNK, seed=SEED)
         counts, res, eng, toks = serve_run(torch, card, model, prompts, ecfg,
@@ -1997,9 +2123,8 @@ def phase_minicpm3(torch, card):
         results[tag] = res
         del model
         gc.collect()
-    model = ModelRegistry().load(MINICPM, kr.DENSE, smoke=False,
-                                 params=params, seed=SEED,
-                                 draft_spec=DraftSpec(bits=8))
+    model = load_cut(MINICPM, kr.DENSE, params, cfg.n_layers,
+                     draft_spec=DraftSpec(bits=8))
     print(f"  {model.name}: memory_allocated "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
     for page_size in (None, 16):
@@ -2016,6 +2141,183 @@ def phase_minicpm3(torch, card):
     counts, results["prefix_reuse"] = phase_prefix_reuse(
         torch, card, MINICPM, cfg.n_layers)
     add_counts(totals, counts)
+    return totals, results
+
+
+def routed_kernels(torch, model, rows):
+    """The GEMM kernels of one MoE layer's expert FFN at the capacity C of
+    a `rows`-token group, by name and grid: the union of two traces of 3
+    calls of it alone, after a warm-up call. The tracer can miss the first
+    launches of so short a trace, or all of it: such a trace is taken
+    again, at most 4 times in all (`routed_ms` checks that the set is
+    whole). Under a block-sparse spec the kernels are bsr_matmul_experts'
+    with the experts in the grid; under the dense spec the library's
+    batched GEMM, which its name and grid tell from the head's and the
+    attention's library GEMMs."""
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    cfg = model.cfg
+    moe = next(i for i in range(cfg.n_layers)
+               if T.layer_kind(cfg, i)["ffn"] == "moe")
+    mcfg = T.moe_cfg_for(cfg)
+    ffn = model.params["layers"][moe]["ffn"]
+    xe = torch.randn((cfg.n_experts, M.capacity(mcfg, rows), cfg.d_model),
+                     device="cuda")
+    M._expert_ffn(ffn, xe, mcfg)
+    torch.cuda.synchronize()
+    keys, kept = set(), 0
+    for _ in range(4):
+        try:
+            got = trace_call(torch, lambda: [M._expert_ffn(ffn, xe, mcfg)
+                                             for _ in range(3)],
+                             grids=True)["gemm_launches_by_grid"]
+        except AssertionError:              # the trace holds no device op
+            continue
+        keys |= set(got)
+        kept += bool(got)
+        if kept == 2:
+            break
+    assert keys, "no GEMM kernel traced in the expert FFN"
+    return sorted(keys)
+
+
+def routed_ms(call, keys, forwards):
+    """Device ms of a traced call (taken with grids) in the routed experts'
+    GEMM kernels (`routed_kernels`' keys); they must have launched 3 times
+    (one a projection) in each of the call's `forwards` MoE-layer forwards,
+    or a key also names another GEMM and the split would not hold."""
+    n = sum(call["gemm_launches_by_grid"].get(k, 0) for k in keys)
+    assert n == 3 * forwards, (n, forwards, keys)
+    return sum(call["gemm_device_ms_by_grid"].get(k, 0.0) for k in keys)
+
+
+def phase_moe(torch, card):
+    """deepseek-moe-16b at its published width (d_model 2048, 16 heads of
+    128, 64 routed experts of d_ff 1408, top 6, 2 shared, the dense prelude
+    layer of d_ff 10944, vocab 102400 untied), depth cut from 28 to 8
+    layers (28 layers are 65.5 GB in f32: no room for a second packed copy
+    or the KV pool, nor time in the script's limit), random f32 weights
+    from the seed, phase 5's traffic in its vocab: dense and s0.5-w8 from
+    the slab, dense from the page pool without prefix reuse, and phase 7's
+    prefix traffic. Prompts prefill at exact length (pad tokens would take
+    expert capacity). Then deepseek-v2-lite-16b (MLA + MoE), depth cut
+    from 27 to 4 layers, dense from the slab."""
+    from repro_torch import configs as C
+    from repro_torch.core import kratos as kr
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import EngineConfig
+
+    cfg = C.get_config(DEEPSEEK, n_layers=DEEPSEEK_LAYERS)
+    n_moe = sum(T.layer_kind(cfg, i)["ffn"] == "moe"
+                for i in range(cfg.n_layers))
+    assert n_moe == DEEPSEEK_LAYERS - 1, n_moe
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  init {DEEPSEEK} full width, {cfg.n_layers} layers (f32): "
+          f"{time.perf_counter() - t0:.1f} s, memory_allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    prompts = serving_traffic(cfg.vocab)
+    totals = {name: 0 for name in ops.KERNELS}
+    results, tokens = {}, {}
+    runs = {"dense-slab": (kr.DENSE, None, {"dense_matmul"}),
+            "s0.5-w8-slab": (kr.KratosSpec(sparsity=0.5, bits=8), None,
+                             {"bsr_quant_matmul", "quant_matmul",
+                              "bsr_matmul_experts"}),
+            "dense-paged": (kr.DENSE, 16, {"dense_matmul"})}
+    r = lambda xs, d=3: [round(x, d) for x in xs]
+    for tag, (spec, page_size, gemms) in runs.items():
+        t0 = time.perf_counter()
+        model = load_cut(DEEPSEEK, spec, params, cfg.n_layers)
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        ecfg = EngineConfig(n_slots=N_SLOTS, max_len=512 + GEN_LEN,
+                            decode_chunk=CHUNK, seed=SEED,
+                            page_size=page_size, prefix_cache=False)
+        counts, res, eng, tokens[tag] = serve_run(
+            torch, card, model, prompts, ecfg, gemms, tag, grids=True)
+        add_counts(totals, counts)
+        assert eng._exact_prefill
+        if page_size:
+            assert eng.pool.index is None
+        # the batched kernel: once per routed projection of every MoE layer
+        # in every forward, prefills and graphed micro-steps alike
+        per_fwd = 3 * n_moe if "bsr_matmul_experts" in gemms else 0
+        per_replay = eng.backend._graph_launches.get("bsr_matmul_experts", 0)
+        assert per_replay == per_fwd * CHUNK, per_replay
+        assert counts["bsr_matmul_experts"] == per_fwd * (
+            len(prompts) + res["micro_steps"]), counts
+        # decode device ms split from the dispatch's own trace: the routed
+        # experts' GEMM kernels (the port's batched kernel, or the dense
+        # spec's library batched GEMM), the port's other GEMMs, the rest
+        keys = routed_kernels(torch, model, N_SLOTS)
+        routed_step = [routed_ms(c, keys, n_moe * CHUNK) / CHUNK
+                       for c in res["decode_dispatch_profiled"]]
+        assert all(v > 0 for v in routed_step), routed_step
+        other_gemm = [g - (v if per_fwd else 0.0) for g, v in
+                      zip(res["gemm_device_ms_per_micro_step"],
+                          routed_step)]
+        non_gemm = [b - v - g for b, v, g in
+                    zip(res["device_ms_per_micro_step"], routed_step,
+                        other_gemm)]
+        res.update(pack_s=pack_s, routed_expert_kernels=keys,
+                   routed_expert_device_ms_per_micro_step=routed_step,
+                   other_gemm_device_ms_per_micro_step=other_gemm,
+                   non_gemm_rest_device_ms_per_micro_step=non_gemm,
+                   expert_launches_per_micro_step=per_fwd)
+        print(f"    {tag}: device ms / micro-step "
+              f"{r(res['device_ms_per_micro_step'])} = routed experts "
+              f"{r(routed_step)} + other port GEMM {r(other_gemm)} + the "
+              f"rest (router, sort, combine, attention, head, elementwise) "
+              f"{r(non_gemm)}; routed-expert kernels "
+              f"{[k.split('<')[0][-24:] + ' ' + k.split(' grid ')[-1] for k in keys]}; "
+              f"bsr_matmul_experts launches / micro-step {per_fwd}, per "
+              f"replay {per_replay}; pack {pack_s:.1f} s", flush=True)
+        del eng
+        gc.collect()
+        res["eager_tokens_identical"] = eager_identity(
+            torch, model, ecfg, prompts, GEN_LEN, tokens[tag])
+        if tag == "dense-paged":
+            print("  dense paged against dense slab tokens:", flush=True)
+            res["divergences"] = first_divergence(
+                torch, model, prompts, tokens[tag], tokens["dense-slab"])
+        results[tag] = res
+        del model
+        gc.collect()
+    results["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  {DEEPSEEK} prefix and conversation reuse through the page pool",
+          flush=True)
+    counts, results["prefix_reuse"] = phase_prefix_reuse(
+        torch, card, DEEPSEEK, DEEPSEEK_LAYERS)
+    add_counts(totals, counts)
+
+    print(f"  {LITE} (MLA + MoE): card vs CPU at full width, 2 layers; then "
+          f"full width, {LITE_LAYERS} layers", flush=True)
+    parity = phase_parity(torch, LITE, 48, 128)
+    assert parity["flash_attention"] == 0, parity
+    assert parity["bsr_matmul_experts"] == 3, parity
+    lcfg = C.get_config(LITE, n_layers=LITE_LAYERS)
+    params = T.init(lcfg, seed=SEED, device="cuda")
+    model = load_cut(LITE, kr.DENSE, params, lcfg.n_layers)
+    ecfg = EngineConfig(n_slots=N_SLOTS, max_len=512 + GEN_LEN,
+                        decode_chunk=CHUNK, seed=SEED)
+    counts, res, eng, toks = serve_run(torch, card, model,
+                                       serving_traffic(lcfg.vocab), ecfg,
+                                       {"dense_matmul"}, "dense-slab")
+    add_counts(totals, counts)
+    del eng
+    gc.collect()
+    res["eager_tokens_identical"] = eager_identity(
+        torch, model, ecfg, serving_traffic(lcfg.vocab), GEN_LEN, toks)
+    results[LITE + " dense-slab"] = res
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
     return totals, results
 
 
@@ -2102,7 +2404,7 @@ def main() -> int:
     gemma_launches, gemma = phase_gemma2(torch, card)
     mark(11)
     print(f"[11] {MINICPM} (MLA): card vs CPU at full width, 2 layers; then "
-          "full width and depth", flush=True)
+          f"full width, {MINICPM_LAYERS} layers", flush=True)
     parity_launches = phase_parity(torch, MINICPM, 48, 128)
     assert parity_launches["flash_attention"] == 0, parity_launches
     mla_launches, mla = phase_minicpm3(torch, card)
@@ -2111,14 +2413,26 @@ def main() -> int:
     print(f"  prefill skip fraction: {MINICPM} {skip[1]:.4f} against "
           f"nemotron-4-340b's {skip[0]:.4f} (phase 7)", flush=True)
     assert skip[1] >= skip[0], skip
+    mark(12)
+    print(f"[12] mixture-of-experts, {DEEPSEEK}: card vs CPU at full width, "
+          f"2 layers; then full width, {DEEPSEEK_LAYERS} layers; then "
+          f"{LITE}", flush=True)
+    parity_launches = phase_parity(torch, DEEPSEEK, 48, 128)
+    assert parity_launches["flash_attention"] == 2 * 2, parity_launches
+    assert parity_launches["bsr_matmul_experts"] == 3, parity_launches
+    moe_launches, moe = phase_moe(torch, card)
+    print(f"  prefill skip fraction: {DEEPSEEK} "
+          f"{moe['prefix_reuse']['report']['prefill_skip_fraction']:.4f} "
+          f"against nemotron-4-340b's {skip[0]:.4f} (phase 7)", flush=True)
     for more in (paged_launches, reuse_launches, mamba_launches,
-                 spec_launches, gemma_launches, mla_launches):
+                 spec_launches, gemma_launches, mla_launches, moe_launches):
         for name, c in more.items():
             launches[name] += c
 
     mark("end")
     kernels = []
     for name, (source, replaces) in SOURCES.items():
+        assert launches[name] > 0, (name, launches)
         mine = [c for c in cases if c["kernel"] == name]
         h = next(c for c in mine if c["key"] == HEADLINE[name])
         kernels.append(dict(
@@ -2135,7 +2449,7 @@ def main() -> int:
          "cases": [{k: v for k, v in c.items() if k != "key"} for c in cases],
          "serving": serving, "paged_serving": paged, "prefix_reuse": reuse,
          "mamba_serving": mamba, "speculative": spec, "gemma2": gemma,
-         "minicpm3": mla, "phase_start_s": marks},
+         "minicpm3": mla, "moe": moe, "phase_start_s": marks},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -6,8 +6,12 @@ returns the port's parameter tree (`models.transformer`): the JAX
 package's layer-stacked `blocks/#s/...` arrays (leading layer axis, scan
 slot s) are unstacked into the per-layer list, layer `prelude + t *
 period + s` taking row t (gemma2's two slots interleave local and global
-layers). Weights keep their (n_in, n_out) layout. A layer parameter the
-port's families do not have (an MoE router, a cross-attention) is refused.
+layers). Weights keep their (n_in, n_out) layout. An MoE layer's
+`ffn/router/w`, its raw routed-expert stacks `ffn/w_gate` / `w_up` /
+`w_down` ((E, d, f) per layer, no `/w` suffix) and its shared experts
+`ffn/shared/<proj>/w` carry across as they are. A layer parameter the
+port's families do not have (a cross-attention), and a checkpoint whose
+layers mix Mamba and attention mixers (the jamba hybrid), are refused.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ def read_flat(src: Union[str, Mapping[str, np.ndarray]]) -> Dict[str, np.ndarray
 
 
 # per-layer parameter names of the ported families: the (sandwich) norms,
-# the GQA and MLA mixers, the Mamba mixer and the MLP
+# the GQA and MLA mixers, the Mamba mixer, the MLP and the MoE FFN
 _LAYER_MODULES = frozenset({"pre_norm", "post_norm", "mixer", "ffn_norm",
                             "ffn_post_norm", "ffn"})
 _MEMBERS = frozenset({
@@ -38,13 +42,25 @@ _MEMBERS = frozenset({
     "in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "A_log", "D",
     "out_proj", "b_norm", "c_norm", "dt_norm",
     "w_gate", "w_up", "w_down"})
+# an MoE FFN's router and shared experts (a gated MLP)
+_MOE_MEMBERS = {"router": frozenset({"w"}),
+                "shared": frozenset({"w_gate", "w_up", "w_down"})}
+
+
+def _unported(key: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"parameter '{key}' belongs to a model family the port does not "
+        "have yet (ROADMAP.md queue 1, item 7)")
 
 
 def _layer_path(key: str, path):
-    if path[0] not in _LAYER_MODULES or path[1] not in _MEMBERS:
-        raise NotImplementedError(
-            f"parameter '{key}' belongs to a model family the port does "
-            "not have yet (ROADMAP.md queue 1, item 7)")
+    if path[0] not in _LAYER_MODULES:
+        raise _unported(key)
+    if path[0] == "ffn" and path[1] in _MOE_MEMBERS:
+        if len(path) < 3 or path[2] not in _MOE_MEMBERS[path[1]]:
+            raise _unported(key)
+    elif path[1] not in _MEMBERS:
+        raise _unported(key)
     return path
 
 
@@ -80,9 +96,12 @@ def convert(src: Union[str, Mapping[str, np.ndarray]], n_layers: int, *,
         elif parts[0] in ("embed", "final_norm", "head"):
             _put(params, parts, tensor(arr))
         else:
-            raise NotImplementedError(
-                f"parameter '{key}' belongs to a model family the port does "
-                "not have yet (ROADMAP.md queue 1, item 7)")
+            raise _unported(key)
     if any(not lp for lp in layers):
         raise ValueError(f"checkpoint does not fill all {n_layers} layers")
+    mamba = ["in_proj" in lp["mixer"] for lp in layers]
+    if any(mamba) and not all(mamba):
+        raise NotImplementedError(
+            "checkpoint mixes Mamba and attention mixers (the jamba hybrid), "
+            "which the port does not have yet (ROADMAP.md queue 1, item 7)")
     return params

@@ -12,6 +12,11 @@ masked dense weight), weight precision `bits`, and the block grid `bk, bn`.
     'blocks'              -> bsr_matmul
     'qblocks' + 'qscale'  -> bsr_quant_matmul
 
+A routed-expert stack `(E, n_in, n_out)` (models.moe) packs through
+`pack_experts` into a `PackedExperts`: one block plan shared by every
+expert, the experts' kept blocks stacked, run by `apply_experts` as one
+expert-batched `bsr_matmul` launch.
+
 Weights keep the JAX layout (n_in, n_out), so the buffers compare one to
 one with the JAX package's. The plan's index table becomes an int32 tensor
 on the weight's device once, at pack time (`PackedLinear.indices`), never
@@ -199,6 +204,53 @@ def apply_packed(p: PackedLinear, x: torch.Tensor) -> torch.Tensor:
         y = ops.bsr_quant_matmul(xm, b["qblocks"], b["qscale"], p.indices,
                                  p.spec.bits)
     return y.reshape(*lead, p.n_out)
+
+
+@dataclasses.dataclass
+class PackedExperts:
+    """A routed-expert stack frozen for serving: every expert's kept
+    blocks (E, n_pb, nnz, bk, bn) over the one plan all experts share
+    (the plan depends on the shape only); `indices` is its int32 index
+    table on the blocks' device."""
+
+    blocks: torch.Tensor
+    indices: torch.Tensor
+
+
+def pack_experts(w: torch.Tensor, spec: KratosSpec):
+    """Freeze one routed-expert stack w (E, n_in, n_out) for the tree path
+    of the JAX package's expert FFN (`models.moe.pack_moe` decides that a
+    layer takes it). Each expert's weight is w + (fake_quantize(w) - w)
+    when the spec sets bits (the training-time apply's straight-through
+    forward), else w; with a plan for this stack's own shape its kept
+    blocks form a PackedExperts, without one the float stack stays for a
+    dense product, as the reference's apply does."""
+    e, n_in, n_out = (int(v) for v in w.shape)
+    plan = plan_for(n_in, n_out, spec)
+    if spec.bits is None and plan is None:
+        return w
+    out = torch.empty((e, plan.n_pb, plan.nnz, plan.bk, plan.bn)
+                      if plan is not None else (e, n_in, n_out),
+                      dtype=w.dtype, device=w.device)
+    for i in range(e):
+        we = w[i]
+        if spec.bits is not None:
+            we = we + (qz.fake_quantize(we, spec.bits) - we)
+        out[i] = we if plan is None else sp.pack_blocks(we, plan)
+    if plan is None:
+        return out
+    return PackedExperts(blocks=out, indices=torch.as_tensor(
+        plan.indices, dtype=torch.int32, device=w.device))
+
+
+def apply_experts(p, x: torch.Tensor) -> torch.Tensor:
+    """Every expert's projection at once: x (E, M, n_in) -> (E, M, n_out).
+    A PackedExperts runs the expert-batched block-sparse kernel (one
+    launch); a float stack is a batched plain product (the reference's
+    einsum, outside any kernel)."""
+    if isinstance(p, PackedExperts):
+        return ops.bsr_matmul_experts(x, p.blocks.to(x.dtype), p.indices)
+    return torch.bmm(x, p.to(x.dtype))
 
 
 def apply(params, x: torch.Tensor) -> torch.Tensor:

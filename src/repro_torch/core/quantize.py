@@ -56,7 +56,12 @@ def compute_scale(w: torch.Tensor, bits: int, axis: int = 0) -> torch.Tensor:
         num = torch.sum(torch.where(keep, aw, torch.zeros_like(aw)), dim=axis)
         den = torch.clamp(torch.sum(keep, dim=axis), min=1)
         return num / den + 1e-12
-    return torch.amax(torch.abs(w), dim=axis) / QMAX[bits] + 1e-12
+    # qmax as a 0-d tensor on w's device: CUDA turns a division by a Python
+    # scalar into a multiply by its reciprocal, which moves some scales by
+    # an ulp (and flips codes near a rounding tie) off the CPU's and the
+    # JAX package's true division
+    qmax = torch.full((), QMAX[bits], dtype=w.dtype, device=w.device)
+    return torch.amax(torch.abs(w), dim=axis) / qmax + 1e-12
 
 
 def quantize_values(w: torch.Tensor, scale: torch.Tensor,
@@ -125,6 +130,14 @@ def dequantize(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
     """codes * scale in `dtype` (the JAX package's dequantize)."""
     codes = unpack_codes(qt.data, qt.bits)
     return codes.to(dtype) * qt.scale.to(dtype)
+
+
+def fake_quantize(w: torch.Tensor, bits: int) -> torch.Tensor:
+    """Quantize-dequantize round trip of a (n_in, n_out) weight in its own
+    float dtype: the JAX package's QAT forward (codes * scale)."""
+    scale = compute_scale(w, bits, axis=0)
+    q = quantize_values(w, scale, bits).to(w.dtype)
+    return q * scale.to(w.dtype)
 
 
 def quantize_activations_int8(x: torch.Tensor):

@@ -21,6 +21,14 @@
 // GEMV column tile divides bn, or at prefill bk % 16 != 0 or no 64/128
 // tile divides bn) keep the tiled mainloop of gemm_tile.cuh (BsrSrc
 // below); kernels/gemm_plan.py::bsr_plan picks the form by shape.
+//
+// bsr_matmul_experts_launch runs the same product for every expert of an
+// MoE layer in one launch (the JAX package vmaps bsr_matmul over its
+// experts, which adds a grid axis to the Pallas call): the experts share
+// the index table (the plan depends on the shape only), expert z's blocks
+// are the z-th (n_pb, nnz, bk, bn) stack, its x the z-th (m, n) rows and
+// its y the z-th (m, n_pb * bn) rows, and z is the grid's third axis in
+// every form.
 #include "gemm_pipe.cuh"
 #include "gemm_tile.cuh"
 #include "gemv_cluster.cuh"
@@ -29,11 +37,13 @@ namespace {
 
 template <typename T>
 struct BsrSrc {
+  static constexpr bool BATCH = true;
   const T* blocks;
   const int* idx;
   int n_pb, nnz, bk, bn, tn;
   int col0, ncols, nseg, j, c0;
   __host__ __device__ int n_tiles() const { return n_pb * ((bn + tn - 1) / tn); }
+  __device__ void batch(int z) { blocks += (size_t)z * n_pb * nnz * bk * bn; }
   __device__ void setup(int bx) {
     const int tpb = (bn + tn - 1) / tn;
     j = bx / tpb;
@@ -51,9 +61,10 @@ struct BsrSrc {
 };
 
 template <typename T>
-int run(const void* x, const void* blocks, const int* idx, void* y, int m, int n, int n_pb,
-        int nnz, int bk, int bn, int form, int bm, int tbn, int split, int k_per_split, int smem,
-        void* stream) {
+int run(const void* x, const void* blocks, const int* idx, void* y, int batch, int m, int n,
+        int n_pb, int nnz, int bk, int bn, int form, int bm, int tbn, int split, int k_per_split,
+        int smem, void* stream) {
+  const long long xb = (long long)m * n, yb = (long long)m * n_pb * bn;
   if (form == 2) {
     BsrSrc<T> src{};
     src.blocks = static_cast<const T*>(blocks);
@@ -62,7 +73,7 @@ int run(const void* x, const void* blocks, const int* idx, void* y, int m, int n
     src.nnz = nnz;
     src.bk = bk;
     src.bn = bn;
-    return rt::launch_gemm<T>(x, m, n, y, n_pb * bn, src, stream);
+    return rt::launch_gemm<T>(x, m, n, y, n_pb * bn, src, stream, batch, xb, yb);
   }
   if (bn % tbn) return static_cast<int>(cudaErrorInvalidValue);
   const T* xp = static_cast<const T*>(x);
@@ -71,8 +82,10 @@ int run(const void* x, const void* blocks, const int* idx, void* y, int m, int n
   const int p = n_pb * bn, kn = nnz * bk;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = form == 0
-      ? gk::launch_gemv<T>(xp, m, kn, n, yp, p, src, bm, tbn, split, k_per_split, smem, st)
-      : gk::launch_pipe<T>(xp, m, kn, n, yp, p, src, bm, tbn, split, k_per_split, smem, st);
+      ? gk::launch_gemv<T>(xp, m, kn, n, yp, p, src, bm, tbn, split, k_per_split, smem, st, batch,
+                           xb, yb)
+      : gk::launch_pipe<T>(xp, m, kn, n, yp, p, src, bm, tbn, split, k_per_split, smem, st, batch,
+                           xb, yb);
   if (e == cudaSuccess) e = cudaGetLastError();
   return static_cast<int>(e);
 }
@@ -87,8 +100,23 @@ extern "C" int bsr_matmul_launch(const void* x, const void* blocks, const void* 
                                  int form, int bm, int tbn, int split, int k_per_split, int smem,
                                  void* stream) {
   const int* ip = static_cast<const int*>(idx);
-  return is_bf16 ? run<__nv_bfloat16>(x, blocks, ip, y, m, n, n_pb, nnz, bk, bn, form, bm, tbn,
-                                      split, k_per_split, smem, stream)
-                 : run<float>(x, blocks, ip, y, m, n, n_pb, nnz, bk, bn, form, bm, tbn, split,
+  return is_bf16 ? run<__nv_bfloat16>(x, blocks, ip, y, 1, m, n, n_pb, nnz, bk, bn, form, bm,
+                                      tbn, split, k_per_split, smem, stream)
+                 : run<float>(x, blocks, ip, y, 1, m, n, n_pb, nnz, bk, bn, form, bm, tbn, split,
                               k_per_split, smem, stream);
+}
+
+// the same over a stack of `experts` products sharing idx: x (experts, m,
+// n), blocks (experts, n_pb, nnz, bk, bn), y (experts, m, n_pb * bn); the
+// plan is bsr_plan's with batch = experts
+extern "C" int bsr_matmul_experts_launch(const void* x, const void* blocks, const void* idx,
+                                         void* y, int experts, int m, int n, int n_pb, int nnz,
+                                         int bk, int bn, int is_bf16, int form, int bm, int tbn,
+                                         int split, int k_per_split, int smem, void* stream) {
+  if (experts < 1 || experts > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int* ip = static_cast<const int*>(idx);
+  return is_bf16 ? run<__nv_bfloat16>(x, blocks, ip, y, experts, m, n, n_pb, nnz, bk, bn, form,
+                                      bm, tbn, split, k_per_split, smem, stream)
+                 : run<float>(x, blocks, ip, y, experts, m, n, n_pb, nnz, bk, bn, form, bm, tbn,
+                              split, k_per_split, smem, stream);
 }

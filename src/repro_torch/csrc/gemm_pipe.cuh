@@ -6,7 +6,8 @@
 // (1e-4 + 1e-4|y|) rules out single-pass TF32, so this stays on CUDA cores
 // on purpose. Design:
 //   - a BM x BN CTA tile (128 x 128 or 128 x 64, picked by the launch
-//     plan against wave quantisation), BM * BN / 64 threads, each an
+//     plan against wave quantisation; 64 x 128 or 64 x 64 for a batched
+//     launch of at most 64 rows a product), BM * BN / 64 threads, each an
 //     8 x 8 micro-tile read as float4 pairs from shared memory: x staged
 //     k-major, w row-major; 16 FMAs per float4 read;
 //   - a 3-stage cp.async ring of BK = 16 k-tiles, so the next tiles land
@@ -21,7 +22,9 @@
 //   - ragged m, n and p are masked by zero-fill copies, never padded;
 //   - a block-sparse source's column tile lies inside one block column and
 //     each 16-deep stage inside one listed block (bk % 16 == 0, the plan's
-//     rule), so a stage's x columns are one contiguous run from xcol(k0).
+//     rule), so a stage's x columns are one contiguous run from xcol(k0);
+//   - a batched launch (an MoE layer's experts, a source with BATCH) adds
+//     the batch as the grid's z axis, as the GEMV does.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -55,7 +58,7 @@ struct PipeShape {
 template <typename T, class W, int BM, int BN>
 __global__ void __launch_bounds__(BM * BN / 64, 32768 / (BM * BN))
 gemm_pipe_kernel(const T* __restrict__ x, int m, int n, int ldx, T* __restrict__ y, int p, W w,
-                 int k_per_split, bool xvec) {
+                 int k_per_split, bool xvec, long long xb, long long yb) {
   using S = PipeShape<T, W, BM, BN>;
   constexpr int NT = S::NT, BK = PIPE_BK, ST = PIPE_STAGES, VPB = W::VPB;
   constexpr int WQ = BK / VPB * (BN / 4);  // weight quads per stage
@@ -65,6 +68,11 @@ gemm_pipe_kernel(const T* __restrict__ x, int m, int n, int ldx, T* __restrict__
   unsigned char* x_raw = reinterpret_cast<unsigned char*>(ws + ST * S::W_F32);
   unsigned char* w_raw = x_raw + ST * S::X_RAW;
 
+  if constexpr (W::BATCH) {   // z-th product of a batched launch
+    x += blockIdx.z * xb;
+    y += blockIdx.z * yb;
+    w = w.batch(blockIdx.z);
+  }
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int nsplit = static_cast<int>(cluster.num_blocks());
@@ -244,7 +252,8 @@ gemm_pipe_kernel(const T* __restrict__ x, int m, int n, int ldx, T* __restrict__
 
 template <typename T, class W, int BM, int BN>
 cudaError_t launch_pipe_tile(const T* x, int m, int n, int ldx, T* y, int p, const W& w,
-                             int split, int k_per_split, int smem, cudaStream_t st) {
+                             int split, int k_per_split, int smem, cudaStream_t st, int batch,
+                             long long xb, long long yb) {
   using S = PipeShape<T, W, BM, BN>;
   if (smem != S::smem(split)) return cudaErrorInvalidValue;
   auto kern = gemm_pipe_kernel<T, W, BM, BN>;
@@ -252,7 +261,7 @@ cudaError_t launch_pipe_tile(const T* x, int m, int n, int ldx, T* y, int p, con
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::smem(2));
   if (attr != cudaSuccess) return attr;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(split, ((m + BM - 1) / BM) * ((p + BN - 1) / BN), 1);
+  cfg.gridDim = dim3(split, ((m + BM - 1) / BM) * ((p + BN - 1) / BN), batch);
   cfg.blockDim = dim3(S::NT, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -263,24 +272,37 @@ cudaError_t launch_pipe_tile(const T* x, int m, int n, int ldx, T* y, int p, con
   la[0].val.clusterDim.z = 1;
   cfg.attrs = la;
   cfg.numAttrs = 1;
-  const bool xvec = n % 2 == 0 && ldx % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
-  return cudaLaunchKernelEx(&cfg, kern, x, m, n, ldx, y, p, w, k_per_split, xvec);
+  const bool xvec = n % 2 == 0 && ldx % 2 == 0 && xb % 2 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % 4 == 0;
+  return cudaLaunchKernelEx(&cfg, kern, x, m, n, ldx, y, p, w, k_per_split, xvec, xb, yb);
 }
 
 // Launch the plan chosen by kernels/gemm_plan.py (bm x bn tile, k split over
 // `split` CTAs of a cluster); anything else is cudaErrorInvalidValue. n
 // counts logical k; ldx is x's row stride (n but for a block-sparse source).
+// batch products in one launch, as launch_gemv.
 template <typename T, class W>
 cudaError_t launch_pipe(const T* x, int m, int n, int ldx, T* y, int p, const W& w, int bm,
-                        int bn, int split, int k_per_split, int smem, cudaStream_t st) {
+                        int bn, int split, int k_per_split, int smem, cudaStream_t st,
+                        int batch = 1, long long xb = 0, long long yb = 0) {
   if (split < 1 || split > 8 || k_per_split <= 0 || k_per_split % PIPE_BK ||
-      w.kgrain() % PIPE_BK ||
+      w.kgrain() % PIPE_BK || batch < 1 || batch > 65535 ||
       (long long)k_per_split * split < n || ((m + bm - 1) / bm) * ((p + bn - 1) / bn) > 65535)
     return cudaErrorInvalidValue;
   if (bm == 128 && bn == 128)
-    return launch_pipe_tile<T, W, 128, 128>(x, m, n, ldx, y, p, w, split, k_per_split, smem, st);
+    return launch_pipe_tile<T, W, 128, 128>(x, m, n, ldx, y, p, w, split, k_per_split, smem, st,
+                                            batch, xb, yb);
   if (bm == 128 && bn == 64)
-    return launch_pipe_tile<T, W, 128, 64>(x, m, n, ldx, y, p, w, split, k_per_split, smem, st);
+    return launch_pipe_tile<T, W, 128, 64>(x, m, n, ldx, y, p, w, split, k_per_split, smem, st,
+                                           batch, xb, yb);
+  if constexpr (W::BATCH) {
+    if (bm == 64 && bn == 128)
+      return launch_pipe_tile<T, W, 64, 128>(x, m, n, ldx, y, p, w, split, k_per_split, smem,
+                                             st, batch, xb, yb);
+    if (bm == 64 && bn == 64)
+      return launch_pipe_tile<T, W, 64, 64>(x, m, n, ldx, y, p, w, split, k_per_split, smem, st,
+                                            batch, xb, yb);
+  }
   return cudaErrorInvalidValue;
 }
 

@@ -22,7 +22,11 @@
 //                 QBlocks' block-column view, VPB = 1, scale 1.
 // A kernel takes the CTA's view of a source with tile(col0) once; xcol(k)
 // is the x column of logical k (the identity but for the block sources),
-// and kgrain() the run of logical k that maps to contiguous x columns.
+// and kgrain() the run of logical k that maps to contiguous x columns. A
+// source with BATCH (Blocks<T> only) also serves a batched launch, whose
+// z-th product takes batch(z): the z-th stack of blocks, bstride elements
+// in. The kernels compile the batch offsets only for such a source, so
+// the other sources' code and registers stay as they were.
 // The unit of a decode load is a quad: 4 adjacent columns of one packed
 // row (16 bytes of f32, 8 of bf16, one 32-bit word of codes), unpacked with
 // compile-time shifts. No float weight is ever written to device memory.
@@ -121,6 +125,7 @@ struct Plain {
   int p;
   bool vec;  // quads may be read as one aligned vector (p % 4 == 0, w aligned)
 
+  static constexpr bool BATCH = false;
   __device__ __forceinline__ Plain tile(int) const { return *this; }
   __device__ __forceinline__ int xcol(int k) const { return k; }
   __host__ __device__ int kgrain() const { return 1 << 30; }
@@ -161,6 +166,7 @@ struct Codes {
   int p;
   bool vec;  // p % 4 == 0 and q 4-byte aligned
 
+  static constexpr bool BATCH = false;
   __device__ __forceinline__ Codes tile(int) const { return *this; }
   __device__ __forceinline__ int xcol(int k) const { return k; }
   __host__ __device__ int kgrain() const { return 1 << 30; }
@@ -224,13 +230,20 @@ struct QBlocks : Codes<BITS_> {
 template <typename T>
 struct Blocks : Plain<T> {
   static constexpr bool GATHER = true;    // x columns through the index table
+  static constexpr bool BATCH = true;     // a stack of experts' blocks
   const int* idx;     // (n_pb, nnz) listed k-blocks of each block column
   int nnz, bk, bn;
+  size_t bstride;     // elements between the stacks of a batched launch
   // the CTA's block column, set by tile()
   const T* wj;
   const int* idxj;
   int c0;
 
+  __device__ __forceinline__ Blocks batch(int z) const {
+    Blocks s = *this;
+    s.w += (size_t)z * bstride;
+    return s;
+  }
   __device__ __forceinline__ Blocks tile(int col0) const {
     Blocks s = *this;
     const int j = col0 / bn;
@@ -278,7 +291,8 @@ inline QBlocks<BITS> qblocks_source(const void* q, const void* scales, const voi
   return s;
 }
 
-// bn % 4 == 0 and the blocks aligned to one quad; p is the full width
+// bn % 4 == 0 and the blocks aligned to one quad; p is the full width; a
+// batched launch's z-th stack starts z * n_pb * nnz * bk * bn elements in
 template <typename T>
 inline Blocks<T> blocks_source(const void* blocks, const void* idx, int n_pb, int nnz, int bk,
                                int bn) {
@@ -291,6 +305,7 @@ inline Blocks<T> blocks_source(const void* blocks, const void* idx, int n_pb, in
   s.nnz = nnz;
   s.bk = bk;
   s.bn = bn;
+  s.bstride = (size_t)n_pb * nnz * bk * bn;
   return s;
 }
 

@@ -11,7 +11,10 @@
 // scale the f32 accumulator is multiplied by at flush.
 //
 // Ragged edges are masked, not padded: rows past m, k past the segment and
-// columns past the tile's valid width load as zero and are never stored.
+// columns past the tile's valid width load as zero and are never stored. A
+// batched launch (an MoE layer's experts, a Src with BATCH) runs batch
+// products on the grid's z axis: CTA z reads x + z * xb, writes y + z * yb
+// and calls src.batch(z).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,6 +34,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 
 // Src contract (tn = tile width in columns, set by the launcher):
 //   int  n_tiles() const                 host: number of column tiles
+//   BATCH                                whether batched launches take it;
+//   void batch(int z)                    then, device: the z-th weight
 //   void setup(int bx)                   device: fills col0, ncols, nseg
 //   int  seg_x0(int s) const             first x column of segment s
 //   int  seg_len() const                 k rows per segment
@@ -38,13 +43,19 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 //   float scale(int c)                   per-column factor applied at flush
 template <typename T, int BM, int BN, int BK, int TM, int TN, class Src>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
-gemm_tile_kernel(const T* __restrict__ x, int m, int n, T* __restrict__ y, int p, Src src) {
+gemm_tile_kernel(const T* __restrict__ x, int m, int n, T* __restrict__ y, int p, Src src,
+                 long long xb, long long yb) {
   constexpr int NT = (BM / TM) * (BN / TN);
   constexpr int RS = BM / TM;  // row stride between a thread's rows
   constexpr int CS = BN / TN;  // column stride between a thread's columns
   __shared__ float xs[BK][BM + 1];
   __shared__ float ws[BK][BN];
 
+  if constexpr (Src::BATCH) {   // z-th product of a batched launch
+    x += blockIdx.z * xb;
+    y += blockIdx.z * yb;
+    src.batch(blockIdx.z);
+  }
   src.setup(blockIdx.y);
   const int row0 = blockIdx.x * BM;
   const int tid = threadIdx.x;
@@ -105,18 +116,19 @@ gemm_tile_kernel(const T* __restrict__ x, int m, int n, T* __restrict__ y, int p
 // 32-column tiles puts more CTAs on the weight stream. Prefill rows take the
 // 64 x 64 register-blocked tile.
 template <typename T, class Src>
-int launch_gemm(const void* x, int m, int n, void* y, int p, Src src, void* stream) {
+int launch_gemm(const void* x, int m, int n, void* y, int p, Src src, void* stream, int batch = 1,
+                long long xb = 0, long long yb = 0) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* xp = static_cast<const T*>(x);
   T* yp = static_cast<T*>(y);
   if (m <= 16) {
     src.tn = 32;
-    dim3 grid((m + 15) / 16, src.n_tiles());
-    gemm_tile_kernel<T, 16, 32, 32, 2, 1, Src><<<grid, 256, 0, st>>>(xp, m, n, yp, p, src);
+    dim3 grid((m + 15) / 16, src.n_tiles(), batch);
+    gemm_tile_kernel<T, 16, 32, 32, 2, 1, Src><<<grid, 256, 0, st>>>(xp, m, n, yp, p, src, xb, yb);
   } else {
     src.tn = 64;
-    dim3 grid((m + 63) / 64, src.n_tiles());
-    gemm_tile_kernel<T, 64, 64, 16, 4, 4, Src><<<grid, 256, 0, st>>>(xp, m, n, yp, p, src);
+    dim3 grid((m + 63) / 64, src.n_tiles(), batch);
+    gemm_tile_kernel<T, 64, 64, 16, 4, 4, Src><<<grid, 256, 0, st>>>(xp, m, n, yp, p, src, xb, yb);
   }
   return static_cast<int>(cudaGetLastError());
 }

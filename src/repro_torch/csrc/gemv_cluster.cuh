@@ -20,7 +20,10 @@
 //     then the cluster's partials through distributed shared memory
 //     (cluster.map_shared_rank) in rank order; each CTA reduces, scales
 //     and stores 1/split of the tile. One launch, no workspace, no atomics:
-//     the result is bitwise the same from run to run.
+//     the result is bitwise the same from run to run;
+//   - a batched launch (an MoE layer's experts, a source with BATCH) adds
+//     the batch as the grid's z axis: CTA z reads x and writes y xb / yb
+//     elements in, and takes the source's z-th weight (W::batch).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -71,7 +74,7 @@ __device__ __forceinline__ void gemv_fma(float (&acc)[MT][4], const W& w,
 template <typename T, class W, int MT>
 __global__ void __launch_bounds__(GEMV_THREADS, 2)
 gemv_cluster_kernel(const T* __restrict__ x, int m, int n, int ldx, T* __restrict__ y, int p,
-                    W w, int bn, int k_per_split, bool xvec) {
+                    W w, int bn, int k_per_split, bool xvec, long long xb, long long yb) {
   using S = GemvShape<MT, W>;
   constexpr int VPB = W::VPB;
   constexpr int U = S::U;
@@ -79,6 +82,11 @@ gemv_cluster_kernel(const T* __restrict__ x, int m, int n, int ldx, T* __restric
   __shared__ __align__(16) float buf[GEMV_UNION];
   __shared__ __align__(16) float part[MT * GEMV_PART_COLS];
 
+  if constexpr (W::BATCH) {   // z-th product of a batched launch
+    x += blockIdx.z * xb;
+    y += blockIdx.z * yb;
+    w = w.batch(blockIdx.z);
+  }
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int nsplit = static_cast<int>(cluster.num_blocks());
@@ -218,9 +226,10 @@ constexpr int gemv_smem_bytes(int mt) { return (GEMV_UNION + mt * GEMV_PART_COLS
 
 template <typename T, class W, int MT>
 cudaError_t launch_gemv_mt(const T* x, int m, int n, int ldx, T* y, int p, const W& w, int bn,
-                           int split, int k_per_split, cudaStream_t st) {
+                           int split, int k_per_split, cudaStream_t st, int batch, long long xb,
+                           long long yb) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(split, (p + bn - 1) / bn, 1);
+  cfg.gridDim = dim3(split, (p + bn - 1) / bn, batch);
   cfg.blockDim = dim3(GEMV_THREADS, 1, 1);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = st;
@@ -232,27 +241,37 @@ cudaError_t launch_gemv_mt(const T* x, int m, int n, int ldx, T* y, int p, const
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   // x rows may be read 4 k values at a time (16 bytes of f32, 8 of bf16)
-  const bool xvec = ldx % 4 == 0 && w.kgrain() % 4 == 0 &&
+  const bool xvec = ldx % 4 == 0 && w.kgrain() % 4 == 0 && xb % 4 == 0 &&
                     reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0;
   return cudaLaunchKernelEx(&cfg, gemv_cluster_kernel<T, W, MT>, x, m, n, ldx, y, p, w, bn,
-                            k_per_split, xvec);
+                            k_per_split, xvec, xb, yb);
 }
 
 // Launch the plan chosen by kernels/gemm_plan.py (bm = row template); a plan
 // this header does not instantiate, or whose shared memory differs from the
 // kernel's, is refused with cudaErrorInvalidValue. n counts logical k; ldx
-// is x's row stride (n but for a block-sparse source).
+// is x's row stride (n but for a block-sparse source). batch products in
+// one launch: the z-th reads x + z * xb, writes y + z * yb and takes w's
+// z-th weight.
 template <typename T, class W>
 cudaError_t launch_gemv(const T* x, int m, int n, int ldx, T* y, int p, const W& w, int mt,
-                        int bn, int split, int k_per_split, int smem, cudaStream_t st) {
+                        int bn, int split, int k_per_split, int smem, cudaStream_t st,
+                        int batch = 1, long long xb = 0, long long yb = 0) {
   const bool ok = (bn == 16 || bn == 32 || bn == 64 || bn == 128) && split >= 1 && split <= 8 &&
                   k_per_split > 0 && k_per_split % W::VPB == 0 &&
-                  (long long)k_per_split * split >= n && m <= mt && smem == gemv_smem_bytes(mt);
+                  (long long)k_per_split * split >= n && m <= mt && smem == gemv_smem_bytes(mt) &&
+                  batch >= 1 && batch <= 65535;
   if (!ok) return cudaErrorInvalidValue;
   switch (mt) {
-    case 4: return launch_gemv_mt<T, W, 4>(x, m, n, ldx, y, p, w, bn, split, k_per_split, st);
-    case 8: return launch_gemv_mt<T, W, 8>(x, m, n, ldx, y, p, w, bn, split, k_per_split, st);
-    case 16: return launch_gemv_mt<T, W, 16>(x, m, n, ldx, y, p, w, bn, split, k_per_split, st);
+    case 4:
+      return launch_gemv_mt<T, W, 4>(x, m, n, ldx, y, p, w, bn, split, k_per_split, st, batch, xb,
+                                     yb);
+    case 8:
+      return launch_gemv_mt<T, W, 8>(x, m, n, ldx, y, p, w, bn, split, k_per_split, st, batch, xb,
+                                     yb);
+    case 16:
+      return launch_gemv_mt<T, W, 16>(x, m, n, ldx, y, p, w, bn, split, k_per_split, st, batch,
+                                      xb, yb);
     default: return cudaErrorInvalidValue;
   }
 }

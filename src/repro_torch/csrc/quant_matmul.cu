@@ -52,6 +52,7 @@ __device__ __forceinline__ float unpack_code(int8_t b, int r, int bits, int vpb)
 }
 
 struct QBsrSrc {
+  static constexpr bool BATCH = false;
   const int8_t* q;
   const float* scales;
   const int* idx;

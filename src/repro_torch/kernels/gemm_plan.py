@@ -18,7 +18,10 @@ is the concatenation of that column's listed blocks (nnz * bk logical
 values) and the k-split counts their packed rows. A block shape neither
 form takes keeps the tiled mainloop of `gemm_tile.cuh` (form "mainloop"):
 no GEMV column tile divides bn, or, at prefill, bk is not a multiple of the
-16-deep stage or no tile column width divides bn.
+16-deep stage or no tile column width divides bn. With `batch` > 1 (the
+experts of an MoE layer in one launch, the batch a third grid axis) the
+CTA targets count every batch's tiles, and rows that fit 64 take the
+64-row tiles.
 
 `w8a8_plan` serves `quant_matmul_w8a8`: at decode an int8 GEMV on the same
 rule as `plan` whose k-splits are whole 4-k `__dp4a` words (the cluster's
@@ -48,6 +51,9 @@ TILE_BK = 16               # k depth of one pipelined stage
 TILE_STAGES = 3
 # (BM, BN) tiles of the prefill form, each thread an 8 x 8 micro-tile
 TILE_SHAPES = ((128, 128), (128, 64))
+# the tiles of a batched launch whose rows fit 64 (an MoE prefill's C rows
+# an expert, 60 at 512 tokens): a 128-row tile would compute twice them
+TILE_SHORT_SHAPES = ((64, 128), (64, 64))
 TILE_MIN_KTILES = 4        # k stages a split takes at least
 TILE_CTAS = 264            # CTAs the split aims for (two an SM)
 # quant_matmul_w8a8's int8 tensor-core tile: 128 x 128 outputs, 64-k stages
@@ -69,7 +75,8 @@ class GemmPlan:
     k_per_split: int       # k values of each range (the last may be short)
     threads: int
     smem_bytes: int        # static (gemv) or dynamic (tile) shared memory
-    grid: Tuple[int, int]  # (split, column tiles) or (split, row x column tiles)
+    grid: Tuple[int, int]  # (split, column tiles) or (split, row x column
+                           # tiles), per batch (the third grid axis)
 
     @property
     def form_id(self) -> int:
@@ -133,7 +140,7 @@ def w8a8_tile_smem_bytes(split: int) -> int:
 
 def _gemv_plan(m: int, n: int, p: int, vpb: int,
                widths: Tuple[int, ...] = DECODE_BN,
-               align: int = 1) -> GemmPlan:
+               align: int = 1, batch: int = 1) -> GemmPlan:
     mt = next(r for r in DECODE_ROWS if m <= r)
     rows = n // vpb
     # the widest column tile whose clusters still cover every SM, then the
@@ -141,9 +148,10 @@ def _gemv_plan(m: int, n: int, p: int, vpb: int,
     # H100 over the serving shapes: wider tiles and shorter clusters win
     # once the card is covered)
     most = max(1, min(MAX_CLUSTER, rows // DECODE_MIN_ROWS))
-    bn = next((b for b in widths if -(-p // b) * most >= SMS), widths[-1])
+    bn = next((b for b in widths if -(-p // b) * most * batch >= SMS),
+              widths[-1])
     tiles = -(-p // bn)
-    split = max(1, min(most, -(-DECODE_CTAS // tiles)))
+    split = max(1, min(most, -(-DECODE_CTAS // (tiles * batch))))
     per = -(-rows // split)
     per = -(-per // align) * align     # whole words of `align` rows
     split = -(-rows // per)            # no empty range
@@ -163,7 +171,8 @@ def _tile_split(tiles: int, most: int) -> int:
 
 
 def _tile_plan(m: int, n: int, p: int, bits: int, elem: int,
-               shapes: Tuple[Tuple[int, int], ...] = TILE_SHAPES) -> GemmPlan:
+               shapes: Tuple[Tuple[int, int], ...] = TILE_SHAPES,
+               batch: int = 1) -> GemmPlan:
     # 128 x 128 tiles where there are enough of them to give two CTAs an SM
     # once k is split, 128 x 64 otherwise; the split then brings the grid up
     # to TILE_CTAS (H100 sweep over the serving shapes at m 77 and 512)
@@ -174,9 +183,9 @@ def _tile_plan(m: int, n: int, p: int, bits: int, elem: int,
         return -(-m // bm) * -(-p // bn)
 
     bm, bn = shapes[0] if len(shapes) == 1 or \
-        tiles(*shapes[0]) * most >= TILE_CTAS else shapes[1]
+        tiles(*shapes[0]) * most * batch >= TILE_CTAS else shapes[1]
     t = tiles(bm, bn)
-    split = _tile_split(t, most)
+    split = _tile_split(t * batch, most)
     per = -(-ktiles // split)
     split = -(-ktiles // per)
     return GemmPlan("tile", bm, bn, split, per * TILE_BK, bm * bn // 64,
@@ -207,27 +216,31 @@ def plan(m: int, n: int, p: int, bits: int = 0, elem: int = 4) -> GemmPlan:
 
 @functools.lru_cache(maxsize=None)
 def bsr_plan(m: int, n_pb: int, nnz: int, bk: int, bn: int, bits: int,
-             elem: int = 4) -> GemmPlan:
+             elem: int = 4, batch: int = 1) -> GemmPlan:
     """The launch plan of `bsr_matmul` (bits = 0: float blocks in x's
     dtype) and `bsr_quant_matmul` (codes of `bits` bits): y (m, n_pb * bn)
-    from the nnz listed (bk, bn) blocks of each block column."""
+    from the nnz listed (bk, bn) blocks of each block column; `batch`
+    such products in one launch (`bsr_matmul_experts`)."""
     if bits not in (0, 8, 4, 2, 1):
         raise ValueError(f"bsr plan: bits={bits}")
     if elem not in (4, 2):
         raise ValueError(f"bsr plan: element size {elem}")
     vpb = 8 // bits if bits else 1
-    if m < 1 or n_pb < 1 or nnz < 1 or bk < 1 or bn < 1 or bk % vpb:
+    if m < 1 or n_pb < 1 or nnz < 1 or bk < 1 or bn < 1 or bk % vpb \
+            or batch < 1:
         raise ValueError(f"bsr plan: m={m} n_pb={n_pb} nnz={nnz} bk={bk} "
-                         f"bn={bn} bits={bits}")
+                         f"bn={bn} bits={bits} batch={batch}")
     n, p = nnz * bk, n_pb * bn
     if m <= DECODE_MAX_M:
         widths = tuple(b for b in DECODE_BN if bn % b == 0)
         if widths:
-            return _gemv_plan(m, n, p, vpb, widths)
+            return _gemv_plan(m, n, p, vpb, widths, batch=batch)
     else:
-        shapes = tuple(s for s in TILE_SHAPES if bn % s[1] == 0)
+        short = batch > 1 and m <= TILE_SHORT_SHAPES[0][0]
+        tiles = TILE_SHORT_SHAPES if short else TILE_SHAPES
+        shapes = tuple(s for s in tiles if bn % s[1] == 0)
         if shapes and bk % TILE_BK == 0:
-            return _tile_plan(m, n, p, bits, elem, shapes)
+            return _tile_plan(m, n, p, bits, elem, shapes, batch=batch)
     # gemm_tile.cuh's own tiles: 16 x 32 at decode rows, 64 x 64 above
     tm, tn = (16, 32) if m <= DECODE_MAX_M else (64, 64)
     return GemmPlan("mainloop", tm, tn, 1, n, 256, 0,

@@ -2,7 +2,9 @@
 
 Counterpart of `repro.kernels.ops` (same contracts as its `matmul`,
 `bsr_matmul`, `quant_matmul`, `quant_matmul_w8a8`, `bsr_quant_matmul`,
-`flash_attention`, `paged_attention` and `ssm_scan`). The JAX `backend`
+`flash_attention`, `paged_attention` and `ssm_scan`), plus
+`bsr_matmul_experts`, `bsr_matmul` batched over an MoE layer's experts
+(the counterpart of the JAX package's vmap of `bsr_matmul`). The JAX `backend`
 knob has no counterpart: a CUDA tensor launches the hand-written Hopper
 kernel, a CPU tensor takes its plain version, inside each wrapper.
 `launch_counts` / `reset_launch_counts` read and zero the wrappers'
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.core import quantize as qz
 from repro_torch.kernels.bsr_matmul import bsr_matmul as _bsr
+from repro_torch.kernels.bsr_matmul import bsr_matmul_experts as _bsr_e
 from repro_torch.kernels.dense_matmul import dense_matmul as _dense
 from repro_torch.kernels.flash_attention import flash_attention as _fa
 from repro_torch.kernels.flash_attention import paged_flash_attention as _paged
@@ -32,7 +35,7 @@ from repro_torch.kernels.ssm_scan import ssm_scan as _ssm
 KERNELS = {"dense_matmul": _dense, "bsr_matmul": _bsr, "quant_matmul": _qmm,
            "quant_matmul_w8a8": _w8a8, "bsr_quant_matmul": _bsr_quant,
            "flash_attention": _fa, "paged_flash_attention": _paged,
-           "ssm_scan": _ssm}
+           "ssm_scan": _ssm, "bsr_matmul_experts": _bsr_e}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -76,6 +79,13 @@ def bsr_matmul(x: torch.Tensor, blocks: torch.Tensor,
     """Block-sparse tree GEMM; FLOPs and weight bytes scale with
     (1 - sparsity)."""
     return _bsr(x.contiguous(), blocks, indices)
+
+
+def bsr_matmul_experts(x: torch.Tensor, blocks: torch.Tensor,
+                       indices: torch.Tensor) -> torch.Tensor:
+    """Block-sparse tree GEMM of every expert at once: x (E, m, n),
+    blocks (E, n_pb, nnz, bk, bn) over one shared index table."""
+    return _bsr_e(x.contiguous(), blocks, indices)
 
 
 def quant_matmul(x: torch.Tensor, qt: qz.QuantizedTensor) -> torch.Tensor:

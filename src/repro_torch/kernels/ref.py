@@ -39,6 +39,14 @@ def bsr_matmul_ref(x: torch.Tensor, blocks: torch.Tensor,
     return y.reshape(m, n_pb * bn).to(x.dtype)
 
 
+def bsr_matmul_experts_ref(x: torch.Tensor, blocks: torch.Tensor,
+                           indices: torch.Tensor) -> torch.Tensor:
+    """Every expert's block-sparse product over one shared plan: x
+    (E, m, n); blocks (E, n_pb, nnz, bk, bn) -> (E, m, n_pb * bn)."""
+    return torch.stack([bsr_matmul_ref(x[e], blocks[e], indices)
+                        for e in range(x.shape[0])])
+
+
 def bsr_quant_matmul_ref(x: torch.Tensor, qblocks: torch.Tensor,
                          scales: torch.Tensor, indices: torch.Tensor,
                          bits: int) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Dense GQA, MLA and pure Mamba-1 decoders (the dense, MLA and `is_ssm`
-parts of `repro.models.transformer`).
+"""Dense GQA, MLA, mixture-of-experts and pure Mamba-1 decoders (the
+dense, MLA, MoE and `is_ssm` parts of `repro.models.transformer`).
 
 Parameters are a plain dict with a per-layer list in place of the JAX
 package's stacked `blocks` consumed by `lax.scan`:
@@ -19,8 +19,11 @@ as its mixer. An `is_ssm` model (falcon-mamba) has a Mamba mixer
 conv_w, ...}}. Caches are a per-layer list of {"k", "v"} tensors (MLA:
 {"c_kv", "k_rope"}; models.attention), slab rows or, under a paged pool,
 page-major store leaves; a Mamba layer's is {"conv", "ssm"}, always
-slot-major. MoE, the jamba hybrid, encoder-decoder and the vision stub
-are not ported yet (ROADMAP.md queue 1, item 7).
+slot-major. An MoE layer (deepseek; `prelude_layers` dense layers
+first) has {"ffn_norm", "ffn": {"router": {"w"}, "w_gate", "w_up",
+"w_down" (raw (E, d, f) stacks, or their packed form), "shared"?}}
+(models.moe). The jamba hybrid, encoder-decoder and the vision stub are
+not ported yet (ROADMAP.md queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 from repro_torch.core import kratos as kr
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 
 
@@ -73,6 +77,17 @@ class ModelConfig:
     qk_nope_dim: int = 0
     qk_rope_dim: int = 0
     v_head_dim: int = 0
+    # MoE: every layer from `prelude_layers` on with i % moe_period ==
+    # moe_offset routes its FFN over experts; the prelude layers are dense
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    n_shared_experts: int = 0
+    moe_period: int = 1
+    moe_offset: int = 0
+    prelude_layers: int = 0
+    capacity_factor: float = 1.25
+    aux_loss_coef: float = 0.001          # a training term: unused here
     # Mamba (pure SSM: every layer a Mamba-1 mixer without FFN)
     is_ssm: bool = False
     d_state: int = 16
@@ -108,8 +123,8 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count, the JAX package's formula for the
-        ported families (dense GQA or MLA + MLP, pure Mamba-1; norms are
-        not counted, as there)."""
+        ported families (dense GQA or MLA + MLP or MoE, pure Mamba-1; norms
+        are not counted, as there)."""
         d, v = self.d_model, self.vocab
         total = v * d * (1 if self.tie_embeddings else 2)
         for i in range(self.n_layers):
@@ -131,33 +146,45 @@ class ModelConfig:
                 di, r, st = self.d_inner, max(1, -(-d // 16)), self.d_state
                 total += d * 2 * di + self.d_conv * di + di * (r + 2 * st) \
                     + r * di + di * st + di + di * d
-            if kind["ffn"] == "mlp":
+            if kind["ffn"] == "moe":
+                total += d * self.n_experts                   # router
+                total += (self.n_experts + self.n_shared_experts) * 3 * d \
+                    * self.d_ff_expert
+            elif kind["ffn"] == "mlp":
                 total += (3 if self.gated else 2) * d * self.d_ff
         return int(total)
 
 
 def layer_kind(cfg: ModelConfig, i: int) -> Dict[str, Any]:
-    """What lives at layer i: attention + MLP, or (is_ssm) a Mamba mixer
-    without FFN. With local_global_period the attention layer i is local
-    (the config's window) when i % period == 0, else global (no window)."""
+    """What lives at layer i: attention + MLP or MoE, or (is_ssm) a Mamba
+    mixer without FFN. With local_global_period the attention layer i is
+    local (the config's window) when i % period == 0, else global (no
+    window). With experts, layer i >= prelude_layers with i % moe_period
+    == moe_offset is MoE, the rest dense MLP."""
     if cfg.is_ssm:
         return {"mixer": "mamba", "window": cfg.window, "ffn": "none"}
     window = cfg.window
     if cfg.local_global_period:
         window = cfg.window if i % cfg.local_global_period == 0 else None
-    return {"mixer": "attn", "window": window, "ffn": "mlp"}
+    ffn = "mlp"
+    if cfg.n_experts and i >= cfg.prelude_layers \
+            and i % cfg.moe_period == cfg.moe_offset:
+        ffn = "moe"
+    return {"mixer": "attn", "window": window, "ffn": ffn}
 
 
 def layer_order(cfg: ModelConfig) -> List[int]:
-    """The order the layers run in, the JAX package's: its forward runs
-    each scan slot's stack in turn, so with scan_period p it runs layers
-    s, s + p, s + 2p, ... for s = 0 .. p-1 (gemma2: every local layer,
-    then every global one). Parameters and caches stay in layer order."""
-    p = cfg.scan_period
-    if cfg.n_layers % p:
-        raise ValueError(f"n_layers {cfg.n_layers} not divisible by "
-                         f"scan_period {p}")
-    return [t * p + s for s in range(p) for t in range(cfg.n_layers // p)]
+    """The order the layers run in, the JAX package's: the prelude layers
+    first, then each scan slot's stack in turn, so with scan_period p it
+    runs layers n0 + s, n0 + s + p, ... for s = 0 .. p-1 (gemma2: every
+    local layer, then every global one). Parameters and caches stay in
+    layer order."""
+    p, n0 = cfg.scan_period, cfg.prelude_layers
+    if (cfg.n_layers - n0) % p:
+        raise ValueError(f"n_layers - prelude_layers = {cfg.n_layers - n0} "
+                         f"not divisible by scan_period {p}")
+    return list(range(n0)) + [n0 + t * p + s for s in range(p)
+                              for t in range((cfg.n_layers - n0) // p)]
 
 
 def attn_cfg_for(cfg: ModelConfig, kind: Dict) -> A.AttnConfig:
@@ -169,6 +196,13 @@ def attn_cfg_for(cfg: ModelConfig, kind: Dict) -> A.AttnConfig:
         q_lora_rank=cfg.q_lora_rank, kv_lora_rank=cfg.kv_lora_rank,
         qk_nope_dim=cfg.qk_nope_dim, qk_rope_dim=cfg.qk_rope_dim,
         v_head_dim=cfg.v_head_dim)
+
+
+def moe_cfg_for(cfg: ModelConfig) -> M.MoEConfig:
+    return M.MoEConfig(
+        d_model=cfg.d_model, n_experts=cfg.n_experts, top_k=cfg.top_k,
+        d_ff_expert=cfg.d_ff_expert, n_shared=cfg.n_shared_experts,
+        capacity_factor=cfg.capacity_factor, activation=cfg.activation)
 
 
 def mamba_cfg_for(cfg: ModelConfig) -> S.MambaConfig:
@@ -213,6 +247,9 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict:
                 layer["ffn_post_norm"] = _norm_params(cfg, device)
             layer["ffn"] = L.mlp_init(cfg.d_model, cfg.d_ff, gated=cfg.gated,
                                       spec=cfg.kratos, **kw)
+        elif kind["ffn"] == "moe":
+            layer["ffn_norm"] = _norm_params(cfg, device)
+            layer["ffn"] = M.moe_init(moe_cfg_for(cfg), cfg.kratos, **kw)
         layers.append(layer)
     params = {
         "embed": {"emb": torch.randn((cfg.vocab, cfg.d_model),
@@ -240,7 +277,11 @@ def _layer_apply(p: Dict, x, cfg: ModelConfig, kind: Dict, *, positions,
     if cfg.sandwich_norm:
         h = _norm(cfg, p["post_norm"], h)
     x = x + h * cfg.residual_scale
-    if kind["ffn"] == "mlp":
+    if kind["ffn"] == "moe":
+        h = _norm(cfg, p["ffn_norm"], x)
+        x = x + M.moe_apply(p["ffn"], h, moe_cfg_for(cfg)) \
+            * cfg.residual_scale
+    elif kind["ffn"] == "mlp":
         h = _norm(cfg, p["ffn_norm"], x)
         h = L.mlp_apply(p["ffn"], h, activation=cfg.activation)
         if cfg.sandwich_norm:

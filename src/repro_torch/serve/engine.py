@@ -5,7 +5,8 @@ Step loop (`step()`):
   1. admission — the scheduler picks arrived requests for free slots; each
      is prefilled alone (batch 1, prompt right-padded to a power-of-two
      bucket where that is exact; at its exact length for a recurrent
-     (is_ssm) arch, whose padded positions would enter the state) and its
+     (is_ssm) arch, whose padded positions would enter the state, and for
+     an MoE arch, whose pad tokens would take expert capacity) and its
      cache copied into its slab row.
      Under a paged pool (`page_size`) the admission first matches the
      longest cached page-aligned prefix, reserves the slot's pages (shared
@@ -135,6 +136,7 @@ class InferenceEngine:
             raise ValueError(f"engine device {device} but model "
                              f"'{model.name}' lives on {model.device}")
         if cfg.speculate:
+            SP.refuse_experts(model.cfg)
             if cfg.decode_chunk != 1:
                 raise ValueError("speculate replaces decode_chunk: one spec "
                                  "cycle IS the multi-token dispatch; set "
@@ -169,8 +171,9 @@ class InferenceEngine:
         self._bucket_cap = min([cfg.max_len] + ([mcfg.window] if mcfg.window
                                                 else []))
         # pad tokens would run through a recurrence and corrupt the cached
-        # conv tail and state: recurrent archs prefill at exact length
-        self._exact_prefill = mcfg.is_ssm
+        # conv tail and state, or take expert capacity from real tokens:
+        # recurrent and MoE archs prefill at exact length
+        self._exact_prefill = bool(mcfg.is_ssm or mcfg.n_experts)
         # pure-SSM state is O(1) and a cache windowed on EVERY layer is
         # circular: such requests may run longer than the slab. gemma2's
         # global layers and MLA's latent cache are positional: bounded
@@ -267,7 +270,7 @@ class InferenceEngine:
         """Bucketed suffix-prefill length: pow2 like `_prefill_len`, but
         the padded tail is written (masked) at positions start..start+b, so
         the bucket falls back to exact when it would run past the slot."""
-        if not self.cfg.prefill_buckets:
+        if self._exact_prefill or not self.cfg.prefill_buckets:
             return s
         b = self.cfg.bucket_min
         while b < s:

@@ -4,9 +4,16 @@
 `pack_model_params` replaces every projection leaf `{"w"}` named in
 `PACKABLE` with a `kratos.PackedLinear`; the model code calls
 `kratos.apply` on either, so the packed tree is a drop-in for the dense
-one. Models are keyed by (arch, KratosSpec, smoke, seed, device,
-DraftSpec). A `draft_spec` (serve.speculative) also derives a self-draft
-from the same dense weights, part of the artifact's identity.
+one. An MoE layer's routed-expert stacks (raw (E, d, f) arrays, which the
+JAX registry leaves unpacked) are frozen once here as the reference runs
+them (`models.moe.pack_moe`): a block-sparse tree spec gathers each
+expert's kept blocks (from its fake-quant weight when the spec sets bits)
+for the expert-batched kernel; any other spec keeps the raw float stack.
+They are not counted in `n_packed` or the byte totals, as in the JAX
+package; its shared experts pack as any MLP does. Models are keyed by
+(arch, KratosSpec, smoke, seed, device, DraftSpec). A `draft_spec`
+(serve.speculative) also derives a self-draft from the same dense weights,
+part of the artifact's identity.
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ import torch
 
 from repro_torch import configs as C
 from repro_torch.core import kratos as kr
+from repro_torch.core import quantize as qz
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.serve import speculative as SP
 
@@ -55,6 +64,11 @@ def pack_model_params(params: Dict[str, Any], spec: kr.KratosSpec,
         if _is_packable(node, name):
             count[0] += 1
             return kr.pack_linear(node, spec)
+        if isinstance(node, dict) and "router" in node:
+            # an MoE layer: router kept, stacks frozen, shared experts walked
+            out = {k: walk(v, k) for k, v in node.items()
+                   if k not in M.EXPERT_STACKS}
+            return {**out, **M.pack_moe(node, spec)}
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, list):
@@ -76,9 +90,15 @@ def _leaves(node, pred):
 
 
 def tree_to(node, device):
-    """A parameter tree with every tensor moved to `device`."""
+    """A parameter tree with every tensor moved to `device`, packed leaves
+    (PackedLinear, PackedExperts, QuantizedTensor) included."""
     if isinstance(node, torch.Tensor):
         return node.to(device)
+    if isinstance(node, (kr.PackedLinear, kr.PackedExperts,
+                         qz.QuantizedTensor)):
+        return dataclasses.replace(node, **{
+            f.name: tree_to(getattr(node, f.name), device)
+            for f in dataclasses.fields(node)})
     if isinstance(node, dict):
         return {k: tree_to(v, device) for k, v in node.items()}
     if isinstance(node, list):

@@ -117,6 +117,7 @@ def derive_draft(params: Dict[str, Any], cfg: T.ModelConfig,
     params: the draft packs the same weights the target packs from, at the
     draft's point of the (sparsity, precision) grid."""
     from repro_torch.serve.registry import pack_model_params   # cycle
+    refuse_experts(cfg)
     dcfg = draft_config(cfg, dspec, target_spec)
     dparams = params
     if dcfg.n_layers < cfg.n_layers:
@@ -139,6 +140,14 @@ def draft_cost_fraction(cfg: T.ModelConfig,
         frac = (1.0 - s.sparsity) if (s.sparsity and s.impl == "tree") else 1.0
         return 2.0 * c.param_count() * frac
     return cost(draft_cfg) / max(1.0, cost(cfg))
+
+
+def refuse_experts(cfg: T.ModelConfig) -> None:
+    """Speculative decode of a mixture-of-experts arch is not ported yet."""
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"speculative decode of the MoE arch '{cfg.name}' is not ported "
+            "yet (ROADMAP.md queue 1, item 8)")
 
 
 def check_supported(cfg: T.ModelConfig, cache_len: int) -> None:

@@ -7,6 +7,7 @@ tensor-to-host read per decode dispatch. Also: the port imports nothing of JAX o
 
 import ast
 import functools
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -157,9 +158,77 @@ def test_unported_specs_and_archs_refused_up_front():
                                 bn=8)):
         assert reg.load(ARCH, spec, device="cpu").n_packed > 0
     with pytest.raises(NotImplementedError, match="item 7"):
-        reg.load("deepseek-moe-16b", device="cpu")
+        reg.load("jamba-v0.1-52b", device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         pkr.apply({"w": torch.zeros(4, 4)}, torch.zeros(1, 4))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b",
+                                  "deepseek-v2-lite-16b"])
+def test_convert_carries_moe_keys(arch):
+    """An MoE checkpoint as save_pytree writes it: the dense prelude
+    layer, then the stacked MoE layers with `ffn/router/w`, the raw routed
+    stacks `ffn/w_gate` (layer axis first, no `/w` suffix) and the shared
+    experts `ffn/shared/<proj>/w`; each lands in its layer unchanged."""
+    cfg = JC.get_smoke(arch)
+    params = JT.init(jax.random.PRNGKey(2), cfg)
+    with tempfile.TemporaryDirectory() as d:
+        save_pytree(d, params)
+        with np.load(f"{d}/arrays.npz") as z:
+            flat = {k: z[k] for k in z.files}
+        ported = convert(d, cfg.n_layers)
+    assert "blocks/#0/ffn/router/w" in flat
+    assert flat["blocks/#0/ffn/w_gate"].shape == (2, 8, 64, 32)
+    assert "blocks/#0/ffn/shared/w_down/w" in flat
+    assert "prelude/#0/ffn/w_up/w" in flat
+    layers = ported["layers"]
+    assert set(layers[0]["ffn"]) == {"w_gate", "w_up", "w_down"}
+    for li in (1, 2):
+        ffn = layers[li]["ffn"]
+        assert set(ffn) == {"router", "w_gate", "w_up", "w_down", "shared"}
+        for name in ("w_gate", "w_up", "w_down"):
+            assert np.array_equal(ffn[name].numpy(),
+                                  flat[f"blocks/#0/ffn/{name}"][li - 1])
+            assert np.array_equal(
+                ffn["shared"][name]["w"].numpy(),
+                flat[f"blocks/#0/ffn/shared/{name}/w"][li - 1])
+        assert np.array_equal(ffn["router"]["w"].numpy(),
+                              flat["blocks/#0/ffn/router/w"][li - 1])
+
+
+@pytest.mark.parametrize("key", ["blocks/#0/ffn/router/b",
+                                 "blocks/#0/ffn/shared/w_proj/w",
+                                 "blocks/#0/cross/wq/w"])
+def test_convert_refuses_unported_layer_keys(key):
+    flat = dict(_flat_smoke("deepseek-moe-16b"))
+    flat[key] = np.zeros((2, 4), np.float32)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        convert(flat, 3)
+
+
+def test_convert_refuses_the_jamba_hybrid():
+    """jamba's layers mix Mamba mixers (`in_proj`, `conv_w`, ...) with
+    attention mixers and MoE FFNs: every key is a ported name, and the mix
+    is refused."""
+    cfg = JC.get_smoke("jamba-v0.1-52b")
+    flat = _flat_smoke("jamba-v0.1-52b")
+    assert any("/mixer/in_proj/w" in k for k in flat)
+    assert any("/mixer/wq/w" in k for k in flat)
+    with pytest.raises(NotImplementedError, match="jamba hybrid.*item 7"):
+        convert(flat, cfg.n_layers)
+
+
+@functools.lru_cache(maxsize=None)
+def _flat_smoke_cached(arch):
+    params = JT.init(jax.random.PRNGKey(0), JC.get_smoke(arch))
+    with tempfile.TemporaryDirectory() as d:
+        save_pytree(d, params)
+        with np.load(f"{d}/arrays.npz") as z:
+            return tuple((k, z[k]) for k in z.files)
+
+
+def _flat_smoke(arch):
+    return dict(_flat_smoke_cached(arch))
 
 
 def test_bounded_waiting_rejects():
