@@ -28,7 +28,8 @@ Phases, in order; any failure raises and exits non-zero:
      layer's 64 experts in one launch, at deepseek-moe-16b's routed
      projections (2048 -> 1408 and 1408 -> 2048, s0.5) at C = 6 (decode)
      and C = 60 (a 512-token prefill), against torch.bmm on the masked
-     dense stack;
+     dense stack, and at jamba-v0.1-52b's (16 experts, 4096 -> 14336 and
+     14336 -> 4096, s0.5) at C = 2 and C = 80;
   4. model parity: the port's forward on the card against the same forward
      on the CPU (plain versions), full width cut to 2 layers, one prefill
      batch and 4 greedy decode steps;
@@ -105,8 +106,34 @@ Phases, in order; any failure raises and exits non-zero:
      traffic (skip share, matched against unmatched admission). Then
      deepseek-v2-lite-16b (MLA + MoE): parity at 2 layers, full width cut
      from 27 to 4 layers, dense from the slab. Every run's tokens equal
-     the eager step's.
-Every decode dispatch of phases 5-12 replays the CUDA graph the engine
+     the eager step's;
+ 13. the jamba hybrid: jamba-v0.1-52b, card-vs-CPU parity over one Jamba
+     block (8 layers: 7 Mamba, 1 attention without RoPE, 4 MoE) at the
+     published d_model, heads and head_dim, the FFNs cut (4 experts, d_ff
+     1024) to keep the CPU copy near 6 GB; then full width, depth cut from
+     32 to 8 layers (53.2 GB in f32), phase 5's traffic: dense and s0.5-w8
+     from the slab (each loaded alone, the s0.5-w8 copy packed leaf by
+     leaf after the dense model is freed, with each load's peak
+     memory_allocated), dense from the page pool (the attention layer's k/v
+     paged, the Mamba state resident). Every run launches ssm_scan (7 a
+     prefill) and flash attention (1 a prefill); s0.5-w8 runs the routed
+     experts on bsr_matmul_experts (E 16, C 2 at decode: 12 launches a
+     micro-step). Decode device ms per micro-step split into the routed
+     experts (by kernel name and grid), the Mamba mixers (traced alone),
+     the other GEMMs and the rest; paged tokens equal slab tokens (near-tie
+     rule) with the capacity widened so that nothing drops (at the served
+     capacity a parked row, which reads its stale slab row on the slab but
+     the sink page in the pool, takes capacity from the live rows, so the
+     requests that differ there are reported);
+ 14. the vision stub: llava-next-mistral-7b, card-vs-CPU parity at full
+     width, 2 layers, with 64 of the 2880 image rows; then full width and
+     depth (32 layers, 29.0 GB): 8 requests, each with 2880 stub image
+     rows (the port's llava_patches of a seeded image) and a 32-512-token
+     prompt, 32 new tokens, n_slots 8, max_len 3456 (a 7.25 GB slab):
+     dense and s0.5-w8 from the slab, dense from the page pool, with the
+     admission wall ms of a 2880 + 512-row prefill; paged tokens equal
+     slab tokens (near-tie rule).
+Every decode dispatch of phases 5-14 replays the CUDA graph the engine
 captured at build: each of those phases times it against the eager step on
 the same state, in alternating turns within this process, traces both
 (device ms and ops, idle share, one device-to-host copy each), and serves
@@ -215,6 +242,19 @@ LITE_LAYERS = 4                        # of 27: 1 dense + 3 MoE (phase 12)
 # decode micro-step at 8 slots and of a 512-token prefill
 EXPERT_SHAPES = [(2048, 1408), (1408, 2048)]
 EXPERT_ROWS = (6, 60)
+JAMBA, LLAVA = "jamba-v0.1-52b", "llava-next-mistral-7b"
+JAMBA_LAYERS = 8                       # of 32: one Jamba block (phase 13)
+# phase 13's card-vs-CPU parity: one Jamba block at the published d_model,
+# heads and head_dim, the FFNs cut so the CPU copy stays near 6 GB
+JAMBA_PARITY = dict(n_layers=8, n_experts=4, d_ff=1024, d_ff_expert=1024)
+# jamba's routed projections and the expert rows C at 8 slots and in a
+# 512-token prefill
+JAMBA_EXPERT_SHAPES = [(4096, 14336), (14336, 4096)]
+JAMBA_EXPERT_ROWS = (2, 80)
+# phase 14: 8 requests, each 2880 image rows + 32-512 prompt tokens + 32
+# new; max_len >= 2880 + 512 + 32, a multiple of 16. Parity on the CPU
+# keeps 64 of the 2880 image rows
+LLAVA_REQUESTS, LLAVA_MAX_LEN, LLAVA_PARITY_IMG = 8, 3456, 64
 GEMMA_SCALE = (4608 / 32) ** -0.5      # gemma2's query scale, 1/12
 # minicpm3's projections (n_in, n_out): MLA's low-rank factors, wo and the
 # MLP; wkv_b also runs at m = n_slots x max_len, the naive expansion of the
@@ -526,12 +566,13 @@ def print_ab(card, ab, per, unit="micro-step"):
     return s
 
 
-def eager_identity(torch, model, ecfg, prompts, gen_len, want):
+def eager_identity(torch, model, ecfg, prompts, gen_len, want, extras=None):
     """Serve the same traffic through a fresh engine whose every dispatch
     runs the eager step: its tokens must equal the graphed run's."""
     from repro_torch.serve import InferenceEngine
     eng = run_eager(InferenceEngine(model, ecfg))
-    reqs = [eng.submit(p, gen_len) for p in prompts]
+    reqs = [eng.submit(p, gen_len, extras=None if extras is None else e)
+            for p, e in zip(prompts, extras or prompts)]
     eng.run()
     torch.cuda.synchronize()
     got = [list(r.generated) for r in reqs]
@@ -557,6 +598,39 @@ def plain_packed(ref, lin, x):
         return ref.bsr_matmul_ref(x, b["blocks"], lin.indices)
     return ref.bsr_quant_matmul_ref(x, b["qblocks"], b["qscale"],
                                     lin.indices, lin.spec.bits)
+
+
+def _expert_cases(torch, gen, record, experts, shapes, rows):
+    """bsr_matmul_experts against its plain version at an MoE layer's
+    routed shapes, one case per projection and rows C an expert."""
+    from repro_torch.core import kratos as kr
+    from repro_torch.core import sparsity as sp
+    from repro_torch.kernels import gemm_plan, ops, ref
+    dev = "cuda"
+    for n, p in shapes:
+        w = torch.randn((experts, n, p), generator=gen, device=dev) \
+            * n ** -0.5
+        spec = kr.KratosSpec(sparsity=0.5)
+        plan = kr.plan_for(n, p, spec)
+        packed = kr.pack_experts(w, spec)
+        w.mul_(torch.as_tensor(sp.plan_mask(plan), device=dev))
+        for c in rows:
+            x = torch.randn((experts, c, n), generator=gen, device=dev)
+            y = torch.empty((experts, c, p), device=dev)
+            args = (x, packed.blocks, packed.indices)
+            form = gemm_plan.bsr_plan(c, plan.n_pb, plan.nnz, plan.bk,
+                                      plan.bn, 0, batch=experts).form
+            record("bsr_matmul_experts", "float32",
+                   ops.bsr_matmul_experts(*args),
+                   ref.bsr_matmul_experts_ref(*args), TOL["float32"],
+                   ("bsr_matmul_experts", c, (n, p)),
+                   nbytes(x, packed.blocks, packed.indices, y),
+                   2 * experts * c * plan.nnz * plan.bk * p,
+                   lambda: ops.bsr_matmul_experts(*args),
+                   lambda: ref.bsr_matmul_experts_ref(*args),
+                   lambda: torch.bmm(x, w), experts=experts, m=c, n=n,
+                   p=p, sparsity=0.5, form=form)
+        del w, packed
 
 
 def phase_kernels(torch, timer):
@@ -945,31 +1019,13 @@ def phase_kernels(torch, timer):
     # 512-token prefill); one launch a call. Bytes: x, the kept blocks, the
     # index table and y once; operations: every expert's C rows against
     # its kept k. The library time is torch.bmm on the masked dense stack
-    experts = 64
-    for n, p in EXPERT_SHAPES:
-        w = torch.randn((experts, n, p), generator=gen, device=dev) \
-            * n ** -0.5
-        spec = kr.KratosSpec(sparsity=0.5)
-        plan = kr.plan_for(n, p, spec)
-        packed = kr.pack_experts(w, spec)
-        w.mul_(torch.as_tensor(sp.plan_mask(plan), device=dev))
-        for c in EXPERT_ROWS:
-            x = torch.randn((experts, c, n), generator=gen, device=dev)
-            y = torch.empty((experts, c, p), device=dev)
-            args = (x, packed.blocks, packed.indices)
-            form = gemm_plan.bsr_plan(c, plan.n_pb, plan.nnz, plan.bk,
-                                      plan.bn, 0, batch=experts).form
-            record("bsr_matmul_experts", "float32",
-                   ops.bsr_matmul_experts(*args),
-                   ref.bsr_matmul_experts_ref(*args), TOL["float32"],
-                   ("bsr_matmul_experts", c, (n, p)),
-                   nbytes(x, packed.blocks, packed.indices, y),
-                   2 * experts * c * plan.nnz * plan.bk * p,
-                   lambda: ops.bsr_matmul_experts(*args),
-                   lambda: ref.bsr_matmul_experts_ref(*args),
-                   lambda: torch.bmm(x, w), experts=experts, m=c, n=n,
-                   p=p, sparsity=0.5, form=form)
-        del w, packed
+    # then jamba-v0.1-52b's 16 routed experts, w_gate / w_up (4096 ->
+    # 14336) and w_down (14336 -> 4096) at s0.5, C = 2 (decode at 8 slots)
+    # and C = 80 (a 512-token prefill): 1.88 GB of kept blocks a projection
+    for experts, shapes, rows in ((64, EXPERT_SHAPES, EXPERT_ROWS),
+                                  (16, JAMBA_EXPERT_SHAPES,
+                                   JAMBA_EXPERT_ROWS)):
+        _expert_cases(torch, gen, record, experts, shapes, rows)
 
     # the event pair against the profiler's own kernel duration at the
     # headline rows of the redesigned kernels (same shapes, fresh inputs):
@@ -1056,23 +1112,28 @@ def phase_kernels(torch, timer):
     return cases
 
 
-def phase_parity(torch, arch, s0, max_len):
+def phase_parity(torch, arch, s0, max_len, **overrides):
     """The port's forward on the card against the same forward on the CPU
-    (plain versions): `arch` at full width cut to 2 layers, a batch of 2
-    prompts of s0 tokens, then 4 greedy decode steps. Returns the kernel
-    launches of the card's prefills."""
+    (plain versions): `arch` at full width cut to 2 layers (or the config
+    `overrides` give), a batch of 2 prompts of s0 tokens (after
+    n_img_tokens stub image rows for a vision arch), then 4 greedy decode
+    steps. Returns the kernel launches of the card's prefills."""
     from repro_torch import configs as C
     from repro_torch.core import kratos as kr
     from repro_torch.kernels import ops
+    from repro_torch.models import frontends as F
     from repro_torch.models import transformer as T
     from repro_torch.serve.registry import pack_model_params, tree_to
 
-    cfg = C.get_config(arch, n_layers=2)
+    cfg = C.get_config(arch, **{"n_layers": 2, **overrides})
     params = T.init(cfg, seed=SEED, device="cuda")
     params_cpu = tree_to(params, "cpu")
     rng = np.random.default_rng(SEED)
     b, steps = 2, 4
     tokens = rng.integers(0, cfg.vocab, (b, s0)).astype(np.int32)
+    n_img = cfg.n_img_tokens
+    img = F.llava_patches(rng.random((b, 336, 336, 3)), cfg.d_model,
+                          device="cpu")[:, :n_img] if n_img else None
     prefill_launches = {name: 0 for name in ops.KERNELS}
     for spec in (kr.DENSE, kr.KratosSpec(sparsity=0.5, bits=8)):
         out = {}
@@ -1080,8 +1141,9 @@ def phase_parity(torch, arch, s0, max_len):
             packed, _ = pack_model_params(tree, spec)
             caches = T.make_caches(cfg, b, max_len, torch.float32, dev)
             ops.reset_launch_counts()
-            logits, caches = T.forward(packed, torch.from_numpy(tokens).to(dev),
-                                       cfg, caches=caches)
+            logits, caches = T.forward(
+                packed, torch.from_numpy(tokens).to(dev), cfg, caches=caches,
+                img_embeds=None if img is None else img.to(dev))
             for name, c in ops.launch_counts().items():
                 prefill_launches[name] += c
             out[dev] = [logits.cpu()]
@@ -1090,7 +1152,7 @@ def phase_parity(torch, arch, s0, max_len):
         tok = out["cpu"][0][:, -1].argmax(-1).to(torch.int32)
         same = bool((out["cuda"][0][:, -1].argmax(-1) == tok.long()).all())
         for step in range(steps):
-            index = torch.full((b,), s0 + step, dtype=torch.int32)
+            index = torch.full((b,), n_img + s0 + step, dtype=torch.int32)
             lg = {}
             for dev in ("cuda", "cpu"):
                 packed, caches = out[dev + "_state"]
@@ -1255,22 +1317,27 @@ def phase_serving(torch, card, params):
     return totals, results
 
 
-def first_divergence(torch, model, prompts, got, want):
+def first_divergence(torch, model, prompts, got, want, extras=None):
     """Hold greedy tokens `got` to `want` request by request. Where they
-    first differ, recompute the logits of the common prefix on the card
-    and require a top-2 gap below TOP2_GAP (a near-tie that two summation
-    orders may break either way). Returns the divergences found."""
+    first differ, recompute the logits of the common prefix (after the
+    request's image rows, with `extras`) on the card and require a top-2
+    gap below TOP2_GAP (a near-tie that two summation orders may break
+    either way). Returns the divergences found."""
     from repro_torch.models import transformer as T
     out = []
+    extras = extras or [{}] * len(prompts)
     for i, (p, a, b) in enumerate(zip(prompts, got, want)):
         j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
         if j is None:
             continue
         seq = np.concatenate([p, np.asarray(a[:j], np.int32)])
-        caches = T.make_caches(model.cfg, 1, len(seq), torch.float32, "cuda")
+        caches = T.make_caches(model.cfg, 1,
+                               model.cfg.n_img_tokens + len(seq),
+                               torch.float32, "cuda")
         logits, _ = T.forward(model.params,
                               torch.from_numpy(seq[None]).cuda(), model.cfg,
-                              caches=caches, last_only=True)
+                              caches=caches, last_only=True,
+                              img_embeds=extras[i].get("img_embeds"))
         top = torch.topk(logits[0, -1].float(), 2).values
         gap = float(top[0] - top[1])
         out.append(dict(request=i, step=j, top2_gap=gap))
@@ -1845,38 +1912,36 @@ def phase_speculative(torch, card):
 
 
 def load_cut(arch, spec, params, n_layers, **kw):
-    """The registry's full-config artifact over a depth-cut parameter tree
-    (the first `n_layers` layers): its config, and its draft's, cut to
-    match."""
+    """The registry's full-config artifact cut to its first `n_layers`
+    layers (its draft's config cut with it), over `params`."""
     from repro_torch.serve import ModelRegistry
-    model = ModelRegistry().load(arch, spec, smoke=False, params=params,
-                                 seed=SEED, **kw)
-    model.cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
-    if model.has_draft:
-        model.draft_cfg = dataclasses.replace(model.draft_cfg,
-                                              n_layers=n_layers)
-    return model
+    return ModelRegistry().load(arch, spec, smoke=False, params=params,
+                                n_layers=n_layers, seed=SEED, **kw)
 
 
-def serve_run(torch, card, model, prompts, ecfg, gemms, tag, grids=False):
-    """Serve `prompts` (GEN_LEN new tokens each, greedy) through a fresh
+def serve_run(torch, card, model, prompts, ecfg, gemms, tag, grids=False,
+              extras=None):
+    """Serve `prompts` (GEN_LEN new tokens each, greedy; with `extras`, the
+    per-request model inputs, a vision arch's image rows) through a fresh
     engine after an allocator warm-up, as the main path; check that only
     the spec's GEMMs ran and which attention kernels did (flash at prefill
-    for GQA, the page-table kernel once a layer a micro-step when paged;
-    none for MLA); time and trace the graphed dispatch against the eager
-    step, and trace a 512-token prefill. Returns (launches, result,
-    engine, tokens)."""
+    for GQA, the page-table kernel once an attention layer a micro-step
+    when paged; none for MLA); time and trace the graphed dispatch against
+    the eager step, and trace a 512-token prefill (after the first
+    request's image rows). Returns (launches, result, engine, tokens)."""
     from repro_torch.core import kratos as kr
     from repro_torch.kernels import gemm_plan, ops
+    from repro_torch.models import transformer as T
     from repro_torch.serve import InferenceEngine
     cfg, k = model.cfg, ecfg.decode_chunk
+    extras = extras or [None] * len(prompts)
     warm = InferenceEngine(model, ecfg)          # allocator warm-up
-    warm.submit(prompts[0][:32], 4)
+    warm.submit(prompts[0][:32], 4, extras=extras[0])
     warm.run()
     del warm
     gc.collect()
     eng = InferenceEngine(model, ecfg)
-    reqs = [eng.submit(p, GEN_LEN) for p in prompts]
+    reqs = [eng.submit(p, GEN_LEN, extras=e) for p, e in zip(prompts, extras)]
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1891,9 +1956,11 @@ def serve_run(torch, card, model, prompts, ecfg, gemms, tag, grids=False):
     for name in GEMM_KERNELS:
         assert (counts[name] > 0) == (name in gemms), (tag, counts)
     paged = ecfg.page_size is not None
+    n_attn = sum(T.layer_kind(cfg, i)["mixer"] == "attn"
+                 for i in range(cfg.n_layers))
     assert (counts["flash_attention"] > 0) != cfg.mla, counts
     assert counts["paged_flash_attention"] == (
-        cfg.n_layers * rep["micro_steps"] if paged and not cfg.mla else 0), \
+        n_attn * rep["micro_steps"] if paged and not cfg.mla else 0), \
         (counts, rep["micro_steps"])
     assert rep["host_syncs_decode"] == rep["decode_steps"], rep
     ab = graph_vs_eager(torch, eng, k, grids=grids)
@@ -1908,7 +1975,8 @@ def serve_run(torch, card, model, prompts, ecfg, gemms, tag, grids=False):
             / k for c in prof]
     busy = [c["busy_ms"] / k for c in prof]
     batch = {"tokens": torch.from_numpy(
-        np.resize(prompts[0], (1, 512)).astype(np.int32)).cuda()}
+        np.resize(prompts[0], (1, 512)).astype(np.int32)).cuda(),
+        **(extras[0] or {})}
     eng.backend.prefill(batch, exact=True)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -1962,7 +2030,8 @@ def serve_run(torch, card, model, prompts, ecfg, gemms, tag, grids=False):
         print(f"    naive MLA expansion (wkv_b at m = "
               f"{ecfg.n_slots * ecfg.max_len}): share of decode device time "
               f"{r(res['expansion_share_of_device_time'], 4)}", flush=True)
-    print(f"    512-token prefill: untraced wall {prefill_ms:.2f} ms, flash "
+    img = f"{cfg.n_img_tokens} image rows + " if cfg.n_img_tokens else ""
+    print(f"    {img}512-token prefill: untraced wall {prefill_ms:.2f} ms, flash "
           f"device ms {r(flash, 4)}, GEMM device ms "
           f"{r(res['prefill_512_gemm_device_ms'])}", flush=True)
     res["graph_vs_eager"] = print_ab(card, ab, k)
@@ -2191,6 +2260,53 @@ def routed_ms(call, keys, forwards):
     return sum(call["gemm_device_ms_by_grid"].get(k, 0.0) for k in keys)
 
 
+def mamba_mixer_ms(torch, model, rows):
+    """Device ms and GEMM device ms of one decode micro-step of the model's
+    Mamba mixers alone (every Mamba layer's mixer on `rows` slots, eager,
+    on fresh states): the median of two traces. The mixers' kernels are
+    those of the graphed dispatch; traced alone, their time is told apart
+    from the attention, FFN and routing kernels that share their names."""
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+    cfg = model.cfg
+    mcfg = T.mamba_cfg_for(cfg)
+    layers = [i for i in range(cfg.n_layers)
+              if T.layer_kind(cfg, i)["mixer"] == "mamba"]
+    caches = [S.make_mamba_cache(mcfg, rows, torch.float32, "cuda")
+              for _ in layers]
+    h = torch.randn((rows, 1, cfg.d_model), device="cuda")
+    index = torch.full((rows,), 100, dtype=torch.int32, device="cuda")
+
+    def step():
+        for i, c in zip(layers, caches):
+            S.mamba_apply(model.params["layers"][i]["mixer"], h, mcfg,
+                          cache=c, index=index)
+    step()
+    torch.cuda.synchronize()
+    calls = [trace_call(torch, step) for _ in range(2)]
+    return (statistics.median(c["busy_ms"] for c in calls),
+            statistics.median(gemm_ms(c) for c in calls), len(layers))
+
+
+def split_moe_step(torch, model, res, n_moe, per_fwd, mamba):
+    """Decode device ms per micro-step of an MoE run (`res` from serve_run
+    with grids) split from each traced dispatch: the routed experts'
+    GEMM kernels (by name and grid, `routed_kernels`), the Mamba mixers
+    (`mamba`: their device ms and GEMM ms traced alone, or None), the
+    port's other GEMMs and the rest. Returns (keys, routed, mamba, other
+    GEMM, rest) per traced dispatch."""
+    keys = routed_kernels(torch, model, N_SLOTS)
+    routed = [routed_ms(c, keys, n_moe * CHUNK) / CHUNK
+              for c in res["decode_dispatch_profiled"]]
+    assert all(v > 0 for v in routed), routed
+    mix, mix_gemm = mamba or (0.0, 0.0)
+    other = [g - (v if per_fwd else 0.0) - mix_gemm for g, v in
+             zip(res["gemm_device_ms_per_micro_step"], routed)]
+    rest = [b - v - mix - o for b, v, o in
+            zip(res["device_ms_per_micro_step"], routed, other)]
+    return keys, routed, [mix] * len(routed), other, rest
+
+
 def phase_moe(torch, card):
     """deepseek-moe-16b at its published width (d_model 2048, 16 heads of
     128, 64 routed experts of d_ff 1408, top 6, 2 shared, the dense prelude
@@ -2252,16 +2368,8 @@ def phase_moe(torch, card):
         # decode device ms split from the dispatch's own trace: the routed
         # experts' GEMM kernels (the port's batched kernel, or the dense
         # spec's library batched GEMM), the port's other GEMMs, the rest
-        keys = routed_kernels(torch, model, N_SLOTS)
-        routed_step = [routed_ms(c, keys, n_moe * CHUNK) / CHUNK
-                       for c in res["decode_dispatch_profiled"]]
-        assert all(v > 0 for v in routed_step), routed_step
-        other_gemm = [g - (v if per_fwd else 0.0) for g, v in
-                      zip(res["gemm_device_ms_per_micro_step"],
-                          routed_step)]
-        non_gemm = [b - v - g for b, v, g in
-                    zip(res["device_ms_per_micro_step"], routed_step,
-                        other_gemm)]
+        keys, routed_step, _, other_gemm, non_gemm = split_moe_step(
+            torch, model, res, n_moe, per_fwd, None)
         res.update(pack_s=pack_s, routed_expert_kernels=keys,
                    routed_expert_device_ms_per_micro_step=routed_step,
                    other_gemm_device_ms_per_micro_step=other_gemm,
@@ -2316,6 +2424,217 @@ def phase_moe(torch, card):
         torch, model, ecfg, serving_traffic(lcfg.vocab), GEN_LEN, toks)
     results[LITE + " dense-slab"] = res
     del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals, results
+
+
+def serve_tokens(torch, model, ecfg, prompts, extras=None):
+    """Greedy tokens of `prompts` (GEN_LEN new each) through a fresh
+    engine, every dispatch a graph replay."""
+    from repro_torch.serve import InferenceEngine
+    eng = InferenceEngine(model, ecfg)
+    reqs = [eng.submit(p, GEN_LEN, extras=None if extras is None else e)
+            for p, e in zip(prompts, extras or prompts)]
+    eng.run()
+    torch.cuda.synchronize()
+    return [list(r.generated) for r in reqs]
+
+
+def load_peak(torch, load):
+    """(model, seconds, peak GB of memory_allocated) of one load."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = load()
+    torch.cuda.synchronize()
+    return (model, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def paged_against_slab(torch, model, ecfg, prompts, paged, slab):
+    """Hold an MoE arch's paged tokens to its slab tokens. A decode step
+    routes the parked rows with the live ones, and a parked row reads its
+    stale slab row on the slab but the sink page in a pool, so where
+    capacity drops assignments the two pools' tokens may part, as the JAX
+    package's two engines do (tests/test_torch_jamba.py::
+    test_engines_part_where_decode_drops): at the served capacity the
+    requests that differ are reported. The identity is held with the
+    capacity widened to n_experts / top_k (C = the whole group: nothing
+    drops, and a row's routing is its own), both pools graphed, near-tie
+    rule."""
+    apart = [i for i, (a, b) in enumerate(zip(paged, slab)) if a != b]
+    print(f"  dense paged against dense slab tokens at the served capacity: "
+          f"requests {apart} differ", flush=True)
+    cfg = model.cfg
+    wide = dataclasses.replace(model, cfg=dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.top_k))
+    got = serve_tokens(torch, wide, ecfg, prompts)
+    want = serve_tokens(torch, wide, dataclasses.replace(ecfg, page_size=None),
+                        prompts)
+    print(f"  dense paged against dense slab tokens, capacity factor "
+          f"{wide.cfg.capacity_factor:g} (no drops):", flush=True)
+    return dict(requests_apart_at_served_capacity=apart,
+                divergences_without_drops=first_divergence(
+                    torch, wide, prompts, got, want))
+
+
+def phase_jamba(torch, card):
+    """jamba-v0.1-52b at its published width (d_model 4096, 32/8 heads of
+    128 without RoPE, Mamba d_inner 8192 / d_state 16, 16 routed experts
+    of d_ff 14336 top 2 at odd layers, dense MLPs of 14336 at even ones,
+    vocab 65536 untied), depth cut from 32 to one Jamba block of 8 layers
+    (7 Mamba, 1 attention, 4 MoE; 53.2 GB in f32, 206 GB at 32), random
+    f32 weights from the seed, phase 5's traffic in its vocab: dense and
+    s0.5-w8 from the slab (each model loaded alone: the s0.5-w8 copy packs
+    leaf by leaf out of its own dense tree after the dense model is
+    freed), dense from the page pool (the attention layer's k/v paged, the
+    Mamba state resident). Prompts prefill at exact length. Every run
+    launches ssm_scan (7 a prefill), flash attention (1 a prefill) and,
+    under s0.5-w8, bsr_matmul_experts (12 a forward)."""
+    from repro_torch.core import kratos as kr
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import EngineConfig, ModelRegistry
+
+    prompts = serving_traffic(65536)
+    totals = {name: 0 for name in ops.KERNELS}
+    results, tokens = {}, {}
+    runs = {"dense-slab": (kr.DENSE, None, {"dense_matmul"}),
+            "s0.5-w8-slab": (kr.KratosSpec(sparsity=0.5, bits=8), None,
+                             {"bsr_quant_matmul", "quant_matmul",
+                              "bsr_matmul_experts"}),
+            "dense-paged": (kr.DENSE, 16, {"dense_matmul"})}
+    r = lambda xs, d=3: [round(x, d) for x in xs]
+    for tag, (spec, page_size, gemms) in runs.items():
+        model, load_s, peak = load_peak(torch, lambda: ModelRegistry().load(
+            JAMBA, spec, smoke=False, seed=SEED, n_layers=JAMBA_LAYERS))
+        cfg = model.cfg
+        kinds = [T.layer_kind(cfg, i) for i in range(cfg.n_layers)]
+        n_moe = sum(k["ffn"] == "moe" for k in kinds)
+        n_mamba = sum(k["mixer"] == "mamba" for k in kinds)
+        assert (n_moe, n_mamba) == (4, 7) and not cfg.use_rope
+        print(f"  load {JAMBA} {tag}: {load_s:.1f} s, memory_allocated "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, peak "
+              f"{peak:.2f} GB", flush=True)
+        ecfg = EngineConfig(n_slots=N_SLOTS, max_len=512 + GEN_LEN,
+                            decode_chunk=CHUNK, seed=SEED,
+                            page_size=page_size)
+        counts, res, eng, tokens[tag] = serve_run(
+            torch, card, model, prompts, ecfg, gemms, tag, grids=True)
+        add_counts(totals, counts)
+        assert eng._exact_prefill and eng._len_bounded
+        if page_size:
+            assert eng.pool.index is None
+        n_pre = len(prompts)
+        assert counts["ssm_scan"] == n_mamba * n_pre, counts
+        assert counts["flash_attention"] == n_pre, counts
+        per_fwd = 3 * n_moe if "bsr_matmul_experts" in gemms else 0
+        assert counts["bsr_matmul_experts"] == per_fwd * (
+            n_pre + res["micro_steps"]), counts
+        assert eng.backend._graph_launches.get(
+            "bsr_matmul_experts", 0) == per_fwd * CHUNK
+        mamba = mamba_mixer_ms(torch, model, N_SLOTS)[:2]
+        keys, routed, mix, other, rest = split_moe_step(
+            torch, model, res, n_moe, per_fwd, mamba)
+        res.update(load_s=load_s, load_peak_memory_allocated_gb=peak,
+                   routed_expert_kernels=keys,
+                   routed_expert_device_ms_per_micro_step=routed,
+                   mamba_mixer_device_ms_per_micro_step=mix,
+                   mamba_mixer_gemm_device_ms_per_micro_step=mamba[1],
+                   other_gemm_device_ms_per_micro_step=other,
+                   non_gemm_rest_device_ms_per_micro_step=rest,
+                   expert_launches_per_micro_step=per_fwd)
+        print(f"    {tag}: device ms / micro-step "
+              f"{r(res['device_ms_per_micro_step'])} = routed experts "
+              f"{r(routed)} + Mamba mixers {r(mix)} (traced alone; GEMM "
+              f"{mamba[1]:.3f} of it) + other port GEMM {r(other)} + the "
+              f"rest (attention, router, combine, head, elementwise) "
+              f"{r(rest)}; bsr_matmul_experts launches / micro-step "
+              f"{per_fwd}; load peak {peak:.2f} GB", flush=True)
+        del eng
+        gc.collect()
+        res["eager_tokens_identical"] = eager_identity(
+            torch, model, ecfg, prompts, GEN_LEN, tokens[tag])
+        if tag == "dense-paged":
+            res.update(paged_against_slab(torch, model, ecfg, prompts,
+                                          tokens[tag], tokens["dense-slab"]))
+        results[tag] = res
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return totals, results
+
+
+def phase_llava(torch, card):
+    """llava-next-mistral-7b at its published width and depth (32 layers,
+    d_model 4096, 32/8 heads of 128, d_ff 14336, window 4096, vocab 32000
+    untied; 29.0 GB in f32), random f32 weights from the seed: 8 requests,
+    each with 2880 stub image rows (the port's llava_patches of a seeded
+    image) and phase 5's first 8 prompts (32-512 tokens) with 32 new
+    tokens, n_slots 8, max_len 3456: dense and s0.5-w8 from the slab,
+    dense from the page pool (every layer's k/v paged: the window is past
+    max_len). Prefix reuse is off for the arch."""
+    from repro_torch import configs as C
+    from repro_torch.core import kratos as kr
+    from repro_torch.kernels import ops
+    from repro_torch.models import frontends as F
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import EngineConfig
+
+    cfg = C.get_config(LLAVA)
+    t0 = time.perf_counter()
+    params = T.init(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  init {LLAVA} full width and depth (f32): "
+          f"{time.perf_counter() - t0:.1f} s, memory_allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    prompts = serving_traffic(cfg.vocab)[:LLAVA_REQUESTS]
+    rng = np.random.default_rng(SEED)
+    extras = [{"img_embeds": F.llava_patches(rng.random((1, 336, 336, 3)),
+                                             cfg.d_model)}
+              for _ in prompts]
+    assert all(e["img_embeds"].shape == (1, cfg.n_img_tokens, cfg.d_model)
+               for e in extras)
+    assert max(map(len, prompts)) + cfg.n_img_tokens + GEN_LEN \
+        <= LLAVA_MAX_LEN
+    totals = {name: 0 for name in ops.KERNELS}
+    results, tokens = {}, {}
+    runs = {"dense-slab": (kr.DENSE, None, {"dense_matmul"}),
+            "s0.5-w8-slab": (kr.KratosSpec(sparsity=0.5, bits=8), None,
+                             {"bsr_quant_matmul"}),
+            "dense-paged": (kr.DENSE, 16, {"dense_matmul"})}
+    for tag, (spec, page_size, gemms) in runs.items():
+        model, load_s, peak = load_peak(
+            torch, lambda: load_cut(LLAVA, spec, params, cfg.n_layers))
+        ecfg = EngineConfig(n_slots=N_SLOTS, max_len=LLAVA_MAX_LEN,
+                            decode_chunk=CHUNK, seed=SEED,
+                            page_size=page_size)
+        counts, res, eng, tokens[tag] = serve_run(
+            torch, card, model, prompts, ecfg, gemms, tag, extras=extras)
+        add_counts(totals, counts)
+        assert counts["flash_attention"] == cfg.n_layers * len(prompts)
+        if page_size:
+            assert eng.pool.index is None and eng.pool.layout.has_paged
+        res.update(load_s=load_s, load_peak_memory_allocated_gb=peak,
+                   admission_ms_image_plus_512=res["prefill_512_ms"])
+        print(f"    {tag}: load {load_s:.1f} s, peak memory_allocated "
+              f"{peak:.2f} GB; a {cfg.n_img_tokens} + 512-row admission "
+              f"prefill {res['prefill_512_ms']:.1f} ms", flush=True)
+        del eng
+        gc.collect()
+        res["eager_tokens_identical"] = eager_identity(
+            torch, model, ecfg, prompts, GEN_LEN, tokens[tag], extras)
+        if tag == "dense-paged":
+            print("  dense paged against dense slab tokens:", flush=True)
+            res["divergences"] = first_divergence(
+                torch, model, prompts, tokens[tag], tokens["dense-slab"],
+                extras)
+        results[tag] = res
+        del model
+        gc.collect()
+    del params, extras
     gc.collect()
     torch.cuda.empty_cache()
     return totals, results
@@ -2424,8 +2743,26 @@ def main() -> int:
     print(f"  prefill skip fraction: {DEEPSEEK} "
           f"{moe['prefix_reuse']['report']['prefill_skip_fraction']:.4f} "
           f"against nemotron-4-340b's {skip[0]:.4f} (phase 7)", flush=True)
+    mark(13)
+    print(f"[13] the jamba hybrid, {JAMBA}: card vs CPU at full width, one "
+          f"Jamba block with the FFNs cut; then full width, {JAMBA_LAYERS} "
+          "layers", flush=True)
+    parity_launches = phase_parity(torch, JAMBA, 48, 128, **JAMBA_PARITY)
+    assert parity_launches["ssm_scan"] == 2 * 7, parity_launches
+    assert parity_launches["flash_attention"] == 2, parity_launches
+    assert parity_launches["bsr_matmul_experts"] == 3 * 4, parity_launches
+    jamba_launches, jamba = phase_jamba(torch, card)
+    mark(14)
+    print(f"[14] the vision stub, {LLAVA}: card vs CPU at full width, 2 "
+          f"layers, {LLAVA_PARITY_IMG} image rows; then full width and "
+          "depth, 2880 image rows a request", flush=True)
+    parity_launches = phase_parity(torch, LLAVA, 48, 128,
+                                   n_img_tokens=LLAVA_PARITY_IMG)
+    assert parity_launches["flash_attention"] == 2 * 2, parity_launches
+    llava_launches, llava = phase_llava(torch, card)
     for more in (paged_launches, reuse_launches, mamba_launches,
-                 spec_launches, gemma_launches, mla_launches, moe_launches):
+                 spec_launches, gemma_launches, mla_launches, moe_launches,
+                 jamba_launches, llava_launches):
         for name, c in more.items():
             launches[name] += c
 
@@ -2449,7 +2786,8 @@ def main() -> int:
          "cases": [{k: v for k, v in c.items() if k != "key"} for c in cases],
          "serving": serving, "paged_serving": paged, "prefix_reuse": reuse,
          "mamba_serving": mamba, "speculative": spec, "gemma2": gemma,
-         "minicpm3": mla, "moe": moe, "phase_start_s": marks},
+         "minicpm3": mla, "moe": moe, "jamba": jamba, "llava": llava,
+         "phase_start_s": marks},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

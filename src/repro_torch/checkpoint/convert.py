@@ -9,9 +9,10 @@ period + s` taking row t (gemma2's two slots interleave local and global
 layers). Weights keep their (n_in, n_out) layout. An MoE layer's
 `ffn/router/w`, its raw routed-expert stacks `ffn/w_gate` / `w_up` /
 `w_down` ((E, d, f) per layer, no `/w` suffix) and its shared experts
-`ffn/shared/<proj>/w` carry across as they are. A layer parameter the
-port's families do not have (a cross-attention), and a checkpoint whose
-layers mix Mamba and attention mixers (the jamba hybrid), are refused.
+`ffn/shared/<proj>/w` carry across as they are. The jamba hybrid's
+slots mix Mamba and attention mixers (its 8 slots, one Jamba block each
+period, unstack like any other). A layer parameter the port's families do
+not have (a cross-attention) is refused.
 """
 
 from __future__ import annotations
@@ -99,9 +100,4 @@ def convert(src: Union[str, Mapping[str, np.ndarray]], n_layers: int, *,
             raise _unported(key)
     if any(not lp for lp in layers):
         raise ValueError(f"checkpoint does not fill all {n_layers} layers")
-    mamba = ["in_proj" in lp["mixer"] for lp in layers]
-    if any(mamba) and not all(mamba):
-        raise NotImplementedError(
-            "checkpoint mixes Mamba and attention mixers (the jamba hybrid), "
-            "which the port does not have yet (ROADMAP.md queue 1, item 7)")
     return params

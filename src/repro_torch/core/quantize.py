@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
 VALUES_PER_BYTE = {8: 1, 4: 2, 2: 4, 1: 8}
@@ -40,28 +41,77 @@ def _check_bits(bits: int) -> None:
         raise ValueError(f"bits must be one of {SUPPORTED_BITS}, got {bits}")
 
 
+def _sum0(a: torch.Tensor) -> torch.Tensor:
+    """Sum over axis 0 in the order of the JAX package's reductions (XLA's
+    CPU backend, eager or jitted, rewrites a long reduction as a tree):
+    windows of 32 rows, the zero pad split low and high (low = pad // 2),
+    each window summed row by row from 0, until 32 rows or fewer are left,
+    which are summed row by row. Plain adds, so the card sums alike."""
+    while a.shape[0] > 32:
+        m = -(-a.shape[0] // 32)
+        pad = m * 32 - a.shape[0]
+        a = torch.cat([a.new_zeros((pad // 2, *a.shape[1:])), a,
+                       a.new_zeros((pad - pad // 2, *a.shape[1:]))])
+        a = a.reshape(m, 32, *a.shape[1:])
+        acc = torch.zeros_like(a[:, 0])
+        for i in range(32):
+            acc = acc + a[:, i]
+        a = acc
+    acc = torch.zeros_like(a[0])
+    for i in range(a.shape[0]):
+        acc = acc + a[i]
+    return acc
+
+
+def _mean(w: torch.Tensor, axis: int) -> torch.Tensor:
+    """The JAX package's mean: the sum times the f32 reciprocal of the
+    count (jnp.mean divides by a constant, which XLA turns into that)."""
+    recip = float(np.float32(1.0) / np.float32(w.shape[axis]))
+    return _sum0(w.movedim(axis, 0)) * recip
+
+
+def _fma(a: torch.Tensor, b: float, c: float) -> torch.Tensor:
+    """a * b + c rounded once to a's dtype from f32, as XLA's CPU backend
+    fuses a multiply that feeds an add under jax.jit. The product of two
+    f32 values is exact in f64, so the f64 sum rounds only where the exact
+    value lies within 2^-53 of an f32 tie; the tests hold this form to
+    jax.jit bit for bit."""
+    return (a.double() * float(np.float32(b)) + float(np.float32(c))) \
+        .float().to(a.dtype)
+
+
 def _twn_threshold(w: torch.Tensor, axis: int = 0) -> torch.Tensor:
     """Ternary Weight Networks threshold: 0.7 * mean|w| per channel."""
-    return 0.7 * torch.mean(torch.abs(w), dim=axis) + 1e-12
+    return 0.7 * _mean(torch.abs(w), axis) + 1e-12
 
 
-def compute_scale(w: torch.Tensor, bits: int, axis: int = 0) -> torch.Tensor:
-    """Per-channel scale: abs-max / qmax (8, 4 bits), TWN (2), abs-mean (1)."""
+def compute_scale(w: torch.Tensor, bits: int, axis: int = 0, *,
+                  jitted: bool = False) -> torch.Tensor:
+    """Per-channel scale: abs-max / qmax (8, 4 bits), TWN (2), abs-mean (1).
+
+    The 8- and 4-bit scale takes two forms, as in the JAX package: eager
+    (`jitted=False`, how its registry packs projections) divides exactly;
+    under jax.jit (the expert fake-quant inside the forward) XLA computes
+    one FMA of abs-max, the f32 reciprocal of qmax and 1e-12. The 2- and
+    1-bit scales are the same in both."""
     _check_bits(bits)
     if bits == 1:
-        return torch.mean(torch.abs(w), dim=axis) + 1e-12
+        return _mean(torch.abs(w), axis) + 1e-12
     if bits == 2:
         aw = torch.abs(w)
         keep = aw > _twn_threshold(w, axis).unsqueeze(axis)
-        num = torch.sum(torch.where(keep, aw, torch.zeros_like(aw)), dim=axis)
+        num = _sum0(torch.where(keep, aw, torch.zeros_like(aw)).movedim(axis, 0))
         den = torch.clamp(torch.sum(keep, dim=axis), min=1)
         return num / den + 1e-12
+    amax = torch.amax(torch.abs(w), dim=axis)
+    if jitted:
+        return _fma(amax, 1.0 / QMAX[bits], 1e-12)
     # qmax as a 0-d tensor on w's device: CUDA turns a division by a Python
     # scalar into a multiply by its reciprocal, which moves some scales by
     # an ulp (and flips codes near a rounding tie) off the CPU's and the
     # JAX package's true division
     qmax = torch.full((), QMAX[bits], dtype=w.dtype, device=w.device)
-    return torch.amax(torch.abs(w), dim=axis) / qmax + 1e-12
+    return amax / qmax + 1e-12
 
 
 def quantize_values(w: torch.Tensor, scale: torch.Tensor,
@@ -134,8 +184,10 @@ def dequantize(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
 
 def fake_quantize(w: torch.Tensor, bits: int) -> torch.Tensor:
     """Quantize-dequantize round trip of a (n_in, n_out) weight in its own
-    float dtype: the JAX package's QAT forward (codes * scale)."""
-    scale = compute_scale(w, bits, axis=0)
+    float dtype: the JAX package's QAT forward (codes * scale), with the
+    scale jax.jit computes (the reference fake-quantizes inside its jitted
+    forward)."""
+    scale = compute_scale(w, bits, axis=0, jitted=True)
     q = quantize_values(w, scale, bits).to(w.dtype)
     return q * scale.to(w.dtype)
 
@@ -143,10 +195,12 @@ def fake_quantize(w: torch.Tensor, bits: int) -> torch.Tensor:
 def quantize_activations_int8(x: torch.Tensor):
     """Dynamic per-row symmetric int8 activation quantization (for w8a8).
 
-    x: (..., k) -> (codes int8 (..., k), scale f32 (..., 1)). Computed in
-    x's dtype step by step as the JAX package does (abs-max, / 127, + 1e-12,
-    round half to even, clip), so the codes match it byte for byte in bf16
-    too; only the scale is cast to f32."""
-    scale = torch.amax(torch.abs(x), dim=-1, keepdim=True) / 127.0 + 1e-12
+    x: (..., k) -> (codes int8 (..., k), scale f32 (..., 1)), as jax.jit of
+    the JAX package's function computes it (it runs inside the jitted step):
+    the scale is one FMA of the row's abs-max, the f32 reciprocal of 127
+    and 1e-12, rounded once to x's dtype; then x / scale in x's dtype,
+    round half to even, clip. Only the scale is cast to f32."""
+    scale = _fma(torch.amax(torch.abs(x), dim=-1, keepdim=True), 1.0 / 127.0,
+                 1e-12)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale.to(torch.float32)

@@ -25,11 +25,11 @@
 //     k-major copy (4-k words per column) that the fragments read as words.
 //     An under-filled grid splits k over a cluster; its int32 partial
 //     tiles meet in distributed shared memory. Two launches.
-// The codes are those of core/quantize.py::quantize_activations_int8 as
-// PyTorch computes it on the card, step by step in x's dtype: amax(|x|)
-// times the f32 reciprocal of 127 (a CPU-scalar divisor is a multiply by
-// its reciprocal on CUDA), + 1e-12, x / scale (a true division), round
-// half to even, clamp to +-127. Every step is an _rn intrinsic, so no FMA
+// The codes are those of core/quantize.py::quantize_activations_int8, the
+// form jax.jit of the JAX package's function computes: the scale is one
+// FMA of amax(|x|), the f32 reciprocal of 127 and 1e-12, rounded once to
+// x's dtype; then x / scale (a true division) in x's dtype, round half to
+// even, clamp to +-127. Every step is an _rn intrinsic, so no other FMA
 // contraction joins two of them.
 #pragma once
 
@@ -52,8 +52,7 @@ template <> __device__ __forceinline__ float in_dtype<__nv_bfloat16>(float v) {
 // row scale from the row's |x| maximum (a value of x's dtype)
 template <typename T>
 __device__ __forceinline__ float act_scale(float amax) {
-  const float q = in_dtype<T>(__fmul_rn(amax, __fdiv_rn(1.f, 127.f)));
-  return in_dtype<T>(__fadd_rn(q, static_cast<float>(1e-12)));
+  return in_dtype<T>(__fmaf_rn(amax, __fdiv_rn(1.f, 127.f), static_cast<float>(1e-12)));
 }
 
 // the code of one x value as an unsigned byte

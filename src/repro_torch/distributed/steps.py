@@ -41,10 +41,12 @@ def make_prefill_step(cfg: T.ModelConfig, last_only: bool = True, *,
 
     The step allocates its own batch-1 cache list of `cache_len` positions
     on the device. last_only=False returns (1, S, vocab) logits: the engine
-    right-pads prompts into buckets and reads the column at the true end."""
+    right-pads prompts into buckets and reads the column at the true end.
+    A vision-stub batch carries `img_embeds` (1, n_img, d), prepended."""
     def prefill(params, batch):
         caches = T.make_caches(cfg, 1, cache_len, cache_dtype, device)
         return T.forward(params, batch["tokens"], cfg, caches=caches,
+                         img_embeds=batch.get("img_embeds"),
                          last_only=last_only)
     return prefill
 

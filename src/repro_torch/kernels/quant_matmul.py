@@ -95,18 +95,10 @@ def quant_matmul(x: torch.Tensor, qt: qz.QuantizedTensor) -> torch.Tensor:
 quant_matmul.launches = 0
 
 
-def quant_matmul_w8a8(x: torch.Tensor, qt: qz.QuantizedTensor) -> torch.Tensor:
-    """x: (m, n) float, quantized per row to int8 as
-    `core.quantize.quantize_activations_int8` does it; qt: 8-bit codes
-    (n, p) + scale (p,) -> (m, p) in x's dtype. On the card the
-    quantization runs inside the launch (`gemm_plan.w8a8_plan`): one device
-    kernel at decode rows, a row-quantize kernel and the GEMM above them."""
-    _check_qt("quant_matmul_w8a8", x, qt)
-    if qt.bits != 8:
-        raise ValueError(f"quant_matmul_w8a8 needs 8-bit weights, got "
-                         f"{qt.bits}")
-    if x.device.type == "cpu":
-        return quant_matmul_w8a8_ref(x, qt)
+def _w8a8_launch(x: torch.Tensor, qt: qz.QuantizedTensor):
+    """One w8a8 launch on the card: (y, codes, row scales); the codes (m,
+    n padded to 16) and f32 scales (m,) are those the row-quantize kernel
+    wrote under the tile form, else None (the GEMV keeps them on chip)."""
     build.check_cuda_operands("quant_matmul_w8a8", x.dtype, x, qt.data,
                               qt.scale)
     m, n = x.shape
@@ -125,6 +117,22 @@ def quant_matmul_w8a8(x: torch.Tensor, qt: qz.QuantizedTensor) -> torch.Tensor:
                      pl.bn, pl.split, pl.k_per_split, pl.smem_bytes,
                      _stream(x))
     build.check(rc, "quant_matmul_w8a8")
+    return y, xq, xs
+
+
+def quant_matmul_w8a8(x: torch.Tensor, qt: qz.QuantizedTensor) -> torch.Tensor:
+    """x: (m, n) float, quantized per row to int8 as
+    `core.quantize.quantize_activations_int8` does it; qt: 8-bit codes
+    (n, p) + scale (p,) -> (m, p) in x's dtype. On the card the
+    quantization runs inside the launch (`gemm_plan.w8a8_plan`): one device
+    kernel at decode rows, a row-quantize kernel and the GEMM above them."""
+    _check_qt("quant_matmul_w8a8", x, qt)
+    if qt.bits != 8:
+        raise ValueError(f"quant_matmul_w8a8 needs 8-bit weights, got "
+                         f"{qt.bits}")
+    if x.device.type == "cpu":
+        return quant_matmul_w8a8_ref(x, qt)
+    y, _, _ = _w8a8_launch(x, qt)
     quant_matmul_w8a8.launches += 1
     return y
 

@@ -94,6 +94,20 @@ def paged_view(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return g.reshape(*g.shape[:-3], g.shape[-3] * g.shape[-2], g.shape[-1])
 
 
+def last_write(key: torch.Tensor) -> torch.Tensor:
+    """For each of a 1-D sequence of indexed writes, aimed at rows `key`,
+    the index of the LAST write aimed at the same row. Writes land twice on
+    a row only in the sink page (parked slots, positions past a slot's
+    pages); indexing every write's value through this makes duplicates
+    carry one value, so the sink ends as a sequential write leaves it (the
+    last one wins, as on the CPU and in the JAX package) whatever order the
+    card's threads land them in. A parked slot reads the sink, and an MoE
+    decode routes its row with the live ones, so the content reaches live
+    tokens."""
+    ar = torch.arange(key.shape[0], device=key.device)
+    return torch.where(key[:, None] == key[None, :], ar, -1).amax(dim=1)
+
+
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, table: torch.Tensor,
                         last: torch.Tensor, *, window: Optional[int] = None,

@@ -175,18 +175,34 @@ def _paged_leaf_view(leaf, table, cache_len: int):
     return ref.paged_view(leaf, table)[..., :cache_len, :]
 
 
-def _page_offsets(pages, index, b: int, s: int):
-    """(page, offset, last) for writing s tokens at `index`: position
-    index[b] + j lands in page table[b, pos // P] at row pos % P (positions
-    past the slot's footprint hit its sink-page tail: masked garbage).
-    last (B,) is the position of the final written token."""
+def paged_writes(pages, index, b: int, s: int) -> Dict:
+    """The page-table operand with the plan of writing s tokens at `index`
+    added in place: position index[b] + j lands in page table[b, pos // P]
+    at row pos % P ('page', 'off', (B, s); positions past the slot's
+    footprint hit its sink-page tail: masked garbage), 'last' (B,) is the
+    position of the final written token, and 'src' (B*s,) re-picks the
+    written rows by `ref.last_write`, so that rows written twice (the sink)
+    end as a sequential write leaves them on any device. Every paged layer
+    of a forward writes the same rows: the first plans, on the forward's
+    own copy of the operand, and the rest reuse its plan."""
+    if "src" in pages:
+        return pages
     idx = index.to(torch.int32)
     if idx.ndim == 0:
         idx = idx.expand(b)
     pos = idx[:, None] + torch.arange(s, dtype=torch.int32,
                                       device=idx.device)[None, :]
-    page = torch.gather(pages["table"], 1, (pos // pages["size"]).long())
-    return page, pos % pages["size"], idx + (s - 1)
+    size = pages["size"]
+    page = torch.gather(pages["table"], 1, (pos // size).long()).long()
+    off = (pos % size).long()
+    pages.update(page=page, off=off, last=idx + (s - 1),
+                 src=ref.last_write((page * size + off).reshape(-1)))
+    return pages
+
+
+def _in_write_order(x, src):
+    """x (B, s, ...) with its B*s rows re-picked by `paged_writes`' src."""
+    return x.reshape(-1, *x.shape[2:])[src].reshape(x.shape)
 
 
 def _paged_gqa_decode(q, k, v, cfg: AttnConfig, cache, index, pages,
@@ -194,13 +210,14 @@ def _paged_gqa_decode(q, k, v, cfg: AttnConfig, cache, index, pages,
     """Page-table-native decode for full-window GQA layers: one indexed
     write per leaf puts the s new rows straight into their pages (no slab
     view anywhere), then attention reads through the table."""
-    b, s = q.shape[0], q.shape[2]
-    page, off, last = _page_offsets(pages, index, b, s)
-    page, off = page.long(), off.long()
+    w = paged_writes(pages, index, q.shape[0], q.shape[2])
+    page, off, last, src = w["page"], w["off"], w["last"], w["src"]
     # advanced indices at axes 0 and 2 around a sliced head axis: the
     # written block is (B, s, KV, dh)
-    cache["k"][page, :, off] = k.transpose(1, 2).to(cache["k"].dtype)
-    cache["v"][page, :, off] = v.transpose(1, 2).to(cache["v"].dtype)
+    cache["k"][page, :, off] = _in_write_order(
+        k.transpose(1, 2), src).to(cache["k"].dtype)
+    cache["v"][page, :, off] = _in_write_order(
+        v.transpose(1, 2), src).to(cache["v"].dtype)
     if q.device.type == "cuda":
         return ops.paged_attention(q, cache["k"], cache["v"], pages["table"],
                                    last, window=cfg.window,
@@ -374,13 +391,14 @@ def mla_apply(params, x, cfg: AttnConfig, *, positions=None, cache=None,
 
     kv_pos, valid = positions, None
     if index is not None and pages is not None:
-        page, off, last = _page_offsets(pages, index, b, s)
-        page, off = page.long(), off.long()
-        cache["c_kv"][page, off] = c_kv.to(cache["c_kv"].dtype)
+        w = paged_writes(pages, index, b, s)
+        page, off, last, src = w["page"], w["off"], w["last"], w["src"]
+        cache["c_kv"][page, off] = _in_write_order(c_kv, src).to(
+            cache["c_kv"].dtype)
         # advanced indices at axes 0 and 2 around the singleton head axis:
         # the written block is (B, s, 1, dr)
-        cache["k_rope"][page, :, off] = k_rope.transpose(1, 2).to(
-            cache["k_rope"].dtype)
+        cache["k_rope"][page, :, off] = _in_write_order(
+            k_rope.transpose(1, 2), src).to(cache["k_rope"].dtype)
         c_all = _paged_leaf_view(cache["c_kv"], pages["table"], pages["len"])
         kr_all = _paged_leaf_view(cache["k_rope"], pages["table"],
                                   pages["len"])

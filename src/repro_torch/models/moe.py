@@ -74,18 +74,22 @@ def capacity(cfg: MoEConfig, group_tokens: int) -> int:
     return max(cfg.top_k, min(c, group_tokens))
 
 
-def pack_moe(p: Dict, spec: kr.KratosSpec) -> Dict:
+def pack_moe(p: Dict, spec: kr.KratosSpec, *, consume: bool = False
+             ) -> Dict:
     """One MoE layer's routed stacks frozen for serving as the JAX package
     runs them (`repro.models.moe._expert_ffn`): through the training-time
     block-sparse apply (`kratos.pack_experts`) only under a tree spec with
     a block plan for (d_model, d_ff_expert), read off w_gate (E, d, f);
     under any other spec (dense, bits-only, w8a8, systolic) the raw float
-    stacks stay, unquantized, for the reference's einsum."""
+    stacks stay, unquantized, for the reference's einsum. consume: take
+    each stack out of `p` as it is packed, so its float copy can free
+    before the next one packs."""
     _, d, f = (int(v) for v in p["w_gate"].shape)
+    take = p.pop if consume else p.__getitem__
     if spec.is_identity or spec.impl != "tree" \
             or kr.plan_for(d, f, spec) is None:
-        return {name: p[name] for name in EXPERT_STACKS}
-    return {name: kr.pack_experts(p[name], spec) for name in EXPERT_STACKS}
+        return {name: take(name) for name in EXPERT_STACKS}
+    return {name: kr.pack_experts(take(name), spec) for name in EXPERT_STACKS}
 
 
 def _route(xg: torch.Tensor, router_w: torch.Tensor, cfg: MoEConfig,

@@ -1,5 +1,6 @@
-"""Dense GQA, MLA, mixture-of-experts and pure Mamba-1 decoders (the
-dense, MLA, MoE and `is_ssm` parts of `repro.models.transformer`).
+"""Dense GQA, MLA, mixture-of-experts, pure Mamba-1 and hybrid decoders,
+and the vision stub's backbone (the decoder parts of
+`repro.models.transformer`).
 
 Parameters are a plain dict with a per-layer list in place of the JAX
 package's stacked `blocks` consumed by `lax.scan`:
@@ -16,14 +17,19 @@ local (the config's window, layer 0 first) and global (no window). An MLA
 model (minicpm3) has {wq_a, q_norm, wq_b | wq, wkv_a, kv_norm, wkv_b, wo}
 as its mixer. An `is_ssm` model (falcon-mamba) has a Mamba mixer
 (models.ssm) and no FFN in every layer: {"pre_norm", "mixer": {in_proj,
-conv_w, ...}}. Caches are a per-layer list of {"k", "v"} tensors (MLA:
-{"c_kv", "k_rope"}; models.attention), slab rows or, under a paged pool,
-page-major store leaves; a Mamba layer's is {"conv", "ssm"}, always
-slot-major. An MoE layer (deepseek; `prelude_layers` dense layers
-first) has {"ffn_norm", "ffn": {"router": {"w"}, "w_gate", "w_up",
-"w_down" (raw (E, d, f) stacks, or their packed form), "shared"?}}
-(models.moe). The jamba hybrid, encoder-decoder and the vision stub are
-not ported yet (ROADMAP.md queue 1, item 7).
+conv_w, ...}}. The jamba hybrid (`attn_period`) puts an attention mixer
+at i % attn_period == attn_offset and a Mamba mixer elsewhere, each with
+an FFN (MoE at i % moe_period == moe_offset, else a dense MLP). Caches are
+a per-layer list of {"k", "v"} tensors (MLA: {"c_kv", "k_rope"};
+models.attention), slab rows or, under a paged pool, page-major store
+leaves; a Mamba layer's is {"conv", "ssm"}, always slot-major. An MoE
+layer (deepseek; `prelude_layers` dense layers first) has {"ffn_norm",
+"ffn": {"router": {"w"}, "w_gate", "w_up", "w_down" (raw (E, d, f)
+stacks, or their packed form), "shared"?}} (models.moe). A vision-stub
+model (llava, `frontend="vision"`) takes `n_img_tokens` image-embedding
+rows prepended to the prompt's embeddings (`forward(img_embeds=)`;
+models.frontends makes them). The encoder-decoder (whisper) is not ported
+yet (ROADMAP.md queue 1, item 7c).
 """
 
 from __future__ import annotations
@@ -88,13 +94,21 @@ class ModelConfig:
     prelude_layers: int = 0
     capacity_factor: float = 1.25
     aux_loss_coef: float = 0.001          # a training term: unused here
-    # Mamba (pure SSM: every layer a Mamba-1 mixer without FFN)
+    # Mamba: is_ssm makes every layer a Mamba-1 mixer without FFN
+    # (falcon); attn_period > 0 is the hybrid (jamba): attention at
+    # i % attn_period == attn_offset, a Mamba mixer elsewhere, each with
+    # its FFN
     is_ssm: bool = False
+    attn_period: int = 0
+    attn_offset: int = 4
     d_state: int = 16
     d_conv: int = 4
     mamba_expand: int = 2
     bcdt_rms: bool = False
     ssm_chunk: int = 256                  # JAX's XLA scan chunk (no use here)
+    # frontend stub: 'vision' prepends n_img_tokens image-embedding rows
+    frontend: Optional[str] = None
+    n_img_tokens: int = 0
     # the JAX package stacks layers of one pattern slot and runs the slots'
     # stacks in turn; `layer_order` reproduces the order that gives
     scan_period: int = 1
@@ -123,8 +137,8 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count, the JAX package's formula for the
-        ported families (dense GQA or MLA + MLP or MoE, pure Mamba-1; norms
-        are not counted, as there)."""
+        ported families (dense GQA or MLA + MLP or MoE, pure Mamba-1, the
+        hybrid; norms are not counted, as there)."""
         d, v = self.d_model, self.vocab
         total = v * d * (1 if self.tie_embeddings else 2)
         for i in range(self.n_layers):
@@ -156,21 +170,25 @@ class ModelConfig:
 
 
 def layer_kind(cfg: ModelConfig, i: int) -> Dict[str, Any]:
-    """What lives at layer i: attention + MLP or MoE, or (is_ssm) a Mamba
-    mixer without FFN. With local_global_period the attention layer i is
-    local (the config's window) when i % period == 0, else global (no
-    window). With experts, layer i >= prelude_layers with i % moe_period
-    == moe_offset is MoE, the rest dense MLP."""
+    """What lives at layer i: attention or (is_ssm, or off the hybrid's
+    attention slots) a Mamba mixer, and an MLP, MoE or (is_ssm) no FFN.
+    With local_global_period the attention layer i is local (the config's
+    window) when i % period == 0, else global (no window). With experts,
+    layer i >= prelude_layers with i % moe_period == moe_offset is MoE,
+    the rest dense MLP."""
     if cfg.is_ssm:
         return {"mixer": "mamba", "window": cfg.window, "ffn": "none"}
+    mixer = "attn"
+    if cfg.attn_period and i % cfg.attn_period != cfg.attn_offset:
+        mixer = "mamba"
     window = cfg.window
-    if cfg.local_global_period:
+    if cfg.local_global_period and mixer == "attn":
         window = cfg.window if i % cfg.local_global_period == 0 else None
     ffn = "mlp"
     if cfg.n_experts and i >= cfg.prelude_layers \
             and i % cfg.moe_period == cfg.moe_offset:
         ffn = "moe"
-    return {"mixer": "attn", "window": window, "ffn": ffn}
+    return {"mixer": mixer, "window": window, "ffn": ffn}
 
 
 def layer_order(cfg: ModelConfig) -> List[int]:
@@ -292,9 +310,12 @@ def _layer_apply(p: Dict, x, cfg: ModelConfig, kind: Dict, *, positions,
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             caches: Optional[List[Dict]] = None, index=None,
-            pages: Optional[Dict] = None,
+            pages: Optional[Dict] = None, img_embeds=None,
             last_only: bool = False) -> Tuple[torch.Tensor, Optional[List]]:
     """Decoder forward. tokens: (B, S) int. Returns (f32 logits, caches).
+
+    img_embeds: (B, n_img, d) vision-stub rows prepended to the token
+    embeddings (llava); positions and cache writes count them.
 
     caches: per-layer list from `make_caches` (or a paged pool's store)
     or None. index None runs the full sequence (filling `caches` when
@@ -304,8 +325,12 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     layer.
     last_only: logits for the final position only."""
     x = L.embed(params["embed"], tokens, scale=cfg.emb_scale).to(cfg.adtype())
+    if img_embeds is not None:
+        x = torch.cat([img_embeds.to(x.dtype), x], dim=1)
     positions = None if index is None or cfg.is_ssm else \
         A._positions_for(index, x.shape[1], x.device)
+    if pages is not None:     # the paged layers' write plan goes in here
+        pages = dict(pages)
     for li in layer_order(cfg):
         c = caches[li] if caches is not None else None
         x, _ = _layer_apply(params["layers"][li], x, cfg, layer_kind(cfg, li),

@@ -4,10 +4,13 @@
 Step loop (`step()`):
   1. admission — the scheduler picks arrived requests for free slots; each
      is prefilled alone (batch 1, prompt right-padded to a power-of-two
-     bucket where that is exact; at its exact length for a recurrent
-     (is_ssm) arch, whose padded positions would enter the state, and for
-     an MoE arch, whose pad tokens would take expert capacity) and its
-     cache copied into its slab row.
+     bucket where that is exact; at its exact length for a recurrent arch
+     (pure Mamba or the hybrid), whose padded positions would enter the
+     state, and for an MoE arch, whose pad tokens would take expert
+     capacity) and its cache copied into its slab row. A vision-stub
+     request's image rows (`submit(extras={"img_embeds": ...})`) are
+     prepended to its prompt: positions, pages and the decode clock count
+     them, and prefix reuse skips it.
      Under a paged pool (`page_size`) the admission first matches the
      longest cached page-aligned prefix, reserves the slot's pages (shared
      prefix pages by refcount) and prefills only the unmatched suffix; a
@@ -136,7 +139,7 @@ class InferenceEngine:
             raise ValueError(f"engine device {device} but model "
                              f"'{model.name}' lives on {model.device}")
         if cfg.speculate:
-            SP.refuse_experts(model.cfg)
+            SP.refuse_unported(model.cfg)
             if cfg.decode_chunk != 1:
                 raise ValueError("speculate replaces decode_chunk: one spec "
                                  "cycle IS the multi-token dispatch; set "
@@ -172,32 +175,47 @@ class InferenceEngine:
                                                 else []))
         # pad tokens would run through a recurrence and corrupt the cached
         # conv tail and state, or take expert capacity from real tokens:
-        # recurrent and MoE archs prefill at exact length
-        self._exact_prefill = bool(mcfg.is_ssm or mcfg.n_experts)
+        # recurrent (pure Mamba, hybrid) and MoE archs prefill at exact
+        # length
+        self._exact_prefill = bool(mcfg.is_ssm or mcfg.attn_period
+                                   or mcfg.n_experts)
         # pure-SSM state is O(1) and a cache windowed on EVERY layer is
         # circular: such requests may run longer than the slab. gemma2's
-        # global layers and MLA's latent cache are positional: bounded
+        # global layers, MLA's latent cache and the hybrid's attention
+        # layer are positional: bounded
         self._len_bounded = not (
             mcfg.is_ssm
             or (mcfg.window is not None and not mcfg.local_global_period
-                and not mcfg.mla))
+                and not mcfg.mla and not mcfg.attn_period))
+        # a page pool pages a window no shorter than max_len (llava's 4096
+        # over max_len 3456): its table ends at max_len, so such a request
+        # is bounded there (the JAX package's paged engine clamps the table
+        # lookup past it and writes into the slot's last page)
+        self._len_bounded |= bool(self.backend.paged
+                                  and self.pool.layout.has_paged)
+        self._n_img = mcfg.n_img_tokens
 
     # ------------------------------------------------------------------ API
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int, *,
                arrival_step: int = 0, temperature: float = 0.0,
                eos_id: Optional[int] = None,
+               extras: Optional[Dict[str, Any]] = None,
                speculate: Optional[int] = None) -> Request:
+        """Queue a request. extras: model inputs besides the tokens, batch-1
+        leading: a vision-stub arch's {"img_embeds": (1, n_img_tokens, d)}
+        (models.frontends.llava_patches)."""
         r = Request(id=-1, prompt=np.asarray(prompt, np.int32).reshape(-1),
                     max_new_tokens=max_new_tokens, arrival_step=arrival_step,
                     temperature=temperature, eos_id=eos_id,
-                    speculate=speculate)
+                    speculate=speculate, extras=extras)
         if r.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        need = len(r.prompt) + r.max_new_tokens
+        need = self._n_img + len(r.prompt) + r.max_new_tokens
         if self._len_bounded and need > self.cfg.max_len:
-            raise ValueError(f"request needs {need} cache positions (prompt "
-                             f"{len(r.prompt)} + gen {r.max_new_tokens}) but "
+            raise ValueError(f"request needs {need} cache positions (img "
+                             f"{self._n_img} + prompt {len(r.prompt)} + gen "
+                             f"{r.max_new_tokens}) but "
                              f"max_len={self.cfg.max_len}")
         if self.cfg.max_waiting is not None \
                 and len(self._waiting) >= self.cfg.max_waiting:
@@ -283,7 +301,7 @@ class InferenceEngine:
         if len(r.generated) >= r.max_new_tokens \
                 or (r.eos_id is not None and tok == r.eos_id):
             r.state = "done"
-            if self.backend.paged:
+            if self.backend.paged and not r.extras:
                 # publish the whole conversation (prompt + generated)
                 # before the slot's pages are freed: the chat's next turn
                 # then skips prefill over all of it
@@ -298,17 +316,22 @@ class InferenceEngine:
     def _start(self, r: Request) -> None:
         slot = self.pool.alloc()
         s0 = len(r.prompt)
+        n_img = self._n_img
         dev = self.backend.device
-        # paged admission: the longest page-aligned cached prefix, then the
+        # paged admission: the longest page-aligned cached prefix (none for
+        # a request with extras: the index keys tokens only), then the
         # slot's page-table row (shared prefix pages by refcount, fresh
-        # private pages for the rest of prompt + budget + speculative
-        # headroom). Pages are sized from the true footprint, never from the
-        # prefill bucket: padded writes past it land in the sink page.
-        # PoolExhausted propagates to step(), which requeues.
-        matched, shared, conv = self.backend.prefix_match(r.prompt)
+        # private pages for the image rows, the rest of the prompt, the
+        # budget and the speculative headroom). Pages are sized from the
+        # true footprint, never from the prefill bucket: padded writes past
+        # it land in the sink page. PoolExhausted propagates to step(),
+        # which requeues.
+        matched, shared, conv = (0, [], False) if r.extras else \
+            self.backend.prefix_match(r.prompt)
         try:
             self.backend.alloc_slot_pages(
-                slot, s0 + r.max_new_tokens + self.cfg.speculate, shared)
+                slot, n_img + s0 + r.max_new_tokens + self.cfg.speculate,
+                shared)
         except PoolExhausted:
             self.pool.free(slot)
             raise
@@ -316,6 +339,9 @@ class InferenceEngine:
         tokens = np.zeros((1, sp), np.int32)
         tokens[0, :s0] = r.prompt
         batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+        if r.extras:
+            batch.update({k: torch.as_tensor(v).to(dev)
+                          for k, v in r.extras.items()})
         if matched:
             # prefix hit: only the unmatched suffix runs, right-padded into
             # the same pow2 buckets as full prefills (`batch` still carries
@@ -329,17 +355,18 @@ class InferenceEngine:
             row = logits[:, s_sfx - 1]
         else:
             logits, caches = self.backend.prefill(batch, exact=sp == s0)
-            row = logits[:, -1] if sp == s0 else logits[:, s0 - 1]
+            row = logits[:, -1] if sp == s0 else logits[:, n_img + s0 - 1]
             self.backend.write_slot(slot, caches)
         if self.backend.paged:
-            # publish the prompt's full pages for later admissions (a no-op
-            # without a prefix index)
-            self.backend.prefix_insert(r.prompt, slot)
+            if not r.extras:
+                # publish the prompt's full pages for later admissions (a
+                # no-op without a prefix index)
+                self.backend.prefix_insert(r.prompt, slot)
             self.metrics.on_prefix(matched, s0)
             if conv and matched:
                 self.metrics.on_conversation_hit(matched)
         r.prefix_matched = matched
-        r.state, r.slot, r.index = "running", slot, s0
+        r.state, r.slot, r.index = "running", slot, n_img + s0
         self._slots[slot] = r
         self.metrics.on_start(r.id, self.step_count)
         tok = self.backend.first_token(row, r.temperature)

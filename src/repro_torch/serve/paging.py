@@ -21,7 +21,9 @@ pool carves the same memory into fixed-size PAGES:
 Leaves that are not positional stay RESIDENT in the slot-major slab
 layout inside the same store: a circular sliding-window leaf whose W is
 shorter than cache_len, and a Mamba layer's recurrent `conv` tail and
-`ssm` state (by name: their shapes do not say what they are).
+`ssm` state (by name: their shapes do not say what they are; the jamba
+hybrid pages its attention layer's k/v and keeps its Mamba layers'
+state resident).
 
 Page 0 is the reserved WRITE SINK: a freed slot's table row resets to it,
 so an idle slot's garbage decode writes land in a page nobody reads. Rows
@@ -47,7 +49,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.ref import paged_view
+from repro_torch.kernels.ref import last_write, paged_view
 from repro_torch.models import transformer as T
 from repro_torch.serve.cache_pool import PoolExhausted
 from repro_torch.serve.prefix import PrefixIndex
@@ -61,9 +63,12 @@ RESIDENT_LEAVES = frozenset({"conv", "ssm"})
 def prefix_supported(cfg: T.ModelConfig) -> bool:
     """Archs whose whole per-request cache state is positional and paged —
     the precondition for prefix sharing to reproduce a prefill exactly. A
-    circular window overwrites position identity; a recurrent state sums
-    the whole prompt and no page of it can be shared."""
-    return not (cfg.window or cfg.is_ssm)
+    circular window overwrites position identity; a recurrent state (pure
+    Mamba or the hybrid) sums the whole prompt and no page of it can be
+    shared; a vision prompt carries image rows the token-keyed index
+    cannot see."""
+    return not (cfg.window or cfg.is_ssm or cfg.attn_period
+                or cfg.n_img_tokens or cfg.frontend)
 
 
 class PageLayout:
@@ -118,7 +123,10 @@ class PageLayout:
             x = torch.cat([x, x.new_zeros((*x.shape[:-2], pad, x.shape[-1]))],
                           dim=-2)
         x = x.unflatten(-2, (self.pp, self.page_size)).movedim(-3, 1)
-        store_leaf[table.long()] = x.to(store_leaf.dtype)
+        # the table's rows past the slot's pages all name the sink page:
+        # the last of them writes it, on the card as on the CPU
+        ids = table.long()
+        store_leaf[ids] = x[:, last_write(ids[0])].to(store_leaf.dtype)
 
     def gather_one(self, store: Store, table_row: torch.Tensor,
                    slot: int) -> Store:

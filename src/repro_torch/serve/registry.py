@@ -10,8 +10,11 @@ them (`models.moe.pack_moe`): a block-sparse tree spec gathers each
 expert's kept blocks (from its fake-quant weight when the spec sets bits)
 for the expert-batched kernel; any other spec keeps the raw float stack.
 They are not counted in `n_packed` or the byte totals, as in the JAX
-package; its shared experts pack as any MLP does. Models are keyed by
-(arch, KratosSpec, smoke, seed, device, DraftSpec). A `draft_spec`
+package; its shared experts pack as any MLP does. `load` packs leaf by
+leaf and lets each float leaf go as soon as its packed form exists, so a
+model whose dense tree fills most of the card (jamba at 8 layers, 53 GB
+in f32) packs beside it. Models are keyed by (arch, KratosSpec, smoke,
+seed, device, DraftSpec, depth cut). A `draft_spec`
 (serve.speculative) also derives a self-draft from the same dense weights,
 part of the artifact's identity.
 """
@@ -55,20 +58,28 @@ def _is_packable(node, name: str) -> bool:
             and name in PACKABLE and node["w"].ndim == 2)
 
 
-def pack_model_params(params: Dict[str, Any], spec: kr.KratosSpec,
-                      ) -> Tuple[Dict[str, Any], int]:
-    """Replace packable `{"w"}` leaves with PackedLinear; returns (tree, n)."""
+def pack_model_params(params: Dict[str, Any], spec: kr.KratosSpec, *,
+                      consume: bool = False) -> Tuple[Dict[str, Any], int]:
+    """Replace packable `{"w"}` leaves with PackedLinear; returns (tree, n).
+
+    consume: empty each packed leaf's dict in `params` (and take each
+    routed stack out of its MoE layer) as soon as its packed form exists,
+    so a float weight nothing else holds frees before the next leaf packs;
+    `params` is left without its projection weights."""
     count = [0]
 
     def walk(node, name: str):
         if _is_packable(node, name):
             count[0] += 1
-            return kr.pack_linear(node, spec)
+            out = kr.pack_linear(node, spec)
+            if consume:
+                node.clear()
+            return out
         if isinstance(node, dict) and "router" in node:
             # an MoE layer: router kept, stacks frozen, shared experts walked
             out = {k: walk(v, k) for k, v in node.items()
                    if k not in M.EXPERT_STACKS}
-            return {**out, **M.pack_moe(node, spec)}
+            return {**out, **M.pack_moe(node, spec, consume=consume)}
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, list):
@@ -154,7 +165,8 @@ class ModelRegistry:
     def load(self, arch: str, spec: Optional[kr.KratosSpec] = None, *,
              params: Optional[Dict[str, Any]] = None, seed: int = 0,
              name: Optional[str] = None, smoke: bool = True,
-             device="cuda", draft_spec=None, tier_specs=None) -> PackedModel:
+             device="cuda", draft_spec=None, tier_specs=None,
+             n_layers: Optional[int] = None) -> PackedModel:
         """Load (or return the cached) packed model for (arch, spec).
 
         params: dense parameter tree (e.g. from checkpoint.convert); freshly
@@ -163,15 +175,19 @@ class ModelRegistry:
         draft_spec (speculative.DraftSpec): also derive a self-draft from
         the same dense weights, which `EngineConfig.speculate` requires; it
         joins the cache key and the default name (`+draft[<tag>]`).
+        n_layers: cut the config to its first n_layers layers (a depth cut
+        of the published model; it joins the key and the name).
         """
         if tier_specs:
             raise NotImplementedError("QoS tier ladders are not ported yet "
                                       "(ROADMAP.md queue 1, item 8)")
         device = check_device(device)
         cfg = (C.get_smoke if smoke else C.get_config)(arch)
+        if n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
         spec = cfg.kratos if spec is None else spec
         cfg = dataclasses.replace(cfg, kratos=spec)
-        key = (arch, spec, smoke, seed, str(device), draft_spec)
+        key = (arch, spec, smoke, seed, str(device), draft_spec, n_layers)
         if params is None and key in self._models:
             return self._models[key]
         if params is None:
@@ -183,7 +199,10 @@ class ModelRegistry:
             dcfg, dparams, dn = SP.derive_draft(params, cfg, spec, draft_spec)
             draft = dict(draft_spec=draft_spec, draft_cfg=dcfg,
                          draft_params=dparams, draft_packed=dn)
-        packed, n_packed = pack_model_params(params, spec)
+        # `params` is this call's own tree (fresh, or tree_to's new
+        # containers): packing may empty it leaf by leaf
+        packed, n_packed = pack_model_params(params, spec, consume=True)
+        del params
         linears = list(_leaves(packed, lambda n: isinstance(n, kr.PackedLinear)))
         itemsize = torch.empty((), dtype=cfg.pdtype()).element_size()
         dense_bytes = sum(pl.n_in * pl.n_out for pl in linears) * itemsize
@@ -193,6 +212,7 @@ class ModelRegistry:
             tag += f"+draft[{draft_spec.tag}]"
         default_name = (f"{arch}@{tag}"
                         + ("" if smoke else "-full")
+                        + (f"-{n_layers}L" if n_layers is not None else "")
                         + (f"#s{seed}" if seed else ""))
         model = PackedModel(name=name or default_name, cfg=cfg, params=packed,
                             spec=spec, n_packed=n_packed,

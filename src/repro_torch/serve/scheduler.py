@@ -7,7 +7,7 @@ ticks once per K-token block."""
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -26,6 +26,9 @@ class Request:
     # tokens a dispatch may accept for it (None = the engine's K, 0 = opt
     # out: the slot takes one plain target step a dispatch)
     speculate: Optional[int] = None
+    # per-request model inputs besides the tokens, batch-1 leading: a
+    # vision-stub arch's {"img_embeds": (1, n_img_tokens, d)}
+    extras: Optional[Dict[str, Any]] = None
 
     # engine-managed
     state: str = "waiting"                  # waiting | running | done

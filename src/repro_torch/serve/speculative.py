@@ -117,7 +117,7 @@ def derive_draft(params: Dict[str, Any], cfg: T.ModelConfig,
     params: the draft packs the same weights the target packs from, at the
     draft's point of the (sparsity, precision) grid."""
     from repro_torch.serve.registry import pack_model_params   # cycle
-    refuse_experts(cfg)
+    refuse_unported(cfg)
     dcfg = draft_config(cfg, dspec, target_spec)
     dparams = params
     if dcfg.n_layers < cfg.n_layers:
@@ -142,12 +142,15 @@ def draft_cost_fraction(cfg: T.ModelConfig,
     return cost(draft_cfg) / max(1.0, cost(cfg))
 
 
-def refuse_experts(cfg: T.ModelConfig) -> None:
-    """Speculative decode of a mixture-of-experts arch is not ported yet."""
-    if cfg.n_experts:
+def refuse_unported(cfg: T.ModelConfig) -> None:
+    """Speculative decode of a mixture-of-experts arch (the jamba hybrid
+    among them), and of a vision-stub arch whose requests carry image
+    extras, is not ported yet."""
+    what = "MoE" if cfg.n_experts else "vision-stub" if cfg.frontend else ""
+    if what:
         raise NotImplementedError(
-            f"speculative decode of the MoE arch '{cfg.name}' is not ported "
-            "yet (ROADMAP.md queue 1, item 8)")
+            f"speculative decode of the {what} arch '{cfg.name}' is not "
+            "ported yet (ROADMAP.md queue 1, item 8)")
 
 
 def check_supported(cfg: T.ModelConfig, cache_len: int) -> None:

@@ -351,6 +351,33 @@ def test_windowed_arch_pages_nothing_and_matches_jax(tmp_path):
 
 
 @needs_jax
+def test_paged_window_bounds_requests_at_max_len():
+    """h2o-danube's window-8 leaves are paged once max_len is no longer
+    than the window, and the pool's table then ends at max_len: the port
+    refuses a request past it at submit, where the slab (a circular
+    window) serves it. JAX's paged engine accepts it and clamps its table
+    lookup at the slot's last page; the port departs from that on
+    purpose."""
+    cfg = PC.get_smoke(DANUBE)
+    assert cfg.window == 8
+    model = ModelRegistry().load(DANUBE, device="cpu")
+    paged = InferenceEngine(model, EngineConfig(
+        n_slots=2, max_len=8, page_size=4, device="cpu"))
+    slab = InferenceEngine(model, EngineConfig(n_slots=2, max_len=8,
+                                               device="cpu"))
+    jeng = JEngine(JRegistry().load(DANUBE),
+                   JEngineConfig(n_slots=2, max_len=8, page_size=4))
+    assert paged.pool.layout.has_paged and paged._len_bounded
+    assert not slab._len_bounded and not jeng._len_bounded
+    prompt = np.arange(6, dtype=np.int32)
+    with pytest.raises(ValueError, match="max_len"):
+        paged.submit(prompt, 3)
+    paged.submit(prompt, 2)
+    slab.submit(prompt, 3)
+    jeng.submit(prompt, 3)
+
+
+@needs_jax
 def test_pool_pressure_requeues_and_release_parks_slot(tmp_path):
     """With pages for one request at a time, the second admission bounces
     (pool_waits), is requeued at the front and completes after the first
@@ -379,3 +406,34 @@ def test_paged_config_checks():
         EngineConfig(device="cpu", page_size=0)
     with pytest.raises(ValueError, match="n_pages without page_size"):
         EngineConfig(device="cpu", n_pages=8)
+
+
+def test_paged_writes_land_as_a_sequential_write():
+    """Writes aimed twice at one row (the sink page: parked slots, positions
+    past a slot's pages) all carry the value of the last of them, so the
+    page store ends as a sequential write leaves it on any device; the
+    admission scatter does the same over a table row's sink entries."""
+    from repro_torch.models.attention import paged_writes
+    from repro_torch.serve.paging import PageLayout
+    # targets 1, 26, 1, 44, 2, 26: the last write to 1 is #2, to 26 is #5
+    assert pref.last_write(torch.tensor([1, 26, 1, 44, 2, 26])).tolist() \
+        == [2, 5, 2, 3, 4, 5]
+    # slots 0 and 2 parked on the sink (page 0), slot 1 live at position
+    # 9 (page 3, row 1): the plan every attention layer of a forward uses
+    w = paged_writes({"size": 8, "len": 16,
+                      "table": torch.tensor([[0, 0], [2, 3], [0, 0]],
+                                            dtype=torch.int32)},
+                     torch.tensor([5, 9, 5], dtype=torch.int32), 3, 1)
+    assert w["page"].tolist() == [[0], [3], [0]]
+    assert w["off"].tolist() == [[5], [1], [5]]
+    assert w["last"].tolist() == [5, 9, 5] and w["src"].tolist() == [2, 1, 2]
+    assert paged_writes(w, None, 3, 1) is w
+    cfg = PC.get_smoke("nemotron-4-340b")
+    layout = PageLayout(cfg, 2, 32, 8, device="cpu")
+    leaf = torch.zeros((6, 2, 8, 16))
+    slab = torch.arange(2 * 32 * 16, dtype=torch.float32).reshape(1, 2, 32, 16)
+    layout._scatter_leaf(leaf, torch.tensor([[4, 2, 0, 0]], dtype=torch.int32),
+                         slab)
+    assert torch.equal(leaf[4], slab[0, :, 0:8])
+    assert torch.equal(leaf[2], slab[0, :, 8:16])
+    assert torch.equal(leaf[0], slab[0, :, 24:32])     # the last sink entry

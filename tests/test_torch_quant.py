@@ -12,6 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 try:
+    import jax
     import jax.numpy as jnp
 
     from repro.core import kratos as jkr
@@ -63,7 +64,8 @@ def test_activation_codes_byte_identical(dtype):
     x = rnd(0, (37, 96), 3.0)
     x[5] = 0.0                                   # an all-zero row
     jx, px = both(x, dtype)
-    jq, js = jqz.quantize_activations_int8(jx)
+    # the reference quantizes activations inside its jitted step
+    jq, js = jax.jit(jqz.quantize_activations_int8)(jx)
     pq, ps = pqz.quantize_activations_int8(px)
     assert pq.dtype == torch.int8 and ps.dtype == torch.float32
     assert tuple(ps.shape) == (37, 1)

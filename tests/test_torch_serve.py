@@ -24,8 +24,10 @@ from repro.models import transformer as JT
 from repro.serve import EngineConfig as JEngineConfig
 from repro.serve import InferenceEngine as JEngine
 from repro.serve import ModelRegistry as JRegistry
+from repro_torch import configs as PC
 from repro_torch.checkpoint.convert import convert
 from repro_torch.core import kratos as pkr
+from repro_torch.models import transformer as PT
 from repro_torch.serve import (EngineConfig, EngineSaturated,
                                InferenceEngine, ModelRegistry)
 
@@ -158,7 +160,7 @@ def test_unported_specs_and_archs_refused_up_front():
                                 bn=8)):
         assert reg.load(ARCH, spec, device="cpu").n_packed > 0
     with pytest.raises(NotImplementedError, match="item 7"):
-        reg.load("jamba-v0.1-52b", device="cpu")
+        reg.load("whisper-large-v3", device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         pkr.apply({"w": torch.zeros(4, 4)}, torch.zeros(1, 4))
 
@@ -208,13 +210,23 @@ def test_convert_refuses_unported_layer_keys(key):
 
 def test_convert_refuses_the_jamba_hybrid():
     """jamba's layers mix Mamba mixers (`in_proj`, `conv_w`, ...) with
-    attention mixers and MoE FFNs: every key is a ported name, and the mix
-    is refused."""
+    attention mixers and MoE FFNs in 8 scan slots: `convert` carries the
+    hybrid, each slot's row t landing in layer t * 8 + s with the kind
+    `layer_kind` gives it; a cross-attention key added to the same
+    checkpoint is still refused."""
     cfg = JC.get_smoke("jamba-v0.1-52b")
     flat = _flat_smoke("jamba-v0.1-52b")
-    assert any("/mixer/in_proj/w" in k for k in flat)
-    assert any("/mixer/wq/w" in k for k in flat)
-    with pytest.raises(NotImplementedError, match="jamba hybrid.*item 7"):
+    ported = convert(flat, cfg.n_layers)
+    pcfg = PC.get_smoke("jamba-v0.1-52b")
+    for i, layer in enumerate(ported["layers"]):
+        kind = PT.layer_kind(pcfg, i)
+        mixer = "wq" if kind["mixer"] == "attn" else "in_proj"
+        assert np.array_equal(layer["mixer"][mixer]["w"].numpy(),
+                              flat[f"blocks/#{i}/mixer/{mixer}/w"][0])
+        assert ("router" in layer["ffn"]) == (kind["ffn"] == "moe")
+    flat = dict(flat)
+    flat["blocks/#4/cross/wq/w"] = np.zeros((1, 4, 4), np.float32)
+    with pytest.raises(NotImplementedError, match="item 7"):
         convert(flat, cfg.n_layers)
 
 
