@@ -29,7 +29,11 @@ Phases, in order; any failure raises and exits non-zero:
      projections (2048 -> 1408 and 1408 -> 2048, s0.5) at C = 6 (decode)
      and C = 60 (a 512-token prefill), against torch.bmm on the masked
      dense stack, and at jamba-v0.1-52b's (16 experts, 4096 -> 14336 and
-     14336 -> 4096, s0.5) at C = 2 and C = 80;
+     14336 -> 4096, s0.5) at C = 2 and C = 80; whisper-large-v3's: flash
+     attention non-causal over 1500 frames (20/20 heads of 64) against
+     SDPA, paged decode attention at d = 64 over up to 28 pages of 16, and
+     the 1280 -> 5120 and 5120 -> 1280 projections dense and s0.5-w8 at
+     m = 8 and m = 1500;
   4. model parity: the port's forward on the card against the same forward
      on the CPU (plain versions), full width cut to 2 layers, one prefill
      batch and 4 greedy decode steps;
@@ -126,14 +130,29 @@ Phases, in order; any failure raises and exits non-zero:
      the sink page in the pool, takes capacity from the live rows, so the
      requests that differ there are reported);
  14. the vision stub: llava-next-mistral-7b, card-vs-CPU parity at full
-     width, 2 layers, with 64 of the 2880 image rows; then full width and
-     depth (32 layers, 29.0 GB): 8 requests, each with 2880 stub image
-     rows (the port's llava_patches of a seeded image) and a 32-512-token
-     prompt, 32 new tokens, n_slots 8, max_len 3456 (a 7.25 GB slab):
+     width, 2 layers, with 64 of the 2880 image rows; then full width,
+     depth cut from 32 to 16 layers (15.0 GB): 8 requests, each with 2880
+     stub image rows (the port's llava_patches of a seeded image) and a
+     32-512-token prompt, 32 new tokens, n_slots 8, max_len 3456 (a 3.6 GB
+     slab):
      dense and s0.5-w8 from the slab, dense from the page pool, with the
      admission wall ms of a 2880 + 512-row prefill; paged tokens equal
-     slab tokens (near-tie rule).
-Every decode dispatch of phases 5-14 replays the CUDA graph the engine
+     slab tokens (near-tie rule);
+ 15. the encoder-decoder: whisper-large-v3, card-vs-CPU parity at full
+     width with 2 encoder and 2 decoder layers over the audio stub's 1500
+     frames (encoder output and logits; each prefill launches flash 2
+     times non-causal and 2 times causal); then full width and depth (32 +
+     32 layers, 6.1 GB in f32): 16 requests, each with the frames of a
+     seeded 30 s waveform at 16 kHz (whisper_frames) and a 4-224-token
+     prompt, 32 new tokens, n_slots 8, max_len 448 (Whisper's n_text_ctx):
+     dense and s0.5-w8 from the slab, dense from the page pool (the cross
+     k/v resident). Flash runs 64 times an admission (the encoder's 32
+     over 1500 frames, the decoder's 32); the cross-attention of one
+     decode micro-step is traced alone (its projection GEMMs and the
+     einsums over the 1500 keys), and an admission's wall ms is split
+     into the encoder, the cross k/v projections and the decoder's
+     prefill; paged tokens equal slab tokens (near-tie rule).
+Every decode dispatch of phases 5-15 replays the CUDA graph the engine
 captured at build: each of those phases times it against the eager step on
 the same state, in alternating turns within this process, traces both
 (device ms and ops, idle share, one device-to-host copy each), and serves
@@ -253,8 +272,17 @@ JAMBA_EXPERT_SHAPES = [(4096, 14336), (14336, 4096)]
 JAMBA_EXPERT_ROWS = (2, 80)
 # phase 14: 8 requests, each 2880 image rows + 32-512 prompt tokens + 32
 # new; max_len >= 2880 + 512 + 32, a multiple of 16. Parity on the CPU
-# keeps 64 of the 2880 image rows
+# keeps 64 of the 2880 image rows. Depth cut from 32 to 16 layers (phase
+# 15 took the time it saves)
 LLAVA_REQUESTS, LLAVA_MAX_LEN, LLAVA_PARITY_IMG = 8, 3456, 64
+LLAVA_LAYERS = 16
+# phase 15: whisper-large-v3's 1500 encoder frames (30 s at 50 a second),
+# its published decoder context n_text_ctx (448; the config does not carry
+# it) as max_len and its prompt limit n_text_ctx // 2; each request's
+# frames come from a 30 s waveform at 16 kHz
+WHISPER = "whisper-large-v3"
+WHISPER_FRAMES, WHISPER_MAX_LEN, WHISPER_PROMPT = 1500, 448, 224
+WHISPER_SAMPLES = 30 * 16000
 GEMMA_SCALE = (4608 / 32) ** -0.5      # gemma2's query scale, 1/12
 # minicpm3's projections (n_in, n_out): MLA's low-rank factors, wo and the
 # MLP; wkv_b also runs at m = n_slots x max_len, the naive expansion of the
@@ -1027,6 +1055,85 @@ def phase_kernels(torch, timer):
                                    JAMBA_EXPERT_ROWS)):
         _expert_cases(torch, gen, record, experts, shapes, rows)
 
+    # whisper-large-v3 (phase 15): the encoder's self-attention, non-causal
+    # over 1500 frames (20 heads of 64 over 20 kv heads; 23 full q tiles
+    # and a tail of 28), with SDPA without a mask as the yardstick
+    q, k, v = (torch.randn((1, 20, WHISPER_FRAMES, 64), generator=gen,
+                           device=dev) for _ in range(3))
+    qf, kf, vf = q[0], k[0], v[0]
+    record("flash_attention", "float32",
+           ops.flash_attention(q, k, v, causal=False),
+           flash_attention_plain(qf, kf, vf, causal=False)[None],
+           FA_TOL["float32"], ("whisper", "flash_attention"),
+           nbytes(q, k, v, q), 4 * 64 * WHISPER_FRAMES ** 2 * 20,
+           lambda: ops.flash_attention(q, k, v, causal=False),
+           lambda: flash_attention_plain(qf, kf, vf, causal=False),
+           lambda: sdpa(q, k, v, is_causal=False), tc_peak=TC_FLOPS["float32"],
+           sq=WHISPER_FRAMES, skv=WHISPER_FRAMES, heads=20, kv_heads=20, d=64,
+           causal=False, bkv=fa_plan(64, 4).bkv)
+    # the decoder's self-attention at decode from the page pool: 8 slots of
+    # up to 28 pages of 16 (max_len 448), 20/20 heads of 64, slot 3 idle on
+    # the sink page
+    b, page, pp, heads = 8, 16, WHISPER_MAX_LEN // 16, 20
+    n_pages = b * pp + 1
+    kp, vp = (torch.randn((n_pages, heads, page, 64), generator=gen,
+                          device=dev) for _ in range(2))
+    table = (torch.randperm(n_pages - 1, generator=gen, device=dev)
+             + 1).reshape(b, pp).to(torch.int32)
+    table[3] = 0
+    last = torch.randint(4, pp * page, (b,), generator=gen,
+                         device=dev).to(torch.int32)
+    last_np, table_np = last.cpu().numpy(), table.cpu().numpy()
+    pages_read = set()
+    for bb in range(b):
+        pages_read.update(table_np[bb, :last_np[bb] // page + 1])
+    live = np.arange(pp * page)[None, None, :] <= last_np[:, None, None]
+    mask = torch.as_tensor(live, device=dev)[:, None]
+    kview, vview = ref.paged_view(kp, table), ref.paged_view(vp, table)
+    q = torch.randn((b, heads, 1, 64), generator=gen, device=dev)
+    args = (q, kp, vp, table, last)
+    record("paged_flash_attention", "float32", ops.paged_attention(*args),
+           ref.paged_attention_ref(*args), FA_TOL["float32"],
+           ("whisper", "paged_flash_attention"),
+           len(pages_read) * 2 * heads * page * 64 * 4
+           + nbytes(q, q, table, last), 4 * 64 * heads * int(live.sum()),
+           lambda: ops.paged_attention(*args),
+           lambda: ref.paged_attention_ref(*args),
+           lambda: sdpa(q, kview, vview, attn_mask=mask),
+           slots=b, heads=heads, kv_heads=heads, d=64, page=page,
+           pages_per_slot=pp, sq=1)
+    del kp, vp, kview, vview
+    # the projections' GEMMs, 1280 -> 5120 (w_up) and 5120 -> 1280
+    # (w_down), at m = 8 (decode) and m = 1500 (the encoder's frames, and
+    # the cross k/v of an admission), dense and s0.5-w8 through the kernel
+    # `apply_packed` picks; the library time is torch.matmul on the
+    # effective weight
+    for n, p in ((1280, 5120), (5120, 1280)):
+        w32 = torch.randn((n, p), generator=gen, device=dev) * n ** -0.5
+        for spec in (kr.DENSE, kr.KratosSpec(sparsity=0.5, bits=8)):
+            lin = kr.pack_linear({"w": w32}, spec)
+            w_eff = plain_packed(ref, lin, torch.eye(n, device=dev))
+            plan = kr.plan_for(n, p, lin.spec)
+            keep = n if plan is None else plan.nnz * plan.bk
+            for m in (8, WHISPER_FRAMES):
+                x = torch.randn((m, n), generator=gen, device=dev)
+                y = torch.empty((m, p), device=dev)
+                ops.reset_launch_counts()
+                got = kr.apply_packed(lin, x)
+                kernel = next(name for name, c in ops.launch_counts().items()
+                              if c)
+                idx = () if lin.indices is None else (lin.indices,)
+                record(kernel, "float32", got, plain_packed(ref, lin, x),
+                       TOL["float32"],
+                       ("whisper", (n, p), kr.spec_tag(spec), m),
+                       nbytes(x, y, *idx) + lin.packed_bytes,
+                       2 * m * keep * p,
+                       lambda: kr.apply_packed(lin, x),
+                       lambda: plain_packed(ref, lin, x),
+                       lambda: torch.matmul(x, w_eff), m=m, n=n, p=p,
+                       spec=kr.spec_tag(lin.spec), model="whisper")
+            del w_eff
+
     # the event pair against the profiler's own kernel duration at the
     # headline rows of the redesigned kernels (same shapes, fresh inputs):
     # the five decode GEMVs, flash attention at sq 512, paged decode
@@ -1116,8 +1223,12 @@ def phase_parity(torch, arch, s0, max_len, **overrides):
     """The port's forward on the card against the same forward on the CPU
     (plain versions): `arch` at full width cut to 2 layers (or the config
     `overrides` give), a batch of 2 prompts of s0 tokens (after
-    n_img_tokens stub image rows for a vision arch), then 4 greedy decode
-    steps. Returns the kernel launches of the card's prefills."""
+    n_img_tokens stub image rows for a vision arch; after the encoder over
+    the audio stub's frames of two 30 s waveforms for an encoder-decoder,
+    whose output is held to the CPU's too), then 4 greedy decode steps.
+    Returns the kernel launches of the card's prefills (an encoder's
+    included: each of its layers launches flash attention non-causal, and
+    each decoder layer causal, once a prefill)."""
     from repro_torch import configs as C
     from repro_torch.core import kratos as kr
     from repro_torch.kernels import ops
@@ -1134,6 +1245,9 @@ def phase_parity(torch, arch, s0, max_len, **overrides):
     n_img = cfg.n_img_tokens
     img = F.llava_patches(rng.random((b, 336, 336, 3)), cfg.d_model,
                           device="cpu")[:, :n_img] if n_img else None
+    frames = F.whisper_frames(rng.standard_normal((b, WHISPER_SAMPLES)),
+                              cfg.d_model, device="cpu") \
+        if cfg.enc_dec else None
     prefill_launches = {name: 0 for name in ops.KERNELS}
     for spec in (kr.DENSE, kr.KratosSpec(sparsity=0.5, bits=8)):
         out = {}
@@ -1141,14 +1255,31 @@ def phase_parity(torch, arch, s0, max_len, **overrides):
             packed, _ = pack_model_params(tree, spec)
             caches = T.make_caches(cfg, b, max_len, torch.float32, dev)
             ops.reset_launch_counts()
+            enc_out = None
+            if frames is not None:
+                enc_out = T.encode(packed, frames.to(dev), cfg)
+                out[dev + "_enc"] = enc_out.cpu()
+                if dev == "cuda":
+                    assert ops.launch_counts()["flash_attention"] == \
+                        cfg.n_enc_layers, ops.launch_counts()
             logits, caches = T.forward(
                 packed, torch.from_numpy(tokens).to(dev), cfg, caches=caches,
-                img_embeds=None if img is None else img.to(dev))
+                img_embeds=None if img is None else img.to(dev),
+                enc_out=enc_out)
+            if dev == "cuda" and frames is not None:
+                # the decoder's layers add one causal launch each
+                assert ops.launch_counts()["flash_attention"] == \
+                    cfg.n_enc_layers + cfg.n_layers, ops.launch_counts()
             for name, c in ops.launch_counts().items():
                 prefill_launches[name] += c
             out[dev] = [logits.cpu()]
             out[dev + "_state"] = (packed, caches)
         worst = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+        if frames is not None:
+            enc_err = float((out["cuda_enc"] - out["cpu_enc"]).abs().max())
+            print(f"  parity {arch}: encoder output max |diff| card vs CPU "
+                  f"= {enc_err:.3g} (tol 1e-3)", flush=True)
+            assert enc_err <= 1e-3, enc_err
         tok = out["cpu"][0][:, -1].argmax(-1).to(torch.int32)
         same = bool((out["cuda"][0][:, -1].argmax(-1) == tok.long()).all())
         for step in range(steps):
@@ -1320,9 +1451,10 @@ def phase_serving(torch, card, params):
 def first_divergence(torch, model, prompts, got, want, extras=None):
     """Hold greedy tokens `got` to `want` request by request. Where they
     first differ, recompute the logits of the common prefix (after the
-    request's image rows, with `extras`) on the card and require a top-2
-    gap below TOP2_GAP (a near-tie that two summation orders may break
-    either way). Returns the divergences found."""
+    request's image rows, or over its encoded frames, with `extras`) on
+    the card and require a top-2 gap below TOP2_GAP (a near-tie that two
+    summation orders may break either way). Returns the divergences
+    found."""
     from repro_torch.models import transformer as T
     out = []
     extras = extras or [{}] * len(prompts)
@@ -1334,10 +1466,13 @@ def first_divergence(torch, model, prompts, got, want, extras=None):
         caches = T.make_caches(model.cfg, 1,
                                model.cfg.n_img_tokens + len(seq),
                                torch.float32, "cuda")
+        frames = extras[i].get("frames")
         logits, _ = T.forward(model.params,
                               torch.from_numpy(seq[None]).cuda(), model.cfg,
                               caches=caches, last_only=True,
-                              img_embeds=extras[i].get("img_embeds"))
+                              img_embeds=extras[i].get("img_embeds"),
+                              enc_out=None if frames is None else T.encode(
+                                  model.params, frames, model.cfg))
         top = torch.topk(logits[0, -1].float(), 2).values
         gap = float(top[0] - top[1])
         out.append(dict(request=i, step=j, top2_gap=gap))
@@ -1920,15 +2055,16 @@ def load_cut(arch, spec, params, n_layers, **kw):
 
 
 def serve_run(torch, card, model, prompts, ecfg, gemms, tag, grids=False,
-              extras=None):
+              extras=None, prefill_len=512):
     """Serve `prompts` (GEN_LEN new tokens each, greedy; with `extras`, the
-    per-request model inputs, a vision arch's image rows) through a fresh
-    engine after an allocator warm-up, as the main path; check that only
-    the spec's GEMMs ran and which attention kernels did (flash at prefill
-    for GQA, the page-table kernel once an attention layer a micro-step
-    when paged; none for MLA); time and trace the graphed dispatch against
-    the eager step, and trace a 512-token prefill (after the first
-    request's image rows). Returns (launches, result, engine, tokens)."""
+    per-request model inputs, a vision arch's image rows or an
+    encoder-decoder's frames) through a fresh engine after an allocator
+    warm-up, as the main path; check that only the spec's GEMMs ran and
+    which attention kernels did (flash at prefill for GQA, the page-table
+    kernel once an attention layer a micro-step when paged; none for MLA);
+    time and trace the graphed dispatch against the eager step, and trace
+    a `prefill_len`-token prefill (with the first request's extras).
+    Returns (launches, result, engine, tokens)."""
     from repro_torch.core import kratos as kr
     from repro_torch.kernels import gemm_plan, ops
     from repro_torch.models import transformer as T
@@ -1975,7 +2111,7 @@ def serve_run(torch, card, model, prompts, ecfg, gemms, tag, grids=False,
             / k for c in prof]
     busy = [c["busy_ms"] / k for c in prof]
     batch = {"tokens": torch.from_numpy(
-        np.resize(prompts[0], (1, 512)).astype(np.int32)).cuda(),
+        np.resize(prompts[0], (1, prefill_len)).astype(np.int32)).cuda(),
         **(extras[0] or {})}
     eng.backend.prefill(batch, exact=True)
     torch.cuda.synchronize()
@@ -2003,11 +2139,12 @@ def serve_run(torch, card, model, prompts, ecfg, gemms, tag, grids=False,
         tile_gemm_device_ms_per_micro_step=tile,
         idle_share=[c["idle_share"] for c in prof],
         device_ops_per_micro_step=[c["device_ops"] / k for c in prof],
-        prefill_512_ms=prefill_ms,
-        prefill_512_flash_device_ms=flash,
-        prefill_512_gemm_device_ms=[gemm_ms(c) for c in prefill_prof],
-        decode_dispatch_profiled=prof, prefill_512_profiled=prefill_prof,
+        decode_dispatch_profiled=prof,
         packed_mb=model.packed_bytes / 2 ** 20, launches=counts)
+    pre = f"prefill_{prefill_len}_"
+    res.update({pre + "ms": prefill_ms, pre + "flash_device_ms": flash,
+                pre + "gemm_device_ms": [gemm_ms(c) for c in prefill_prof],
+                pre + "profiled": prefill_prof})
     if cfg.mla:
         # the expansion is the only tiled GEMM of an MLA decode dispatch
         assert gemm_plan.plan(ecfg.n_slots * ecfg.max_len, cfg.kv_lora_rank,
@@ -2030,10 +2167,11 @@ def serve_run(torch, card, model, prompts, ecfg, gemms, tag, grids=False,
         print(f"    naive MLA expansion (wkv_b at m = "
               f"{ecfg.n_slots * ecfg.max_len}): share of decode device time "
               f"{r(res['expansion_share_of_device_time'], 4)}", flush=True)
-    img = f"{cfg.n_img_tokens} image rows + " if cfg.n_img_tokens else ""
-    print(f"    {img}512-token prefill: untraced wall {prefill_ms:.2f} ms, flash "
-          f"device ms {r(flash, 4)}, GEMM device ms "
-          f"{r(res['prefill_512_gemm_device_ms'])}", flush=True)
+    img = f"{cfg.n_img_tokens} image rows + " if cfg.n_img_tokens else \
+        f"{cfg.enc_positions} encoder frames + " if cfg.enc_dec else ""
+    print(f"    {img}{prefill_len}-token prefill: untraced wall "
+          f"{prefill_ms:.2f} ms, flash device ms {r(flash, 4)}, GEMM device "
+          f"ms {r(res[pre + 'gemm_device_ms'])}", flush=True)
     res["graph_vs_eager"] = print_ab(card, ab, k)
     return counts, res, eng, tokens
 
@@ -2568,14 +2706,15 @@ def phase_jamba(torch, card):
 
 
 def phase_llava(torch, card):
-    """llava-next-mistral-7b at its published width and depth (32 layers,
-    d_model 4096, 32/8 heads of 128, d_ff 14336, window 4096, vocab 32000
-    untied; 29.0 GB in f32), random f32 weights from the seed: 8 requests,
-    each with 2880 stub image rows (the port's llava_patches of a seeded
-    image) and phase 5's first 8 prompts (32-512 tokens) with 32 new
-    tokens, n_slots 8, max_len 3456: dense and s0.5-w8 from the slab,
-    dense from the page pool (every layer's k/v paged: the window is past
-    max_len). Prefix reuse is off for the arch."""
+    """llava-next-mistral-7b at its published width (d_model 4096, 32/8
+    heads of 128, d_ff 14336, window 4096, vocab 32000 untied), depth cut
+    from 32 to 16 layers (15.0 GB in f32), random f32 weights from the
+    seed: 8 requests, each with 2880 stub image rows (the port's
+    llava_patches of a seeded image) and phase 5's first 8 prompts
+    (32-512 tokens) with 32 new tokens, n_slots 8, max_len 3456: dense and
+    s0.5-w8 from the slab, dense from the page pool (every layer's k/v
+    paged: the window is past max_len). Prefix reuse is off for the
+    arch."""
     from repro_torch import configs as C
     from repro_torch.core import kratos as kr
     from repro_torch.kernels import ops
@@ -2583,11 +2722,11 @@ def phase_llava(torch, card):
     from repro_torch.models import transformer as T
     from repro_torch.serve import EngineConfig
 
-    cfg = C.get_config(LLAVA)
+    cfg = C.get_config(LLAVA, n_layers=LLAVA_LAYERS)
     t0 = time.perf_counter()
     params = T.init(cfg, seed=SEED, device="cuda")
     torch.cuda.synchronize()
-    print(f"  init {LLAVA} full width and depth (f32): "
+    print(f"  init {LLAVA} full width, {cfg.n_layers} layers (f32): "
           f"{time.perf_counter() - t0:.1f} s, memory_allocated "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
     prompts = serving_traffic(cfg.vocab)[:LLAVA_REQUESTS]
@@ -2622,6 +2761,175 @@ def phase_llava(torch, card):
         print(f"    {tag}: load {load_s:.1f} s, peak memory_allocated "
               f"{peak:.2f} GB; a {cfg.n_img_tokens} + 512-row admission "
               f"prefill {res['prefill_512_ms']:.1f} ms", flush=True)
+        del eng
+        gc.collect()
+        res["eager_tokens_identical"] = eager_identity(
+            torch, model, ecfg, prompts, GEN_LEN, tokens[tag], extras)
+        if tag == "dense-paged":
+            print("  dense paged against dense slab tokens:", flush=True)
+            res["divergences"] = first_divergence(
+                torch, model, prompts, tokens[tag], tokens["dense-slab"],
+                extras)
+        results[tag] = res
+        del model
+        gc.collect()
+    del params, extras
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals, results
+
+
+def whisper_traffic(cfg):
+    """Phase 15's 16 requests from the seed: prompts of 4-224 tokens (the
+    prompt limit) in the vocab, each with the audio stub's frames of its
+    own 30 s waveform at 16 kHz, on the card."""
+    from repro_torch.models import frontends as F
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(4, WHISPER_PROMPT + 1, 16)
+    prompts = [rng.integers(0, cfg.vocab, int(s)).astype(np.int32)
+               for s in lens]
+    extras = [{"frames": F.whisper_frames(
+        rng.standard_normal((1, WHISPER_SAMPLES)), cfg.d_model)}
+        for _ in prompts]
+    assert all(e["frames"].shape == (1, WHISPER_FRAMES, cfg.d_model)
+               for e in extras)
+    return prompts, extras
+
+
+def cross_attention_ms(torch, eng):
+    """Device ms of one decode micro-step's cross-attention alone: every
+    decoder layer's, on n_slots query rows over its slots' cross leaves in
+    the engine's pool, eager; the median of two traces. Split into the
+    port's projection GEMMs (wq, wo), the library's GEMMs (the plain
+    products of the queries with the enc_positions keys and values, as
+    the JAX package's einsums) and the rest (softmax, masking, copies)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    model, n = eng.model, eng.cfg.n_slots
+    cfg = model.cfg
+    caches = eng.pool.store if eng.backend.paged else eng.pool.caches
+    ccfg = T.cross_cfg_for(cfg, T.layer_kind(cfg, 0))
+    h = torch.randn((n, 1, cfg.d_model), device="cuda")
+    index = torch.full((n,), 100, dtype=torch.int32, device="cuda")
+
+    def step():
+        for lp, c in zip(model.params["layers"], caches):
+            A.gqa_apply(lp["cross"], h, ccfg, index=index,
+                        cache={"k": c["cross_k"], "v": c["cross_v"]})
+    step()
+    torch.cuda.synchronize()
+    calls = [trace_call(torch, step) for _ in range(2)]
+    med = lambda f: statistics.median(f(c) for c in calls)
+    return dict(
+        device_ms=med(lambda c: c["busy_ms"]),
+        projection_gemm_device_ms=med(gemm_ms),
+        einsum_device_ms=med(
+            lambda c: c["device_ms_by_kernel"].get("library_gemm", 0.0)),
+        device_ops=med(lambda c: c["device_ops"]))
+
+
+def admission_split(torch, eng, batch):
+    """Wall ms (median of 3, each closed by a device sync) of one
+    admission's prefill step and of two of its parts run alone: the
+    encoder over the frames, and every decoder layer's cross k/v
+    projections of the encoder output (m = enc_positions); the decoder's
+    prefill is the rest, the cross k/v among it."""
+    from repro_torch.core import kratos as kr
+    from repro_torch.models import transformer as T
+    model = eng.model
+    cfg = model.cfg
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(3):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ms)
+    enc_out = T.encode(model.params, batch["frames"], cfg)
+    whole = timed(lambda: eng.backend.prefill(batch, exact=True))
+    enc = timed(lambda: T.encode(model.params, batch["frames"], cfg))
+    kv = timed(lambda: [kr.apply(lp["cross"][w], enc_out)
+                        for lp in model.params["layers"]
+                        for w in ("wk", "wv")])
+    return dict(admission_ms=whole, encoder_ms=enc, cross_kv_ms=kv,
+                decoder_prefill_ms=whole - enc)
+
+
+def phase_whisper(torch, card):
+    """whisper-large-v3 at its published width and depth (32 encoder and
+    32 decoder layers, d_model 1280, 20/20 heads of 64, d_ff 5120 GELU
+    not gated, vocab 51866 tied, LayerNorm, sinusoidal positions; 6.1 GB
+    in f32), random f32 weights from the seed: 16 requests, each with the
+    audio stub's 1500 frames of a 30 s waveform and a 4-224-token prompt,
+    32 new tokens, n_slots 8, max_len 448 (Whisper's n_text_ctx): dense and
+    s0.5-w8 from the slab, dense from the page pool (the decoder's k/v
+    paged, the cross k/v resident). Every admission runs the encoder (32
+    non-causal flash launches over 1500 frames) and prefills at exact
+    length (32 causal ones); decode reads the cross leaves through the
+    plain products, as the JAX package does."""
+    from repro_torch import configs as C
+    from repro_torch.core import kratos as kr
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import EngineConfig
+
+    cfg = C.get_config(WHISPER)
+    t0 = time.perf_counter()
+    params = T.init(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  init {WHISPER} full width and depth (f32): "
+          f"{time.perf_counter() - t0:.1f} s, memory_allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    prompts, extras = whisper_traffic(cfg)
+    assert max(map(len, prompts)) + GEN_LEN <= WHISPER_MAX_LEN
+    totals = {name: 0 for name in ops.KERNELS}
+    results, tokens = {}, {}
+    runs = {"dense-slab": (kr.DENSE, None, {"dense_matmul"}),
+            "s0.5-w8-slab": (kr.KratosSpec(sparsity=0.5, bits=8), None,
+                             {"bsr_quant_matmul"}),
+            "dense-paged": (kr.DENSE, 16, {"dense_matmul"})}
+    r = lambda xs, d=3: [round(x, d) for x in xs]
+    for tag, (spec, page_size, gemms) in runs.items():
+        model, load_s, peak = load_peak(
+            torch, lambda: load_cut(WHISPER, spec, params, cfg.n_layers))
+        ecfg = EngineConfig(n_slots=N_SLOTS, max_len=WHISPER_MAX_LEN,
+                            decode_chunk=CHUNK, seed=SEED,
+                            page_size=page_size)
+        counts, res, eng, tokens[tag] = serve_run(
+            torch, card, model, prompts, ecfg, gemms, tag, extras=extras,
+            prefill_len=WHISPER_PROMPT)
+        add_counts(totals, counts)
+        assert counts["flash_attention"] == \
+            (cfg.n_enc_layers + cfg.n_layers) * len(prompts), counts
+        assert eng._exact_prefill and eng._len_bounded
+        if page_size:
+            assert counts["paged_flash_attention"] > 0, counts
+            assert eng.pool.index is None and all(
+                paged == {"k": True, "v": True, "cross_k": False,
+                          "cross_v": False}
+                for paged in eng.pool.layout.paged)
+        cross = cross_attention_ms(torch, eng)
+        batch = {"tokens": torch.from_numpy(np.resize(
+            prompts[0], (1, WHISPER_PROMPT)).astype(np.int32)).cuda(),
+            **extras[0]}
+        split = admission_split(torch, eng, batch)
+        res.update(load_s=load_s, load_peak_memory_allocated_gb=peak,
+                   cross_attention_per_micro_step=cross,
+                   admission_224=split)
+        print(f"    {tag}: load {load_s:.1f} s, peak memory_allocated "
+              f"{peak:.2f} GB; cross-attention alone a micro-step: "
+              f"{cross['device_ms']:.3f} device ms (projection GEMMs "
+              f"{cross['projection_gemm_device_ms']:.3f}, einsums "
+              f"{cross['einsum_device_ms']:.3f}, "
+              f"{cross['device_ops']:.0f} ops); a 1500-frame + "
+              f"{WHISPER_PROMPT}-token admission {split['admission_ms']:.1f} "
+              f"ms wall = encoder {split['encoder_ms']:.1f} + decoder "
+              f"prefill {split['decoder_prefill_ms']:.1f} (cross k/v "
+              f"projections alone {split['cross_kv_ms']:.1f})", flush=True)
         del eng
         gc.collect()
         res["eager_tokens_identical"] = eager_identity(
@@ -2754,15 +3062,22 @@ def main() -> int:
     jamba_launches, jamba = phase_jamba(torch, card)
     mark(14)
     print(f"[14] the vision stub, {LLAVA}: card vs CPU at full width, 2 "
-          f"layers, {LLAVA_PARITY_IMG} image rows; then full width and "
-          "depth, 2880 image rows a request", flush=True)
+          f"layers, {LLAVA_PARITY_IMG} image rows; then full width, "
+          f"{LLAVA_LAYERS} layers, 2880 image rows a request", flush=True)
     parity_launches = phase_parity(torch, LLAVA, 48, 128,
                                    n_img_tokens=LLAVA_PARITY_IMG)
     assert parity_launches["flash_attention"] == 2 * 2, parity_launches
     llava_launches, llava = phase_llava(torch, card)
+    mark(15)
+    print(f"[15] the encoder-decoder, {WHISPER}: card vs CPU at full width, 2 "
+          "encoder and 2 decoder layers; then full width and depth, 1500 "
+          "frames a request", flush=True)
+    parity_launches = phase_parity(torch, WHISPER, 48, 128, n_enc_layers=2)
+    assert parity_launches["flash_attention"] == 2 * (2 + 2), parity_launches
+    whisper_launches, whisper = phase_whisper(torch, card)
     for more in (paged_launches, reuse_launches, mamba_launches,
                  spec_launches, gemma_launches, mla_launches, moe_launches,
-                 jamba_launches, llava_launches):
+                 jamba_launches, llava_launches, whisper_launches):
         for name, c in more.items():
             launches[name] += c
 
@@ -2787,6 +3102,7 @@ def main() -> int:
          "serving": serving, "paged_serving": paged, "prefix_reuse": reuse,
          "mamba_serving": mamba, "speculative": spec, "gemma2": gemma,
          "minicpm3": mla, "moe": moe, "jamba": jamba, "llava": llava,
+         "whisper": whisper,
          "phase_start_s": marks},
         indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -11,8 +11,10 @@ layers). Weights keep their (n_in, n_out) layout. An MoE layer's
 `w_down` ((E, d, f) per layer, no `/w` suffix) and its shared experts
 `ffn/shared/<proj>/w` carry across as they are. The jamba hybrid's
 slots mix Mamba and attention mixers (its 8 slots, one Jamba block each
-period, unstack like any other). A layer parameter the port's families do
-not have (a cross-attention) is refused.
+period, unstack like any other). The encoder-decoder (whisper) adds a
+decoder layer's `cross/{wq,wk,wv,wo}/w` and `cross_norm`, the encoder's
+stacked `enc_blocks/...` (layer axis first, no slot index), unstacked into
+`enc_layers`, and `enc_norm`. A key no family of the port has is refused.
 """
 
 from __future__ import annotations
@@ -33,9 +35,10 @@ def read_flat(src: Union[str, Mapping[str, np.ndarray]]) -> Dict[str, np.ndarray
 
 
 # per-layer parameter names of the ported families: the (sandwich) norms,
-# the GQA and MLA mixers, the Mamba mixer, the MLP and the MoE FFN
+# the GQA and MLA mixers, the Mamba mixer, the MLP and the MoE FFN, and a
+# decoder layer's cross-attention and its norm
 _LAYER_MODULES = frozenset({"pre_norm", "post_norm", "mixer", "ffn_norm",
-                            "ffn_post_norm", "ffn"})
+                            "ffn_post_norm", "ffn", "cross_norm", "cross"})
 _MEMBERS = frozenset({
     "scale", "bias",
     "wq", "wk", "wv", "wo", "q_norm", "k_norm",
@@ -48,20 +51,19 @@ _MOE_MEMBERS = {"router": frozenset({"w"}),
                 "shared": frozenset({"w_gate", "w_up", "w_down"})}
 
 
-def _unported(key: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"parameter '{key}' belongs to a model family the port does not "
-        "have yet (ROADMAP.md queue 1, item 7)")
+def _unknown(key: str) -> ValueError:
+    return ValueError(f"parameter '{key}' belongs to no model family of "
+                      "the port")
 
 
 def _layer_path(key: str, path):
     if path[0] not in _LAYER_MODULES:
-        raise _unported(key)
+        raise _unknown(key)
     if path[0] == "ffn" and path[1] in _MOE_MEMBERS:
         if len(path) < 3 or path[2] not in _MOE_MEMBERS[path[1]]:
-            raise _unported(key)
+            raise _unknown(key)
     elif path[1] not in _MEMBERS:
-        raise _unported(key)
+        raise _unknown(key)
     return path
 
 
@@ -83,6 +85,7 @@ def convert(src: Union[str, Mapping[str, np.ndarray]], n_layers: int, *,
     n_prelude, period = len(prelude), len(slots)
     layers = [{} for _ in range(n_layers)]
     params: Dict[str, Any] = {"layers": layers}
+    enc_layers = []
     for key, arr in flat.items():
         parts = key.split("/")
         if parts[0] == "prelude":
@@ -94,10 +97,18 @@ def convert(src: Union[str, Mapping[str, np.ndarray]], n_layers: int, *,
             for t in range(arr.shape[0]):
                 _put(layers[n_prelude + t * period + s], path,
                      tensor(arr[t]))
-        elif parts[0] in ("embed", "final_norm", "head"):
+        elif parts[0] == "enc_blocks":
+            path = _layer_path(key, parts[1:])
+            for t in range(arr.shape[0]):
+                if t == len(enc_layers):
+                    enc_layers.append({})
+                _put(enc_layers[t], path, tensor(arr[t]))
+        elif parts[0] in ("embed", "final_norm", "head", "enc_norm"):
             _put(params, parts, tensor(arr))
         else:
-            raise _unported(key)
+            raise _unknown(key)
     if any(not lp for lp in layers):
         raise ValueError(f"checkpoint does not fill all {n_layers} layers")
+    if enc_layers:
+        params["enc_layers"] = enc_layers
     return params

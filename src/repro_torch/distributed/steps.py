@@ -42,11 +42,16 @@ def make_prefill_step(cfg: T.ModelConfig, last_only: bool = True, *,
     The step allocates its own batch-1 cache list of `cache_len` positions
     on the device. last_only=False returns (1, S, vocab) logits: the engine
     right-pads prompts into buckets and reads the column at the true end.
-    A vision-stub batch carries `img_embeds` (1, n_img, d), prepended."""
+    A vision-stub batch carries `img_embeds` (1, n_img, d), prepended; an
+    enc_dec batch carries the audio stub's `frames` (1, enc_positions, d),
+    which the encoder runs over first, the decoder's cross-attention
+    writing its k/v into the returned caches."""
     def prefill(params, batch):
         caches = T.make_caches(cfg, 1, cache_len, cache_dtype, device)
+        enc_out = T.encode(params, batch["frames"], cfg) if cfg.enc_dec \
+            else None
         return T.forward(params, batch["tokens"], cfg, caches=caches,
-                         img_embeds=batch.get("img_embeds"),
+                         img_embeds=batch.get("img_embeds"), enc_out=enc_out,
                          last_only=last_only)
     return prefill
 

@@ -1,6 +1,6 @@
 """GQA attention with sliding windows, circular KV caches and softcaps,
-and MLA (multi-head latent attention; port of `repro.models.attention`
-without the whisper cross-attention).
+MLA (multi-head latent attention) and the whisper decoder's
+cross-attention (port of `repro.models.attention`).
 
 Caches, per layer, batch-major:
   full window:    k/v (B, KV, S_max, dh), position p at row p
@@ -11,6 +11,9 @@ Caches, per layer, batch-major:
   paged (serve.paging): page-major (n_pages, KV, P, dh) store leaves (MLA:
                   (n_pages, P, r) and (n_pages, 1, P, dr)) read and
                   written through a (B, pp) page table
+  cross-attention: k/v (B, KV, enc_positions, dh) of the encoder output,
+                  written at prefill and read unchanged at every decode
+                  step (slot-major and resident in a page pool too)
 
 Prefill (contiguous positions) runs the flash kernel through
 `kernels.ops.flash_attention`. Decode writes the new K/V rows IN PLACE into
@@ -55,6 +58,8 @@ class AttnConfig:
     qk_nope_dim: int = 0
     qk_rope_dim: int = 0
     v_head_dim: int = 0
+    # cross-attention (whisper decoder): k/v from the encoder output
+    cross: bool = False
 
     @property
     def q_head_dim(self) -> int:
@@ -232,18 +237,46 @@ def _paged_gqa_decode(q, k, v, cfg: AttnConfig, cache, index, pages,
         extra_mask=valid, scale=cfg.scale)
 
 
+def _cross_apply(params, q, x, cfg: AttnConfig, kv_source, cache, index):
+    """Cross-attention over the encoder output: k/v are projected from
+    `kv_source` (and written into `cache` at prefill), or read back from
+    `cache` unchanged at decode; every query attends to every encoder
+    position through the plain product, as the JAX package does."""
+    kv, dh = cfg.n_kv_heads, cfg.head_dim
+    if cache is not None and index is not None:
+        k, v = cache["k"], cache["v"]
+    else:
+        k = _split_heads(kr.apply(params["wk"], kv_source), kv, dh)
+        v = _split_heads(kr.apply(params["wv"], kv_source), kv, dh)
+        if cache is not None:
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+    dev = x.device
+    o = attention_positional(
+        q, k.to(x.dtype), v.to(x.dtype),
+        torch.arange(q.shape[2], dtype=torch.int32, device=dev),
+        torch.arange(k.shape[2], dtype=torch.int32, device=dev),
+        causal=False, softcap=cfg.softcap, scale=cfg.scale)
+    return kr.apply(params["wo"], _merge_heads(o)), cache
+
+
 def gqa_apply(params, x, cfg: AttnConfig, *, positions=None, cache=None,
-              index=None, pages=None) -> Tuple[torch.Tensor, Optional[Dict]]:
+              index=None, pages=None, kv_source=None
+              ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Full-sequence (cache None, or prefill into `cache` with index None)
     or decode (cache and index) GQA attention. Returns (y, cache).
 
     pages: the page-table operand of native paged decode ({'table',
     'size', 'len'}); the cache leaves are then page-major. A windowed
     layer whose window is shorter than `len` keeps a resident circular
-    slab leaf and ignores it."""
+    slab leaf and ignores it.
+    kv_source: the encoder output (B, S_enc, d) a `cfg.cross` layer
+    projects its k/v from at prefill (decode reads them from `cache`)."""
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _split_heads(kr.apply(params["wq"], x), h, dh)
+    if cfg.cross:
+        return _cross_apply(params, q, x, cfg, kv_source, cache, index)
     k = _split_heads(kr.apply(params["wk"], x), kv, dh)
     v = _split_heads(kr.apply(params["wv"], x), kv, dh)
     if cfg.qk_norm:

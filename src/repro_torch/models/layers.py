@@ -53,7 +53,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 ACTIVATIONS = {
     "silu": F.silu,
-    "gelu": lambda x: F.gelu(x),
+    # jax.nn.gelu's default (approximate=True): the tanh form, which the
+    # reference serves whisper with (the published model uses the erf form)
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
     "relu2": lambda x: torch.square(F.relu(x)),     # nemotron squared-ReLU
     "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
 }

@@ -1,5 +1,5 @@
 """Dense GQA, MLA, mixture-of-experts, pure Mamba-1 and hybrid decoders,
-and the vision stub's backbone (the decoder parts of
+the vision stub's backbone and the whisper encoder-decoder (port of
 `repro.models.transformer`).
 
 Parameters are a plain dict with a per-layer list in place of the JAX
@@ -28,13 +28,22 @@ layer (deepseek; `prelude_layers` dense layers first) has {"ffn_norm",
 stacks, or their packed form), "shared"?}} (models.moe). A vision-stub
 model (llava, `frontend="vision"`) takes `n_img_tokens` image-embedding
 rows prepended to the prompt's embeddings (`forward(img_embeds=)`;
-models.frontends makes them). The encoder-decoder (whisper) is not ported
-yet (ROADMAP.md queue 1, item 7c).
+models.frontends makes them). The encoder-decoder (whisper, `enc_dec`)
+adds {"enc_layers": [{"pre_norm", "mixer", "ffn_norm", "ffn"}, ...],
+"enc_norm"} (`encode`: non-causal self-attention over the audio stub's
+frames), a {"cross_norm", "cross": {wq, wk, wv, wo}} pair in every decoder
+layer, reading the encoder output (`forward(enc_out=)`), and "pos_table",
+the sinusoidal positions of DEC_POSITIONS rows that the encoder's frames
+and the decoder's tokens add, made once on the model's device (the JAX
+package builds it in every forward; no checkpoint carries it). A decoder
+layer's cache then holds its cross-attention's {"cross_k", "cross_v"}
+beside {"k", "v"}.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -106,7 +115,13 @@ class ModelConfig:
     mamba_expand: int = 2
     bcdt_rms: bool = False
     ssm_chunk: int = 256                  # JAX's XLA scan chunk (no use here)
-    # frontend stub: 'vision' prepends n_img_tokens image-embedding rows
+    # encoder-decoder (whisper): n_enc_layers encoder layers over
+    # enc_positions frames, and a cross-attention in every decoder layer
+    enc_dec: bool = False
+    n_enc_layers: int = 0
+    enc_positions: int = 1500             # whisper: 30 s of frames
+    # frontend stub: 'vision' prepends n_img_tokens image-embedding rows;
+    # 'audio' makes the encoder's frames (enc_dec)
     frontend: Optional[str] = None
     n_img_tokens: int = 0
     # the JAX package stacks layers of one pattern slot and runs the slots'
@@ -136,9 +151,9 @@ class ModelConfig:
         return getattr(torch, self.dtype)
 
     def param_count(self) -> int:
-        """Analytic parameter count, the JAX package's formula for the
-        ported families (dense GQA or MLA + MLP or MoE, pure Mamba-1, the
-        hybrid; norms are not counted, as there)."""
+        """Analytic parameter count, the JAX package's formula (norms are
+        not counted, and an encoder layer's MLP counts 3 d d_ff although
+        it is not gated, as there)."""
         d, v = self.d_model, self.vocab
         total = v * d * (1 if self.tie_embeddings else 2)
         for i in range(self.n_layers):
@@ -166,6 +181,10 @@ class ModelConfig:
                     * self.d_ff_expert
             elif kind["ffn"] == "mlp":
                 total += (3 if self.gated else 2) * d * self.d_ff
+        if self.enc_dec:
+            attn = 4 * d * self.n_heads * self.dh
+            total += self.n_enc_layers * (attn + 3 * d * self.d_ff)
+            total += self.n_layers * attn                   # cross-attention
         return int(total)
 
 
@@ -216,6 +235,18 @@ def attn_cfg_for(cfg: ModelConfig, kind: Dict) -> A.AttnConfig:
         v_head_dim=cfg.v_head_dim)
 
 
+def cross_cfg_for(cfg: ModelConfig, kind: Dict) -> A.AttnConfig:
+    """A decoder layer's cross-attention over the encoder output."""
+    return dataclasses.replace(attn_cfg_for(cfg, kind), cross=True,
+                               causal=False, use_rope=False)
+
+
+def enc_attn_cfg(cfg: ModelConfig) -> A.AttnConfig:
+    """The encoder's self-attention: full window, non-causal, no RoPE."""
+    return dataclasses.replace(attn_cfg_for(cfg, {"window": None}),
+                               mla=False, use_rope=False, causal=False)
+
+
 def moe_cfg_for(cfg: ModelConfig) -> M.MoEConfig:
     return M.MoEConfig(
         d_model=cfg.d_model, n_experts=cfg.n_experts, top_k=cfg.top_k,
@@ -259,6 +290,10 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict:
         else:
             layer["mixer"] = A.attn_init(attn_cfg_for(cfg, kind), cfg.kratos,
                                          **kw)
+        if cfg.enc_dec:
+            layer["cross_norm"] = _norm_params(cfg, device)
+            layer["cross"] = A.attn_init(cross_cfg_for(cfg, kind), cfg.kratos,
+                                         **kw)
         if kind["ffn"] == "mlp":
             layer["ffn_norm"] = _norm_params(cfg, device)
             if cfg.sandwich_norm:
@@ -277,11 +312,61 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict:
     }
     if not cfg.tie_embeddings:
         params["head"] = kr.init(cfg.d_model, cfg.vocab, kr.DENSE, **kw)
+    if cfg.enc_dec:
+        params["enc_layers"] = [{
+            "pre_norm": _norm_params(cfg, device),
+            "mixer": A.attn_init(enc_attn_cfg(cfg), cfg.kratos, **kw),
+            "ffn_norm": _norm_params(cfg, device),
+            "ffn": L.mlp_init(cfg.d_model, cfg.d_ff, gated=cfg.gated,
+                              spec=cfg.kratos, **kw)}
+            for _ in range(cfg.n_enc_layers)]
+        params["enc_norm"] = _norm_params(cfg, device)
+        params["pos_table"] = position_table(cfg.d_model, device)
     return params
 
 
+# rows of the decoder's position table: the JAX package gathers decode
+# positions from a table of this many rows
+DEC_POSITIONS = 32768
+
+
+def position_table(d: int, device, n: int = DEC_POSITIONS) -> torch.Tensor:
+    """(n, d) f32 sinusoidal positions, sin on even columns and cos on odd
+    ones, as the JAX package's `_sinusoidal_positions` computes them.
+
+    The jitted reference rounds exp correctly and sin / cos to within an
+    ulp; f32 `torch.exp` is an ulp off on some columns, which moves the
+    angle at position p by p ulps. So exp, sin and cos run in f64 and are
+    rounded, the angle itself an f32 product as there."""
+    ar = torch.arange(0, d, 2, dtype=torch.float32, device=device) \
+        * (-math.log(10000.0) / d)
+    div = torch.exp(ar.double()).float()
+    ang = (torch.arange(n, dtype=torch.float32, device=device)[:, None]
+           * div).double()
+    pe = torch.empty((n, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang).float()
+    pe[:, 1::2] = torch.cos(ang).float()
+    return pe
+
+
+def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Whisper's encoder: frames (B, S_enc, d) of the audio stub, plus
+    sinusoidal positions, through the encoder layers (pre-norm,
+    non-causal flash self-attention, non-gated MLP; unscaled residuals)
+    and `enc_norm`. Returns (B, S_enc, d)."""
+    x = frames.to(cfg.adtype())
+    x = x + params["pos_table"][:x.shape[1]].to(x.dtype)
+    acfg = enc_attn_cfg(cfg)
+    for lp in params["enc_layers"]:
+        h, _ = A.gqa_apply(lp["mixer"], _norm(cfg, lp["pre_norm"], x), acfg)
+        x = x + h
+        x = x + L.mlp_apply(lp["ffn"], _norm(cfg, lp["ffn_norm"], x),
+                            activation=cfg.activation)
+    return _norm(cfg, params["enc_norm"], x)
+
+
 def _layer_apply(p: Dict, x, cfg: ModelConfig, kind: Dict, *, positions,
-                 cache, index, pages):
+                 cache, index, pages, enc_out):
     h = _norm(cfg, p["pre_norm"], x)
     if kind["mixer"] == "mamba":
         # recurrent state: O(1) per slot and resident, so pages and
@@ -295,6 +380,14 @@ def _layer_apply(p: Dict, x, cfg: ModelConfig, kind: Dict, *, positions,
     if cfg.sandwich_norm:
         h = _norm(cfg, p["post_norm"], h)
     x = x + h * cfg.residual_scale
+    if "cross" in p:
+        # k/v from the encoder output at prefill, from the cache at decode
+        cc = None if cache is None else {"k": cache["cross_k"],
+                                         "v": cache["cross_v"]}
+        h, _ = A.gqa_apply(p["cross"], _norm(cfg, p["cross_norm"], x),
+                           cross_cfg_for(cfg, kind), cache=cc, index=index,
+                           kv_source=enc_out)
+        x = x + h * cfg.residual_scale
     if kind["ffn"] == "moe":
         h = _norm(cfg, p["ffn_norm"], x)
         x = x + M.moe_apply(p["ffn"], h, moe_cfg_for(cfg)) \
@@ -310,12 +403,16 @@ def _layer_apply(p: Dict, x, cfg: ModelConfig, kind: Dict, *, positions,
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             caches: Optional[List[Dict]] = None, index=None,
-            pages: Optional[Dict] = None, img_embeds=None,
+            pages: Optional[Dict] = None, img_embeds=None, enc_out=None,
             last_only: bool = False) -> Tuple[torch.Tensor, Optional[List]]:
     """Decoder forward. tokens: (B, S) int. Returns (f32 logits, caches).
 
     img_embeds: (B, n_img, d) vision-stub rows prepended to the token
     embeddings (llava); positions and cache writes count them.
+    enc_out: (B, S_enc, d) encoder output (`encode`) that the
+    cross-attention reads at prefill, writing it into the caches' cross
+    leaves; decode reads those leaves instead (whisper). An enc_dec model
+    adds sinusoidal positions to the token embeddings.
 
     caches: per-layer list from `make_caches` (or a paged pool's store)
     or None. index None runs the full sequence (filling `caches` when
@@ -329,13 +426,17 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
         x = torch.cat([img_embeds.to(x.dtype), x], dim=1)
     positions = None if index is None or cfg.is_ssm else \
         A._positions_for(index, x.shape[1], x.device)
+    if cfg.enc_dec and not cfg.use_rope:
+        pe = params["pos_table"]
+        pe = pe[:x.shape[1]] if index is None else pe[positions.long()]
+        x = x + pe.to(x.dtype)
     if pages is not None:     # the paged layers' write plan goes in here
         pages = dict(pages)
     for li in layer_order(cfg):
         c = caches[li] if caches is not None else None
         x, _ = _layer_apply(params["layers"][li], x, cfg, layer_kind(cfg, li),
                             positions=positions, cache=c, index=index,
-                            pages=pages)
+                            pages=pages, enc_out=enc_out)
     if last_only:
         x = x[:, -1:]
     x = _norm(cfg, params["final_norm"], x)
@@ -349,7 +450,8 @@ def make_caches(cfg: ModelConfig, batch: int, max_len: int,
     """Per-layer decode caches: {"k", "v"} of `max_len` positions (of
     min(max_len, window) rows, circular, on a windowed layer), MLA's
     {"c_kv", "k_rope"}, or a Mamba layer's {"conv", "ssm"} (independent
-    of max_len)."""
+    of max_len); an enc_dec decoder layer adds its cross-attention's
+    {"cross_k", "cross_v"} of enc_positions rows."""
     out = []
     for i in range(cfg.n_layers):
         kind = layer_kind(cfg, i)
@@ -359,6 +461,12 @@ def make_caches(cfg: ModelConfig, batch: int, max_len: int,
         else:
             out.append(A.make_cache(attn_cfg_for(cfg, kind), batch, max_len,
                                     dtype, device))
+        if cfg.enc_dec:
+            shape = (batch, cfg.n_kv_heads, cfg.enc_positions, cfg.dh)
+            out[-1].update(cross_k=torch.zeros(shape, dtype=dtype,
+                                               device=device),
+                           cross_v=torch.zeros(shape, dtype=dtype,
+                                               device=device))
     return out
 
 

@@ -6,11 +6,15 @@ Step loop (`step()`):
      is prefilled alone (batch 1, prompt right-padded to a power-of-two
      bucket where that is exact; at its exact length for a recurrent arch
      (pure Mamba or the hybrid), whose padded positions would enter the
-     state, and for an MoE arch, whose pad tokens would take expert
-     capacity) and its cache copied into its slab row. A vision-stub
-     request's image rows (`submit(extras={"img_embeds": ...})`) are
-     prepended to its prompt: positions, pages and the decode clock count
-     them, and prefix reuse skips it.
+     state, for an MoE arch, whose pad tokens would take expert
+     capacity, and for the encoder-decoder, as the JAX package does) and
+     its cache copied into its slab row. A vision-stub request's image
+     rows (`submit(extras={"img_embeds": ...})`) are prepended to its
+     prompt: positions, pages and the decode clock count them. An
+     encoder-decoder request's audio frames (`extras={"frames": ...}`) run
+     through the encoder at admission, whose output the decoder's
+     cross-attention writes into the slot's cross leaves. Prefix reuse
+     skips a request with extras.
      Under a paged pool (`page_size`) the admission first matches the
      longest cached page-aligned prefix, reserves the slot's pages (shared
      prefix pages by refcount) and prefills only the unmatched suffix; a
@@ -176,17 +180,18 @@ class InferenceEngine:
         # pad tokens would run through a recurrence and corrupt the cached
         # conv tail and state, or take expert capacity from real tokens:
         # recurrent (pure Mamba, hybrid) and MoE archs prefill at exact
-        # length
+        # length; the encoder-decoder does too, as the JAX package's engine
         self._exact_prefill = bool(mcfg.is_ssm or mcfg.attn_period
-                                   or mcfg.n_experts)
+                                   or mcfg.n_experts or mcfg.enc_dec)
         # pure-SSM state is O(1) and a cache windowed on EVERY layer is
         # circular: such requests may run longer than the slab. gemma2's
         # global layers, MLA's latent cache and the hybrid's attention
-        # layer are positional: bounded
+        # layer, and the encoder-decoder's decoder, are positional: bounded
         self._len_bounded = not (
             mcfg.is_ssm
             or (mcfg.window is not None and not mcfg.local_global_period
-                and not mcfg.mla and not mcfg.attn_period))
+                and not mcfg.mla and not mcfg.attn_period
+                and not mcfg.enc_dec))
         # a page pool pages a window no shorter than max_len (llava's 4096
         # over max_len 3456): its table ends at max_len, so such a request
         # is bounded there (the JAX package's paged engine clamps the table
@@ -204,7 +209,8 @@ class InferenceEngine:
                speculate: Optional[int] = None) -> Request:
         """Queue a request. extras: model inputs besides the tokens, batch-1
         leading: a vision-stub arch's {"img_embeds": (1, n_img_tokens, d)}
-        (models.frontends.llava_patches)."""
+        (models.frontends.llava_patches), or an encoder-decoder's {"frames":
+        (1, enc_positions, d)} (models.frontends.whisper_frames)."""
         r = Request(id=-1, prompt=np.asarray(prompt, np.int32).reshape(-1),
                     max_new_tokens=max_new_tokens, arrival_step=arrival_step,
                     temperature=temperature, eos_id=eos_id,

@@ -20,10 +20,12 @@ pool carves the same memory into fixed-size PAGES:
 
 Leaves that are not positional stay RESIDENT in the slot-major slab
 layout inside the same store: a circular sliding-window leaf whose W is
-shorter than cache_len, and a Mamba layer's recurrent `conv` tail and
-`ssm` state (by name: their shapes do not say what they are; the jamba
-hybrid pages its attention layer's k/v and keeps its Mamba layers'
-state resident).
+shorter than cache_len (by shape) and, by name, since their shapes do not
+say what they are, a Mamba layer's recurrent `conv` tail and `ssm` state
+and an encoder-decoder layer's cross-attention k/v (`cross_k`, `cross_v`:
+written once at admission; at max_len == enc_positions they have a paged
+leaf's shape). The jamba hybrid pages its attention layer's k/v and keeps
+its Mamba layers' state resident.
 
 Page 0 is the reserved WRITE SINK: a freed slot's table row resets to it,
 so an idle slot's garbage decode writes land in a page nobody reads. Rows
@@ -57,7 +59,7 @@ from repro_torch.serve.prefix import PrefixIndex
 Store = List[Dict[str, torch.Tensor]]
 
 
-RESIDENT_LEAVES = frozenset({"conv", "ssm"})
+RESIDENT_LEAVES = frozenset({"conv", "ssm", "cross_k", "cross_v"})
 
 
 def prefix_supported(cfg: T.ModelConfig) -> bool:
@@ -65,9 +67,9 @@ def prefix_supported(cfg: T.ModelConfig) -> bool:
     the precondition for prefix sharing to reproduce a prefill exactly. A
     circular window overwrites position identity; a recurrent state (pure
     Mamba or the hybrid) sums the whole prompt and no page of it can be
-    shared; a vision prompt carries image rows the token-keyed index
-    cannot see."""
-    return not (cfg.window or cfg.is_ssm or cfg.attn_period
+    shared; a vision prompt carries image rows, and an encoder-decoder's
+    its audio frames, that the token-keyed index cannot see."""
+    return not (cfg.window or cfg.is_ssm or cfg.attn_period or cfg.enc_dec
                 or cfg.n_img_tokens or cfg.frontend)
 
 

@@ -33,9 +33,10 @@ from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.serve import speculative as SP
 
-# the projections that route through kr.apply: attention, MLA's low-rank
-# factors, the MLP, Mamba's in/x/out. MLA's q_norm / kv_norm are norms and
-# Mamba's dt_proj ({"w", "b"}) stays a plain matmul, as in the JAX package
+# the projections that route through kr.apply: attention (the encoder's and
+# the cross-attention's among them), MLA's low-rank factors, the MLP,
+# Mamba's in/x/out. MLA's q_norm / kv_norm are norms and Mamba's dt_proj
+# ({"w", "b"}) stays a plain matmul, as in the JAX package
 PACKABLE = frozenset({"wq", "wk", "wv", "wo", "wq_a", "wq_b", "wkv_a",
                       "wkv_b", "w_gate", "w_up", "w_down", "in_proj",
                       "x_proj", "out_proj"})
@@ -194,6 +195,9 @@ class ModelRegistry:
             params = T.init(cfg, seed=seed, device=device)
         else:
             params = tree_to(params, device)
+            if cfg.enc_dec and "pos_table" not in params:
+                # no checkpoint carries the sinusoidal position table
+                params["pos_table"] = T.position_table(cfg.d_model, device)
         draft = {}
         if draft_spec is not None:
             dcfg, dparams, dn = SP.derive_draft(params, cfg, spec, draft_spec)

@@ -27,7 +27,8 @@ class Request:
     # out: the slot takes one plain target step a dispatch)
     speculate: Optional[int] = None
     # per-request model inputs besides the tokens, batch-1 leading: a
-    # vision-stub arch's {"img_embeds": (1, n_img_tokens, d)}
+    # vision-stub arch's {"img_embeds": (1, n_img_tokens, d)}, or an
+    # encoder-decoder's {"frames": (1, enc_positions, d)}
     extras: Optional[Dict[str, Any]] = None
 
     # engine-managed

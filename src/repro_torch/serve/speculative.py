@@ -144,9 +144,11 @@ def draft_cost_fraction(cfg: T.ModelConfig,
 
 def refuse_unported(cfg: T.ModelConfig) -> None:
     """Speculative decode of a mixture-of-experts arch (the jamba hybrid
-    among them), and of a vision-stub arch whose requests carry image
-    extras, is not ported yet."""
-    what = "MoE" if cfg.n_experts else "vision-stub" if cfg.frontend else ""
+    among them), and of a frontend-stub arch whose requests carry extras
+    (the vision stub's image rows, the audio stub's encoder frames), is
+    not ported yet."""
+    what = "MoE" if cfg.n_experts else \
+        f"{cfg.frontend}-stub" if cfg.frontend else ""
     if what:
         raise NotImplementedError(
             f"speculative decode of the {what} arch '{cfg.name}' is not "

@@ -240,6 +240,23 @@ def test_cuda_flash_attention_tensor_cores(cuda_device, dtype, d):
 
 
 @pytest.mark.cuda
+def test_cuda_flash_attention_whisper_encoder(cuda_device):
+    """whisper-large-v3's encoder self-attention: non-causal over 1500
+    frames (23 full q tiles of 64 and a tail of 28; a KV tail on every
+    tile size), 20 heads of 64 over 20 kv heads, f32, one launch."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    atol, rtol = FA_TOL["float32"]
+    t = lambda a: torch.from_numpy(a).to(cuda_device)
+    q, k, v = (t(rnd(20 + i, (20, 1500, 64))) for i in range(3))
+    pops.reset_launch_counts()
+    got = pops.flash_attention(q[None], k[None], v[None], causal=False)[0]
+    assert pops.launch_counts()["flash_attention"] == 1
+    want = flash_attention_plain(q, k, v, causal=False)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bk,bn", [(8, 8), (32, 16), (128, 128)])
 def test_cuda_bsr_quant_matmul_both_forms(cuda_device, dtype, bk, bn):

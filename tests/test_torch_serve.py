@@ -152,15 +152,16 @@ def test_unported_engine_features_raise(field, value, item):
 
 
 def test_unported_specs_and_archs_refused_up_front():
-    """Every KratosSpec packs now (w, qt, blocks, qblocks); an unported
-    arch and the training-time apply on a dense leaf still raise."""
+    """Every KratosSpec packs now (w, qt, blocks, qblocks), and every arch
+    of the JAX package loads; an arch name that names none is refused, and
+    the training-time apply on a dense leaf still raises."""
     reg = ModelRegistry()
     for spec in (pkr.KratosSpec(bits=4), pkr.KratosSpec(bits=8, act_bits=8),
                  pkr.KratosSpec(sparsity=0.5, bits=8, act_bits=8, bk=8,
                                 bn=8)):
         assert reg.load(ARCH, spec, device="cpu").n_packed > 0
-    with pytest.raises(NotImplementedError, match="item 7"):
-        reg.load("whisper-large-v3", device="cpu")
+    with pytest.raises(ValueError, match="unknown arch 'whisper-tiny'"):
+        reg.load("whisper-tiny", device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         pkr.apply({"w": torch.zeros(4, 4)}, torch.zeros(1, 4))
 
@@ -200,11 +201,11 @@ def test_convert_carries_moe_keys(arch):
 
 @pytest.mark.parametrize("key", ["blocks/#0/ffn/router/b",
                                  "blocks/#0/ffn/shared/w_proj/w",
-                                 "blocks/#0/cross/wq/w"])
+                                 "blocks/#0/cross_attn/wq/w"])
 def test_convert_refuses_unported_layer_keys(key):
     flat = dict(_flat_smoke("deepseek-moe-16b"))
     flat[key] = np.zeros((2, 4), np.float32)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="no model family"):
         convert(flat, 3)
 
 
@@ -212,8 +213,10 @@ def test_convert_refuses_the_jamba_hybrid():
     """jamba's layers mix Mamba mixers (`in_proj`, `conv_w`, ...) with
     attention mixers and MoE FFNs in 8 scan slots: `convert` carries the
     hybrid, each slot's row t landing in layer t * 8 + s with the kind
-    `layer_kind` gives it; a cross-attention key added to the same
-    checkpoint is still refused."""
+    `layer_kind` gives it. A cross-attention key added to the same
+    checkpoint (a family's member since the encoder-decoder) is carried
+    into its layer like any other layer key, and a key no family has is
+    refused."""
     cfg = JC.get_smoke("jamba-v0.1-52b")
     flat = _flat_smoke("jamba-v0.1-52b")
     ported = convert(flat, cfg.n_layers)
@@ -225,8 +228,16 @@ def test_convert_refuses_the_jamba_hybrid():
                               flat[f"blocks/#{i}/mixer/{mixer}/w"][0])
         assert ("router" in layer["ffn"]) == (kind["ffn"] == "moe")
     flat = dict(flat)
-    flat["blocks/#4/cross/wq/w"] = np.zeros((1, 4, 4), np.float32)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    cross = np.arange(16, dtype=np.float32).reshape(1, 4, 4)
+    flat["blocks/#4/cross/wq/w"] = cross
+    ported = convert(flat, cfg.n_layers)
+    assert [i for i, layer in enumerate(ported["layers"])
+            if "cross" in layer] == [4]
+    assert np.array_equal(ported["layers"][4]["cross"]["wq"]["w"].numpy(),
+                          cross[0])
+    assert "enc_layers" not in ported
+    flat["blocks/#4/mixer/w_cross/w"] = cross
+    with pytest.raises(ValueError, match="no model family"):
         convert(flat, cfg.n_layers)
 
 
