@@ -152,7 +152,31 @@ Phases, in order; any failure raises and exits non-zero:
      einsums over the 1500 keys), and an admission's wall ms is split
      into the encoder, the cross k/v projections and the decoder's
      prefill; paged tokens equal slab tokens (near-tie rule).
-Every decode dispatch of phases 5-15 replays the CUDA graph the engine
+ 16. speculative self-draft decode of the MoE, hybrid and frontend archs,
+     each cell on its phase's dense-slab artifact (loaded with the cell's
+     draft; the load's peak is reported with the draft named) and the
+     phase's first requests (one wave of 8), greedy, run right after that
+     phase's dense-slab run: 16a deepseek-moe-16b (8 layers, s0.5 x int8
+     draft: its routed experts on bsr_matmul_experts, the rest on
+     bsr_quant_matmul and quant_matmul; K 4; slab and paged), 16b
+     jamba-v0.1-52b (8 layers, w8 draft sharing the target's raw expert
+     stacks; K 2; K+1 single-token verify steps), 16c llava-next-mistral-7b
+     (16 layers, 2880 image rows a request, s0.5 x int8 draft, K 4), 16d
+     whisper-large-v3 (32 + 32 layers, 1500 frames through each model's
+     encoder, s0.5 x int8 draft, K 4; slab and paged). Graph tokens equal
+     the eager step's, paged tokens the slab's, speculative tokens plain
+     decode's (near-tie rule; for an MoE arch with the capacity widened to
+     n_experts / top_k, the requests that part at the served capacity
+     reported); acceptance, wall ms per cycle graph and eager in turns,
+     device ms per cycle, ms per committed token against plain decode's,
+     the draft's admission prefill ms.
+Phase 5 also holds the host-loop cell ([5h]): h2o-danube dense served by
+the host decode loop (device_loop=False, one graphed (B, 1) forward a step,
+logits to the host) and by the device loop, whole runs in alternating
+turns: greedy tokens equal, 3 host syncs a decode step against 1 a
+dispatch, wall ms per decoded token, and one host step against the device
+loop's micro-step.
+Every decode dispatch of phases 5-16 replays the CUDA graph the engine
 captured at build: each of those phases times it against the eager step on
 the same state, in alternating turns within this process, traces both
 (device ms and ops, idle share, one device-to-host copy each), and serves
@@ -1443,9 +1467,124 @@ def phase_serving(torch, card, params):
             results[tag]["eager_tokens_identical"] = eager_identity(
                 torch, model, ecfg, prompts, gen_len,
                 [list(r.generated) for r in reqs])
+            del eng
+            gc.collect()
+            # phase 5's first 8 requests (one wave), cut for the time limit
+            host_counts, results["host_loop"] = host_loop_cell(
+                torch, card, model, prompts[:N_SLOTS],
+                [list(r.generated) for r in reqs[:N_SLOTS]], step_ms)
+            for name, c in host_counts.items():
+                totals[name] += c
+            eng = None
         del eng, model
         gc.collect()
     return totals, results
+
+
+def host_loop_cell(torch, card, model, prompts, device_tokens, step_ms):
+    """Phase 5's host-loop cell: the dense artifact served by the host
+    decode loop (`device_loop=False`: one graphed (B, 1) forward a step,
+    the logits pulled, argmax on the host, token and index uploaded) and by
+    the device loop (K = CHUNK), whole runs in alternating turns; then one
+    host step on parked slots, graph and eager, against the device loop's
+    micro-step (`step_ms`, phase 5). Greedy tokens must equal the device
+    loop's (`device_tokens`, near-tie rule); the host loop counts 3 host
+    syncs a decode step, the device loop 1 a dispatch."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import EngineConfig, InferenceEngine
+    base = dict(n_slots=N_SLOTS, max_len=512 + GEN_LEN, seed=SEED)
+    cfgs = {"host": EngineConfig(device_loop=False, **base),
+            "device": EngineConfig(decode_chunk=CHUNK, **base)}
+    warm = InferenceEngine(model, cfgs["host"])     # allocator warm-up
+    warm.submit(prompts[0][:32], 4)
+    warm.run()
+    del warm
+    gc.collect()
+    walls = {mode: [] for mode in cfgs}
+    admit = {mode: [] for mode in cfgs}
+    reps, tokens, counts = {}, {}, {}
+    for _ in range(2):
+        for mode, ecfg in cfgs.items():
+            eng = InferenceEngine(model, ecfg)
+            reqs = [eng.submit(p, GEN_LEN) for p in prompts]
+            # admissions' wall (each ends on its first token's host sync)
+            spent, start = [0.0], eng._start
+
+            def timed_start(r, start=start, spent=spent):
+                t = time.perf_counter()
+                start(r)
+                spent[0] += time.perf_counter() - t
+            eng._start = timed_start
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            eng.run()
+            torch.cuda.synchronize()
+            walls[mode].append(time.perf_counter() - t0)
+            admit[mode].append(spent[0])
+            counts[mode] = ops.launch_counts()
+            reps[mode] = eng.metrics.report()
+            tokens[mode] = [list(r.generated) for r in reqs]
+            if mode == "host":
+                host_eng = eng
+    assert counts["host"]["dense_matmul"] > 0, counts
+    h, d = reps["host"], reps["device"]
+    assert h["host_syncs_decode"] == 3 * h["decode_steps"] > 0, h
+    assert d["host_syncs_decode"] == d["decode_steps"], d
+    assert d["host_syncs_per_token"] <= 1.0 / CHUNK \
+        < h["host_syncs_per_token"], (d, h)
+    print(f"  [5h] host loop against device loop (K {CHUNK}) [{card}]: "
+          "greedy host-loop tokens against the device loop's:", flush=True)
+    div = first_divergence(torch, model, prompts, tokens["host"],
+                           device_tokens)
+    assert tokens["device"] == device_tokens
+    bk = host_eng.backend
+    tok = np.zeros((N_SLOTS, 1), np.int32)
+    idx = np.full((N_SLOTS,), 100, np.int32)
+
+    def step(eager):
+        ms = []
+        for _ in range(10 if not eager else 3):
+            t = time.perf_counter()
+            rows = bk.decode_host(tok, idx, eager=eager)
+            np.argmax(rows, axis=-1)
+            ms.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ms)
+    step(False)
+    host_step = {"graph": [], "eager": []}
+    for _ in range(2):
+        for mode in host_step:
+            host_step[mode].append(step(mode == "eager"))
+    decoded = {m: reps[m]["tokens_generated"] - len(prompts) for m in reps}
+    per_tok = {m: [w * 1e3 / decoded[m] for w in walls[m]] for m in walls}
+    # the decode loop alone: the run's wall less its admissions'
+    loop_tok = {m: [(w - a) * 1e3 / decoded[m]
+                    for w, a in zip(walls[m], admit[m])] for m in walls}
+    res = dict(wall_s=walls, admission_wall_s=admit,
+               wall_ms_per_decoded_token=per_tok,
+               decode_loop_wall_ms_per_decoded_token=loop_tok,
+               host_syncs_per_token={m: reps[m]["host_syncs_per_token"]
+                                     for m in reps},
+               host_syncs_per_decode_step=h["host_syncs_decode"]
+               / h["decode_steps"],
+               decode_steps={m: reps[m]["decode_steps"] for m in reps},
+               host_step_ms=host_step, device_micro_step_ms=step_ms,
+               divergences=div, launches=counts["host"])
+    r = lambda xs, dd=3: [round(x, dd) for x in xs]
+    print(f"    wall ms / decoded token (whole runs, admissions included, "
+          f"turns): host {r(per_tok['host'])}, device {r(per_tok['device'])}"
+          f" (admissions' wall s host {r(admit['host'])}, device "
+          f"{r(admit['device'])}; the rest a decoded token: host "
+          f"{r(loop_tok['host'])}, device {r(loop_tok['device'])});"
+          f" host syncs / decode step {res['host_syncs_per_decode_step']:.0f}"
+          f" (host) against 1 a {CHUNK}-step dispatch; host syncs / token "
+          f"{h['host_syncs_per_token']:.4f} against "
+          f"{d['host_syncs_per_token']:.4f}; one host step on parked slots "
+          f"(forward, logits pull, argmax) ms graph {r(host_step['graph'])} "
+          f"eager {r(host_step['eager'])} against the device loop's "
+          f"micro-step {step_ms:.3f}; host-loop launches {counts['host']}",
+          flush=True)
+    return counts["host"], res
 
 
 def first_divergence(torch, model, prompts, got, want, extras=None):
@@ -2046,6 +2185,274 @@ def phase_speculative(torch, card):
 
 
 
+# phase 16: the draft each family's dense-slab artifact carries, its K, the
+# port's GEMM kernels the speculating path launches (target dense, draft
+# as named), the page size of its paged run (None: slab only) and the
+# requests it serves: the phase's first ones, one wave of at most 8 slots,
+# with SPEC_GEN_LEN new tokens each (cut from GEN_LEN for the time limit,
+# and llava's and whisper's requests from 8 to 4: their eager cycles and
+# image or audio admissions are the cells' costliest parts)
+SPEC_GEN_LEN = 16
+SPEC_FAMILIES = {
+    "16a": dict(draft=dict(bits=8, sparsity=0.5), k=4, paged=16,
+                gemms={"dense_matmul", "bsr_quant_matmul", "quant_matmul",
+                       "bsr_matmul_experts"}, requests=8),
+    "16b": dict(draft=dict(bits=8), k=2, paged=None,
+                gemms={"dense_matmul", "quant_matmul"}, requests=8),
+    "16c": dict(draft=dict(bits=8, sparsity=0.5), k=4, paged=None,
+                gemms={"dense_matmul", "bsr_quant_matmul"}, requests=4),
+    "16d": dict(draft=dict(bits=8, sparsity=0.5), k=4, paged=16,
+                gemms={"dense_matmul", "bsr_quant_matmul"}, requests=4)}
+def draft_spec_for(cell):
+    from repro_torch.serve import DraftSpec
+    return DraftSpec(**SPEC_FAMILIES[cell]["draft"])
+
+
+def serve_spec(torch, model, ecfg, prompts, extras):
+    """Serve `prompts` (SPEC_GEN_LEN new tokens each, greedy) through a
+    fresh speculating engine (its build's warm-up dispatch and capture
+    allocate the step's buffers); the launch counts are those of the
+    served run alone. Returns (engine, tokens, wall s, launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import InferenceEngine
+    eng = InferenceEngine(model, ecfg)
+    reqs = [eng.submit(p, SPEC_GEN_LEN, extras=e)
+            for p, e in zip(prompts, extras)]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = [list(r.generated) for r in reqs]
+    assert all(len(t) == SPEC_GEN_LEN
+               and all(0 <= x < model.cfg.vocab for x in t) for t in tokens)
+    return eng, tokens, wall, ops.launch_counts()
+
+
+def timed_ms(torch, fn, n=3, warm=True):
+    """Median wall ms of `fn` over n calls, each closed by a device sync,
+    after one untimed call (unless `warm` is False: the caller already ran
+    `fn` at these shapes)."""
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(ms)
+
+
+def spec_family_cell(torch, card, cell, model, prompts, extras, plain,
+                     load):
+    """Phase 16, one cell: the dense-slab artifact `model` (its phase's,
+    loaded with the cell's draft) speculates greedily over the phase's
+    first requests. `plain` is that artifact's plain decode in its phase
+    ((tokens, serve_run's result)): its tokens, cut to SPEC_GEN_LEN, are
+    the reference of an arch whose rows decode independently, its
+    micro-step the plain time a token; an MoE cell serves its own plain
+    reference. `load` is the load's (seconds, peak GB). Checks: the spec
+    GEMMs and no others, one verify
+    block a layer through the page table when paged, graph tokens equal
+    the eager step's, paged tokens equal the slab's (near-tie rule),
+    speculative tokens equal plain decode's (near-tie rule), on an MoE
+    arch with the capacity widened to n_experts / top_k (nothing drops:
+    at the served capacity the requests that part are reported, the JAX
+    package's behaviour). Reports acceptance, wall ms per cycle graph and
+    eager in turns, device ms per cycle, ms per committed token against
+    plain's per token, the draft's admission prefill ms (for whisper its
+    encoder alone too) and the load's peak."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import EngineConfig
+    spec = SPEC_FAMILIES[cell]
+    k, n_req = spec["k"], spec["requests"]
+    prompts = prompts[:n_req]
+    # per-request extras for the engine; None for first_divergence
+    given = extras[:n_req] if extras else None
+    extras = given or [None] * n_req
+    plain_tokens = [t[:SPEC_GEN_LEN] for t in plain[0][:n_req]]
+    plain_res = plain[1]
+    cfg, dcfg = model.cfg, model.draft_cfg
+    max_len = {"llava-next-mistral-7b": LLAVA_MAX_LEN,
+               "whisper-large-v3": WHISPER_MAX_LEN}.get(cfg.name,
+                                                        512 + GEN_LEN)
+    ecfg = EngineConfig(n_slots=N_SLOTS, max_len=max_len, seed=SEED,
+                        speculate=k, prefix_cache=False)
+    kinds = [T.layer_kind(cfg, i) for i in range(cfg.n_layers)]
+    n_attn = sum(kd["mixer"] == "attn" for kd in kinds)
+    n_moe = sum(kd["ffn"] == "moe" for kd in kinds)
+    n_mamba = sum(kd["mixer"] == "mamba" for kd in kinds)
+    r = lambda xs, d=3: [round(x, d) for x in xs]
+    res = dict(k=k, draft=model.draft_spec.tag, requests=n_req,
+               new_tokens=SPEC_GEN_LEN,
+               load_s=load[0], load_peak_memory_allocated_gb=load[1],
+               draft_verify_flop_ratio=model.draft_cost_fraction())
+    counts, tokens = {}, {}
+    for page_size in ((None,) if spec["paged"] is None
+                      else (None, spec["paged"])):
+        tag = "paged" if page_size else "slab"
+        pcfg = dataclasses.replace(ecfg, page_size=page_size)
+        eng, tokens[tag], wall, c = serve_spec(torch, model, pcfg, prompts,
+                                               extras)
+        counts[tag] = c
+        rep = eng.metrics.report()
+        for name in GEMM_KERNELS:
+            assert (c[name] > 0) == (name in spec["gemms"]), (cell, tag, c)
+        assert rep["host_syncs_decode"] == rep["spec_dispatches"] > 0, rep
+        cycles = rep["spec_dispatches"]
+        # prefills: the target's and the draft's, each encoder included
+        n_fwd_layers = (cfg.n_layers + dcfg.n_layers) if not cfg.enc_dec \
+            else 2 * (cfg.n_layers + cfg.n_enc_layers)
+        if cfg.is_ssm or cfg.attn_period:
+            assert c["ssm_scan"] == 2 * n_mamba * n_req, c
+            assert c["flash_attention"] == 2 * n_attn * n_req, c
+        else:
+            assert c["flash_attention"] == n_fwd_layers * n_req, c
+        # the target's verify block through the page table, once a layer a
+        # cycle (the draft keeps its slab)
+        assert c["paged_flash_attention"] == (
+            n_attn * cycles if page_size else 0), (c, cycles)
+        if "bsr_matmul_experts" in spec["gemms"]:
+            # the draft's routed projections: its prefills and K + 1
+            # micro-steps a cycle
+            assert c["bsr_matmul_experts"] == 3 * n_moe * (
+                n_req + (k + 1) * cycles), (c, cycles)
+        decoded = rep["tokens_generated"] - n_req
+        commits = decoded / (sum(eng.metrics.occupancy) * N_SLOTS)
+        out = dict(wall_s=wall, tok_per_s=rep["tokens_generated"] / wall,
+                   spec_dispatches=cycles,
+                   acceptance_rate=rep["acceptance_rate"],
+                   draft_proposed=rep["draft_proposed"],
+                   draft_accepted=rep["draft_accepted"],
+                   commits_per_slot_cycle=commits,
+                   latency_s_p50=rep["latency_s_p50"],
+                   latency_s_p99=rep["latency_s_p99"], launches=c)
+        if page_size is None:
+            ab = graph_vs_eager(torch, eng, 1, turns=2, traces=1)
+            s = ab_summary(ab, 1)
+            cycle_ms = statistics.median(s["graph_ms"])
+            plain_step = plain_res["decode_micro_step_ms"]
+            # the draft's batch-1 prefill of one admission (the first
+            # request: its image rows or frames), against the target's
+            bk = eng.backend
+            batch = {"tokens": torch.from_numpy(prompts[0][None]).cuda(),
+                     **(extras[0] or {})}
+            draft_ms = timed_ms(torch, lambda: bk._draft_prefill(
+                bk.draft_params, batch), warm=False)
+            target_ms = timed_ms(torch, lambda: bk._prefill_last(bk.params,
+                                                                 batch),
+                                 warm=False)
+            out.update(
+                cycle_ms=cycle_ms,
+                eager_cycle_ms=statistics.median(s["eager_ms"]),
+                cycle_device_ms=s["graph_device_ms"],
+                cycle_device_ops=s["graph_device_ops"],
+                cycle_idle_share=s["graph_idle_share"],
+                ms_per_committed_token=cycle_ms / (N_SLOTS * commits),
+                plain_micro_step_ms=plain_step,
+                plain_ms_per_token=plain_step / N_SLOTS,
+                draft_prefill_ms=draft_ms,
+                admission_prefill_ms=target_ms, graph_vs_eager=s)
+            if cfg.enc_dec:
+                out["draft_encoder_ms"] = timed_ms(torch, lambda: T.encode(
+                    model.draft_params, extras[0]["frames"], dcfg),
+                    warm=False)
+            enc = f", of it the draft's encoder " \
+                f"{out['draft_encoder_ms']:.1f}" if cfg.enc_dec else ""
+            print(f"  [{cell}] spec {cfg.name} slab K={k} draft "
+                  f"{res['draft']} [{card}] acceptance "
+                  f"{out['acceptance_rate']:.4f} ({rep['draft_accepted']:.0f}"
+                  f" of {rep['draft_proposed']:.0f}), commits / slot-cycle "
+                  f"{commits:.3f}, cycles {cycles:.0f}, wall ms / cycle "
+                  f"{cycle_ms:.3f} (eager {out['eager_cycle_ms']:.3f}), "
+                  f"device ms / cycle {r(s['graph_device_ms'])}, idle share "
+                  f"{r(s['graph_idle_share'], 4)}; ms / committed token at "
+                  f"{N_SLOTS} slots {out['ms_per_committed_token']:.3f} "
+                  f"against plain {out['plain_ms_per_token']:.3f} "
+                  f"(micro-step {plain_step:.3f}, K {CHUNK}); admission "
+                  f"prefill ms: draft {draft_ms:.1f}{enc}, target "
+                  f"{target_ms:.1f}; tok/s {out['tok_per_s']:.1f}; load "
+                  f"{load[0]:.1f} s, peak {load[1]:.2f} GB with the draft; "
+                  f"launches {c}", flush=True)
+            out["graph_vs_eager"] = print_ab(card, ab, 1, unit="cycle")
+            del eng
+            gc.collect()
+            out["eager_tokens_identical"] = eager_identity(
+                torch, model, pcfg, prompts, SPEC_GEN_LEN, tokens["slab"],
+                extras)
+        else:
+            print(f"  [{cell}] spec {cfg.name} paged (page {page_size}) K={k} "
+                  f"[{card}] acceptance {out['acceptance_rate']:.4f}, "
+                  f"commits / slot-cycle {commits:.3f}, cycles {cycles:.0f}, "
+                  f"tok/s {out['tok_per_s']:.1f}; launches {c}", flush=True)
+            del eng
+            gc.collect()
+            print("    speculative paged against speculative slab tokens:",
+                  flush=True)
+            out["divergences_from_slab"] = first_divergence(
+                torch, model, prompts, tokens["paged"], tokens["slab"],
+                given)
+        res[tag] = out
+    got = tokens["slab"]
+    if not cfg.n_experts:
+        print("    speculative against plain tokens:", flush=True)
+        res["divergences_from_plain"] = first_divergence(
+            torch, model, prompts, got, plain_tokens, given)
+    else:
+        # a decode step routes every live slot as one group, so the plain
+        # reference serves this cell's own traffic (the phase's run had
+        # other requests live beside these)
+        plain_cfg = dataclasses.replace(ecfg, speculate=0, decode_chunk=CHUNK)
+        plain_s = serve_tokens(torch, model, plain_cfg, prompts,
+                               gen_len=SPEC_GEN_LEN)
+        apart = [i for i, (a, b) in enumerate(zip(got, plain_s)) if a != b]
+        print(f"    speculative against plain tokens at the served capacity "
+              f"{cfg.capacity_factor:g}: requests {apart} of {n_req} part "
+              f"(the verify routes other groups than a plain decode step, "
+              f"and admissions land a cycle, not {CHUNK} micro-steps, "
+              f"apart)", flush=True)
+        wide = cfg.n_experts / cfg.top_k
+        wmodel = dataclasses.replace(
+            model, cfg=dataclasses.replace(cfg, capacity_factor=wide),
+            draft_cfg=dataclasses.replace(dcfg, capacity_factor=wide))
+        spec_w = serve_tokens(torch, wmodel, ecfg, prompts,
+                              gen_len=SPEC_GEN_LEN)
+        plain_w = serve_tokens(torch, wmodel, plain_cfg, prompts,
+                               gen_len=SPEC_GEN_LEN)
+        print(f"    speculative against plain tokens, capacity factor "
+              f"{wide:g} (no drops):", flush=True)
+        res.update(requests_apart_at_served_capacity=apart,
+                   divergences_without_drops=first_divergence(
+                       torch, wmodel, prompts, spec_w, plain_w))
+    total = {}
+    for c in counts.values():
+        for name, v in c.items():
+            total[name] = total.get(name, 0) + v
+    return total, res
+
+
+def run_spec_family(torch, card, mark, cell, model, prompts, extras, plain,
+                    load, totals):
+    """Phase 16's cell `cell` on its phase's dense-slab artifact, after
+    `mark(cell)`; its launches are added to the phase's `totals`, its
+    result returned."""
+    mark(cell)
+    spec = SPEC_FAMILIES[cell]
+    print(f"[{cell}] speculative self-draft decode, {model.cfg.name}, "
+          f"{model.cfg.n_layers} layers: dense target, draft "
+          f"{model.draft_spec.tag}, K {spec['k']}, the first "
+          f"{spec['requests']} requests, {SPEC_GEN_LEN} new tokens each, slab"
+          + (f" and paged (page {spec['paged']})" if spec["paged"] else ""),
+          flush=True)
+    counts, res = spec_family_cell(torch, card, cell, model, prompts, extras,
+                                   plain, load)
+    add_counts(totals, counts)
+    return res
+
+
 def load_cut(arch, spec, params, n_layers, **kw):
     """The registry's full-config artifact cut to its first `n_layers`
     layers (its draft's config cut with it), over `params`."""
@@ -2445,7 +2852,7 @@ def split_moe_step(torch, model, res, n_moe, per_fwd, mamba):
     return keys, routed, [mix] * len(routed), other, rest
 
 
-def phase_moe(torch, card):
+def phase_moe(torch, card, mark):
     """deepseek-moe-16b at its published width (d_model 2048, 16 heads of
     128, 64 routed experts of d_ff 1408, top 6, 2 shared, the dense prelude
     layer of d_ff 10944, vocab 102400 untied), depth cut from 28 to 8
@@ -2483,10 +2890,10 @@ def phase_moe(torch, card):
             "dense-paged": (kr.DENSE, 16, {"dense_matmul"})}
     r = lambda xs, d=3: [round(x, d) for x in xs]
     for tag, (spec, page_size, gemms) in runs.items():
-        t0 = time.perf_counter()
-        model = load_cut(DEEPSEEK, spec, params, cfg.n_layers)
-        torch.cuda.synchronize()
-        pack_s = time.perf_counter() - t0
+        # the dense-slab artifact carries phase 16a's draft
+        draft = draft_spec_for("16a") if tag == "dense-slab" else None
+        model, pack_s, peak = load_peak(torch, lambda: load_cut(
+            DEEPSEEK, spec, params, cfg.n_layers, draft_spec=draft))
         ecfg = EngineConfig(n_slots=N_SLOTS, max_len=512 + GEN_LEN,
                             decode_chunk=CHUNK, seed=SEED,
                             page_size=page_size, prefix_cache=False)
@@ -2508,7 +2915,9 @@ def phase_moe(torch, card):
         # spec's library batched GEMM), the port's other GEMMs, the rest
         keys, routed_step, _, other_gemm, non_gemm = split_moe_step(
             torch, model, res, n_moe, per_fwd, None)
-        res.update(pack_s=pack_s, routed_expert_kernels=keys,
+        res.update(pack_s=pack_s, load_peak_memory_allocated_gb=peak,
+                   draft=None if draft is None else draft.tag,
+                   routed_expert_kernels=keys,
                    routed_expert_device_ms_per_micro_step=routed_step,
                    other_gemm_device_ms_per_micro_step=other_gemm,
                    non_gemm_rest_device_ms_per_micro_step=non_gemm,
@@ -2520,7 +2929,10 @@ def phase_moe(torch, card):
               f"{r(non_gemm)}; routed-expert kernels "
               f"{[k.split('<')[0][-24:] + ' ' + k.split(' grid ')[-1] for k in keys]}; "
               f"bsr_matmul_experts launches / micro-step {per_fwd}, per "
-              f"replay {per_replay}; pack {pack_s:.1f} s", flush=True)
+              f"replay {per_replay}; pack {pack_s:.1f} s, load peak "
+              f"{peak:.2f} GB"
+              + ("" if draft is None else f" with the draft {draft.tag}"),
+              flush=True)
         del eng
         gc.collect()
         res["eager_tokens_identical"] = eager_identity(
@@ -2530,6 +2942,10 @@ def phase_moe(torch, card):
             res["divergences"] = first_divergence(
                 torch, model, prompts, tokens[tag], tokens["dense-slab"])
         results[tag] = res
+        if draft is not None:
+            results["16a"] = run_spec_family(
+                torch, card, mark, "16a", model, prompts, None,
+                (tokens[tag], res), (pack_s, peak), totals)
         del model
         gc.collect()
     results["max_memory_allocated"] = torch.cuda.max_memory_allocated()
@@ -2567,12 +2983,12 @@ def phase_moe(torch, card):
     return totals, results
 
 
-def serve_tokens(torch, model, ecfg, prompts, extras=None):
-    """Greedy tokens of `prompts` (GEN_LEN new each) through a fresh
+def serve_tokens(torch, model, ecfg, prompts, extras=None, gen_len=GEN_LEN):
+    """Greedy tokens of `prompts` (`gen_len` new each) through a fresh
     engine, every dispatch a graph replay."""
     from repro_torch.serve import InferenceEngine
     eng = InferenceEngine(model, ecfg)
-    reqs = [eng.submit(p, GEN_LEN, extras=None if extras is None else e)
+    reqs = [eng.submit(p, gen_len, extras=None if extras is None else e)
             for p, e in zip(prompts, extras or prompts)]
     eng.run()
     torch.cuda.synchronize()
@@ -2618,7 +3034,7 @@ def paged_against_slab(torch, model, ecfg, prompts, paged, slab):
                     torch, wide, prompts, got, want))
 
 
-def phase_jamba(torch, card):
+def phase_jamba(torch, card, mark):
     """jamba-v0.1-52b at its published width (d_model 4096, 32/8 heads of
     128 without RoPE, Mamba d_inner 8192 / d_state 16, 16 routed experts
     of d_ff 14336 top 2 at odd layers, dense MLPs of 14336 at even ones,
@@ -2646,8 +3062,13 @@ def phase_jamba(torch, card):
             "dense-paged": (kr.DENSE, 16, {"dense_matmul"})}
     r = lambda xs, d=3: [round(x, d) for x in xs]
     for tag, (spec, page_size, gemms) in runs.items():
+        # the dense-slab artifact carries phase 16b's draft: bits-only, so
+        # its routed stacks are the target's own (a block-sparse expert
+        # draft would freeze ~22 GB of f32 blocks beside the 53.2 GB tree)
+        draft = draft_spec_for("16b") if tag == "dense-slab" else None
         model, load_s, peak = load_peak(torch, lambda: ModelRegistry().load(
-            JAMBA, spec, smoke=False, seed=SEED, n_layers=JAMBA_LAYERS))
+            JAMBA, spec, smoke=False, seed=SEED, n_layers=JAMBA_LAYERS,
+            draft_spec=draft))
         cfg = model.cfg
         kinds = [T.layer_kind(cfg, i) for i in range(cfg.n_layers)]
         n_moe = sum(k["ffn"] == "moe" for k in kinds)
@@ -2677,6 +3098,7 @@ def phase_jamba(torch, card):
         keys, routed, mix, other, rest = split_moe_step(
             torch, model, res, n_moe, per_fwd, mamba)
         res.update(load_s=load_s, load_peak_memory_allocated_gb=peak,
+                   draft=None if draft is None else draft.tag,
                    routed_expert_kernels=keys,
                    routed_expert_device_ms_per_micro_step=routed,
                    mamba_mixer_device_ms_per_micro_step=mix,
@@ -2690,7 +3112,9 @@ def phase_jamba(torch, card):
               f"{mamba[1]:.3f} of it) + other port GEMM {r(other)} + the "
               f"rest (attention, router, combine, head, elementwise) "
               f"{r(rest)}; bsr_matmul_experts launches / micro-step "
-              f"{per_fwd}; load peak {peak:.2f} GB", flush=True)
+              f"{per_fwd}; load peak {peak:.2f} GB"
+              + ("" if draft is None else f" with the draft {draft.tag}"),
+              flush=True)
         del eng
         gc.collect()
         res["eager_tokens_identical"] = eager_identity(
@@ -2699,13 +3123,25 @@ def phase_jamba(torch, card):
             res.update(paged_against_slab(torch, model, ecfg, prompts,
                                           tokens[tag], tokens["dense-slab"]))
         results[tag] = res
+        if draft is not None:
+            # a bits-only draft keeps the raw expert stacks: the target's
+            shared = [model.draft_params["layers"][i]["ffn"][w].data_ptr()
+                      == model.params["layers"][i]["ffn"][w].data_ptr()
+                      for i, kd in enumerate(kinds) if kd["ffn"] == "moe"
+                      for w in ("w_gate", "w_up", "w_down")]
+            assert shared and all(shared), shared
+            print(f"  the draft's {len(shared)} routed stacks are the "
+                  "target's own tensors (same data_ptr)", flush=True)
+            results["16b"] = run_spec_family(
+                torch, card, mark, "16b", model, prompts, None,
+                (tokens[tag], res), (load_s, peak), totals)
         del model
         gc.collect()
         torch.cuda.empty_cache()
     return totals, results
 
 
-def phase_llava(torch, card):
+def phase_llava(torch, card, mark):
     """llava-next-mistral-7b at its published width (d_model 4096, 32/8
     heads of 128, d_ff 14336, window 4096, vocab 32000 untied), depth cut
     from 32 to 16 layers (15.0 GB in f32), random f32 weights from the
@@ -2745,8 +3181,10 @@ def phase_llava(torch, card):
                              {"bsr_quant_matmul"}),
             "dense-paged": (kr.DENSE, 16, {"dense_matmul"})}
     for tag, (spec, page_size, gemms) in runs.items():
+        draft = draft_spec_for("16c") if tag == "dense-slab" else None
         model, load_s, peak = load_peak(
-            torch, lambda: load_cut(LLAVA, spec, params, cfg.n_layers))
+            torch, lambda: load_cut(LLAVA, spec, params, cfg.n_layers,
+                                    draft_spec=draft))
         ecfg = EngineConfig(n_slots=N_SLOTS, max_len=LLAVA_MAX_LEN,
                             decode_chunk=CHUNK, seed=SEED,
                             page_size=page_size)
@@ -2757,10 +3195,13 @@ def phase_llava(torch, card):
         if page_size:
             assert eng.pool.index is None and eng.pool.layout.has_paged
         res.update(load_s=load_s, load_peak_memory_allocated_gb=peak,
+                   draft=None if draft is None else draft.tag,
                    admission_ms_image_plus_512=res["prefill_512_ms"])
         print(f"    {tag}: load {load_s:.1f} s, peak memory_allocated "
-              f"{peak:.2f} GB; a {cfg.n_img_tokens} + 512-row admission "
-              f"prefill {res['prefill_512_ms']:.1f} ms", flush=True)
+              f"{peak:.2f} GB"
+              + ("" if draft is None else f" with the draft {draft.tag}")
+              + f"; a {cfg.n_img_tokens} + 512-row admission prefill "
+              f"{res['prefill_512_ms']:.1f} ms", flush=True)
         del eng
         gc.collect()
         res["eager_tokens_identical"] = eager_identity(
@@ -2771,6 +3212,10 @@ def phase_llava(torch, card):
                 torch, model, prompts, tokens[tag], tokens["dense-slab"],
                 extras)
         results[tag] = res
+        if draft is not None:
+            results["16c"] = run_spec_family(
+                torch, card, mark, "16c", model, prompts, extras,
+                (tokens[tag], res), (load_s, peak), totals)
         del model
         gc.collect()
     del params, extras
@@ -2838,28 +3283,17 @@ def admission_split(torch, eng, batch):
     from repro_torch.models import transformer as T
     model = eng.model
     cfg = model.cfg
-
-    def timed(fn):
-        fn()
-        torch.cuda.synchronize()
-        ms = []
-        for _ in range(3):
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t) * 1e3)
-        return statistics.median(ms)
     enc_out = T.encode(model.params, batch["frames"], cfg)
-    whole = timed(lambda: eng.backend.prefill(batch, exact=True))
-    enc = timed(lambda: T.encode(model.params, batch["frames"], cfg))
-    kv = timed(lambda: [kr.apply(lp["cross"][w], enc_out)
-                        for lp in model.params["layers"]
-                        for w in ("wk", "wv")])
+    whole = timed_ms(torch, lambda: eng.backend.prefill(batch, exact=True))
+    enc = timed_ms(torch, lambda: T.encode(model.params, batch["frames"], cfg))
+    kv = timed_ms(torch, lambda: [kr.apply(lp["cross"][w], enc_out)
+                                  for lp in model.params["layers"]
+                                  for w in ("wk", "wv")])
     return dict(admission_ms=whole, encoder_ms=enc, cross_kv_ms=kv,
                 decoder_prefill_ms=whole - enc)
 
 
-def phase_whisper(torch, card):
+def phase_whisper(torch, card, mark):
     """whisper-large-v3 at its published width and depth (32 encoder and
     32 decoder layers, d_model 1280, 20/20 heads of 64, d_ff 5120 GELU
     not gated, vocab 51866 tied, LayerNorm, sinusoidal positions; 6.1 GB
@@ -2894,8 +3328,10 @@ def phase_whisper(torch, card):
             "dense-paged": (kr.DENSE, 16, {"dense_matmul"})}
     r = lambda xs, d=3: [round(x, d) for x in xs]
     for tag, (spec, page_size, gemms) in runs.items():
+        draft = draft_spec_for("16d") if tag == "dense-slab" else None
         model, load_s, peak = load_peak(
-            torch, lambda: load_cut(WHISPER, spec, params, cfg.n_layers))
+            torch, lambda: load_cut(WHISPER, spec, params, cfg.n_layers,
+                                    draft_spec=draft))
         ecfg = EngineConfig(n_slots=N_SLOTS, max_len=WHISPER_MAX_LEN,
                             decode_chunk=CHUNK, seed=SEED,
                             page_size=page_size)
@@ -2918,10 +3354,13 @@ def phase_whisper(torch, card):
             **extras[0]}
         split = admission_split(torch, eng, batch)
         res.update(load_s=load_s, load_peak_memory_allocated_gb=peak,
+                   draft=None if draft is None else draft.tag,
                    cross_attention_per_micro_step=cross,
                    admission_224=split)
         print(f"    {tag}: load {load_s:.1f} s, peak memory_allocated "
-              f"{peak:.2f} GB; cross-attention alone a micro-step: "
+              f"{peak:.2f} GB"
+              + ("" if draft is None else f" with the draft {draft.tag}")
+              + "; cross-attention alone a micro-step: "
               f"{cross['device_ms']:.3f} device ms (projection GEMMs "
               f"{cross['projection_gemm_device_ms']:.3f}, einsums "
               f"{cross['einsum_device_ms']:.3f}, "
@@ -2940,6 +3379,10 @@ def phase_whisper(torch, card):
                 torch, model, prompts, tokens[tag], tokens["dense-slab"],
                 extras)
         results[tag] = res
+        if draft is not None:
+            results["16d"] = run_spec_family(
+                torch, card, mark, "16d", model, prompts, extras,
+                (tokens[tag], res), (load_s, peak), totals)
         del model
         gc.collect()
     del params, extras
@@ -3047,7 +3490,7 @@ def main() -> int:
     parity_launches = phase_parity(torch, DEEPSEEK, 48, 128)
     assert parity_launches["flash_attention"] == 2 * 2, parity_launches
     assert parity_launches["bsr_matmul_experts"] == 3, parity_launches
-    moe_launches, moe = phase_moe(torch, card)
+    moe_launches, moe = phase_moe(torch, card, mark)
     print(f"  prefill skip fraction: {DEEPSEEK} "
           f"{moe['prefix_reuse']['report']['prefill_skip_fraction']:.4f} "
           f"against nemotron-4-340b's {skip[0]:.4f} (phase 7)", flush=True)
@@ -3059,7 +3502,7 @@ def main() -> int:
     assert parity_launches["ssm_scan"] == 2 * 7, parity_launches
     assert parity_launches["flash_attention"] == 2, parity_launches
     assert parity_launches["bsr_matmul_experts"] == 3 * 4, parity_launches
-    jamba_launches, jamba = phase_jamba(torch, card)
+    jamba_launches, jamba = phase_jamba(torch, card, mark)
     mark(14)
     print(f"[14] the vision stub, {LLAVA}: card vs CPU at full width, 2 "
           f"layers, {LLAVA_PARITY_IMG} image rows; then full width, "
@@ -3067,14 +3510,14 @@ def main() -> int:
     parity_launches = phase_parity(torch, LLAVA, 48, 128,
                                    n_img_tokens=LLAVA_PARITY_IMG)
     assert parity_launches["flash_attention"] == 2 * 2, parity_launches
-    llava_launches, llava = phase_llava(torch, card)
+    llava_launches, llava = phase_llava(torch, card, mark)
     mark(15)
     print(f"[15] the encoder-decoder, {WHISPER}: card vs CPU at full width, 2 "
           "encoder and 2 decoder layers; then full width and depth, 1500 "
           "frames a request", flush=True)
     parity_launches = phase_parity(torch, WHISPER, 48, 128, n_enc_layers=2)
     assert parity_launches["flash_attention"] == 2 * (2 + 2), parity_launches
-    whisper_launches, whisper = phase_whisper(torch, card)
+    whisper_launches, whisper = phase_whisper(torch, card, mark)
     for more in (paged_launches, reuse_launches, mamba_launches,
                  spec_launches, gemma_launches, mla_launches, moe_launches,
                  jamba_launches, llava_launches, whisper_launches):
@@ -3102,8 +3545,7 @@ def main() -> int:
          "serving": serving, "paged_serving": paged, "prefix_reuse": reuse,
          "mamba_serving": mamba, "speculative": spec, "gemma2": gemma,
          "minicpm3": mla, "moe": moe, "jamba": jamba, "llava": llava,
-         "whisper": whisper,
-         "phase_start_s": marks},
+         "whisper": whisper, "phase_start_s": marks},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

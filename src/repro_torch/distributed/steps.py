@@ -125,6 +125,21 @@ def make_paged_decode_step(cfg: T.ModelConfig, *, n_steps: int, layout):
     return decode
 
 
+def make_host_decode_step(cfg: T.ModelConfig):
+    """The host loop's step (the JAX package's `make_decode_step` without
+    n_steps):
+
+        decode(params, caches, tokens (B, 1) int32, index (B,) int32)
+            -> (B, vocab) f32 logits of the last column, on the device
+
+    one forward with per-slot index clocks, writing the slab in place;
+    sampling, EOS and the clocks stay on the host (serve.engine)."""
+    def decode(params, caches, tokens, index):
+        logits, _ = T.forward(params, tokens, cfg, caches=caches, index=index)
+        return logits[:, -1]
+    return decode
+
+
 def make_suffix_prefill_step(cfg: T.ModelConfig, *, layout):
     """Prefill ONLY the unmatched suffix of a prompt whose prefix pages are
     already resident:
@@ -315,20 +330,26 @@ def make_speculative_decode_step(cfg: T.ModelConfig,
          so the draft's cache covers a fully accepted block), sampling
          with each slot's temperature from the state's generator.
       2. VERIFY: the target scores [t0, d_1..d_K] in ONE (B, K+1) forward
-         with per-slot index clocks; a recurrent arch (whose decode takes
-         one token) runs K+1 single-token forwards and stacks its `conv` /
-         `ssm` leaves after each.
+         with per-slot index clocks (an MoE layer routes each slot's K+1
+         positions as a group of its own); a recurrent arch, pure Mamba or
+         the hybrid (whose Mamba layers decode one token at a time), runs
+         K+1 single-token forwards and stacks its `conv` / `ssm` leaves
+         after each.
       3. ACCEPT: `accept_tokens`, capped per slot by `spec_limit`.
       4. COMMIT: EOS and budget truncate the commit on the device; the
          index advances by the commit count (the rollback of a positional
          cache); recurrent leaves of target and draft select each slot's
          state after step l_acc + 1 (inactive slots keep step 0).
 
-    Greedy output equals plain greedy decode for any draft and any K."""
+    Greedy output equals plain greedy decode for any draft and any K,
+    except on an MoE target whose capacity drops assignments: its verify
+    routes other groups than a plain decode step (each slot's block alone;
+    on the hybrid, the other slots' draft tokens), and the JAX package's
+    step parts from plain decode there too."""
     if n_draft < 1:
         raise ValueError(f"n_draft must be >= 1, got {n_draft}")
     k = n_draft
-    recurrent = cfg.is_ssm
+    recurrent = bool(cfg.is_ssm or cfg.attn_period)
     bufs: Dict = {}
 
     def spec_decode(params, draft_params, caches, draft_caches, state,

@@ -187,6 +187,15 @@ class ModelConfig:
             total += self.n_layers * attn                   # cross-attention
         return int(total)
 
+    def active_param_count(self) -> int:
+        """Parameters a token runs through, the JAX package's formula: an
+        MoE layer's routed experts count top_k of n_experts."""
+        inactive = sum(layer_kind(self, i)["ffn"] == "moe"
+                       for i in range(self.n_layers)) \
+            * (self.n_experts - self.top_k) * 3 * self.d_model \
+            * self.d_ff_expert
+        return int(self.param_count() - inactive)
+
 
 def layer_kind(cfg: ModelConfig, i: int) -> Dict[str, Any]:
     """What lives at layer i: attention or (is_ssm, or off the hybrid's

@@ -24,7 +24,18 @@ Speculative decode (EngineConfig.speculate=K, serve.speculative) adds the
 draft's slab (`draft_pool`: the target's slot assignment and per-slot
 index clocks), the draft's batch-1 prefill at every admission and the
 fused propose-then-verify step. Both caches are padded by K positions, so
-the deepest speculative write stays in bounds before rollback.
+the deepest speculative write stays in bounds before rollback. The
+draft's prefill takes the admission's whole batch: a vision-stub
+request's image rows enter the draft's cache and clock as the target's;
+an encoder-decoder request's frames run through the draft's own encoder,
+whose cross k/v land in the draft's slab (under a page pool too, where the
+target's cross leaves stay resident in the store).
+
+The host loop (EngineConfig.device_loop=False) builds no fused step: `decode_host` runs one (B, 1) forward of the slab and returns
+its last column's logits to the host. On the card that forward is a CUDA
+graph over static token and index buffers, which each step fills by an
+upload, so the host loop against the device loop measures the per-step
+round trip and the host's sampling, not eager launches.
 
 Contract (what the engine calls):
   build(model, cfg)              allocate pools/state, make the steps,
@@ -38,6 +49,8 @@ Contract (what the engine calls):
                                  (K, B) int32 block as numpy
   spec_decode_block()            ONE propose-then-verify cycle; returns
                                  (commit (B, K+1), n_commit, n_accept)
+  decode_host(tokens, indices)   host loop: ONE (B, 1) forward; returns the
+                                 (B, vocab) last-column logits as numpy
   release_slot(slot)             park a slot's loop-state row inert
 and the paged admission surface (no-ops on the slab pool): `paged`,
 `prefix_match`, `alloc_slot_pages`, `prefix_insert`,
@@ -109,6 +122,17 @@ class LocalBackend:
             cfg.seed)
         self.draft_pool = None
         self._pending_draft = None
+        self._graph = None
+        if not cfg.device_loop:
+            # the host loop: a (B, 1) forward over static input buffers
+            self._host_tokens = torch.zeros((cfg.n_slots, 1), dtype=torch.int32,
+                                            device=self.device)
+            self._host_index = torch.zeros((cfg.n_slots,), dtype=torch.int32,
+                                           device=self.device)
+            self._host_step = ST.make_host_decode_step(mcfg)
+            if self.device.type == "cuda":
+                self._capture()
+            return
         if k:
             dcfg = model.draft_cfg
             self.draft_params = model.draft_params
@@ -129,7 +153,6 @@ class LocalBackend:
                 mcfg, n_steps=cfg.decode_chunk, layout=self.pool.layout)
         else:
             self._step = ST.make_decode_step(mcfg, n_steps=cfg.decode_chunk)
-        self._graph = None
         if self.device.type == "cuda":
             self._capture()
 
@@ -138,7 +161,11 @@ class LocalBackend:
     def _run(self) -> torch.Tensor:
         """One eager call of the built step on the live pools and state.
         Returns its int32 result on the device: the (K, B) token block, or
-        the speculative (B, K+3) [commit | n_commit | n_accept]."""
+        the speculative (B, K+3) [commit | n_commit | n_accept], or the host
+        loop's (B, vocab) last-column logits."""
+        if not self.cfg.device_loop:
+            return self._host_step(self.params, self.pool.caches,
+                                   self._host_tokens, self._host_index)
         caches = self.pool.store if self.paged else self.pool.caches
         table = (self.pool.page_table,) if self.paged else ()
         if not self.cfg.speculate:
@@ -165,7 +192,8 @@ class LocalBackend:
             self._run()
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.state["generator"])
+        if self.cfg.device_loop:
+            graph.register_generator_state(self.state["generator"])
         # a graph that the collector frees inside the capture (an earlier
         # engine's, left in a reference cycle) invalidates the capture:
         # collect first and hold the collector off until it ends
@@ -196,9 +224,10 @@ class LocalBackend:
         """ONE plain dispatch of K micro-steps: the graph's replay on the
         card, the eager step on the CPU or with eager=True (the graph's
         A/B partner on the same state). Returns the (K, B) int32 block."""
-        if self.cfg.speculate:
-            raise RuntimeError("backend built with EngineConfig.speculate: "
-                               "its dispatch is spec_decode_block()")
+        if self.cfg.speculate or not self.cfg.device_loop:
+            raise RuntimeError("backend built with EngineConfig.speculate or "
+                               "device_loop=False: its dispatch is "
+                               "spec_decode_block() or decode_host()")
         return self._dispatch(eager)
 
     def spec_decode_block(self, eager: bool = False
@@ -212,6 +241,19 @@ class LocalBackend:
         k = self.cfg.speculate
         out = self._dispatch(eager)
         return out[:, :k + 1], out[:, k + 1], out[:, k + 2]
+
+    def decode_host(self, tokens: np.ndarray, indices: np.ndarray,
+                    eager: bool = False) -> np.ndarray:
+        """The host loop's step: upload the (B, 1) tokens and (B,) indices
+        into the static buffers, run ONE (B, 1) forward (the graph's replay
+        on the card, the eager forward on the CPU or with eager=True), and
+        return its last column's (B, vocab) f32 logits as numpy."""
+        if self.cfg.device_loop:
+            raise RuntimeError("backend built with the device loop: its "
+                               "dispatch is decode_block()")
+        self._host_tokens.copy_(torch.from_numpy(tokens))
+        self._host_index.copy_(torch.from_numpy(indices))
+        return self._dispatch(eager)
 
     # -- admission ----------------------------------------------------------
 

@@ -34,14 +34,27 @@ dispatch becomes one propose-then-verify cycle. A self-draft (the target's
 weights re-packed at a cheaper Kratos point, `registry.load(...,
 draft_spec=...)`) proposes K tokens, the target verifies them, and every
 live slot commits 1..K+1 tokens (the caches are padded by K positions).
-Greedy output is token-identical to plain decode for any draft and any K;
-a request may cap or refuse drafting with `submit(speculate=...)`.
+Every arch family speculates. Greedy output equals plain decode for any
+draft and any K, except on an MoE arch whose capacity drops assignments:
+its verify routes other groups than plain decode (each slot's (K+1) block
+alone; on the hybrid, K+1 steps that route the other slots' draft tokens),
+so there the two part, as in the JAX package. A request may cap or refuse
+drafting with `submit(speculate=...)`.
+
+The host-side decode loop (`EngineConfig(device_loop=False)`) is the
+measured baseline of the device loop: every step runs one (B, 1) forward
+(on the card a CUDA graph replay of it), pulls the full-vocab logits of
+the last column to the host, samples there with
+`np.random.default_rng(seed)` (argmax, or Gumbel noise on logits / T in
+float64) and uploads the token and index vectors for the next step: three
+host syncs a decode step. It serves the slab only and does not speculate.
 
 Greedy output is independent of K, of what else shares the slab, and of
-paging. QoS tiers, deadlines, bounded pool-wait retries, the legacy
-gather/scatter paged decode, the ineffectual-work ledger, tracing and the
-host-side decode loop are not ported yet; asking for them raises
-`NotImplementedError` naming the ROADMAP.md item.
+paging (on an MoE arch, as far as capacity routing lets it: ROADMAP.md
+queue 3). QoS tiers, deadlines, bounded pool-wait retries, the legacy
+gather/scatter paged decode, the ineffectual-work ledger and tracing are
+not ported yet; asking for them raises `NotImplementedError` naming the
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -71,7 +84,6 @@ class ReplicaFault(RuntimeError):
 
 # field -> (value meaning "off", ROADMAP.md item that ports it)
 _NOT_PORTED = {
-    "device_loop": (True, "the host-side decode loop baseline: queue 1, item 8"),
     "paged_native": (True, "the legacy gather/scatter paged decode (an A/B "
                      "baseline): queue 1, item 10"),
     "pool_wait_retries": (None, "bounded pool-wait retries: queue 1, item 8"),
@@ -114,6 +126,24 @@ class EngineConfig:
     trace: Optional[Any] = None
 
     def __post_init__(self):
+        # the JAX engine's checks, with its messages
+        if not self.device_loop:
+            if self.decode_chunk > 1:
+                raise ValueError("decode_chunk > 1 requires device_loop=True "
+                                 "(the host loop samples every micro-step)")
+            if self.page_size:
+                raise ValueError("page_size requires device_loop=True (the "
+                                 "page-table decode lives inside the fused "
+                                 "dispatch; the host loop has no paged form)")
+            if self.ledger is not None:
+                raise ValueError("ledger requires device_loop=True (the "
+                                 "counter matrix rides the fused dispatch's "
+                                 "loop state; the host loop has no fused "
+                                 "step)")
+            if self.speculate:
+                raise ValueError("speculate requires device_loop=True (the "
+                                 "propose-then-verify cycle is one fused "
+                                 "dispatch)")
         for field, (off, item) in _NOT_PORTED.items():
             if getattr(self, field) != off:
                 raise NotImplementedError(
@@ -143,7 +173,6 @@ class InferenceEngine:
             raise ValueError(f"engine device {device} but model "
                              f"'{model.name}' lives on {model.device}")
         if cfg.speculate:
-            SP.refuse_unported(model.cfg)
             if cfg.decode_chunk != 1:
                 raise ValueError("speculate replaces decode_chunk: one spec "
                                  "cycle IS the multi-token dispatch; set "
@@ -162,12 +191,19 @@ class InferenceEngine:
         if cfg.speculate:
             self.metrics.draft_flop_fraction = model.draft_cost_fraction()
             # target forwards a cycle: one (B, K+1) verify, or K+1
-            # single-token steps on a recurrent arch (the steps builder)
-            self._verify_steps = cfg.speculate + 1 if mcfg.is_ssm else 1
+            # single-token steps on a recurrent arch, pure Mamba or the
+            # hybrid (the steps builder)
+            self._verify_steps = cfg.speculate + 1 \
+                if (mcfg.is_ssm or mcfg.attn_period) else 1
         self.backend = LocalBackend()
         self.backend.build(model, cfg)
         self.pool = self.backend.pool
         self._vocab = mcfg.vocab
+        if not cfg.device_loop:
+            # the host loop's token and index vectors, uploaded every step
+            self._tokens = np.zeros((cfg.n_slots, 1), np.int32)
+            self._indices = np.zeros((cfg.n_slots,), np.int32)
+        self._rng = np.random.default_rng(cfg.seed)
         self._slots: List[Optional[Request]] = [None] * cfg.n_slots
         self._waiting: collections.deque = collections.deque()
         self._next_id = 0
@@ -257,8 +293,12 @@ class InferenceEngine:
                     self.metrics.on_pool_wait()
                     break
         if self.pool.n_active:
-            advanced = self._decode_spec() if self.cfg.speculate \
-                else self._decode_block()
+            if self.cfg.speculate:
+                advanced = self._decode_spec()
+            elif self.cfg.device_loop:
+                advanced = self._decode_block()
+            else:
+                advanced = self._decode_step_host()
             stats = self.backend.page_stats()
             if stats is not None:           # per-dispatch page-pool gauge
                 self.metrics.on_pages(*stats)
@@ -375,13 +415,19 @@ class InferenceEngine:
         r.state, r.slot, r.index = "running", slot, n_img + s0
         self._slots[slot] = r
         self.metrics.on_start(r.id, self.step_count)
-        tok = self.backend.first_token(row, r.temperature)
-        self.metrics.on_host_sync("prefill")     # the one int32 pulled
-        eos = -1 if r.eos_id is None else int(r.eos_id)
-        rem = 0 if (r.eos_id is not None and tok == r.eos_id) \
-            else r.max_new_tokens - 1
-        self.backend.install(slot, tok, r.index, r.temperature, eos, rem,
-                             self._spec_limit(r))
+        if self.cfg.device_loop:
+            tok = self.backend.first_token(row, r.temperature)
+            self.metrics.on_host_sync("prefill")     # the one int32 pulled
+            eos = -1 if r.eos_id is None else int(r.eos_id)
+            rem = 0 if (r.eos_id is not None and tok == r.eos_id) \
+                else r.max_new_tokens - 1
+            self.backend.install(slot, tok, r.index, r.temperature, eos, rem,
+                                 self._spec_limit(r))
+        else:
+            tok = self._sample_host(row[0].float().cpu().numpy(), r)
+            self.metrics.on_host_sync("prefill")
+            self._tokens[slot, 0] = tok
+            self._indices[slot] = r.index
         self._emit(r, tok, self.step_count)   # may finish (max_new_tokens 1)
 
     def _decode_block(self) -> int:
@@ -406,6 +452,31 @@ class InferenceEngine:
                 r.index += 1
                 self._emit(r, int(block[j, slot]), self.step_count + j)
         return k
+
+    def _sample_host(self, row: np.ndarray, r: Request) -> int:
+        if r.temperature <= 0.0:
+            return int(np.argmax(row))
+        logits = row.astype(np.float64) / r.temperature
+        g = self._rng.gumbel(size=logits.shape)
+        return int(np.argmax(logits + g))
+
+    def _decode_step_host(self) -> int:
+        """The host loop's step: one (B, 1) forward, its last column's
+        full-vocab logits pulled, sampling on the host, the token and index
+        vectors uploaded for the next step."""
+        self.metrics.on_decode_step(self.pool.n_active, self.cfg.n_slots)
+        rows = self.backend.decode_host(self._tokens, self._indices)
+        # logits pull + token and index uploads: 3 crossings a step
+        self.metrics.on_host_sync("decode", 3)
+        for slot, r in enumerate(self._slots):
+            if r is None:
+                continue
+            r.index += 1
+            self._indices[slot] = r.index
+            tok = self._sample_host(rows[slot], r)
+            self._tokens[slot, 0] = tok
+            self._emit(r, tok, self.step_count)
+        return 1
 
     def _spec_limit(self, r: Request) -> int:
         """Per-slot speculation cap: the engine's K, clamped by the

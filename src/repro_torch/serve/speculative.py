@@ -5,9 +5,21 @@ A self-draft is the target's own dense weights re-packed at a cheaper
 (sparsity, bits) point, optionally cut to its first `keep_layers` layers.
 The draft proposes K tokens, the target verifies the whole block in one
 dispatch, and per-slot accept/reject commits the longest agreeing prefix
-plus one target-sampled bonus token. Greedy speculative decode is
-token-identical to plain decode for any draft; sampled rows use the
+plus one target-sampled bonus token. Sampled rows use the
 rejection-sampling correction, so the committed stream follows the target.
+Greedy speculative decode commits the target's own argmax at every
+position, so it is token-identical to plain decode for any draft wherever
+the target's forward does not depend on the rest of the batch. An MoE arch
+whose capacity drops assignments is the exception: a (B, K+1) verify block
+routes each slot's K+1 positions as a group of its own, where a plain
+decode step routes all slots as one, and the hybrid's K+1 single-token
+verify steps route the other slots' draft tokens with each slot's own. So
+where plain decode drops, the two part, as the JAX package's do.
+
+Every arch the port serves speculates: dense GQA, MLA, MoE, Mamba, the
+hybrid, and the frontend stubs, whose drafts prefill the request's extras
+(the vision stub's image rows, or the audio stub's frames through the
+draft's own encoder) at admission.
 
 This module holds the registry and policy side: `DraftSpec`,
 `draft_config`, `truncate_layers`, `derive_draft`, `draft_cost_fraction`
@@ -91,22 +103,32 @@ class DraftSpec:
 def draft_config(cfg: T.ModelConfig, dspec: DraftSpec,
                  base_spec: kr.KratosSpec) -> T.ModelConfig:
     """The draft's ModelConfig: the target arch at the draft's Kratos
-    point, optionally cut to its first keep_layers layers (every ported
-    arch repeats one layer kind, so any prefix is a whole model)."""
+    point, optionally cut to its first keep_layers layers. The cut keeps
+    the dense prelude and a whole number of scan periods (gemma2's
+    local/global pair, a Jamba block), so the kept layers are a model of
+    the same layer pattern, as the JAX package requires."""
     n = cfg.n_layers
     if dspec.keep_layers is not None:
         n = dspec.keep_layers
+        prelude, period = cfg.prelude_layers, cfg.scan_period
         if n > cfg.n_layers:
             raise ValueError(f"keep_layers={n} > n_layers={cfg.n_layers}")
+        if n < prelude + period or (n - prelude) % period:
+            raise ValueError(
+                f"keep_layers={n} must keep the {prelude}-layer prelude "
+                f"plus a whole number of scan periods (period={period})")
     return dataclasses.replace(cfg, n_layers=n,
                                kratos=dspec.kratos_spec(base_spec))
 
 
 def truncate_layers(params: Dict[str, Any],
                     draft_cfg: T.ModelConfig) -> Dict[str, Any]:
-    """Keep the first draft_cfg.n_layers entries of the per-layer list (the
-    same layers as the JAX package's slice of each stacked slot). The
-    embedding, final norm and head are the target's own tensors."""
+    """Keep the first draft_cfg.n_layers entries of the per-layer list.
+    `draft_config` admits only the prelude plus m whole scan periods, so
+    these are the layers of the JAX package's prelude and of the first m
+    entries of each stacked slot. Every other top-level entry (embedding,
+    final norm, head, the encoder's layers and norm, `pos_table`) is the
+    target's own."""
     return dict(params, layers=params["layers"][:draft_cfg.n_layers])
 
 
@@ -117,7 +139,6 @@ def derive_draft(params: Dict[str, Any], cfg: T.ModelConfig,
     params: the draft packs the same weights the target packs from, at the
     draft's point of the (sparsity, precision) grid."""
     from repro_torch.serve.registry import pack_model_params   # cycle
-    refuse_unported(cfg)
     dcfg = draft_config(cfg, dspec, target_spec)
     dparams = params
     if dcfg.n_layers < cfg.n_layers:
@@ -132,27 +153,14 @@ def derive_draft(params: Dict[str, Any], cfg: T.ModelConfig,
 def draft_cost_fraction(cfg: T.ModelConfig,
                         draft_cfg: T.ModelConfig) -> float:
     """Analytic draft/target FLOPs per token (the metrics'
-    `draft_verify_flop_ratio`): params (all active: the ported archs have no
+    `draft_verify_flop_ratio`): active params (an MoE layer's top_k routed
     experts) scaled by the 'tree' impl's (1 - sparsity). Quantization
     changes bytes, not FLOPs."""
     def cost(c: T.ModelConfig) -> float:
         s = c.kratos
         frac = (1.0 - s.sparsity) if (s.sparsity and s.impl == "tree") else 1.0
-        return 2.0 * c.param_count() * frac
+        return 2.0 * c.active_param_count() * frac
     return cost(draft_cfg) / max(1.0, cost(cfg))
-
-
-def refuse_unported(cfg: T.ModelConfig) -> None:
-    """Speculative decode of a mixture-of-experts arch (the jamba hybrid
-    among them), and of a frontend-stub arch whose requests carry extras
-    (the vision stub's image rows, the audio stub's encoder frames), is
-    not ported yet."""
-    what = "MoE" if cfg.n_experts else \
-        f"{cfg.frontend}-stub" if cfg.frontend else ""
-    if what:
-        raise NotImplementedError(
-            f"speculative decode of the {what} arch '{cfg.name}' is not "
-            "ported yet (ROADMAP.md queue 1, item 8)")
 
 
 def check_supported(cfg: T.ModelConfig, cache_len: int) -> None:

@@ -16,7 +16,8 @@ through `save_pytree` and `checkpoint.convert`:
   * where decode drops expert assignments (capacity factor 1.0) the slab
     and the page pool part, in JAX's engines as in the port's, and each of
     the port's equals JAX's;
-  * speculative decode is refused (an MoE arch, ROADMAP.md item 8);
+  * (speculative decode of the arch is held to JAX's in
+    tests/test_torch_spec_families.py and test_torch_speculative.py);
   * `load` packs leaf by leaf: the same packed tree and counts, with each
     float leaf let go as it packs.
 A `cuda`-marked test serves the smoke model on the card with every decode
@@ -50,8 +51,8 @@ from repro_torch import configs as PC
 from repro_torch.checkpoint.convert import convert
 from repro_torch.core import kratos as pkr
 from repro_torch.models import transformer as PT
-from repro_torch.serve import (DraftSpec, EngineConfig, InferenceEngine,
-                               ModelRegistry, prefix_supported)
+from repro_torch.serve import (EngineConfig, InferenceEngine, ModelRegistry,
+                               prefix_supported)
 from repro_torch.serve.registry import PACKABLE, pack_model_params
 
 needs_jax = pytest.mark.skipif(
@@ -280,15 +281,6 @@ def test_request_past_max_len_refused():
         with pytest.raises(ValueError, match="max_len"):
             e.submit(prompt, MAX_LEN - 19)
         e.submit(prompt, MAX_LEN - 20)
-
-
-def test_speculation_refused_for_jamba():
-    with pytest.raises(NotImplementedError, match="MoE.*item 8"):
-        ModelRegistry().load(ARCH, device="cpu", draft_spec=DraftSpec(bits=8))
-    model = ModelRegistry().load(ARCH, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE.*item 8"):
-        InferenceEngine(model, EngineConfig(n_slots=2, max_len=16,
-                                            speculate=2, device="cpu"))
 
 
 @needs_jax

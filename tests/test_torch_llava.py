@@ -14,8 +14,8 @@ through `save_pytree` and `checkpoint.convert`:
     prefill of a cache windowed on every layer) and, on the slab, a
     request longer than max_len (a cache windowed on every layer is
     unbounded in both; a page pool that pages the window refuses it);
-  * prefix reuse is off for the arch, and speculative decode is refused
-    (ROADMAP.md item 8)."""
+  * prefix reuse is off for the arch (speculative decode of the arch is
+    held to JAX's in tests/test_torch_spec_families.py)."""
 
 import dataclasses
 import functools
@@ -40,7 +40,7 @@ from repro_torch import configs as PC  # noqa: E402
 from repro_torch.checkpoint.convert import convert  # noqa: E402
 from repro_torch.models import frontends as PF  # noqa: E402
 from repro_torch.models import transformer as PT  # noqa: E402
-from repro_torch.serve import (DraftSpec, EngineConfig,  # noqa: E402
+from repro_torch.serve import (EngineConfig,  # noqa: E402
                                InferenceEngine, ModelRegistry,
                                prefix_supported)
 
@@ -236,7 +236,7 @@ def test_engine_with_images_matches_jax(window, k, page_size, monkeypatch):
         assert eng.metrics.report()["prefill_tokens_skipped"] == 0
 
 
-def test_prefix_reuse_off_and_speculation_refused():
+def test_prefix_reuse_off():
     cfg = PC.get_smoke(ARCH)
     assert not prefix_supported(cfg)
     # the image rows alone turn it off, window or not
@@ -246,8 +246,3 @@ def test_prefix_reuse_off_and_speculation_refused():
     eng = InferenceEngine(_port_model(WIDE), EngineConfig(
         n_slots=2, max_len=MAX_LEN, page_size=8, device="cpu"))
     assert eng.pool.index is None
-    with pytest.raises(NotImplementedError, match="vision-stub.*item 8"):
-        ModelRegistry().load(ARCH, device="cpu", draft_spec=DraftSpec(bits=8))
-    with pytest.raises(NotImplementedError, match="vision-stub.*item 8"):
-        InferenceEngine(_port_model(WIDE), EngineConfig(
-            n_slots=2, max_len=MAX_LEN, speculate=2, device="cpu"))

@@ -16,7 +16,8 @@ On the CPU, with numpy inputs from a seed and JAX weights carried across:
   * greedy engine tokens equal JAX's engine: the slab with fewer requests
     than slots (parked rows route too), and the page pool with prefix and
     conversation reuse, at the smoke capacity and at 1.0;
-  * prompts prefill at exact length, and speculative decode is refused.
+  * prompts prefill at exact length (speculative decode of the arch is
+    held to JAX's in tests/test_torch_spec_families.py).
 `cuda`-marked tests hold the expert-batched kernel to its plain version at
 deepseek's shapes (with a bitwise second call), an MoE layer on the card
 to its CPU plain path, and a graphed engine to the eager step."""
@@ -56,8 +57,7 @@ from repro_torch.kernels import ops as pops
 from repro_torch.kernels import ref as pref
 from repro_torch.models import moe as PM
 from repro_torch.models import transformer as PT
-from repro_torch.serve import (DraftSpec, EngineConfig, InferenceEngine,
-                               ModelRegistry)
+from repro_torch.serve import EngineConfig, InferenceEngine, ModelRegistry
 from repro_torch.serve.registry import pack_model_params, tree_to
 
 needs_jax = pytest.mark.skipif(
@@ -374,16 +374,6 @@ def test_paged_prefix_reuse_matches_jax(arch, capacity_factor):
     assert matched == want_matched == [0, 16, 16, 16, 24]
     assert {key: rep[key] for key in REUSE_KEYS} == \
         {key: want_rep[key] for key in REUSE_KEYS}
-
-
-def test_speculation_refused_for_moe():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ModelRegistry().load(MOE, device="cpu",
-                             draft_spec=DraftSpec(bits=8))
-    model = ModelRegistry().load(MOE, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        InferenceEngine(model, EngineConfig(n_slots=2, max_len=16,
-                                            speculate=2, device="cpu"))
 
 
 @pytest.mark.parametrize("name", list(SPECS))

@@ -145,7 +145,7 @@ def test_cuda_device_refused_without_gpu(monkeypatch):
 @pytest.mark.parametrize("field,value,item", [
     ("qos", object(), "item 8"), ("paged_native", False, "item 10"),
     ("pool_wait_retries", 2, "item 8"), ("ledger", object(), "item 8"),
-    ("device_loop", False, "item 8"), ("trace", object(), "item 8")])
+    ("trace", object(), "item 8")])
 def test_unported_engine_features_raise(field, value, item):
     with pytest.raises(NotImplementedError, match=item):
         EngineConfig(device="cpu", **{field: value})

@@ -4,12 +4,18 @@ speculative` and `distributed.steps.make_speculative_decode_step`).
 On the CPU, at the smoke configs, with JAX weights carried across by
 `checkpoint.convert`:
   * registry: a drafted artifact's key, name and truncation, and
-    `draft_cost_fraction` equal to the JAX package's;
+    `draft_cost_fraction` equal to the JAX package's (active parameters:
+    an MoE arch's top_k routed experts), for every arch family;
   * validation: the JAX engine's errors (a circular window refused);
   * the step against JAX's `make_speculative_decode_step` on the same
     state: greedy commit, commit and accept counts equal, caches after the
     rollback equal to 1e-5, for nemotron on the slab and through the page
-    pool and for falcon-mamba (recurrent leaves at the accepted step);
+    pool, falcon-mamba (recurrent leaves at the accepted step),
+    deepseek-moe and deepseek-v2-lite (an MoE verify block: each slot's
+    K+1 positions route as a group; slab and paged), the jamba hybrid
+    (K+1 single-token verify steps; slab and paged), llava without its
+    window (image rows in every slot's prefill and clock) and whisper
+    (frames through each model's own encoder, the cross leaves);
   * the engine: greedy speculative tokens equal plain decode and JAX's
     speculating engine for K in {1, 2, 4}, nemotron and falcon-mamba on
     the slab and nemotron paged with prefix reuse; a bad draft, EOS
@@ -18,6 +24,7 @@ On the CPU, at the smoke configs, with JAX weights carried across by
 `cuda`-marked tests hold the CUDA graph of the dispatch to the eager step
 on the card (tokens, launch counts, the recurrent select)."""
 
+import dataclasses
 import functools
 import tempfile
 
@@ -57,6 +64,9 @@ needs_jax = pytest.mark.skipif(
     "not installed")
 NEMOTRON, FALCON, DANUBE = ("nemotron-4-340b", "falcon-mamba-7b",
                             "h2o-danube-1.8b")
+DEEPSEEK, LITE, JAMBA = ("deepseek-moe-16b", "deepseek-v2-lite-16b",
+                         "jamba-v0.1-52b")
+LLAVA, WHISPER = "llava-next-mistral-7b", "whisper-large-v3"
 ARCHS = [NEMOTRON, FALCON]
 # (prompt length, new tokens): mixed lengths, staggered arrivals
 JOBS = ((5, 7), (9, 4), (7, 6))
@@ -119,18 +129,27 @@ def _carried(arch):
     return params, ported
 
 
+def _unwindowed(model):
+    """llava's smoke window (8) makes its cache circular, which speculation
+    refuses: its step runs with the window off, in both packages."""
+    if model.cfg.name.startswith("llava"):
+        model.cfg = dataclasses.replace(model.cfg, window=None)
+        model.draft_cfg = dataclasses.replace(model.draft_cfg, window=None)
+    return model
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_model(arch, **dspec):
     params, _ = _carried(arch)
-    return JRegistry().load(arch, params=params,
-                            draft_spec=JDraftSpec(**dspec))
+    return _unwindowed(JRegistry().load(arch, params=params,
+                                        draft_spec=JDraftSpec(**dspec)))
 
 
 @functools.lru_cache(maxsize=None)
 def _port_model(arch, **dspec):
     _, ported = _carried(arch)
-    return ModelRegistry().load(arch, params=ported, device="cpu",
-                                draft_spec=DraftSpec(**dspec))
+    return _unwindowed(ModelRegistry().load(arch, params=ported, device="cpu",
+                                            draft_spec=DraftSpec(**dspec)))
 
 
 # ---------------------------------------------------------------------------
@@ -182,17 +201,50 @@ def test_draft_truncation():
     (NEMOTRON, dict(bits=8)), (NEMOTRON, dict(bits=8, keep_layers=2)),
     (NEMOTRON, dict(bits=4, sparsity=0.5, bk=8, bn=8)),
     (FALCON, dict(bits=8)), (FALCON, dict(bits=8, keep_layers=1)),
-    (DANUBE, dict(bits=8, sparsity=0.5, bk=8, bn=8, cache_dtype="bfloat16"))])
+    (DANUBE, dict(bits=8, sparsity=0.5, bk=8, bn=8, cache_dtype="bfloat16")),
+    (DEEPSEEK, dict(bits=8)), (DEEPSEEK, dict(bits=8, keep_layers=2)),
+    (DEEPSEEK, dict(bits=8, sparsity=0.5, bk=8, bn=8)),
+    (LITE, dict(bits=8)), (JAMBA, dict(bits=8)),
+    (JAMBA, dict(bits=4, sparsity=0.5, bk=8, bn=8)),
+    (LLAVA, dict(bits=8, sparsity=0.5, bk=8, bn=8)),
+    (WHISPER, dict(bits=8)), (WHISPER, dict(bits=8, keep_layers=1))])
 def test_names_and_cost_fraction_match_jax(arch, dspec):
     jm, pm = _jax_model(arch, **dspec), _port_model(arch, **dspec)
     assert pm.name == jm.name
     assert DraftSpec(**dspec).tag == JDraftSpec(**dspec).tag
     assert pm.draft_cfg.n_layers == jm.draft_cfg.n_layers
-    # the JAX package stacks a projection over layers, the port lists it
-    assert pm.draft_packed == jm.draft_packed * jm.draft_cfg.n_layers
+    # the JAX package stacks a projection over a scan slot's layers (and
+    # over the encoder's), the port lists it once a layer
+    assert pm.draft_packed == _packed_per_layer(jm.draft_params,
+                                                jm.draft_cfg)
     assert pm.cfg.param_count() == jm.cfg.param_count()
+    # an MoE token runs through top_k of n_experts routed experts
+    assert pm.cfg.active_param_count() == jm.cfg.active_param_count()
+    assert pm.draft_cfg.active_param_count() == \
+        jm.draft_cfg.active_param_count()
+    assert (pm.cfg.active_param_count() < pm.cfg.param_count()) \
+        == bool(pm.cfg.n_experts)
     assert pm.draft_cost_fraction() == pytest.approx(
         jm.draft_cost_fraction(), rel=1e-12)
+
+
+def _packed_per_layer(tree, cfg):
+    """JAX's packed projections counted once a layer: a leaf of a scan
+    slot's stack stands for each of its (n_layers - prelude) / period
+    layers, a leaf of the encoder's stack for each encoder layer."""
+    from repro.core import kratos as jkr
+
+    def count(node):
+        if isinstance(node, jkr.PackedLinear):
+            return 1
+        if isinstance(node, dict):
+            return sum(map(count, node.values()))
+        if isinstance(node, list):
+            return sum(map(count, node))
+        return 0
+    depth = {"blocks": (cfg.n_layers - cfg.prelude_layers) // cfg.scan_period,
+             "enc_blocks": cfg.n_enc_layers}
+    return sum(count(v) * depth.get(key, 1) for key, v in tree.items())
 
 
 # ---------------------------------------------------------------------------
@@ -210,8 +262,9 @@ def test_speculate_validation():
                                               device="cpu"))
     with pytest.raises(ValueError, match="speculate must be >= 0"):
         EngineConfig(speculate=-1, device="cpu")
-    # the host loop is not ported (queue 1, item 8), speculating or not
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # the propose-then-verify cycle is one fused dispatch: the host loop
+    # does not speculate (the JAX engine's error)
+    with pytest.raises(ValueError, match="speculate requires device_loop=True"):
         EngineConfig(speculate=2, device_loop=False, device="cpu")
     # circular sliding-window caches cannot roll back: the smoke window
     # (8) is below max_len + K
@@ -235,62 +288,135 @@ STEP_LENS, STEP_REMAINING, STEP_ACTIVE = (6, 4, 9), (6, 2, 0), (1, 1, 0)
 
 
 def _jax_write_row(full, one, slot):
-    return jax.tree_util.tree_map(lambda f, o: f.at[:, slot].set(o[:, 0]),
-                                  full, one)
+    """Row `slot` of JAX's caches <- a batch-1 cache: a prelude layer's
+    leaves are (B, ...), a scan slot's stacked (layers, B, ...)."""
+    tm = jax.tree_util.tree_map
+    return {"prelude": tm(lambda f, o: f.at[slot].set(o[0]),
+                          full["prelude"], one["prelude"]),
+            "blocks": tm(lambda f, o: f.at[:, slot].set(o[:, 0]),
+                         full["blocks"], one["blocks"])}
 
 
-def _step_inputs(arch, k, dspec):
-    """Both packages' models, their slab caches (target and draft) filled
-    slot by slot from batch-1 prefills, and the decode state."""
-    jm, pm = _jax_model(arch, **dspec), _port_model(arch, **dspec)
+def _step_extras(cfg, slot):
+    """A slot's model inputs besides its tokens (numpy, batch 1): the
+    vision stub's image rows or the audio stub's frames, from a seed."""
+    rng = np.random.default_rng(100 + slot)
+    if cfg.n_img_tokens:
+        return {"img_embeds": rng.standard_normal(
+            (1, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)}
+    if cfg.enc_dec:
+        return {"frames": rng.standard_normal(
+            (1, cfg.enc_positions, cfg.d_model)).astype(np.float32)}
+    return {}
+
+
+def _jax_prefill(cfg, params, tokens, extras, cache_len):
+    one = JT.make_caches(cfg, 1, cache_len, jnp.float32)
+    enc = JT.encode(params, jnp.asarray(extras["frames"]), cfg) \
+        if "frames" in extras else None
+    img = extras.get("img_embeds")
+    logits, _, one = JT.forward(params, jnp.asarray(tokens[None]), cfg,
+                                caches=one, enc_out=enc,
+                                img_embeds=None if img is None
+                                else jnp.asarray(img))
+    return logits, one
+
+
+def _port_prefill(cfg, params, tokens, extras, cache_len):
+    one = PT.make_caches(cfg, 1, cache_len, torch.float32, "cpu")
+    enc = PT.encode(params, torch.from_numpy(extras["frames"]), cfg) \
+        if "frames" in extras else None
+    img = extras.get("img_embeds")
+    PT.forward(params, torch.from_numpy(tokens[None]), cfg, caches=one,
+               enc_out=enc,
+               img_embeds=None if img is None else torch.from_numpy(img))
+    return one
+
+
+def _step_prompts(vocab):
+    rng = np.random.default_rng(7)
+    return [rng.integers(0, vocab, s).astype(np.int32) for s in STEP_LENS]
+
+
+def _install_rows(make, install, first, k, n_img):
+    st = make()
+    for slot in range(len(STEP_LENS)):
+        rem = STEP_REMAINING[slot] if STEP_ACTIVE[slot] else 0
+        lim = 1 if slot == 1 else k
+        st = install(st, slot, first[slot], n_img + STEP_LENS[slot], 0.0, -1,
+                     rem, lim) or st
+    return st
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_step(arch, k, dspec_items):
+    """JAX's step on its slab state (target and draft caches filled slot by
+    slot from batch-1 prefills, with each slot's image rows or frames,
+    which target and draft each encode). Returns (model, first tokens,
+    commit, n_commit, n_accept, caches, draft caches, state) after one
+    cycle; the port's slab and paged steps are both held to it."""
+    jm = _jax_model(arch, **dict(dspec_items))
     cache_len = MAX_LEN + k
     n = len(STEP_LENS)
-    rng = np.random.default_rng(7)
-    prompts = [rng.integers(0, jm.cfg.vocab, s).astype(np.int32)
-               for s in STEP_LENS]
     jc = JT.make_caches(jm.cfg, n, cache_len, jnp.float32)
     jd = JT.make_caches(jm.draft_cfg, n, cache_len, jnp.float32)
+    first = []
+    for slot, p in enumerate(_step_prompts(jm.cfg.vocab)):
+        extras = _step_extras(jm.cfg, slot)
+        logits, one = _jax_prefill(jm.cfg, jm.params, p, extras, cache_len)
+        jc = _jax_write_row(jc, one, slot)
+        first.append(int(jnp.argmax(logits[0, -1])))
+        _, one = _jax_prefill(jm.draft_cfg, jm.draft_params, p, extras,
+                              cache_len)
+        jd = _jax_write_row(jd, one, slot)
+    jst = _install_rows(lambda: JST.make_decode_state(n, 0),
+                        JST.install_slot, first, k, jm.cfg.n_img_tokens)
+    jstep = jax.jit(JST.make_speculative_decode_step(
+        jm.cfg, jm.draft_cfg, "ref", n_draft=k))
+    return (jm, first) + tuple(jstep(jm.params, jm.draft_params, jc, jd,
+                                     jst))
+
+
+def _step_inputs(arch, k, dspec, first):
+    """The port's model, its slab caches (target and draft) filled as
+    JAX's, and the decode state with JAX's first tokens."""
+    pm = _port_model(arch, **dspec)
+    cache_len = MAX_LEN + k
+    n = len(STEP_LENS)
     pc = PT.make_caches(pm.cfg, n, cache_len, torch.float32, "cpu")
     pd = PT.make_caches(pm.draft_cfg, n, cache_len, torch.float32, "cpu")
-    first = []
-    for slot, p in enumerate(prompts):
-        for cfg, params, target in ((jm.cfg, jm.params, True),
-                                    (jm.draft_cfg, jm.draft_params, False)):
-            one = JT.make_caches(cfg, 1, cache_len, jnp.float32)
-            logits, _, one = JT.forward(params, jnp.asarray(p[None]), cfg,
-                                        caches=one)
-            if target:
-                jc = _jax_write_row(jc, one, slot)
-                first.append(int(jnp.argmax(logits[0, -1])))
-            else:
-                jd = _jax_write_row(jd, one, slot)
+    for slot, p in enumerate(_step_prompts(pm.cfg.vocab)):
+        extras = _step_extras(pm.cfg, slot)
         for cfg, params, caches in ((pm.cfg, pm.params, pc),
                                     (pm.draft_cfg, pm.draft_params, pd)):
-            one = PT.make_caches(cfg, 1, cache_len, torch.float32, "cpu")
-            PT.forward(params, torch.from_numpy(p[None]), cfg, caches=one)
+            one = _port_prefill(cfg, params, p, extras, cache_len)
             for row, o in zip(caches, one):
                 for name, t in row.items():
                     t[slot].copy_(o[name][0])
-    jst = JST.make_decode_state(n, 0)
-    pst = PST.make_decode_state(n, 0, "cpu")
-    for slot in range(n):
-        rem = STEP_REMAINING[slot] if STEP_ACTIVE[slot] else 0
-        lim = 1 if slot == 1 else k
-        jst = JST.install_slot(jst, slot, first[slot], STEP_LENS[slot], 0.0,
-                               -1, rem, lim)
-        PST.install_slot(pst, slot, first[slot], STEP_LENS[slot], 0.0, -1,
-                         rem, lim)
-    return jm, pm, (jc, jd, jst), (pc, pd, pst), cache_len
+    pst = _install_rows(lambda: PST.make_decode_state(n, 0, "cpu"),
+                        PST.install_slot, first, k, pm.cfg.n_img_tokens)
+    return pm, pc, pd, pst, cache_len
 
 
-def _jax_leaf(caches, li, name):
-    return np.asarray(caches["blocks"][0]["mixer"][name][li])
+def _jax_leaf(caches, cfg, li, name):
+    """JAX's leaf of the port's layer li: a prelude layer's own, or row t
+    of scan slot s's stack (layer prelude + t * period + s); the port's
+    cross_k / cross_v are JAX's cross k / v."""
+    group, leaf = ("cross", name[len("cross_"):]) \
+        if name.startswith("cross_") else ("mixer", name)
+    n0, p = cfg.prelude_layers, cfg.scan_period
+    if li < n0:
+        return np.asarray(caches["prelude"][li][group][leaf])
+    return np.asarray(caches["blocks"][(li - n0) % p][group][leaf]
+                      [(li - n0) // p])
 
 
-def _assert_caches_equal(jcaches, pcaches, atol=1e-5):
+def _assert_caches_equal(jcaches, pcaches, cfg, atol=1e-5):
+    assert cfg.n_layers == len(pcaches)
     for li, layer in enumerate(pcaches):
         for name, t in layer.items():
-            np.testing.assert_allclose(t.numpy(), _jax_leaf(jcaches, li, name),
+            np.testing.assert_allclose(t.numpy(),
+                                       _jax_leaf(jcaches, cfg, li, name),
                                        rtol=1e-5, atol=atol,
                                        err_msg=f"layer {li} {name}")
 
@@ -300,14 +426,16 @@ def _assert_caches_equal(jcaches, pcaches, atol=1e-5):
 @pytest.mark.parametrize("arch,dspec,paged", [
     (NEMOTRON, dict(bits=8), False), (NEMOTRON, dict(bits=8), True),
     (NEMOTRON, dict(bits=8, keep_layers=2), False),
-    (FALCON, dict(bits=8), False), (FALCON, dict(bits=8, keep_layers=1), False)])
+    (FALCON, dict(bits=8), False), (FALCON, dict(bits=8, keep_layers=1), False),
+    (DEEPSEEK, dict(bits=8), False), (DEEPSEEK, dict(bits=8), True),
+    (DEEPSEEK, dict(bits=8, sparsity=0.5, bk=8, bn=8), False),
+    (LITE, dict(bits=8), False), (LITE, dict(bits=8), True),
+    (JAMBA, dict(bits=8), False), (JAMBA, dict(bits=8), True),
+    (LLAVA, dict(bits=8), False), (WHISPER, dict(bits=8), False)])
 def test_step_matches_jax(arch, dspec, paged, k):
-    jm, pm, (jc, jd, jst), (pc, pd, pst), cache_len = _step_inputs(
-        arch, k, dspec)
-    jstep = jax.jit(JST.make_speculative_decode_step(
-        jm.cfg, jm.draft_cfg, "ref", n_draft=k))
-    jcommit, jm_, jacc, jc, jd, jst = jstep(jm.params, jm.draft_params, jc,
-                                            jd, jst)
+    jm, first, jcommit, jm_, jacc, jc, jd, jst = _jax_step(
+        arch, k, tuple(sorted(dspec.items())))
+    pm, pc, pd, pst, cache_len = _step_inputs(arch, k, dspec, first)
     if paged:
         pool = PagedCachePool(pm.cfg, len(STEP_LENS), cache_len, page_size=4,
                               device="cpu", prefix_cache=False)
@@ -339,8 +467,8 @@ def test_step_matches_jax(arch, dspec, paged, k):
     for name in PST.LOOP_STATE + ("spec_limit",):
         np.testing.assert_array_equal(pst[name].numpy(),
                                       np.asarray(jst[name]), err_msg=name)
-    _assert_caches_equal(jc, pc)
-    _assert_caches_equal(jd, pd)
+    _assert_caches_equal(jc, pc, jm.cfg)
+    _assert_caches_equal(jd, pd, jm.draft_cfg)
     m = m.numpy()
     assert m[2] == 0 and 1 <= m[0] <= k + 1 and m[1] <= 2   # parked, budget
     assert acc.numpy()[1] <= 1                               # cap of 1

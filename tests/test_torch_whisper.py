@@ -18,8 +18,9 @@ through `save_pytree` and `checkpoint.convert`:
     and through the page pool (page 8), K 1 and 2, every prompt prefilled
     at its exact length;
   * the cross leaves stay slot-major and resident in a page pool, also
-    when max_len equals enc_positions; prefix reuse is off; speculative
-    decode is refused (ROADMAP.md item 8);
+    when max_len equals enc_positions; prefix reuse is off (speculative
+    decode of the arch is held to JAX's in
+    tests/test_torch_spec_families.py);
   * the port's `gelu` is `jax.nn.gelu`'s tanh form."""
 
 import dataclasses
@@ -48,7 +49,7 @@ from repro_torch.core import kratos as pkr  # noqa: E402
 from repro_torch.models import frontends as PF  # noqa: E402
 from repro_torch.models import layers as PL  # noqa: E402
 from repro_torch.models import transformer as PT  # noqa: E402
-from repro_torch.serve import (DraftSpec, EngineConfig,  # noqa: E402
+from repro_torch.serve import (EngineConfig,  # noqa: E402
                                InferenceEngine, ModelRegistry,
                                prefix_supported)
 
@@ -311,7 +312,7 @@ def test_cross_leaves_resident_when_max_len_is_enc_positions():
     assert tokens[8] == tokens[None]
 
 
-def test_prefix_reuse_off_and_speculation_refused():
+def test_prefix_reuse_off():
     cfg = PC.get_smoke(ARCH)
     assert not prefix_supported(cfg)
     # the encoder's conditioning alone turns it off, frontend or not
@@ -319,11 +320,6 @@ def test_prefix_reuse_off_and_speculation_refused():
     eng = InferenceEngine(_port_model(), EngineConfig(
         n_slots=2, max_len=MAX_LEN, page_size=8, device="cpu"))
     assert eng.pool.index is None
-    with pytest.raises(NotImplementedError, match="audio-stub.*item 8"):
-        ModelRegistry().load(ARCH, device="cpu", draft_spec=DraftSpec(bits=8))
-    with pytest.raises(NotImplementedError, match="audio-stub.*item 8"):
-        InferenceEngine(_port_model(), EngineConfig(
-            n_slots=2, max_len=MAX_LEN, speculate=2, device="cpu"))
 
 
 def test_request_past_max_len_refused_as_in_jax():
