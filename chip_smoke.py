@@ -170,6 +170,27 @@ Phases, in order; any failure raises and exits non-zero:
      reported); acceptance, wall ms per cycle graph and eager in turns,
      device ms per cycle, ms per committed token against plain decode's,
      the draft's admission prefill ms.
+ 17. resilience and the ineffectual-work ledger, right after phase 9, on
+     phase 9's dense tree of h2o-danube-1.8b (full width, 8 layers),
+     phase 5's first 8 requests (cut from 16 for the time limit), all at
+     step 0: loaded with the QoS ladder 8:0.5,8:0.75 (the load's peak
+     memory). 17a: the tiered model's tier-0 tokens equal a tierless
+     model's; QoSConfig(demote_depth 4, promote_depth 0, hysteresis 2)
+     demotes and promotes at least once, ends on tier 0, and every request
+     completes; each tier held for the traffic, its graph's tokens equal
+     its eager step's, with wall and device ms a micro-step; a swap's wall
+     ms and the extra ms of the dispatch right after it; the same ladder on
+     the model's 128 x 128 block grid, timed. 17b: the ledger off,
+     LedgerConfig() and threshold 1e-3 (the same tokens, one host sync a
+     dispatch, 128 probe launches a dispatch), the probe kernel against
+     LedgerProbe.measure on every tap of an eager dispatch (counts exact,
+     float columns within 1e-6 relative), wall and device ms a micro-step
+     of the three engines in turns, the zero and dead k-block shares and
+     flops_effective / flops_dense; one run held on tier 1 with
+     quality_every=1 (top-1 agreement and mean |logit difference| against
+     tier 0). 17c: a page pool of 80 pages of 16, pool_wait_retries 2,
+     deadline_steps 40 on every 4th request: shed ids by reason, no
+     completion past its deadline, the pool pristine.
 Phase 5 also holds the host-loop cell ([5h]): h2o-danube dense served by
 the host decode loop (device_loop=False, one graphed (B, 1) forward a step,
 logits to the host) and by the device loop, whole runs in alternating
@@ -182,7 +203,8 @@ the same state, in alternating turns within this process, traces both
 (device ms and ops, idle share, one device-to-host copy each), and serves
 one of its configurations a second time through the eager step, which must
 give the same tokens.
-The last lines are the kernels JSON line, the card line and
+The last lines are the kernels JSON line (the eight TPU kernels,
+`bsr_matmul_experts` and the port-only `ledger_probe`), the card line and
 {"ok": true, "device": {...}}. Per-case numbers go to
 chiprun_out/chip_smoke.json. Without a CUDA device it exits 2.
 """
@@ -252,7 +274,9 @@ HEADLINE = {
     # one falcon-mamba layer's scan in a 512-token prefill
     "ssm_scan": ("ssm_scan", "float32", 1, 512, 8192, 16),
     # one deepseek-moe MoE layer's w_gate at decode: 64 experts x C = 6
-    "bsr_matmul_experts": ("bsr_matmul_experts", 6, (2048, 1408))}
+    "bsr_matmul_experts": ("bsr_matmul_experts", 6, (2048, 1408)),
+    # h2o-danube's widest decode tap: the MLP hidden activation at 8 slots
+    "ledger_probe": ("ledger_probe", "float32", (8, 1, 6912), 2560)}
 SOURCES = {
     "dense_matmul": ("src/repro_torch/csrc/dense_matmul.cu",
                      "src/repro/kernels/dense_matmul.py:38"),
@@ -274,6 +298,10 @@ SOURCES = {
     # layer's experts (src/repro/models/moe.py:90-97)
     "bsr_matmul_experts": ("src/repro_torch/csrc/bsr_matmul.cu",
                            "src/repro/kernels/bsr_matmul.py:47"),
+    # a port-only kernel: the JAX package's ledger probe is array code that
+    # XLA fuses into the jitted step (no Pallas kernel behind it)
+    "ledger_probe": ("src/repro_torch/csrc/ledger_probe.cu",
+                     "src/repro/serve/ledger.py:105"),
 }
 GEMMA, MINICPM = "gemma2-27b", "minicpm3-4b"
 GEMMA_LAYERS = 8                       # of 46 (phase 10's depth cut)
@@ -420,6 +448,7 @@ def nbytes(*ts):
 GEMM_FAMILIES = ("gemv_cluster_kernel", "gemm_pipe_kernel", "gemm_tile_kernel",
                  "w8a8_gemv_kernel", "act_quant_kernel", "w8a8_mma_kernel")
 KERNEL_FAMILIES = GEMM_FAMILIES + ("fa_tc_kernel", "paged_kernel",
+                                   "ledger_probe_kernel",
                                    "ssm_scan_kernel")
 # device-kernel families of the GEMMs' tiled forms: at decode (m = n_slots
 # = 8) every projection runs a GEMV form, so in an MLA decode dispatch these
@@ -2145,7 +2174,8 @@ def phase_speculative(torch, card):
     K 4) from the slab and the page pool; falcon-mamba-7b (depth cut from 64
     to 16 layers, dense target, w8 draft through quant_matmul, K 2: the
     recurrent rollback). The cuts keep the script inside its time limit
-    with phases 10-11 (their eager A/B partners are host-bound)."""
+    with phases 10-11 (their eager A/B partners are host-bound). Returns
+    h2o-danube's dense tree too, for phase 17."""
     from repro_torch import configs as C
     from repro_torch.core import kratos as kr
     from repro_torch.kernels import ops
@@ -2157,7 +2187,7 @@ def phase_speculative(torch, card):
              (FALCON, 16, DraftSpec(bits=8), 2, (None,),
               {"dense_matmul", "quant_matmul"}))
     totals = {name: 0 for name in ops.KERNELS}
-    results = {}
+    results, kept = {}, None
     for arch, n_layers, dspec, k, pages, gemms in cells:
         cfg = C.get_config(arch, n_layers=n_layers)
         torch.cuda.reset_peak_memory_stats()
@@ -2177,11 +2207,433 @@ def phase_speculative(torch, card):
                 totals[name] += c
         results[arch + " max_memory_allocated"] = \
             torch.cuda.max_memory_allocated()
+        if arch == DANUBE:
+            kept = params
         del model, params
         gc.collect()
         torch.cuda.empty_cache()
-    return totals, results
+    return totals, results, kept
 
+
+
+# phase 17: the QoS ladder of the JAX package's resilience tests (two tiers
+# below the dense model) over phase 9's depth cut of h2o-danube-1.8b, the
+# probe's tolerance against its plain version (counts exact), and 17c's
+# page pool: the fewest pages that still hold the longest request (34 of
+# 16 positions) and some, a deadline on every 4th request
+TIER_LADDER = "8:0.5,8:0.75"
+QOS_LAYERS = 8
+LEDGER_RTOL = 1e-6
+POOL_PAGES, POOL_RETRIES, POOL_DEADLINE = 80, 2, 40
+# phase 5's first 8 requests (one wave), cut from 16 for the time limit
+QOS_REQUESTS = 8
+
+
+def serve_traffic(torch, model, prompts, ecfg, tier=None, eager=False,
+                  deadline=None, eng=None):
+    """Serve `prompts` (GEN_LEN new tokens each, all arriving at step 0)
+    through `eng` (a fresh engine when None), held on `tier` when given,
+    every dispatch through the eager step with `eager`; `deadline(i)` gives
+    request i's deadline_steps. Returns (engine, requests, wall s, launch
+    counts, the engine's tier after each step)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import InferenceEngine
+    eng = eng or InferenceEngine(model, ecfg)
+    if tier is not None:
+        eng.set_tier(tier)
+    if eager:
+        run_eager(eng)
+    reqs = [eng.submit(p, GEN_LEN, deadline_steps=None if deadline is None
+                       else deadline(i)) for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    path = []
+    t0 = time.perf_counter()
+    while eng.n_waiting or eng.pool.n_active:
+        eng.step()
+        path.append(eng.tier)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return eng, reqs, wall, ops.launch_counts(), path
+
+
+def pool_pressure_cell(torch, model, prompts, ecfg):
+    """17c: a page pool short of pages, pool_wait_retries and a deadline on
+    every 4th request. Each request ends done or shed; the shed split by
+    reason; no completion past its deadline; the pool back to pristine."""
+    eng, reqs, wall, counts, _ = serve_traffic(
+        torch, model, prompts, ecfg,
+        deadline=lambda i: POOL_DEADLINE if i % 4 == 0 else None)
+    rep = eng.metrics.report()
+    pool = eng.pool
+    by = {reason: [r.id for r in reqs if r.shed_reason == reason]
+          for reason in ("deadline", "pool")}
+    assert all(r.finished for r in reqs), [r.state for r in reqs]
+    assert rep["shed"] == len(by["deadline"]) + len(by["pool"]) \
+        == rep["deadline_missed"] + rep["shed_pool_pressure"], (rep, by)
+    assert rep["requests_completed"] + rep["shed"] == len(reqs), rep
+    assert by["deadline"] and by["pool"], by
+    assert all(r.pool_retries == POOL_RETRIES + 1 for r in reqs
+               if r.shed_reason == "pool")
+    for r in reqs:
+        if r.done:
+            assert len(r.generated) == GEN_LEN
+            if r.deadline_steps is not None:
+                assert eng.metrics.records[r.id].finish_step \
+                    <= r.deadline_step(), r.id
+    pristine = (pool.n_active == 0 and pool.n_free == ecfg.n_slots
+                and int(pool.refs[1:].sum()) == 0
+                and len(pool._free_pages) == pool.n_usable_pages)
+    assert pristine, "page pool not pristine after 17c"
+    return eng, dict(
+        wall_s=wall, shed_ids=by, completed=rep["requests_completed"],
+        shed=rep["shed"], deadline_missed=rep["deadline_missed"],
+        shed_pool_pressure=rep["shed_pool_pressure"],
+        pool_waits=rep["pool_waits"], decode_dispatches=rep["decode_steps"],
+        pages=POOL_PAGES, retries=POOL_RETRIES, deadline=POOL_DEADLINE,
+        pristine=pristine), counts
+
+
+def probe_taps(torch, eng):
+    """The (activation, fan-out) of every ledger tap of one eager dispatch
+    of `eng`, recorded at the wrapper."""
+    from repro_torch.kernels import ops
+    taps, inner = [], ops.ledger_probe
+
+    def record(x, n_out, out_row, **kw):
+        taps.append((x.detach().clone(), n_out))
+        return inner(x, n_out, out_row, **kw)
+    ops.ledger_probe = record
+    try:
+        eng.backend.decode_block(eager=True)
+    finally:
+        ops.ledger_probe = inner
+    torch.cuda.synchronize()
+    return taps
+
+
+def probe_cases(torch, timer, taps, led, tag):
+    """The probe kernel against `LedgerProbe.measure` on every tap shape
+    met: counts and histogram bit for bit, the float columns within
+    LEDGER_RTOL; each distinct shape's kernel, plain and bound ms."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.ledger import C_BYTES_EFF, C_FLOPS_EFF, LedgerProbe
+    dev = taps[0][0].device
+    probe = LedgerProbe(led, torch.zeros(1, led.width, device=dev))
+    floats = [C_FLOPS_EFF, C_BYTES_EFF]
+    exact = [c for c in range(led.width) if c not in floats]
+    cases, seen = [], set()
+    for x, n_out in taps:
+        key = (tuple(x.shape), n_out)
+        row = torch.zeros(led.width, device=dev)
+        ops.ledger_probe(x, n_out, row, threshold=led.threshold,
+                         group=led.group, k_block=led.k_block)
+        want = probe.measure(x, n_out)
+        if not torch.equal(row[exact], want[exact]):
+            raise AssertionError(f"ledger_probe {tag} {key}: counts differ: "
+                                 f"{row.tolist()} against {want.tolist()}")
+        rel = ((row[floats] - want[floats]).abs()
+               / want[floats].abs().clamp(min=1e-30)).max().item()
+        if rel > LEDGER_RTOL:
+            raise AssertionError(f"ledger_probe {tag} {key}: float columns "
+                                 f"{rel:.3g} relative off")
+        if key in seen:
+            continue
+        seen.add(key)
+        b_ms, b_by = bound_ms(nbytes(x) + 4 * led.width, 0, "float32")
+        case = dict(
+            kernel="ledger_probe", dtype="float32", ledger=tag,
+            shape=list(key[0]), n_out=n_out,
+            max_abs_err=float((row - want).abs().max()), atol=0.0,
+            rtol=LEDGER_RTOL, zeros=float(want[1]), near=float(want[2]),
+            dead_kblocks=float(want[5]),
+            ms=timer(lambda: ops.ledger_probe(
+                x, n_out, row, threshold=led.threshold, group=led.group,
+                k_block=led.k_block)),
+            plain_ms=timer(lambda: probe.measure(x, n_out), iters=5),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            key=("ledger_probe", "float32", key[0], n_out))
+        cases.append(case)
+        print(f"  ledger_probe     {tag:9s} {list(key[0])} n_out={n_out} "
+              f"counts exact, floats within {rel:.2g} ms={case['ms']:.4f} "
+              f"plain={case['plain_ms']:.4f} bound={b_ms:.5f} ({b_by})",
+              flush=True)
+    return cases
+
+
+def phase_resilience(torch, card, params, timer):
+    """Phase 17: the QoS tier ladder, the ineffectual-work ledger and the
+    pool-wait / deadline shedding on h2o-danube-1.8b at full width, depth
+    cut to 8 layers (phase 9's dense tree), phase 5's traffic."""
+    from repro_torch.core import kratos as kr
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (DraftSpec, EngineConfig, InferenceEngine,
+                                   LedgerConfig, QoSConfig, parse_tiers)
+
+    prompts = serving_traffic()[:QOS_REQUESTS]
+    base = dict(n_slots=N_SLOTS, max_len=512 + GEN_LEN, decode_chunk=CHUNK,
+                seed=SEED)
+    totals = {name: 0 for name in ops.KERNELS}
+    res, cases = {}, []
+    t_phase = time.perf_counter()
+
+    def count(launches):
+        for name, c in launches.items():
+            totals[name] += c
+
+    # the ladder packs off the dense tree before the target's pack takes it
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = load_cut(DANUBE, kr.DENSE, params, QOS_LAYERS,
+                     tier_specs=parse_tiers(TIER_LADDER))
+    torch.cuda.synchronize()
+    res["load"] = dict(s=time.perf_counter() - t0, before_gb=before / 1e9,
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       after_gb=torch.cuda.memory_allocated() / 1e9)
+    plain = load_cut(DANUBE, kr.DENSE, params, QOS_LAYERS)
+    print(f"  {model.name}: {model.n_tiers} tiers loaded in "
+          f"{res['load']['s']:.2f} s, memory_allocated "
+          f"{res['load']['before_gb']:.2f} -> {res['load']['after_gb']:.2f} "
+          f"GB, load peak {res['load']['peak_gb']:.2f} GB", flush=True)
+
+    # ---- 17a: the QoS ladder -------------------------------------------
+    ecfg = EngineConfig(**base)
+    _, reqs, _, counts, _ = serve_traffic(torch, plain, prompts, ecfg)
+    count(counts)
+    want = [list(r.generated) for r in reqs]
+    _, reqs, _, counts, _ = serve_traffic(torch, model, prompts, ecfg)
+    count(counts)
+    assert [list(r.generated) for r in reqs] == want, \
+        "a tiered model's tier-0 tokens differ from a tierless model's"
+    print("[17a] tier-0 tokens of the tiered model against the tierless "
+          "one: identical", flush=True)
+    qos = QoSConfig(demote_depth=4, promote_depth=0, hysteresis=2)
+    eng, reqs, wall, counts, path = serve_traffic(
+        torch, model, prompts, EngineConfig(qos=qos, **base))
+    count(counts)
+    rep = eng.metrics.report()
+    assert all(r.done and len(r.generated) == GEN_LEN for r in reqs)
+    assert rep["tier_demotions"] >= 1 and rep["tier_promotions"] >= 1, rep
+    assert path[-1] == 0 and eng.tier == 0, path
+    res["qos"] = dict(
+        path=path, demotions=rep["tier_demotions"],
+        promotions=rep["tier_promotions"], wall_s=wall,
+        tok_per_s=rep["tokens_generated"] / wall,
+        request_tiers=[r.tier for r in reqs],
+        steps_by_tier=[path.count(t) for t in range(model.n_tiers)],
+        latency_s_p50=rep["latency_s_p50"], latency_s_p99=rep["latency_s_p99"],
+        launches=counts)
+    print(f"[17a] QoS {qos} [{card}]: tier after each step {path}; "
+          f"demotions {rep['tier_demotions']:.0f}, promotions "
+          f"{rep['tier_promotions']:.0f}, requests' cheapest tier "
+          f"{res['qos']['request_tiers']}, tok/s "
+          f"{res['qos']['tok_per_s']:.1f}, launches {counts}", flush=True)
+    res["tiers"] = {}
+    for tier in range(model.n_tiers):
+        eng, reqs, wall, counts, _ = serve_traffic(
+            torch, model, prompts, ecfg, tier=tier)
+        count(counts)
+        got = [list(r.generated) for r in reqs]
+        ab = graph_vs_eager(torch, eng, CHUNK, turns=2, traces=1)
+        res["tiers"][tier] = dict(
+            spec=model.tier_specs[tier - 1].tag if tier else "dense",
+            graph_vs_eager=ab_summary(ab, CHUNK), wall_s=wall,
+            graph_launches=eng.backend._graphs[tier][2],
+            gemm_device_ms=[gemm_ms(c) / CHUNK for c in ab["graph_prof"]])
+        print_ab(card, ab, CHUNK)
+        if tier == model.n_tiers - 1:
+            # a swap selects a captured graph: its wall ms, and a
+            # dispatch right after a swap against one without, in turns
+            swap, after, steady = [], [], []
+            for i in range(6):
+                t = time.perf_counter()
+                eng.set_tier(i % 2)
+                swap.append((time.perf_counter() - t) * 1e3)
+                for out in (after, steady):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    eng.backend.decode_block()
+                    torch.cuda.synchronize()
+                    out.append((time.perf_counter() - t) * 1e3)
+            extra = [a - b for a, b in zip(after, steady)]
+            res["swap"] = dict(set_tier_ms=swap, dispatch_after_swap_ms=after,
+                               dispatch_ms=steady, extra_ms=extra)
+            print(f"[17a] swap [{card}]: set_tier wall ms "
+                  f"{[round(v, 4) for v in swap]}; a dispatch right after "
+                  f"it (tiers 0 and 1 in turn) {[round(v, 3) for v in after]} "
+                  f"against the next one on the same tier "
+                  f"{[round(v, 3) for v in steady]}: the swap's extra ms "
+                  f"{[round(v, 3) for v in extra]} (median "
+                  f"{statistics.median(extra):.3f})", flush=True)
+        # the same traffic again on the same engine, every dispatch eager
+        _, eager_reqs, _, _, _ = serve_traffic(
+            torch, model, prompts, ecfg, tier=tier, eager=True, eng=eng)
+        assert got == [list(r.generated) for r in eager_reqs], \
+            f"tier {tier}: graph and eager tokens differ"
+        print(f"[17a] tier {tier} ({res['tiers'][tier]['spec']}) [{card}]: "
+              f"graph against eager tokens over {len(prompts)} requests "
+              f"identical", flush=True)
+        del eng
+        gc.collect()
+    # the same ladder on the model's own 128 x 128 block grid (the JAX
+    # tests' ladder packs 8 x 8 blocks, which the port's GEMV and
+    # prefill-tile forms do not take): graphed dispatches on parked slots,
+    # the tiers in turns, then one trace each
+    grid = load_cut(DANUBE, kr.DENSE, params, QOS_LAYERS, tier_specs=tuple(
+        DraftSpec(bits=8, sparsity=sp) for sp in (0.5, 0.75)))
+    eng = InferenceEngine(grid, ecfg)
+    bk, ms = eng.backend, {t: [] for t in range(grid.n_tiers)}
+    for t in list(ms) + list(ms)[::-1]:
+        eng.set_tier(t)
+        bk.decode_block()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            bk.decode_block()
+        torch.cuda.synchronize()
+        ms[t].append((time.perf_counter() - t0) * 1e3 / (3 * CHUNK))
+    res["grid128"] = {}
+    for t in ms:
+        eng.set_tier(t)
+        prof, _ = profile_calls(torch, bk.decode_block, 1, dtoh=1)
+        res["grid128"][t] = dict(
+            spec=grid.tier_specs[t - 1].tag if t else "dense",
+            wall_ms_per_micro_step=ms[t],
+            device_ms_per_micro_step=[c["busy_ms"] / CHUNK for c in prof],
+            gemm_device_ms=[gemm_ms(c) / CHUNK for c in prof],
+            idle_share=[c["idle_share"] for c in prof])
+        r = res["grid128"][t]
+        print(f"[17a] 128 x 128 grid, tier {t} ({r['spec']}) [{card}]: wall "
+              f"ms / micro-step in turns {[round(v, 3) for v in ms[t]]}, "
+              f"device ms / micro-step "
+              f"{[round(v, 3) for v in r['device_ms_per_micro_step']]} "
+              f"(GEMM {[round(v, 3) for v in r['gemm_device_ms']]})",
+              flush=True)
+    del eng, grid, bk
+    gc.collect()
+    res["seconds"] = {"17a": time.perf_counter() - t_phase}
+
+    # ---- 17b: the ledger -------------------------------------------------
+    ledgers = {"off": None, "exact": LedgerConfig(),
+               "t1e-3": LedgerConfig(threshold=1e-3)}
+    engines, res["ledger"] = {}, {}
+    for tag, led in ledgers.items():
+        eng, reqs, wall, counts, _ = serve_traffic(
+            torch, plain, prompts, EngineConfig(ledger=led, **base))
+        count(counts)
+        rep = eng.metrics.report()
+        assert [list(r.generated) for r in reqs] == want, \
+            f"ledger {tag}: tokens differ from the ledger off"
+        assert rep["host_syncs_decode"] == rep["decode_steps"], rep
+        taps = 4 * QOS_LAYERS * CHUNK            # a dispatch's probe taps
+        assert counts["ledger_probe"] == (
+            taps * rep["decode_steps"] if led else 0), counts
+        if led:
+            assert rep["ledger_dispatches"] == rep["decode_steps"], rep
+        engines[tag] = eng
+        summary = eng.ledger.summary()
+        res["ledger"][tag] = dict(
+            wall_s=wall, tok_per_s=rep["tokens_generated"] / wall,
+            decode_dispatches=rep["decode_steps"],
+            host_syncs_decode=rep["host_syncs_decode"], launches=counts,
+            act_zero_fraction=rep["act_zero_fraction"],
+            act_near_zero_fraction=rep["act_near_zero_fraction"],
+            dead_kblock_fraction=rep["dead_kblock_fraction"],
+            effective_flop_fraction=rep["effective_flop_fraction"],
+            act_probe_elems=rep["act_probe_elems"],
+            hist_checksum=summary.get("act_hist_checksum"),
+            zero_fraction_by_layer=summary.get("zero_fraction_by_layer"))
+        if led:
+            print(f"[17b] ledger {tag} ({led}) [{card}]: tokens identical to "
+                  f"the ledger off; host syncs decode "
+                  f"{rep['host_syncs_decode']:.0f} = dispatches "
+                  f"{rep['decode_steps']:.0f}; ledger_probe launches "
+                  f"{counts['ledger_probe']}; act_zero_fraction "
+                  f"{rep['act_zero_fraction']:.6g}, near-zero "
+                  f"{rep['act_near_zero_fraction']:.6g}, dead k-block share "
+                  f"{rep['dead_kblock_fraction']:.6g}, flops_effective / "
+                  f"flops_dense {rep['effective_flop_fraction']:.6g}",
+                  flush=True)
+            cases += probe_cases(torch, timer, probe_taps(torch, eng), led,
+                                 tag)
+    # the ledger's cost a micro-step: graphed dispatches on parked slots,
+    # the three engines in turns (off, exact, 1e-3, then back)
+    order = list(engines)
+    ms = {tag: [] for tag in order}
+    for tag in order:
+        engines[tag].backend.decode_block()
+    for turn in order + order[::-1]:
+        bk = engines[turn].backend
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(3):
+            bk.decode_block()
+        torch.cuda.synchronize()
+        ms[turn].append((time.perf_counter() - t) * 1e3 / (3 * CHUNK))
+    for tag in order:
+        prof, _ = profile_calls(torch, engines[tag].backend.decode_block, 2,
+                                dtoh=1)
+        r = res["ledger"][tag]
+        r["wall_ms_per_micro_step"] = ms[tag]
+        r["device_ms_per_micro_step"] = [c["busy_ms"] / CHUNK for c in prof]
+        r["device_ops_per_micro_step"] = [c["device_ops"] / CHUNK
+                                          for c in prof]
+        r["probe_device_ms_per_micro_step"] = [
+            c["device_ms_by_kernel"].get("ledger_probe_kernel", 0.0) / CHUNK
+            for c in prof]
+        r["idle_share"] = [c["idle_share"] for c in prof]
+        print(f"[17b] ledger {tag} [{card}]: wall ms / micro-step in turns "
+              f"{[round(v, 3) for v in ms[tag]]}, device ms / micro-step "
+              f"{[round(v, 3) for v in r['device_ms_per_micro_step']]} (the "
+              f"probe's {[round(v, 4) for v in r['probe_device_ms_per_micro_step']]}"
+              f"), device ops / micro-step {r['device_ops_per_micro_step']}, "
+              f"idle share {[round(v, 4) for v in r['idle_share']]}",
+              flush=True)
+    del engines, eng
+    gc.collect()
+    # the quality probe on tier 1: every admission shadow-run through tier 0
+    eng, reqs, wall, counts, _ = serve_traffic(
+        torch, model, prompts,
+        EngineConfig(ledger=LedgerConfig(quality_every=1), **base), tier=1)
+    count(counts)
+    rep = eng.metrics.report()
+    q = eng.metrics.quality_by_tier()
+    assert q[1]["probes"] == len(prompts) and set(q) == {1}, q
+    assert rep["host_syncs_quality"] == 2 * rep["quality_probes"], rep
+    assert rep["host_syncs_decode"] == rep["decode_steps"], rep
+    res["quality"] = dict(by_tier=q, log=eng.quality_log)
+    print(f"[17b] quality probe, held on tier 1 ({model.tier_specs[0].tag}) "
+          f"[{card}]: top-1 agreement with tier 0 {q[1]['top1_rate']:.4f}, "
+          f"mean |logit difference| {q[1]['logit_mad']:.6g} over "
+          f"{q[1]['probes']:.0f} admissions", flush=True)
+    del eng
+    gc.collect()
+    res["seconds"]["17b"] = time.perf_counter() - t_phase \
+        - res["seconds"]["17a"]
+
+    # ---- 17c: deadlines and pool waits ----------------------------------
+    eng, res["pool_pressure"], counts = pool_pressure_cell(
+        torch, plain, prompts, EngineConfig(
+            page_size=16, n_pages=POOL_PAGES, prefix_cache=False,
+            pool_wait_retries=POOL_RETRIES, **base))
+    count(counts)
+    p = res["pool_pressure"]
+    print(f"[17c] {POOL_PAGES} pages of 16, pool_wait_retries "
+          f"{POOL_RETRIES}, deadline_steps {POOL_DEADLINE} on every 4th "
+          f"request [{card}]: completed {p['completed']:.0f}, shed "
+          f"{p['shed']:.0f} (deadline {p['shed_ids']['deadline']}, pool "
+          f"{p['shed_ids']['pool']}), pool waits {p['pool_waits']:.0f}; "
+          f"page pool pristine after the run", flush=True)
+    res["seconds"]["17c"] = time.perf_counter() - t_phase \
+        - res["seconds"]["17a"] - res["seconds"]["17b"]
+    print(f"[17] seconds by part {res['seconds']}", flush=True)
+    del eng, model, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals, res, cases
 
 
 
@@ -3465,7 +3917,17 @@ def main() -> int:
     print("[9] speculative self-draft decode: h2o-danube-1.8b (slab, paged) "
           f"and {FALCON}, full width, depth cut to 8 and 16 layers",
           flush=True)
-    spec_launches, spec = phase_speculative(torch, card)
+    spec_launches, spec, danube8 = phase_speculative(torch, card)
+    mark(17)
+    print(f"[17] resilience and the ledger: {DANUBE} full width, "
+          f"{QOS_LAYERS} layers (phase 9's tree), tiers {TIER_LADDER}",
+          flush=True)
+    qos_launches, resilience, probe_cases_ = phase_resilience(
+        torch, card, danube8, Timer(torch))
+    cases += probe_cases_
+    del danube8
+    gc.collect()
+    torch.cuda.empty_cache()
     mark(10)
     print(f"[10] {GEMMA}: card vs CPU at full width, 2 layers; then full "
           f"width, {GEMMA_LAYERS} layers", flush=True)
@@ -3519,8 +3981,9 @@ def main() -> int:
     assert parity_launches["flash_attention"] == 2 * (2 + 2), parity_launches
     whisper_launches, whisper = phase_whisper(torch, card, mark)
     for more in (paged_launches, reuse_launches, mamba_launches,
-                 spec_launches, gemma_launches, mla_launches, moe_launches,
-                 jamba_launches, llava_launches, whisper_launches):
+                 spec_launches, qos_launches, gemma_launches, mla_launches,
+                 moe_launches, jamba_launches, llava_launches,
+                 whisper_launches):
         for name, c in more.items():
             launches[name] += c
 
@@ -3545,7 +4008,8 @@ def main() -> int:
          "serving": serving, "paged_serving": paged, "prefix_reuse": reuse,
          "mamba_serving": mamba, "speculative": spec, "gemma2": gemma,
          "minicpm3": mla, "moe": moe, "jamba": jamba, "llava": llava,
-         "whisper": whisper, "phase_start_s": marks},
+         "whisper": whisper, "resilience": resilience,
+         "phase_start_s": marks},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -18,6 +18,13 @@ propose-then-verify cycle of speculative decode (serve.speculative): the
 draft proposes K tokens, the target verifies them in one dispatch,
 `accept_tokens` picks each slot's commit, and rejected suffixes roll back
 (an index rewind; recurrent leaves select the state at the accepted step).
+
+`ledger=LedgerConfig` (serve.ledger) appends the ineffectual-work ledger's
+(n_layers, width) f32 buffer as a trailing operand and return of the
+decode, speculative and suffix-prefill steps: every probed forward adds
+its rows into it in place, so it accumulates across the K micro-steps and
+a captured graph writes the same tensor at every replay. A speculative
+step probes the target's verify forwards only.
 Training steps are not ported yet (ROADMAP.md queue 1, item 9).
 """
 
@@ -28,6 +35,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.models import transformer as T
+from repro_torch.serve.ledger import LedgerProbe
 
 # the loop-state entries a decode step advances (the rest are written only
 # at admission)
@@ -57,7 +65,8 @@ def make_prefill_step(cfg: T.ModelConfig, last_only: bool = True, *,
 
 
 def make_decode_step(cfg: T.ModelConfig, *, n_steps: int,
-                     pages_meta: Optional[Dict[str, int]] = None):
+                     pages_meta: Optional[Dict[str, int]] = None,
+                     ledger=None):
     """decode(params, caches, state) -> (tok_block (K, B) int32 on the
     device, caches, state). Slots that finish mid-block (EOS or budget)
     freeze their token and index; the host catches up from the block.
@@ -68,20 +77,26 @@ def make_decode_step(cfg: T.ModelConfig, *, n_steps: int,
             -> (tok_block, caches, page_table, state)
     and threads pages={'table', 'size', 'len'} into every forward. The
     table is loop-invariant inside the dispatch (admission changes it
-    between dispatches)."""
+    between dispatches).
+
+    ledger=LedgerConfig appends the ledger buffer as the last operand and
+    return: decode(params, caches, state, ledger) -> (tok_block, caches,
+    state, ledger) (paged: after `state`); every micro-step's forward
+    adds its probe rows into it."""
     if n_steps < 1:
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
 
-    def decode(params, caches, state, page_table=None):
+    def decode(params, caches, state, page_table=None, led=None):
         pages = None if page_table is None else dict(pages_meta,
                                                      table=page_table)
+        probe = None if led is None else LedgerProbe(ledger, led)
         toks = []
         st = {name: state[name] for name in LOOP_STATE}
         eos = state["eos"]
         for _ in range(n_steps):
             logits, caches = T.forward(params, st["tokens"][:, None], cfg,
                                        caches=caches, index=st["index"],
-                                       pages=pages)
+                                       pages=pages, probe=probe)
             tok = T.sample_tokens(logits[:, -1], state["generator"],
                                   state["temperature"])
             active = st["active"]
@@ -98,15 +113,20 @@ def make_decode_step(cfg: T.ModelConfig, *, n_steps: int,
         return torch.stack(toks), caches, state
 
     if pages_meta is not None:
-        def paged_decode(params, caches, page_table, state):
+        def paged_decode(params, caches, page_table, state, *led):
             tok_block, caches, state = decode(params, caches, state,
-                                              page_table)
-            return tok_block, caches, page_table, state
+                                              page_table, *led)
+            return (tok_block, caches, page_table, state, *led)
         return paged_decode
+    if ledger is not None:
+        def ledger_decode(params, caches, state, led):
+            return (*decode(params, caches, state, None, led), led)
+        return ledger_decode
     return decode
 
 
-def make_paged_decode_step(cfg: T.ModelConfig, *, n_steps: int, layout):
+def make_paged_decode_step(cfg: T.ModelConfig, *, n_steps: int, layout,
+                           ledger=None):
     """Native paged form of the device-resident loop (serve.paging):
 
         decode(params, store, page_table, state)
@@ -115,12 +135,14 @@ def make_paged_decode_step(cfg: T.ModelConfig, *, n_steps: int, layout):
     The store's leaves pass straight into the forward as its cache list
     and the attention layers read and write them through the table — one
     indexed write per leaf for the new rows, the page-table kernel for the
-    read — so no per-dispatch slab view exists."""
+    read — so no per-dispatch slab view exists. ledger=LedgerConfig appends
+    the ledger buffer after `state` (see make_decode_step)."""
     meta = {"size": layout.page_size, "len": layout.cache_len}
-    inner = make_decode_step(cfg, n_steps=n_steps, pages_meta=meta)
+    inner = make_decode_step(cfg, n_steps=n_steps, pages_meta=meta,
+                             ledger=ledger)
 
-    def decode(params, store, page_table, state):
-        return inner(params, layout.as_tree(store), page_table, state)
+    def decode(params, store, page_table, state, *led):
+        return inner(params, layout.as_tree(store), page_table, state, *led)
 
     return decode
 
@@ -140,7 +162,7 @@ def make_host_decode_step(cfg: T.ModelConfig):
     return decode
 
 
-def make_suffix_prefill_step(cfg: T.ModelConfig, *, layout):
+def make_suffix_prefill_step(cfg: T.ModelConfig, *, layout, ledger=None):
     """Prefill ONLY the unmatched suffix of a prompt whose prefix pages are
     already resident:
 
@@ -155,14 +177,16 @@ def make_suffix_prefill_step(cfg: T.ModelConfig, *, layout):
     the values they supplied. `index` is the matched prefix length (a 0-d
     int32 device tensor). Padded suffix rows land past the shared region,
     masked until decode overwrites them; the caller reads the logits
-    column at the true suffix end."""
-    def prefill(params, batch, store, page_table, slot, index):
+    column at the true suffix end. ledger=LedgerConfig appends the ledger
+    buffer: prefill(..., index, ledger) -> (logits, store, ledger)."""
+    def prefill(params, batch, store, page_table, slot, index, *led):
         row = page_table[slot]
         caches = layout.gather_one(store, row, slot)
+        probe = LedgerProbe(ledger, led[0]) if led else None
         logits, caches = T.forward(params, batch["tokens"], cfg,
-                                   caches=caches, index=index)
+                                   caches=caches, index=index, probe=probe)
         layout.scatter_one(store, row, slot, caches)
-        return logits, store
+        return (logits, store, *led)
 
     return prefill
 
@@ -313,7 +337,8 @@ def _restore(caches, paths, stacks, g: torch.Tensor) -> None:
 
 def make_speculative_decode_step(cfg: T.ModelConfig,
                                  draft_cfg: T.ModelConfig, *, n_draft: int,
-                                 pages_meta: Optional[Dict[str, int]] = None):
+                                 pages_meta: Optional[Dict[str, int]] = None,
+                                 ledger=None):
     """Fused propose-then-verify decode:
 
         spec_decode(params, draft_params, caches, draft_caches, state)
@@ -345,7 +370,11 @@ def make_speculative_decode_step(cfg: T.ModelConfig,
     except on an MoE target whose capacity drops assignments: its verify
     routes other groups than a plain decode step (each slot's block alone;
     on the hybrid, the other slots' draft tokens), and the JAX package's
-    step parts from plain decode there too."""
+    step parts from plain decode there too.
+
+    ledger=LedgerConfig appends the ledger buffer as the last operand and
+    return; the target's verify forwards add their probe rows into it (the
+    draft's cost is accounted analytically, as in the JAX package)."""
     if n_draft < 1:
         raise ValueError(f"n_draft must be >= 1, got {n_draft}")
     k = n_draft
@@ -353,9 +382,10 @@ def make_speculative_decode_step(cfg: T.ModelConfig,
     bufs: Dict = {}
 
     def spec_decode(params, draft_params, caches, draft_caches, state,
-                    page_table=None):
+                    page_table=None, led=None):
         pages = None if page_table is None else dict(pages_meta,
                                                      table=page_table)
+        probe = None if led is None else LedgerProbe(ledger, led)
         gen, temp = state["generator"], state["temperature"]
         active, idx0, tok0 = state["active"], state["index"], state["tokens"]
 
@@ -384,7 +414,7 @@ def make_speculative_decode_step(cfg: T.ModelConfig,
         t_paths = recurrent_cache_paths(caches)
         if not recurrent:
             z, _ = T.forward(params, tok_in, cfg, caches=caches, index=idx0,
-                             pages=pages)
+                             pages=pages, probe=probe)
         else:
             t_stacks = _stacks(bufs, "target", caches, t_paths, k + 2)
             _snapshot(caches, t_paths, t_stacks, 0)
@@ -392,7 +422,8 @@ def make_speculative_decode_step(cfg: T.ModelConfig,
             for j in range(k + 1):
                 idx_j = torch.where(active, idx0 + j, idx0)
                 lg, _ = T.forward(params, tok_in[:, j:j + 1], cfg,
-                                  caches=caches, index=idx_j, pages=pages)
+                                  caches=caches, index=idx_j, pages=pages,
+                                  probe=probe)
                 _snapshot(caches, t_paths, t_stacks, j + 1)
                 zs.append(lg[:, -1])
             z = torch.stack(zs, dim=1)
@@ -437,17 +468,25 @@ def make_speculative_decode_step(cfg: T.ModelConfig,
 
     if pages_meta is not None:
         def paged_spec_decode(params, draft_params, caches, page_table,
-                              draft_caches, state):
+                              draft_caches, state, *led):
             commit, m, acc, caches, draft_caches, state = spec_decode(
-                params, draft_params, caches, draft_caches, state, page_table)
-            return commit, m, acc, caches, page_table, draft_caches, state
+                params, draft_params, caches, draft_caches, state, page_table,
+                *led)
+            return (commit, m, acc, caches, page_table, draft_caches, state,
+                    *led)
         return paged_spec_decode
+    if ledger is not None:
+        def ledger_spec_decode(params, draft_params, caches, draft_caches,
+                               state, led):
+            return (*spec_decode(params, draft_params, caches, draft_caches,
+                                 state, None, led), led)
+        return ledger_spec_decode
     return spec_decode
 
 
 def make_paged_speculative_decode_step(cfg: T.ModelConfig,
                                        draft_cfg: T.ModelConfig, *,
-                                       n_draft: int, layout):
+                                       n_draft: int, layout, ledger=None):
     """Native paged form of the propose-then-verify cycle:
 
         spec_decode(params, draft_params, store, page_table, draft_caches,
@@ -458,14 +497,14 @@ def make_paged_speculative_decode_step(cfg: T.ModelConfig,
     suffix is an index rewind that frees no page, and the speculative
     headroom lands in the slot's private tail pages (prefix sharing only
     publishes pages of final KV), so a rolled-back write never touches a
-    shared page."""
+    shared page. ledger=LedgerConfig appends the ledger buffer last."""
     meta = {"size": layout.page_size, "len": layout.cache_len}
     inner = make_speculative_decode_step(cfg, draft_cfg, n_draft=n_draft,
-                                         pages_meta=meta)
+                                         pages_meta=meta, ledger=ledger)
 
     def spec_decode(params, draft_params, store, page_table, draft_caches,
-                    state):
+                    state, *led):
         return inner(params, draft_params, layout.as_tree(store), page_table,
-                     draft_caches, state)
+                     draft_caches, state, *led)
 
     return spec_decode

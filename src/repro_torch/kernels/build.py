@@ -26,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("dense_matmul", "bsr_matmul", "quant_matmul", "quant_matmul_w8a8",
-           "flash_attention", "paged_attention", "ssm_scan")
+           "flash_attention", "paged_attention", "ssm_scan", "ledger_probe")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

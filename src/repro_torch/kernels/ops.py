@@ -4,7 +4,9 @@ Counterpart of `repro.kernels.ops` (same contracts as its `matmul`,
 `bsr_matmul`, `quant_matmul`, `quant_matmul_w8a8`, `bsr_quant_matmul`,
 `flash_attention`, `paged_attention` and `ssm_scan`), plus
 `bsr_matmul_experts`, `bsr_matmul` batched over an MoE layer's experts
-(the counterpart of the JAX package's vmap of `bsr_matmul`). The JAX `backend`
+(the counterpart of the JAX package's vmap of `bsr_matmul`), and
+`ledger_probe`, the ineffectual-work ledger's one-launch probe (a port-only
+kernel: the JAX package leaves the probe to XLA). The JAX `backend`
 knob has no counterpart: a CUDA tensor launches the hand-written Hopper
 kernel, a CPU tensor takes its plain version, inside each wrapper.
 `launch_counts` / `reset_launch_counts` read and zero the wrappers'
@@ -27,6 +29,7 @@ from repro_torch.kernels.bsr_matmul import bsr_matmul_experts as _bsr_e
 from repro_torch.kernels.dense_matmul import dense_matmul as _dense
 from repro_torch.kernels.flash_attention import flash_attention as _fa
 from repro_torch.kernels.flash_attention import paged_flash_attention as _paged
+from repro_torch.kernels.ledger_probe import ledger_probe as _ledger
 from repro_torch.kernels.quant_matmul import bsr_quant_matmul as _bsr_quant
 from repro_torch.kernels.quant_matmul import quant_matmul as _qmm
 from repro_torch.kernels.quant_matmul import quant_matmul_w8a8 as _w8a8
@@ -35,7 +38,8 @@ from repro_torch.kernels.ssm_scan import ssm_scan as _ssm
 KERNELS = {"dense_matmul": _dense, "bsr_matmul": _bsr, "quant_matmul": _qmm,
            "quant_matmul_w8a8": _w8a8, "bsr_quant_matmul": _bsr_quant,
            "flash_attention": _fa, "paged_flash_attention": _paged,
-           "ssm_scan": _ssm, "bsr_matmul_experts": _bsr_e}
+           "ssm_scan": _ssm, "bsr_matmul_experts": _bsr_e,
+           "ledger_probe": _ledger}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -139,3 +143,11 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     (B, di, st) f32)."""
     return _ssm(u.contiguous(), dt.contiguous(), b.contiguous(),
                 c.contiguous(), a.contiguous())
+
+
+def ledger_probe(x: torch.Tensor, n_out: int, out_row: torch.Tensor, *,
+                 threshold: float, group: int, k_block: int) -> torch.Tensor:
+    """Add the ineffectual-work ledger row of activation x (..., d), which
+    feeds a GEMM of fan-out n_out, into out_row in place (serve.ledger)."""
+    return _ledger(x, n_out, out_row, threshold=threshold, group=group,
+                   k_block=k_block)

@@ -237,7 +237,8 @@ def _paged_gqa_decode(q, k, v, cfg: AttnConfig, cache, index, pages,
         extra_mask=valid, scale=cfg.scale)
 
 
-def _cross_apply(params, q, x, cfg: AttnConfig, kv_source, cache, index):
+def _cross_apply(params, q, x, cfg: AttnConfig, kv_source, cache, index,
+                 probe=None):
     """Cross-attention over the encoder output: k/v are projected from
     `kv_source` (and written into `cache` at prefill), or read back from
     `cache` unchanged at decode; every query attends to every encoder
@@ -257,11 +258,19 @@ def _cross_apply(params, q, x, cfg: AttnConfig, kv_source, cache, index):
         torch.arange(q.shape[2], dtype=torch.int32, device=dev),
         torch.arange(k.shape[2], dtype=torch.int32, device=dev),
         causal=False, softcap=cfg.softcap, scale=cfg.scale)
-    return kr.apply(params["wo"], _merge_heads(o)), cache
+    return _out_proj(params, o, cfg, probe), cache
+
+
+def _out_proj(params, o, cfg: AttnConfig, probe):
+    """wo over the merged heads; a ledger probe taps its input."""
+    mo = _merge_heads(o)
+    if probe is not None:
+        probe.tap(mo, cfg.d_model)
+    return kr.apply(params["wo"], mo)
 
 
 def gqa_apply(params, x, cfg: AttnConfig, *, positions=None, cache=None,
-              index=None, pages=None, kv_source=None
+              index=None, pages=None, kv_source=None, probe=None
               ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Full-sequence (cache None, or prefill into `cache` with index None)
     or decode (cache and index) GQA attention. Returns (y, cache).
@@ -271,12 +280,15 @@ def gqa_apply(params, x, cfg: AttnConfig, *, positions=None, cache=None,
     layer whose window is shorter than `len` keeps a resident circular
     slab leaf and ignores it.
     kv_source: the encoder output (B, S_enc, d) a `cfg.cross` layer
-    projects its k/v from at prefill (decode reads them from `cache`)."""
+    projects its k/v from at prefill (decode reads them from `cache`).
+    probe: serve.ledger probe (or None): taps the merged heads feeding
+    `wo`."""
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _split_heads(kr.apply(params["wq"], x), h, dh)
     if cfg.cross:
-        return _cross_apply(params, q, x, cfg, kv_source, cache, index)
+        return _cross_apply(params, q, x, cfg, kv_source, cache, index,
+                            probe)
     k = _split_heads(kr.apply(params["wk"], x), kv, dh)
     v = _split_heads(kr.apply(params["wv"], x), kv, dh)
     if cfg.qk_norm:
@@ -302,7 +314,7 @@ def gqa_apply(params, x, cfg: AttnConfig, *, positions=None, cache=None,
             q, cache["k"].to(x.dtype), cache["v"].to(x.dtype), positions,
             kv_pos, causal=cfg.causal, window=cfg.window,
             softcap=cfg.softcap, extra_mask=valid, scale=cfg.scale)
-    return kr.apply(params["wo"], _merge_heads(o)), cache
+    return _out_proj(params, o, cfg, probe), cache
 
 
 def make_gqa_cache(cfg: AttnConfig, batch: int, max_len: int, dtype,
@@ -402,13 +414,16 @@ def _mla_expand_kv(params, c_kv, cfg: AttnConfig):
 
 
 def mla_apply(params, x, cfg: AttnConfig, *, positions=None, cache=None,
-              index=None, pages=None) -> Tuple[torch.Tensor, Optional[Dict]]:
+              index=None, pages=None, probe=None
+              ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """MLA over a full sequence (cache None, or prefill into `cache` with
     index None) or decode (cache and index: the s new latents are written
     in place at index.., s > 1 being the speculative block or suffix
     write). With `pages` the cache leaves are page-major and the latents
     land in their pages; attention reads the sliced table view. Every call
-    expands the whole latent history through `wkv_b`. Returns (y, cache)."""
+    expands the whole latent history through `wkv_b`. probe: serve.ledger
+    probe (or None): taps the merged heads feeding `wo`. Returns (y,
+    cache)."""
     b, s, _ = x.shape
     h, r, dr = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_dim
     dev = x.device
@@ -465,7 +480,7 @@ def mla_apply(params, x, cfg: AttnConfig, *, positions=None, cache=None,
         else attention_positional
     o = attn(q, k, v, positions, kv_pos, causal=cfg.causal, window=cfg.window,
              softcap=cfg.softcap, extra_mask=valid, scale=cfg.scale)
-    return kr.apply(params["wo"], _merge_heads(o)), cache
+    return _out_proj(params, o, cfg, probe), cache
 
 
 def make_mla_cache(cfg: AttnConfig, batch: int, max_len: int, dtype,

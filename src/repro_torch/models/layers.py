@@ -72,14 +72,18 @@ def mlp_init(d: int, d_ff: int, *, gated: bool, spec: kr.KratosSpec,
     return p
 
 
-def mlp_apply(params: Dict, x: torch.Tensor, *,
-              activation: str = "silu") -> torch.Tensor:
+def mlp_apply(params: Dict, x: torch.Tensor, *, activation: str = "silu",
+              probe=None) -> torch.Tensor:
+    """probe: serve.ledger probe (or None): taps the hidden activation
+    feeding w_down, where ReLU-family nonlinearities make real zeros."""
     act = ACTIVATIONS[activation]
     up = kr.apply(params["w_up"], x)
     if "w_gate" in params:
         h = act(kr.apply(params["w_gate"], x)) * up
     else:
         h = act(up)
+    if probe is not None:
+        probe.tap(h, x.shape[-1])
     return kr.apply(params["w_down"], h)
 
 

@@ -374,9 +374,33 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return _norm(cfg, params["enc_norm"], x)
 
 
+def _probe_fanout(cfg: ModelConfig, kind: Dict, site: str) -> int:
+    """The dense GEMM fan-out a probed activation feeds (serve.ledger: the
+    FLOP and byte columns are weighted by it), the JAX package's formula."""
+    if site == "mixer":
+        if kind["mixer"] == "mamba":
+            return 2 * cfg.d_inner
+        if cfg.mla:
+            q = cfg.q_lora_rank if cfg.q_lora_rank \
+                else cfg.n_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim)
+            return int(q + cfg.kv_lora_rank + cfg.qk_rope_dim)
+        return (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.dh
+    if kind["ffn"] == "moe":
+        return int(cfg.n_experts
+                   + 2 * (cfg.top_k + cfg.n_shared_experts) * cfg.d_ff_expert)
+    gated = cfg.gated_mlp if cfg.gated_mlp is not None \
+        else cfg.activation in ("silu", "gelu", "gelu_tanh")
+    return (2 if gated else 1) * cfg.d_ff
+
+
 def _layer_apply(p: Dict, x, cfg: ModelConfig, kind: Dict, *, positions,
-                 cache, index, pages, enc_out):
+                 cache, index, pages, enc_out, probe=None):
+    """One residual block. probe (serve.ledger, or None) taps the normed
+    mixer and FFN inputs here, and the merged attention heads and the MLP
+    hidden activation inside."""
     h = _norm(cfg, p["pre_norm"], x)
+    if probe is not None:
+        probe.tap(h, _probe_fanout(cfg, kind, "mixer"))
     if kind["mixer"] == "mamba":
         # recurrent state: O(1) per slot and resident, so pages and
         # positions do not reach it
@@ -385,7 +409,7 @@ def _layer_apply(p: Dict, x, cfg: ModelConfig, kind: Dict, *, positions,
     else:
         h, cache = A.attn_apply(p["mixer"], h, attn_cfg_for(cfg, kind),
                                 positions=positions, cache=cache,
-                                index=index, pages=pages)
+                                index=index, pages=pages, probe=probe)
     if cfg.sandwich_norm:
         h = _norm(cfg, p["post_norm"], h)
     x = x + h * cfg.residual_scale
@@ -395,15 +419,17 @@ def _layer_apply(p: Dict, x, cfg: ModelConfig, kind: Dict, *, positions,
                                          "v": cache["cross_v"]}
         h, _ = A.gqa_apply(p["cross"], _norm(cfg, p["cross_norm"], x),
                            cross_cfg_for(cfg, kind), cache=cc, index=index,
-                           kv_source=enc_out)
+                           kv_source=enc_out, probe=probe)
         x = x + h * cfg.residual_scale
-    if kind["ffn"] == "moe":
+    if kind["ffn"] != "none":
         h = _norm(cfg, p["ffn_norm"], x)
+        if probe is not None:
+            probe.tap(h, _probe_fanout(cfg, kind, "ffn"))
+    if kind["ffn"] == "moe":
         x = x + M.moe_apply(p["ffn"], h, moe_cfg_for(cfg)) \
             * cfg.residual_scale
     elif kind["ffn"] == "mlp":
-        h = _norm(cfg, p["ffn_norm"], x)
-        h = L.mlp_apply(p["ffn"], h, activation=cfg.activation)
+        h = L.mlp_apply(p["ffn"], h, activation=cfg.activation, probe=probe)
         if cfg.sandwich_norm:
             h = _norm(cfg, p["ffn_post_norm"], h)
         x = x + h * cfg.residual_scale
@@ -413,7 +439,8 @@ def _layer_apply(p: Dict, x, cfg: ModelConfig, kind: Dict, *, positions,
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             caches: Optional[List[Dict]] = None, index=None,
             pages: Optional[Dict] = None, img_embeds=None, enc_out=None,
-            last_only: bool = False) -> Tuple[torch.Tensor, Optional[List]]:
+            last_only: bool = False,
+            probe=None) -> Tuple[torch.Tensor, Optional[List]]:
     """Decoder forward. tokens: (B, S) int. Returns (f32 logits, caches).
 
     img_embeds: (B, n_img, d) vision-stub rows prepended to the token
@@ -429,7 +456,12 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     writing the caches in place. pages: the page-table operand of native
     paged decode ({'table', 'size', 'len'}), threaded to every attention
     layer.
-    last_only: logits for the final position only."""
+    last_only: logits for the final position only.
+    probe: serve.ledger.LedgerProbe (or None). Every layer's taps add into
+    row `li` of the probe's (n_layers, width) buffer, li the layer's place
+    in the model whatever order the layers run in: the JAX package's
+    matrix, whose scanned slot s, period t is layer prelude + t *
+    scan_period + s."""
     x = L.embed(params["embed"], tokens, scale=cfg.emb_scale).to(cfg.adtype())
     if img_embeds is not None:
         x = torch.cat([img_embeds.to(x.dtype), x], dim=1)
@@ -443,9 +475,11 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
         pages = dict(pages)
     for li in layer_order(cfg):
         c = caches[li] if caches is not None else None
+        if probe is not None:
+            probe.layer = li
         x, _ = _layer_apply(params["layers"][li], x, cfg, layer_kind(cfg, li),
                             positions=positions, cache=c, index=index,
-                            pages=pages, enc_out=enc_out)
+                            pages=pages, enc_out=enc_out, probe=probe)
     if last_only:
         x = x[:, -1:]
     x = _norm(cfg, params["final_norm"], x)

@@ -8,7 +8,11 @@ On a CUDA device `build` captures the decode dispatch (K micro-steps, or
 one speculative propose-then-verify cycle) as ONE CUDA graph, the port's
 counterpart of the JAX package's jitted dispatch, and every dispatch
 replays it: one graph per built configuration (K, n_slots, slab or paged,
-plain or speculative). The steps write their results into the state's,
+plain or speculative) and per resident QoS tier (serve.qos: a tier swap
+changes the parameters the graph reads, so `set_tier` selects that tier's
+graph and never captures; the graphs share one memory pool, since one
+replays at a time; under speculation the target's tier swaps and the
+draft stays). The steps write their results into the state's,
 the slab's and the page store's own tensors, so the graph's fixed
 addresses stay valid; `install` and the pools' admission writes are the
 only writers between replays. A capture that fails raises: the engine
@@ -37,6 +41,16 @@ graph over static token and index buffers, which each step fills by an
 upload, so the host loop against the device loop measures the per-step
 round trip and the host's sampling, not eager launches.
 
+The ineffectual-work ledger (EngineConfig.ledger, serve.ledger) is one
+static (n_layers, width) f32 tensor allocated at build, which every probed
+forward adds into in place (inside the graph on the card). The dispatch
+packs the token block and the ledger's bits (an int32 view) into one
+device buffer and copies it out once, so the ledger adds no host sync;
+`last_ledger` holds the copied matrix. `maybe_rebase_ledger` zeroes the
+same tensor in place (`zero_()`): a new tensor would leave every captured
+graph writing to freed memory. `quality_shadow` runs an eager tier-0
+prefill for the engine's per-tier quality probe.
+
 Contract (what the engine calls):
   build(model, cfg)              allocate pools/state, make the steps,
                                  capture the dispatch's graph (CUDA)
@@ -52,6 +66,9 @@ Contract (what the engine calls):
   decode_host(tokens, indices)   host loop: ONE (B, 1) forward; returns the
                                  (B, vocab) last-column logits as numpy
   release_slot(slot)             park a slot's loop-state row inert
+  n_tiers, tier, set_tier(t)     the resident QoS tiers and the live one
+  last_ledger, maybe_rebase_ledger(), quality_shadow(batch, exact)
+                                 the ledger's drain and the quality probe
 and the paged admission surface (no-ops on the slab pool): `paged`,
 `prefix_match`, `alloc_slot_pages`, `prefix_insert`,
 `conversation_insert`, `page_stats`, `prefill_suffix`.
@@ -96,9 +113,17 @@ class LocalBackend:
     def build(self, model, cfg) -> None:
         self.model, self.cfg = model, cfg
         self.params = model.params
+        # the QoS ladder: tier 0 is the model's own tree
+        self._tier_params = [model.params, *model.tier_params]
+        self.tier = 0
         self.device = torch.device(cfg.device)
         mcfg = model.cfg
         k = cfg.speculate
+        ledger = cfg.ledger            # EngineConfig: device loop only
+        self.ledger_buf = None if ledger is None else torch.zeros(
+            (mcfg.n_layers, ledger.width), dtype=torch.float32,
+            device=self.device)
+        self.last_ledger = None
         # speculate=K pads the caches: the verify writes K+1 positions from
         # a per-slot clock that can sit at max_len - 1; rollback masks them
         cache_len = cfg.max_len + k
@@ -113,7 +138,7 @@ class LocalBackend:
                 prefix_cache=cfg.prefix_cache)
             if self.pool.index is not None:
                 self._suffix_prefill = ST.make_suffix_prefill_step(
-                    mcfg, layout=self.pool.layout)
+                    mcfg, layout=self.pool.layout, ledger=ledger)
         else:
             self.pool = CachePool(mcfg, cfg.n_slots, cache_len, cdtype,
                                   self.device)
@@ -123,6 +148,7 @@ class LocalBackend:
         self.draft_pool = None
         self._pending_draft = None
         self._graph = None
+        self._graphs = []
         if not cfg.device_loop:
             # the host loop: a (B, 1) forward over static input buffers
             self._host_tokens = torch.zeros((cfg.n_slots, 1), dtype=torch.int32,
@@ -144,15 +170,18 @@ class LocalBackend:
                 device=self.device)
             if cfg.page_size:
                 self._step = ST.make_paged_speculative_decode_step(
-                    mcfg, dcfg, n_draft=k, layout=self.pool.layout)
+                    mcfg, dcfg, n_draft=k, layout=self.pool.layout,
+                    ledger=ledger)
             else:
-                self._step = ST.make_speculative_decode_step(mcfg, dcfg,
-                                                             n_draft=k)
+                self._step = ST.make_speculative_decode_step(
+                    mcfg, dcfg, n_draft=k, ledger=ledger)
         elif cfg.page_size:
             self._step = ST.make_paged_decode_step(
-                mcfg, n_steps=cfg.decode_chunk, layout=self.pool.layout)
+                mcfg, n_steps=cfg.decode_chunk, layout=self.pool.layout,
+                ledger=ledger)
         else:
-            self._step = ST.make_decode_step(mcfg, n_steps=cfg.decode_chunk)
+            self._step = ST.make_decode_step(mcfg, n_steps=cfg.decode_chunk,
+                                             ledger=ledger)
         if self.device.type == "cuda":
             self._capture()
 
@@ -162,53 +191,83 @@ class LocalBackend:
         """One eager call of the built step on the live pools and state.
         Returns its int32 result on the device: the (K, B) token block, or
         the speculative (B, K+3) [commit | n_commit | n_accept], or the host
-        loop's (B, vocab) last-column logits."""
+        loop's (B, vocab) last-column logits. With the ledger, the result
+        flattened and the ledger matrix's bits after it (`_split`)."""
         if not self.cfg.device_loop:
             return self._host_step(self.params, self.pool.caches,
                                    self._host_tokens, self._host_index)
         caches = self.pool.store if self.paged else self.pool.caches
         table = (self.pool.page_table,) if self.paged else ()
+        led = () if self.ledger_buf is None else (self.ledger_buf,)
         if not self.cfg.speculate:
-            return self._step(self.params, caches, *table, self.state)[0]
-        commit, m, acc = self._step(self.params, self.draft_params, caches,
-                                    *table, self.draft_pool.caches,
-                                    self.state)[:3]
-        return torch.cat([commit, m[:, None], acc[:, None]], dim=1)
+            out = self._step(self.params, caches, *table, self.state,
+                             *led)[0]
+        else:
+            commit, m, acc = self._step(self.params, self.draft_params,
+                                        caches, *table,
+                                        self.draft_pool.caches, self.state,
+                                        *led)[:3]
+            out = torch.cat([commit, m[:, None], acc[:, None]], dim=1)
+        if led:
+            # the ledger rides the dispatch's one host copy
+            out = torch.cat([out.reshape(-1),
+                             self.ledger_buf.view(torch.int32).reshape(-1)])
+        return out
+
+    def _split(self, out: np.ndarray, shape) -> np.ndarray:
+        """The dispatch's result of `shape` from its host copy; with the
+        ledger, the matrix after it goes to `last_ledger`."""
+        if self.ledger_buf is None:
+            return out
+        n = int(np.prod(shape))
+        self.last_ledger = out[n:].view(np.float32).reshape(
+            self.ledger_buf.shape)
+        return out[:n].reshape(shape)
 
     def _capture(self) -> None:
-        """Capture `_run` as a CUDA graph, every slot parked (the
-        `release_slot` row: remaining 0, inactive), so the warm-up and the
-        capture write only rows that an admission overwrites: the slab's
-        parked rows, the page pool's sink page. The eager warm-up (on a
-        side stream: library handles, kernel attributes, the kernels'
-        first loads) draws one dispatch's noise from the state's
-        generator; the graph registers that generator, so every replay
-        draws fresh noise from where the last one stopped, and sampled
-        tokens stay a function of the seed."""
+        """Capture `_run` as one CUDA graph per resident tier, every slot
+        parked (the `release_slot` row: remaining 0, inactive), so the
+        warm-ups and the captures write only rows that an admission
+        overwrites: the slab's parked rows, the page pool's sink page.
+        Each tier's eager warm-up (on a side stream: library handles,
+        kernel attributes, the kernels' first loads) draws one dispatch's
+        noise from the state's generator; each graph registers that
+        generator, so every replay draws fresh noise from where the last
+        one stopped, and sampled tokens stay a function of the seed. The
+        graphs share one memory pool: one replays at a time, and each
+        result is copied out right after its replay. The warm-ups' ledger
+        rows are zeroed after the captures."""
         dev = self.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._run()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        if self.cfg.device_loop:
-            graph.register_generator_state(self.state["generator"])
-        # a graph that the collector frees inside the capture (an earlier
-        # engine's, left in a reference cycle) invalidates the capture:
-        # collect first and hold the collector off until it ends
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with ops.captured_launches() as per_replay:
-                with torch.cuda.graph(graph):
-                    out = self._run()
-        finally:
-            if collecting:
-                gc.enable()
-        self._graph, self._graph_out = graph, out
-        self._graph_launches = per_replay
+        pool = torch.cuda.graph_pool_handle()
+        self._graphs = []
+        for params in self._tier_params:
+            self.params = params
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self._run()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            if self.cfg.device_loop:
+                graph.register_generator_state(self.state["generator"])
+            # a graph that the collector frees inside the capture (an
+            # earlier engine's, left in a reference cycle) invalidates the
+            # capture: collect first and hold the collector off until it
+            # ends
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with ops.captured_launches() as per_replay:
+                    with torch.cuda.graph(graph, pool=pool):
+                        out = self._run()
+            finally:
+                if collecting:
+                    gc.enable()
+            self._graphs.append((graph, out, per_replay))
+        if self.ledger_buf is not None:
+            self.ledger_buf.zero_()
+        self.set_tier(0)
 
     def _dispatch(self, eager: bool) -> np.ndarray:
         with no_host_sync(self.device):
@@ -220,6 +279,50 @@ class LocalBackend:
                 out = self._graph_out
         return out.cpu().numpy()                 # the ONLY decode sync
 
+    # -- QoS tiers (serve.qos) ----------------------------------------------
+
+    @property
+    def n_tiers(self) -> int:
+        """Resident quality tiers this backend can swap between."""
+        return len(self._tier_params)
+
+    def set_tier(self, tier: int) -> None:
+        """Swap the live decode onto packed tier `tier` (0 = full quality):
+        the prefill and the step read that tier's parameters, and on the
+        card the dispatch replays that tier's graph. The pools, the page
+        table and the loop state stay put, so every resident request
+        continues from its exact position."""
+        if not 0 <= tier < self.n_tiers:
+            raise ValueError(f"tier {tier} out of range "
+                             f"(n_tiers={self.n_tiers})")
+        self.params = self._tier_params[tier]
+        self.tier = tier
+        if self._graphs:
+            self._graph, self._graph_out, self._graph_launches = \
+                self._graphs[tier]
+
+    # -- ineffectual-work ledger (serve.ledger) -----------------------------
+
+    def maybe_rebase_ledger(self) -> bool:
+        """Zero the device counter matrix, in place, once any cell reaches
+        2**23 (counts are exact in f32 up to 2**24). Called by the engine
+        right after draining `last_ledger`; True tells the LedgerSink to
+        reset its snapshot to match."""
+        if (self.last_ledger is None
+                or float(self.last_ledger.max()) < float(2 ** 23)):
+            return False
+        self.ledger_buf.zero_()
+        self.last_ledger = None
+        return True
+
+    def quality_shadow(self, batch: Dict[str, Any], exact: bool) -> np.ndarray:
+        """The engine's per-tier quality probe: one admitted prompt's
+        prefill through TIER-0 parameters (eager), its logits on the host:
+        a metered host pull at admission, never in the decode path."""
+        fn = self._prefill_last if exact else self._prefill_full
+        logits, _ = fn(self._tier_params[0], batch)
+        return logits.float().cpu().numpy()
+
     def decode_block(self, eager: bool = False) -> np.ndarray:
         """ONE plain dispatch of K micro-steps: the graph's replay on the
         card, the eager step on the CPU or with eager=True (the graph's
@@ -228,7 +331,8 @@ class LocalBackend:
             raise RuntimeError("backend built with EngineConfig.speculate or "
                                "device_loop=False: its dispatch is "
                                "spec_decode_block() or decode_host()")
-        return self._dispatch(eager)
+        return self._split(self._dispatch(eager),
+                           (self.cfg.decode_chunk, self.cfg.n_slots))
 
     def spec_decode_block(self, eager: bool = False
                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -239,7 +343,7 @@ class LocalBackend:
             raise NotImplementedError(
                 "backend was not built with EngineConfig.speculate")
         k = self.cfg.speculate
-        out = self._dispatch(eager)
+        out = self._split(self._dispatch(eager), (self.cfg.n_slots, k + 3))
         return out[:, :k + 1], out[:, k + 1], out[:, k + 2]
 
     def decode_host(self, tokens: np.ndarray, indices: np.ndarray,
@@ -332,9 +436,12 @@ class LocalBackend:
             raise NotImplementedError(
                 "backend was not built with a prefix-caching paged pool "
                 "(EngineConfig.page_size + prefix_cache)")
-        logits, _ = self._suffix_prefill(
+        # the ledger stays on the device: the next dispatch's copy drains it
+        led = () if self.ledger_buf is None else (self.ledger_buf,)
+        logits = self._suffix_prefill(
             self.params, batch, self.pool.store, self.pool.page_table, slot,
-            torch.tensor(index, dtype=torch.int32, device=self.device))
+            torch.tensor(index, dtype=torch.int32, device=self.device),
+            *led)[0]
         if self.draft_pool is not None:
             _, draft = self._draft_prefill(self.draft_params, full_batch)
             self.draft_pool.write_slot(slot, draft)

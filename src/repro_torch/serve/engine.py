@@ -49,11 +49,30 @@ the last column to the host, samples there with
 float64) and uploads the token and index vectors for the next step: three
 host syncs a decode step. It serves the slab only and does not speculate.
 
+Resilience (serve.qos): a request may carry deadlines (`deadline_steps`
+on the deterministic engine-step clock, `deadline_ms` on the wall).
+Admission sheds work that is already doomed, and a per-step sweep sheds
+waiting and running requests the moment they cannot finish in time,
+freeing the slot and pages (`Request.state == "shed"`, `shed_reason`);
+`cancel(r)` does the same on demand. `EngineConfig.pool_wait_retries`
+bounds the PoolExhausted requeue with an exponential step backoff, then
+sheds. `EngineConfig.qos` moves the live decode onto a cheaper resident
+(sparsity, bits) tier of the same weights under queue or page pressure
+(`set_tier`; the cache is shared, so every stream continues) and promotes
+it back with hysteresis.
+
+The ineffectual-work ledger (`EngineConfig.ledger`, serve.ledger) counts
+activation zeros, near-zeros and dead k-blocks at the packed GEMMs on the
+device, inside every dispatch; its matrix comes back in the dispatch's one
+host copy and drains into `metrics` and `engine.ledger`. With
+`LedgerConfig.quality_every` every Nth full-prefill admission is
+shadow-run through tier 0 for top-1 agreement and mean |logit
+difference| per tier (`metrics.quality_by_tier()`, `quality_log`).
+
 Greedy output is independent of K, of what else shares the slab, and of
 paging (on an MoE arch, as far as capacity routing lets it: ROADMAP.md
-queue 3). QoS tiers, deadlines, bounded pool-wait retries, the legacy
-gather/scatter paged decode, the ineffectual-work ledger and tracing are
-not ported yet; asking for them raises `NotImplementedError` naming the
+queue 3). Tracing and the legacy gather/scatter paged decode are not
+ported yet; asking for them raises `NotImplementedError` naming the
 ROADMAP.md item.
 """
 
@@ -61,6 +80,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -69,7 +89,9 @@ import torch
 from repro_torch.serve import speculative as SP
 from repro_torch.serve.backend import LocalBackend
 from repro_torch.serve.cache_pool import PoolExhausted
+from repro_torch.serve.ledger import NULL_LEDGER, LedgerSink
 from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.serve.qos import QoSController
 from repro_torch.serve.registry import PackedModel, check_device
 from repro_torch.serve.scheduler import ContinuousScheduler, Request
 
@@ -86,9 +108,6 @@ class ReplicaFault(RuntimeError):
 _NOT_PORTED = {
     "paged_native": (True, "the legacy gather/scatter paged decode (an A/B "
                      "baseline): queue 1, item 10"),
-    "pool_wait_retries": (None, "bounded pool-wait retries: queue 1, item 8"),
-    "qos": (None, "QoS tiers: queue 1, item 8"),
-    "ledger": (None, "the ineffectual-work ledger: queue 1, item 8"),
     "trace": (None, "tracing: queue 1, item 8"),
 }
 
@@ -120,8 +139,15 @@ class EngineConfig:
     n_pages: Optional[int] = None
     prefix_cache: bool = True
     paged_native: bool = True
+    # resilience (serve.qos): pool_wait_retries bounds the PoolExhausted
+    # requeue of a request (None = the unbounded requeue at the front; N =
+    # an exponential step backoff, then shed past N retries); qos (a
+    # QoSConfig) moves the decode between resident tiers under load and
+    # needs a model loaded with tier_specs
     pool_wait_retries: Optional[int] = None
     qos: Optional[Any] = None
+    # the ineffectual-work ledger (a serve.ledger.LedgerConfig; None = off,
+    # the allocation-free NULL_LEDGER); needs device_loop=True
     ledger: Optional[Any] = None
     trace: Optional[Any] = None
 
@@ -154,6 +180,9 @@ class EngineConfig:
                              f"{self.decode_chunk}")
         if self.speculate < 0:
             raise ValueError(f"speculate must be >= 0, got {self.speculate}")
+        if self.pool_wait_retries is not None and self.pool_wait_retries < 0:
+            raise ValueError(f"pool_wait_retries must be >= 0 or None, got "
+                             f"{self.pool_wait_retries}")
         if self.max_waiting is not None and self.max_waiting < 0:
             raise ValueError(f"max_waiting must be >= 0 or None, got "
                              f"{self.max_waiting}")
@@ -198,6 +227,18 @@ class InferenceEngine:
         self.backend = LocalBackend()
         self.backend.build(model, cfg)
         self.pool = self.backend.pool
+        self._qos = None if cfg.qos is None else \
+            QoSController(cfg.qos, self.backend.n_tiers)
+        self._has_deadlines = False     # arms the per-step deadline sweep
+        # the ledger's sink folds each dispatch's drained delta into
+        # float64 totals and the metrics; NULL_LEDGER keeps the disabled
+        # path allocation-free
+        self.ledger = NULL_LEDGER if cfg.ledger is None else LedgerSink(
+            cfg.ledger, mcfg.n_layers, metrics=self.metrics)
+        self._quality_every = 0 if cfg.ledger is None \
+            else cfg.ledger.quality_every
+        self._quality_count = 0         # full-prefill admissions since probe
+        self.quality_log: List[Dict[str, Any]] = []
         self._vocab = mcfg.vocab
         if not cfg.device_loop:
             # the host loop's token and index vectors, uploaded every step
@@ -242,15 +283,29 @@ class InferenceEngine:
                arrival_step: int = 0, temperature: float = 0.0,
                eos_id: Optional[int] = None,
                extras: Optional[Dict[str, Any]] = None,
-               speculate: Optional[int] = None) -> Request:
+               on_token=None, speculate: Optional[int] = None,
+               deadline_steps: Optional[int] = None,
+               deadline_ms: Optional[float] = None,
+               slo: str = "") -> Request:
         """Queue a request. extras: model inputs besides the tokens, batch-1
         leading: a vision-stub arch's {"img_embeds": (1, n_img_tokens, d)}
         (models.frontends.llava_patches), or an encoder-decoder's {"frames":
-        (1, enc_positions, d)} (models.frontends.whisper_frames)."""
+        (1, enc_positions, d)} (models.frontends.whisper_frames).
+        on_token(request, token) streams each emitted token; the deadlines
+        shed the request once it cannot finish in time (a request already
+        doomed is shed here and returned, never queued)."""
         r = Request(id=-1, prompt=np.asarray(prompt, np.int32).reshape(-1),
                     max_new_tokens=max_new_tokens, arrival_step=arrival_step,
                     temperature=temperature, eos_id=eos_id,
-                    speculate=speculate, extras=extras)
+                    speculate=speculate, extras=extras, on_token=on_token,
+                    deadline_steps=deadline_steps, deadline_ms=deadline_ms,
+                    slo=slo)
+        return self.adopt(r)
+
+    def adopt(self, r: Request) -> Request:
+        """Validate and enqueue a Request object. Raises EngineSaturated
+        when the bounded waiting deque is full; sheds (and returns) a
+        request whose deadline provably cannot be met."""
         if r.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         need = self._n_img + len(r.prompt) + r.max_new_tokens
@@ -268,13 +323,62 @@ class InferenceEngine:
         self._next_id += 1
         self.requests[r.id] = r
         self.metrics.on_submit(r.id, r.arrival_step, len(r.prompt))
+        if r.deadline_steps is not None or r.deadline_ms is not None:
+            self._has_deadlines = True
+            if self._doomed(r):
+                # shedding doomed work now costs nothing and keeps its
+                # place in the queue for requests that can still make it
+                self._shed(r, "deadline")
+                return r
         self._waiting.append(r)
         return r
 
+    def cancel(self, r: Request) -> None:
+        """Cancel a request: the terminal "shed" state, its slot, pages
+        (and the draft's slab row, which shares the slot) and prefix
+        references released. A no-op on a finished request."""
+        if r.finished or r.id not in self.requests:
+            return
+        if r.state == "waiting":
+            try:
+                self._waiting.remove(r)
+            except ValueError:
+                pass
+        self._shed(r, "cancel")
+
+    # -- QoS tiers (serve.qos) ----------------------------------------------
+
+    @property
+    def tier(self) -> int:
+        """The live quality tier (0 = the model's own spec)."""
+        return self.backend.tier
+
+    def set_tier(self, tier: int) -> None:
+        """Swap the live decode onto packed tier `tier`. Resident requests
+        continue from their exact position; each records the cheapest tier
+        it decoded on."""
+        old = self.backend.tier
+        if tier == old:
+            return
+        self.backend.set_tier(tier)
+        self.metrics.on_tier_change(old, tier)
+        for r in self._slots:
+            if r is not None and tier > r.tier:
+                r.tier = tier
+
+    @property
+    def n_waiting(self) -> int:
+        return len(self._waiting)
+
     def step(self) -> None:
-        """One engine step: admissions, then one slab decode dispatch."""
+        """One engine step: the deadline sweep and the QoS tick, then
+        admissions, then one slab decode dispatch."""
+        self._expire_deadlines()
+        if self._qos is not None:
+            self._qos_tick()
         arrived = [r for r in self._waiting
-                   if r.arrival_step <= self.step_count]
+                   if r.arrival_step <= self.step_count
+                   and r.retry_at_step <= self.step_count]
         admitted = self.scheduler.admissible(arrived, self.pool.n_free)
         if admitted:
             chosen = {r.id for r in admitted}
@@ -287,8 +391,21 @@ class InferenceEngine:
                     # free slots but not enough free pages, even after LRU
                     # prefix eviction: requeue this and the remaining
                     # admissions at the front in arrival order; finishing
-                    # requests release pages for the next step
-                    for rr in reversed(admitted[i:]):
+                    # requests release pages. With pool_wait_retries the
+                    # failed admission waits out an exponential step
+                    # backoff (other arrivals keep being tried) and is shed
+                    # past the cap.
+                    cap = self.cfg.pool_wait_retries
+                    r.pool_retries += 1
+                    rest = admitted[i + 1:]
+                    if cap is not None and r.pool_retries > cap:
+                        self._shed(r, "pool")
+                    else:
+                        if cap is not None:
+                            r.retry_at_step = self.step_count + min(
+                                1 << r.pool_retries, 64)
+                        rest = [r] + rest
+                    for rr in reversed(rest):
                         self._waiting.appendleft(rr)
                     self.metrics.on_pool_wait()
                     break
@@ -341,9 +458,73 @@ class InferenceEngine:
             b *= 2
         return b if start + b <= self._bucket_cap else s
 
+    def _doomed(self, r: Request) -> bool:
+        """True when the request provably cannot finish by its deadline.
+        Step clock: a live slot emits at least one token a step (at most 1
+        + its speculation cap: the optimistic bound, so a salvageable
+        request is never shed early), so the earliest finish is start +
+        ceil(remaining / per_step) - 1. Wall clock: the time since
+        submit against deadline_ms."""
+        if r.deadline_ms is not None:
+            rec = self.metrics.records.get(r.id)
+            if rec is not None and (time.perf_counter() - rec.submit_mono) \
+                    * 1e3 > r.deadline_ms:
+                return True
+        d = r.deadline_step()
+        if d is None:
+            return False
+        rem = r.max_new_tokens - len(r.generated)
+        per = 1 + self._spec_limit(r)
+        start = max(self.step_count, r.arrival_step)
+        return start - (-rem // per) - 1 > d        # ceil division
+
+    def _shed(self, r: Request, reason: str) -> None:
+        """The terminal "shed" state ('deadline' | 'pool' | 'cancel'): the
+        slot's loop-state row parked, the slot and its pages freed (prefix
+        references drop with them); never a completion."""
+        if r.state == "running":
+            if self.cfg.device_loop:
+                self.backend.release_slot(r.slot)
+            self.pool.free(r.slot)
+            self._slots[r.slot] = None
+        r.state = "shed"
+        r.shed_reason = reason
+        self.metrics.on_shed(reason)
+
+    def _expire_deadlines(self) -> None:
+        """The per-step sweep, armed once a deadline exists: shed waiting
+        and running requests the moment they are doomed, so no completion
+        is served past its deadline."""
+        if not self._has_deadlines:
+            return
+        expired = [r for r in self._waiting if self._doomed(r)]
+        if expired:
+            dead = {r.id for r in expired}
+            self._waiting = collections.deque(
+                r for r in self._waiting if r.id not in dead)
+            for r in expired:
+                self._shed(r, "deadline")
+        for r in list(self._slots):
+            if r is not None and self._doomed(r):
+                self._shed(r, "deadline")
+
+    def _qos_tick(self) -> None:
+        """Feed the tier controller this step's load (queue depth and page
+        pool fullness) and apply its verdict."""
+        stats = self.backend.page_stats()
+        frac = 0.0
+        if stats is not None:
+            used, usable = stats
+            frac = used / max(1, usable)
+        want = self._qos.observe(len(self._waiting), frac)
+        if want != self.backend.tier:
+            self.set_tier(want)
+
     def _emit(self, r: Request, tok: int, step: int) -> None:
         r.generated.append(tok)
         self.metrics.on_token(r.id, step)
+        if r.on_token is not None:
+            r.on_token(r, tok)
         if len(r.generated) >= r.max_new_tokens \
                 or (r.eos_id is not None and tok == r.eos_id):
             r.state = "done"
@@ -401,8 +582,17 @@ class InferenceEngine:
             row = logits[:, s_sfx - 1]
         else:
             logits, caches = self.backend.prefill(batch, exact=sp == s0)
-            row = logits[:, -1] if sp == s0 else logits[:, n_img + s0 - 1]
+            col = -1 if sp == s0 else n_img + s0 - 1
+            row = logits[:, col]
             self.backend.write_slot(slot, caches)
+            if self._quality_every:
+                # every quality_every-th full-prefill admission (a prefix
+                # hit's suffix logits depend on page state a standalone
+                # prefill cannot replay)
+                self._quality_count += 1
+                if self._quality_count >= self._quality_every:
+                    self._quality_count = 0
+                    self._quality_probe(r, batch, row, sp == s0, col)
         if self.backend.paged:
             if not r.extras:
                 # publish the prompt's full pages for later admissions (a
@@ -413,6 +603,7 @@ class InferenceEngine:
                 self.metrics.on_conversation_hit(matched)
         r.prefix_matched = matched
         r.state, r.slot, r.index = "running", slot, n_img + s0
+        r.tier = max(r.tier, self.backend.tier)
         self._slots[slot] = r
         self.metrics.on_start(r.id, self.step_count)
         if self.cfg.device_loop:
@@ -430,6 +621,32 @@ class InferenceEngine:
             self._indices[slot] = r.index
         self._emit(r, tok, self.step_count)   # may finish (max_new_tokens 1)
 
+    def _quality_probe(self, r: Request, batch, row, exact: bool,
+                       col: int) -> None:
+        """The per-tier quality probe (serve.ledger): this admission's
+        prefill shadow-run through tier 0, its logits column against the
+        live tier's on the host: top-1 agreement and mean |logit
+        difference|. Two host pulls, metered as 'quality', so
+        `host_syncs_decode` stays the dispatch count."""
+        shadow = self.backend.quality_shadow(batch, exact)
+        ref = np.asarray(shadow[:, col][0], np.float64)
+        mine = row[0].float().cpu().numpy().astype(np.float64)
+        self.metrics.on_host_sync("quality", 2)
+        top1 = bool(int(np.argmax(mine)) == int(np.argmax(ref)))
+        mad = float(np.mean(np.abs(mine - ref)))
+        tier = self.backend.tier
+        self.metrics.on_quality_probe(tier, top1, mad)
+        self.quality_log.append({"rid": r.id, "tier": tier,
+                                 "top1": top1, "mad": mad})
+
+    def _drain_ledger(self) -> None:
+        """Fold the ledger matrix the dispatch's host copy brought back
+        into the sink (a no-op without the ledger), and rebase it when the
+        backend zeroed the device buffer."""
+        self.ledger.on_drain(self.backend.last_ledger, self.step_count)
+        if self.ledger.enabled and self.backend.maybe_rebase_ledger():
+            self.ledger.rebase()
+
     def _decode_block(self) -> int:
         """ONE dispatch = K fused micro-steps; sync the (K, B) token block
         and catch host bookkeeping up to it."""
@@ -438,6 +655,8 @@ class InferenceEngine:
                                     micro_steps=k)
         block = self.backend.decode_block()
         self.metrics.on_host_sync("decode")
+        # the ledger rode the dispatch's copy: no extra crossing
+        self._drain_ledger()
         live = [s for s in range(self.cfg.n_slots)
                 if self._slots[s] is not None]
         sub = block[:, live]
@@ -500,6 +719,7 @@ class InferenceEngine:
                                     micro_steps=(k + 1) + self._verify_steps)
         block, n_commit, n_accept = self.backend.spec_decode_block()
         self.metrics.on_host_sync("decode")
+        self._drain_ledger()
         # fault detection: every live slot's committed prefix is checked
         # BEFORE anything is emitted
         for slot in range(n):

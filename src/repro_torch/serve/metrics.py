@@ -1,13 +1,15 @@
 """Serving metrics: throughput, latency percentiles, occupancy, host syncs,
-prefix reuse, page occupancy and speculative acceptance (the slab, paged
-and speculative engine's subset of `repro.serve.metrics`, same report
-keys).
+prefix reuse, page occupancy, speculative acceptance, QoS tier churn,
+shedding, the ineffectual-work ledger and the per-tier quality probe (the
+single engine's subset of `repro.serve.metrics`, same report keys).
 
 Two clocks: wall seconds (time.perf_counter, monotonic) and engine steps
 (one slab decode micro-step per step). `decode_steps` counts DISPATCHES (K
 micro-steps each); `host_syncs` counts host<->device crossings by kind —
 the fused decode loop costs exactly one per dispatch (the (K, B) token
-block), prefill one per admission (the first token).
+block), prefill one per admission (the first token), and the quality
+probe two per probed admission under its own kind, so `host_syncs_decode`
+stays the dispatch count.
 """
 
 from __future__ import annotations
@@ -70,6 +72,28 @@ class ServeMetrics:
         self.draft_accepted = 0               # ... committed by the verify
         self.draft_flop_fraction = 0.0        # analytic draft/target FLOPs
         self.slot_acceptance: Dict[int, List[int]] = {}   # slot: [acc, prop]
+        # resilience (serve.qos)
+        self.tier_demotions = 0               # moves to a cheaper tier
+        self.tier_promotions = 0              # ... back toward tier 0
+        self.shed = 0                         # requests ended "shed"
+        self.deadline_missed = 0              # ... on a deadline
+        self.shed_pool_pressure = 0           # ... past pool_wait_retries
+        # ineffectual-work ledger (serve.ledger): exact integer counts
+        # drained from the device matrix, summed in float64
+        self.ledger_dispatches = 0            # dispatches with a drain
+        self.act_probe_elems = 0.0            # activation elements probed
+        self.act_zeros = 0.0                  # exact zeros among them
+        self.act_near_zeros = 0.0             # |x| <= threshold
+        self.act_groups = 0.0                 # histogram groups probed
+        self.act_kblocks = 0.0                # k-blocks examined
+        self.act_dead_kblocks = 0.0           # ... entirely near-zero
+        self.flops_dense = 0.0                # dense FLOPs at probed GEMMs
+        self.flops_effective = 0.0            # minus the dead-k-block share
+        self.bytes_dense = 0.0
+        self.bytes_effective = 0.0
+        # per-tier quality probe: tier -> [n, top-1 matches, mad sum]
+        self.quality_probes = 0
+        self.quality: Dict[int, List[float]] = {}
 
     def on_submit(self, request_id: int, arrival_step: int, n_prompt: int) -> None:
         self.records[request_id] = RequestRecord(
@@ -143,6 +167,58 @@ class ServeMetrics:
         """An admission bounced off page pressure and was requeued."""
         self.pool_waits += 1
 
+    def on_tier_change(self, old_tier: int, new_tier: int) -> None:
+        """The engine swapped its packed tier (serve.qos): a higher tier
+        index is a demotion, a lower one a promotion."""
+        if new_tier > old_tier:
+            self.tier_demotions += 1
+        elif new_tier < old_tier:
+            self.tier_promotions += 1
+
+    def on_shed(self, reason: str) -> None:
+        """A request ended "shed" instead of "done": 'deadline', 'pool'
+        (past the pool_wait_retries cap) or 'cancel'."""
+        self.shed += 1
+        if reason == "deadline":
+            self.deadline_missed += 1
+        elif reason == "pool":
+            self.shed_pool_pressure += 1
+
+    def on_ledger(self, *, elems: float, zeros: float, near: float,
+                  groups: float, kblocks: float, dead_kblocks: float,
+                  flops_dense: float, flops_eff: float, bytes_dense: float,
+                  bytes_eff: float) -> None:
+        """One drained dispatch delta of the ineffectual-work ledger
+        (serve.ledger `LedgerSink.on_drain`)."""
+        self.ledger_dispatches += 1
+        self.act_probe_elems += elems
+        self.act_zeros += zeros
+        self.act_near_zeros += near
+        self.act_groups += groups
+        self.act_kblocks += kblocks
+        self.act_dead_kblocks += dead_kblocks
+        self.flops_dense += flops_dense
+        self.flops_effective += flops_eff
+        self.bytes_dense += bytes_dense
+        self.bytes_effective += bytes_eff
+
+    def on_quality_probe(self, tier: int, top1: bool, mad: float) -> None:
+        """One shadow-prefill sample against tier 0 (serve.ledger): top-1
+        agreement and the mean |logit difference| of the probed column."""
+        self.quality_probes += 1
+        q = self.quality.setdefault(tier, [0.0, 0.0, 0.0])
+        q[0] += 1.0
+        q[1] += 1.0 if top1 else 0.0
+        q[2] += mad
+
+    def quality_by_tier(self) -> Dict[int, Dict[str, float]]:
+        """Per tier: probes, top-1 agreement rate against tier 0, mean
+        |logit difference|."""
+        return {t: {"probes": q[0],
+                    "top1_rate": q[1] / max(1.0, q[0]),
+                    "logit_mad": q[2] / max(1.0, q[0])}
+                for t, q in sorted(self.quality.items())}
+
     def on_pages(self, in_use: int, capacity: int) -> None:
         """Per-dispatch page-pool gauge (pages referenced by live slots or
         retained by the prefix index, out of the usable pool)."""
@@ -167,6 +243,7 @@ class ServeMetrics:
             "idle_steps": float(self.idle_steps),
             "host_syncs_decode": float(self.host_syncs.get("decode", 0)),
             "host_syncs_prefill": float(self.host_syncs.get("prefill", 0)),
+            "host_syncs_quality": float(self.host_syncs.get("quality", 0)),
             "host_syncs_per_token": self.host_syncs.get("decode", 0)
             / max(1, decoded),
             "wall_seconds": elapsed,
@@ -208,4 +285,36 @@ class ServeMetrics:
             "acceptance_rate": self.draft_accepted
             / max(1, self.draft_proposed),
             "draft_verify_flop_ratio": self.draft_flop_fraction,
+            # resilience: QoS tier churn, shedding
+            "tier_demotions": float(self.tier_demotions),
+            "tier_promotions": float(self.tier_promotions),
+            "shed": float(self.shed),
+            "deadline_missed": float(self.deadline_missed),
+            "shed_pool_pressure": float(self.shed_pool_pressure),
+            # ineffectual-work ledger: exact counters, derived fractions
+            "ledger_dispatches": float(self.ledger_dispatches),
+            "act_probe_elems": float(self.act_probe_elems),
+            "act_zeros": float(self.act_zeros),
+            "act_near_zeros": float(self.act_near_zeros),
+            "act_groups": float(self.act_groups),
+            "act_kblocks": float(self.act_kblocks),
+            "act_dead_kblocks": float(self.act_dead_kblocks),
+            "act_zero_fraction": self.act_zeros
+            / max(1.0, self.act_probe_elems),
+            "act_near_zero_fraction": self.act_near_zeros
+            / max(1.0, self.act_probe_elems),
+            "dead_kblock_fraction": self.act_dead_kblocks
+            / max(1.0, self.act_kblocks),
+            "flops_dense": float(self.flops_dense),
+            "flops_effective": float(self.flops_effective),
+            "effective_flop_fraction": self.flops_effective
+            / max(1.0, self.flops_dense),
+            "bytes_dense": float(self.bytes_dense),
+            "bytes_effective": float(self.bytes_effective),
+            # the per-tier quality probe, pooled (per tier: quality_by_tier)
+            "quality_probes": float(self.quality_probes),
+            "quality_top1_rate": sum(q[1] for q in self.quality.values())
+            / max(1.0, float(self.quality_probes)),
+            "quality_logit_mad": sum(q[2] for q in self.quality.values())
+            / max(1.0, float(self.quality_probes)),
         }

@@ -14,9 +14,12 @@ package; its shared experts pack as any MLP does. `load` packs leaf by
 leaf and lets each float leaf go as soon as its packed form exists, so a
 model whose dense tree fills most of the card (jamba at 8 layers, 53 GB
 in f32) packs beside it. Models are keyed by (arch, KratosSpec, smoke,
-seed, device, DraftSpec, depth cut). A `draft_spec`
+seed, device, DraftSpec, tier ladder, depth cut). A `draft_spec`
 (serve.speculative) also derives a self-draft from the same dense weights,
-part of the artifact's identity.
+and `tier_specs` (serve.qos) a ladder of cheaper (sparsity, bits) tiers of
+them, each part of the artifact's identity. The tiers pack off the dense
+tree before the target's pack consumes it, so the load holds the dense
+tree, every tier and the target's growing pack at once.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from repro_torch.core import kratos as kr
 from repro_torch.core import quantize as qz
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
+from repro_torch.serve import qos as Q
 from repro_torch.serve import speculative as SP
 
 # the projections that route through kr.apply: attention (the encoder's and
@@ -125,7 +129,12 @@ class PackedModel:
     With `draft_spec` (speculative.DraftSpec) the artifact also carries a
     self-draft: the same dense weights re-packed at the draft's (sparsity,
     bits) point, optionally cut to a leading layer prefix, for the
-    speculative decode path."""
+    speculative decode path.
+
+    With `tier_specs` (serve.qos) it carries a QoS ladder: the same dense
+    weights packed at 1-2 cheaper (sparsity, bits) points, full depth,
+    same cache. Tier 0 is `params`; `tier_params[i]` backs engine tier
+    i + 1."""
 
     name: str
     cfg: T.ModelConfig
@@ -139,6 +148,8 @@ class PackedModel:
     draft_cfg: Optional[T.ModelConfig] = None
     draft_params: Optional[Dict[str, Any]] = None
     draft_packed: int = 0           # projections packed in the draft tree
+    tier_specs: Tuple = ()          # QoS ladder (DraftSpec per cheap tier)
+    tier_params: Tuple = ()         # matching packed trees (same cache)
 
     @property
     def compression(self) -> float:
@@ -147,6 +158,15 @@ class PackedModel:
     @property
     def has_draft(self) -> bool:
         return self.draft_params is not None
+
+    @property
+    def n_tiers(self) -> int:
+        """Resident quality tiers: the full-quality tree and the ladder."""
+        return 1 + len(self.tier_params)
+
+    def tier_tree(self, tier: int) -> Dict[str, Any]:
+        """The packed tree behind engine tier `tier` (0 = full quality)."""
+        return self.params if tier == 0 else self.tier_params[tier - 1]
 
     def draft_cost_fraction(self) -> float:
         """Analytic draft/target FLOPs-per-token ratio (1.0 without a
@@ -176,19 +196,23 @@ class ModelRegistry:
         draft_spec (speculative.DraftSpec): also derive a self-draft from
         the same dense weights, which `EngineConfig.speculate` requires; it
         joins the cache key and the default name (`+draft[<tag>]`).
+        tier_specs (tuple of DraftSpec, cheapest last): also keep a QoS
+        ladder resident, the same dense weights packed at each cheaper
+        (sparsity, bits) point (`qos.check_tier_spec`), which
+        `EngineConfig.qos` requires; it joins the key and the name
+        (`+tiers[<tag>,...]`).
         n_layers: cut the config to its first n_layers layers (a depth cut
         of the published model; it joins the key and the name).
         """
-        if tier_specs:
-            raise NotImplementedError("QoS tier ladders are not ported yet "
-                                      "(ROADMAP.md queue 1, item 8)")
+        tier_specs = tuple(Q.check_tier_spec(ts) for ts in tier_specs or ())
         device = check_device(device)
         cfg = (C.get_smoke if smoke else C.get_config)(arch)
         if n_layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=n_layers)
         spec = cfg.kratos if spec is None else spec
         cfg = dataclasses.replace(cfg, kratos=spec)
-        key = (arch, spec, smoke, seed, str(device), draft_spec, n_layers)
+        key = (arch, spec, smoke, seed, str(device), draft_spec, tier_specs,
+               n_layers)
         if params is None and key in self._models:
             return self._models[key]
         if params is None:
@@ -203,6 +227,11 @@ class ModelRegistry:
             dcfg, dparams, dn = SP.derive_draft(params, cfg, spec, draft_spec)
             draft = dict(draft_spec=draft_spec, draft_cfg=dcfg,
                          draft_params=dparams, draft_packed=dn)
+        # every tier packs off the DENSE leaves, so the ladder packs before
+        # the target's pack empties the tree
+        tier_params = tuple(
+            pack_model_params(params, ts.kratos_spec(spec))[0]
+            for ts in tier_specs)
         # `params` is this call's own tree (fresh, or tree_to's new
         # containers): packing may empty it leaf by leaf
         packed, n_packed = pack_model_params(params, spec, consume=True)
@@ -214,6 +243,8 @@ class ModelRegistry:
         tag = kr.spec_tag(spec)
         if draft_spec is not None:
             tag += f"+draft[{draft_spec.tag}]"
+        if tier_specs:
+            tag += "+tiers[" + ",".join(ts.tag for ts in tier_specs) + "]"
         default_name = (f"{arch}@{tag}"
                         + ("" if smoke else "-full")
                         + (f"-{n_layers}L" if n_layers is not None else "")
@@ -221,7 +252,9 @@ class ModelRegistry:
         model = PackedModel(name=name or default_name, cfg=cfg, params=packed,
                             spec=spec, n_packed=n_packed,
                             packed_bytes=packed_bytes,
-                            dense_bytes=dense_bytes, device=device, **draft)
+                            dense_bytes=dense_bytes, device=device,
+                            tier_specs=tier_specs, tier_params=tier_params,
+                            **draft)
         self._models[key] = model
         self._by_name[model.name] = model
         return model

@@ -7,7 +7,7 @@ ticks once per K-token block."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -30,17 +30,45 @@ class Request:
     # vision-stub arch's {"img_embeds": (1, n_img_tokens, d)}, or an
     # encoder-decoder's {"frames": (1, enc_positions, d)}
     extras: Optional[Dict[str, Any]] = None
+    on_token: Optional[Callable[["Request", int], None]] = None  # streaming
+    # QoS and deadlines (serve.qos): `deadline_steps` counts engine steps
+    # from arrival_step (the deterministic clock); `deadline_ms` is a wall
+    # bound from submit (perf_counter). Either sheds the request once it
+    # cannot finish in time: at admission, in the queue, or mid-flight
+    # with its slot and pages freed. `slo` is a free-form class label.
+    deadline_steps: Optional[int] = None
+    deadline_ms: Optional[float] = None
+    slo: str = ""
 
     # engine-managed
-    state: str = "waiting"                  # waiting | running | done
+    state: str = "waiting"                  # waiting | running | done | shed
     slot: int = -1
     index: int = 0                          # next cache write position
     prefix_matched: int = 0                 # prompt tokens reused (paged)
     generated: List[int] = dataclasses.field(default_factory=list)
+    # why a "shed" request ended: 'deadline' | 'pool' | 'cancel'
+    shed_reason: str = ""
+    # the cheapest (highest) engine tier this request decoded on
+    tier: int = 0
+    # PoolExhausted backoff (EngineConfig.pool_wait_retries): requeues so
+    # far and the earliest step the admission may be tried again
+    pool_retries: int = 0
+    retry_at_step: int = 0
 
     @property
     def done(self) -> bool:
         return self.state == "done"
+
+    @property
+    def finished(self) -> bool:
+        """Terminal either way: completed ('done') or shed ('shed')."""
+        return self.state in ("done", "shed")
+
+    def deadline_step(self) -> Optional[int]:
+        """The deadline on the absolute step clock, or None."""
+        if self.deadline_steps is None:
+            return None
+        return self.arrival_step + self.deadline_steps
 
 
 class ContinuousScheduler:

@@ -28,8 +28,9 @@ from repro_torch import configs as PC
 from repro_torch.checkpoint.convert import convert
 from repro_torch.core import kratos as pkr
 from repro_torch.models import transformer as PT
-from repro_torch.serve import (EngineConfig, EngineSaturated,
-                               InferenceEngine, ModelRegistry)
+from repro_torch.serve import (DraftSpec, EngineConfig, EngineSaturated,
+                               InferenceEngine, LedgerConfig, ModelRegistry,
+                               QoSConfig)
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "h2o-danube-1.8b"
@@ -143,12 +144,25 @@ def test_cuda_device_refused_without_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("qos", object(), "item 8"), ("paged_native", False, "item 10"),
-    ("pool_wait_retries", 2, "item 8"), ("ledger", object(), "item 8"),
-    ("trace", object(), "item 8")])
+    ("paged_native", False, "item 10"), ("trace", object(), "item 8")])
 def test_unported_engine_features_raise(field, value, item):
     with pytest.raises(NotImplementedError, match=item):
         EngineConfig(device="cpu", **{field: value})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("qos", QoSConfig()), ("pool_wait_retries", 2),
+    ("ledger", LedgerConfig())])
+def test_resilience_and_ledger_fields_accepted(field, value):
+    """The fields the port refused until the resilience slice now build an
+    engine (qos over a model loaded with a tier ladder)."""
+    tiers = (DraftSpec.from_args(8, 0.5, 0),) if field == "qos" else ()
+    model = ModelRegistry().load(ARCH, device="cpu", tier_specs=tiers)
+    eng = InferenceEngine(model, EngineConfig(device="cpu", max_len=24,
+                                              **{field: value}))
+    eng.submit(np.arange(5), 3)
+    eng.run()
+    assert getattr(eng.cfg, field) == value
 
 
 def test_unported_specs_and_archs_refused_up_front():
