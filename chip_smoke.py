@@ -191,6 +191,25 @@ Phases, in order; any failure raises and exits non-zero:
      tier 0). 17c: a page pool of 80 pages of 16, pool_wait_retries 2,
      deadline_steps 40 on every 4th request: shed ids by reason, no
      completion past its deadline, the pool pristine.
+ 18. tracing, telemetry, the replica router and chaos, on phase 5's first
+     8 requests (K 4). 18a, right after phase 6, on its dense h2o-danube
+     (full width and depth): the slab engine with tracing off and on in
+     alternating turns (off, on with a torch.profiler bracket over the
+     first 3 dispatches written under chiprun_out/profile, on, off):
+     tokens and launch counts equal, wall ms a decoded token each; the
+     spans' step clocks equal the report's; the median `decode` span
+     against phase 5's graph wall ms a micro-step x 4; the profiler
+     trace's kernels by family, the dense GEMV among those the graph
+     replays launched; a traced paged engine (page events, gather bytes
+     avoided); a TelemetryExporter on an ephemeral port scraped mid-run
+     from 127.0.0.1 (serve_tokens_generated) with its JSONL. 18b, right
+     after phase 17, on phase 9's 8-layer tree: 2 replicas of 4 slots, a
+     fault-free run; a crash of replica 1 at router step 3 with
+     auto_restart (tokens equal the fault-free run's; the restart's wall
+     ms; memory_allocated after it less than half a replica above its
+     level before the crash); one nan_logits sync (tokens equal); every
+     free page of a paged replica squeezed for 4 steps (admissions wait,
+     the pools end pristine).
 Phase 5 also holds the host-loop cell ([5h]): h2o-danube dense served by
 the host decode loop (device_loop=False, one graphed (B, 1) forward a step,
 logits to the host) and by the device loop, whole runs in alternating
@@ -504,6 +523,9 @@ def gemm_kernels_by_grid(prof):
     return ms, launches
 
 
+EMPTY_RETRIES = 2
+
+
 def trace_call(torch, fn, grids=False):
     """Trace one call of `fn` (closed by a device sync) in its own
     torch.profiler session of device activity. Returns the device window
@@ -512,19 +534,29 @@ def trace_call(torch, fn, grids=False):
     device idle share = 1 - (union of device activity) / (device window),
     and the host wall time of the traced call (the tracing widens it). With
     `grids`, also the device ms and launches of each GEMM kernel by name
-    and grid (`gemm_kernels_by_grid`)."""
+    and grid (`gemm_kernels_by_grid`). A session that recorded no device
+    op at all (the tracer can lose every record of a call: `routed_kernels`
+    meets it on its short traces, and it once hit a phase-11 prefill) is
+    taken again, at most EMPTY_RETRIES times, and counted in
+    `empty_traces_retaken`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t_host = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        t_host = time.perf_counter() - t_host
-    device = sorted((e.time_range.start, e.time_range.end, e.name)
-                    for e in prof.events()
-                    if e.device_type == DeviceType.CUDA)
-    if not device:
-        raise AssertionError("profiler saw no device activity")
+    for empty in range(EMPTY_RETRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t_host = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            t_host = time.perf_counter() - t_host
+        device = sorted((e.time_range.start, e.time_range.end, e.name)
+                        for e in prof.events()
+                        if e.device_type == DeviceType.CUDA)
+        if device:
+            break
+        print(f"    a traced call recorded no device op (trace {empty + 1})",
+              flush=True)
+    else:
+        raise AssertionError("profiler saw no device activity in "
+                             f"{EMPTY_RETRIES + 1} traces")
     t0, t1 = device[0][0], max(e for _, e, _ in device)
     busy, end, by_kernel, dtoh = 0.0, t0, {}, 0
     for s, e, name in device:
@@ -536,7 +568,8 @@ def trace_call(torch, fn, grids=False):
     out = dict(window_ms=(t1 - t0) / 1e3, busy_ms=busy / 1e3,
                idle_share=1.0 - busy / (t1 - t0),
                traced_host_ms=t_host * 1e3, device_ms_by_kernel=by_kernel,
-               dtoh_copies=dtoh, device_ops=len(device))
+               dtoh_copies=dtoh, device_ops=len(device),
+               empty_traces_retaken=empty)
     if grids:
         out["gemm_device_ms_by_grid"], out["gemm_launches_by_grid"] = \
             gemm_kernels_by_grid(prof)
@@ -3843,6 +3876,322 @@ def phase_whisper(torch, card, mark):
     return totals, results
 
 
+# phase 18: tracing and telemetry on the dense h2o-danube-1.8b of phase 5
+# (full width and depth), the router and chaos on phase 9's 8-layer tree;
+# both on phase 5's first 8 requests (one wave), K 4
+SERVE_REQUESTS = 8
+PROFILE_DISPATCHES = 3
+ROUTER_REPLICAS = 2
+CRASH_STEP = 3
+
+
+def profile_kernels(path):
+    """The device kernels of a profiler bracket's Chrome trace by the
+    port's kernel families: all of them, and those a CUDA graph replay
+    launched (their correlation id is a cudaGraphLaunch's)."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    replays = {e["args"]["correlation"] for e in events
+               if e.get("name") == "cudaGraphLaunch"
+               and "correlation" in e.get("args", {})}
+    every, in_graphs = {}, {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        fam = family(e["name"])
+        every[fam] = every.get(fam, 0) + 1
+        if e.get("args", {}).get("correlation") in replays:
+            in_graphs[fam] = in_graphs.get(fam, 0) + 1
+    return dict(graph_launches=len(replays), kernels=every,
+                kernels_in_graph_replays=in_graphs)
+
+
+def phase_tracing(torch, card, params, step_ms):
+    """18a: tracing and telemetry on the dense slab engine of phase 5
+    (h2o-danube-1.8b, full width and depth, K 4) over phase 5's first 8
+    requests. Trace off and on in alternating turns (off, on with the
+    torch.profiler bracket over the first 3 dispatches, on, off): tokens
+    and launch counts equal, wall ms a decoded token each; the spans'
+    step clocks against the report's; the median `decode` span against
+    phase 5's graph wall ms a micro-step x K (`step_ms`); the profiler
+    trace's kernels, the dense GEMV among those the graph replays
+    launched. Then a traced paged engine (page 16: page events, gather
+    bytes avoided) and a TelemetryExporter on an ephemeral port, scraped
+    mid-run from 127.0.0.1."""
+    import urllib.request
+    from repro_torch.core import kratos as kr
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (EngineConfig, InferenceEngine,
+                                   ModelRegistry, TelemetryConfig,
+                                   TelemetryExporter, TraceConfig,
+                                   engine_sample)
+    t_phase = time.perf_counter()
+    model = ModelRegistry().load(DANUBE, kr.DENSE, smoke=False,
+                                 params=params, seed=SEED)
+    prompts = serving_traffic(model.cfg.vocab)[:SERVE_REQUESTS]
+    base = dict(n_slots=N_SLOTS, max_len=512 + GEN_LEN, decode_chunk=CHUNK,
+                seed=SEED, device=model.device.type)
+    profile_dir = ROOT / "chiprun_out" / "profile"
+    totals = {name: 0 for name in ops.KERNELS}
+    turns = (("off", None),
+             ("on, profiled", TraceConfig(
+                 profile_dir=str(profile_dir),
+                 profile_dispatches=PROFILE_DISPATCHES)),
+             ("on", TraceConfig()), ("off", None))
+    runs = []
+    for tag, trace in turns:
+        eng, reqs, wall, counts, _ = serve_traffic(
+            torch, model, prompts, EngineConfig(trace=trace, **base))
+        add_counts(totals, counts)
+        rep = eng.metrics.report()
+        decoded = rep["tokens_generated"] - len(prompts)
+        runs.append(dict(tag=tag, eng=eng, counts=counts, wall_s=wall,
+                         tokens=[list(r.generated) for r in reqs],
+                         ms_per_decoded_token=wall * 1e3 / decoded))
+        assert all(r.done and len(r.generated) == GEN_LEN for r in reqs)
+    for run in runs[1:]:
+        assert run["tokens"] == runs[0]["tokens"], run["tag"]
+        assert run["counts"] == runs[0]["counts"], (run["tag"],
+                                                    run["counts"])
+    traced = runs[1]["eng"]
+    spans = traced.trace.request_spans()
+    for rid, rec in traced.metrics.records.items():
+        s = spans[rid]
+        assert s["ttft_steps"] == rec.first_token_step - rec.arrival_step
+        assert s["latency_steps"] == rec.finish_step - rec.arrival_step
+    rep = traced.metrics.report()
+    assert rep["latency_steps_p99"] == max(s["latency_steps"]
+                                           for s in spans.values())
+    evs = list(runs[2]["eng"].trace.events)
+    decode_ms = [e["dur"] * 1e3 for e in evs if e["ev"] == "decode"]
+    syncs = [e["bytes"] for e in evs if e["ev"] == "host_sync"
+             and e["kind"] == "decode"]
+    assert syncs == [4 * N_SLOTS * CHUNK] * len(decode_ms), syncs
+    kinds = [e["ev"] for e in traced.trace.events]
+    assert kinds.count("profile_start") == kinds.count("profile_stop") == 1
+    prof = profile_kernels(traced.trace.profile_path)
+    assert prof["kernels_in_graph_replays"].get("gemv_cluster_kernel", 0) \
+        > 0, prof
+    # the paged engine, traced
+    eng, reqs, wall, counts, _ = serve_traffic(
+        torch, model, prompts, EngineConfig(trace=TraceConfig(),
+                                            page_size=16, **base))
+    add_counts(totals, counts)
+    paged_events = {k: sum(e["ev"] == k for e in eng.trace.events)
+                    for k in ("page_alloc", "page_free", "gather_avoided")}
+    assert all(paged_events.values()), paged_events
+    paged_rep = eng.metrics.report()
+    assert paged_rep["gather_bytes_avoided"] == \
+        eng.backend.gather_bytes_per_dispatch() * paged_rep["decode_steps"] \
+        > 0, paged_rep
+    # live telemetry: a scrape mid-run
+    jsonl = ROOT / "chiprun_out" / "telemetry.jsonl"
+    jsonl.unlink(missing_ok=True)
+    eng = InferenceEngine(model, EngineConfig(**base))
+    exporter = TelemetryExporter(lambda: engine_sample(eng), TelemetryConfig(
+        interval=0.05, port=0, jsonl=str(jsonl)))
+    for p in prompts:
+        eng.submit(p, GEN_LEN)
+    exporter.start()
+    try:
+        for _ in range(6):
+            eng.step()
+        exporter.sample()
+        url = f"http://127.0.0.1:{exporter.port}/metrics"
+        body = urllib.request.urlopen(url, timeout=10).read().decode()
+        eng.run()
+    finally:
+        exporter.stop()
+    scraped = {line.split()[0]: float(line.split()[1])
+               for line in body.splitlines() if line.startswith("serve_")}
+    assert scraped.get("serve_tokens_generated", 0) > 0, body[:400]
+    lines = jsonl.read_text().splitlines()
+    assert len(lines) >= 2, len(lines)
+    off = [r["ms_per_decoded_token"] for r in runs if r["tag"] == "off"]
+    on = [r["ms_per_decoded_token"] for r in runs if r["tag"] != "off"]
+    res = dict(
+        turns=[r["tag"] for r in runs],
+        wall_s=[r["wall_s"] for r in runs],
+        ms_per_decoded_token=[r["ms_per_decoded_token"] for r in runs],
+        tracing_cost_ms_per_decoded_token=runs[2]["ms_per_decoded_token"]
+        - statistics.mean(off),
+        decode_span_ms=decode_ms,
+        decode_span_ms_median=statistics.median(decode_ms),
+        graph_wall_ms_per_dispatch=step_ms * CHUNK,
+        events=len(traced.trace.events), dropped=traced.trace.dropped,
+        profile=prof, profile_path=str(traced.trace.profile_path),
+        paged_gather_bytes_avoided=paged_rep["gather_bytes_avoided"],
+        paged_events=paged_events,
+        telemetry_lines=len(lines), telemetry_samples=exporter.n_samples,
+        scraped_tokens_generated=scraped["serve_tokens_generated"],
+        launches=runs[0]["counts"], seconds=time.perf_counter() - t_phase)
+    r = lambda xs, d=3: [round(x, d) for x in xs]
+    print(f"  [18a] trace off / on [{card}], turns {res['turns']}: wall ms / "
+          f"decoded token {r(res['ms_per_decoded_token'])} (off "
+          f"{r(off)}, on {r(on)}); tokens and launch counts equal "
+          f"({runs[0]['counts']}); spans reconcile with the report over "
+          f"{len(spans)} requests; {res['events']} events, "
+          f"{res['dropped']} dropped", flush=True)
+    print(f"    decode span median {res['decode_span_ms_median']:.3f} ms "
+          f"({len(decode_ms)} dispatches, {r(sorted(decode_ms)[:3])} .. "
+          f"{r(sorted(decode_ms)[-3:])}) against phase 5's graph wall "
+          f"{step_ms:.3f} ms / micro-step x {CHUNK} = "
+          f"{res['graph_wall_ms_per_dispatch']:.3f} ms", flush=True)
+    print(f"    profiler bracket over {PROFILE_DISPATCHES} dispatches: "
+          f"{prof['graph_launches']} graph launches; kernels by family "
+          f"{prof['kernels']}; in graph replays "
+          f"{prof['kernels_in_graph_replays']}", flush=True)
+    print(f"    paged (page 16), traced: gather_bytes_avoided "
+          f"{paged_rep['gather_bytes_avoided']:.0f} over "
+          f"{paged_rep['decode_steps']:.0f} dispatches, page events "
+          f"{res['paged_events']}; telemetry: scrape mid-run "
+          f"serve_tokens_generated {scraped['serve_tokens_generated']:g}, "
+          f"{len(lines)} JSONL lines, {exporter.n_samples} samples",
+          flush=True)
+    return totals, res
+
+
+def phase_router(torch, card, params):
+    """18b: the replica router and the chaos harness on phase 9's 8-layer
+    h2o-danube-1.8b tree (full width, dense), 2 replicas of 4 slots, phase
+    5's first 8 requests: a fault-free run; a crash of replica 1 at router
+    step 3 with auto_restart (its tokens equal the fault-free run's; the
+    restart's wall ms, engine build and graph capture; memory_allocated
+    after it no more than half a replica above its level before the
+    crash, so the dead replica's cache and graphs were freed); one
+    nan_logits sync on replica 0 (tokens equal); a squeeze of every free
+    page of replica 0 on a paged router (page 16) for 4 steps (admissions
+    wait; the pools end pristine)."""
+    from repro_torch.core import kratos as kr
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (ChaosHarness, EngineConfig, Fault,
+                                   InferenceEngine, ReplicaRouter)
+    t_phase = time.perf_counter()
+    model = load_cut(DANUBE, kr.DENSE, params, QOS_LAYERS)
+    prompts = serving_traffic(model.cfg.vocab)[:SERVE_REQUESTS]
+    n_slots = SERVE_REQUESTS // ROUTER_REPLICAS
+    ecfg = EngineConfig(n_slots=n_slots, max_len=512 + GEN_LEN,
+                        decode_chunk=CHUNK, seed=SEED,
+                        device=model.device.type)
+    cuda = model.device.type == "cuda"
+    mem = torch.cuda.memory_allocated if cuda else (lambda: 0)
+    totals = {name: 0 for name in ops.KERNELS}
+
+    def fleet(faults, cfg=ecfg, **kw):
+        router = ReplicaRouter.build(model, cfg, ROUTER_REPLICAS, **kw)
+        reqs = [router.submit(p, GEN_LEN) for p in prompts]
+        harness = ChaosHarness(router, faults)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        harness.run()
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        add_counts(totals, ops.launch_counts())
+        assert all(r.done and len(r.generated) == GEN_LEN for r in reqs)
+        return router, [list(r.generated) for r in reqs], wall, harness
+
+    gc.collect()
+    m0 = mem()
+    one = InferenceEngine(model, ecfg)
+    replica_bytes = mem() - m0
+    del one
+    gc.collect()
+    clean, want, clean_wall, _ = fleet([])
+    clean_rep = clean.report()
+    del clean
+    # the crash, stepped by hand around it for the memory reading
+    router = ReplicaRouter.build(model, ecfg, ROUTER_REPLICAS,
+                                 auto_restart=True)
+    build_ms, factory = [], router.engine_factory
+
+    def timed_factory(i):
+        t = time.perf_counter()
+        eng = factory(i)
+        if cuda:
+            torch.cuda.synchronize()
+        build_ms.append((time.perf_counter() - t) * 1e3)
+        return eng
+    router.engine_factory = timed_factory
+    reqs = [router.submit(p, GEN_LEN) for p in prompts]
+    harness = ChaosHarness(router, [Fault(kind="crash", step=CRASH_STEP,
+                                          replica=1)])
+    ops.reset_launch_counts()
+    while router.step_count < CRASH_STEP - 1:
+        harness.step()
+    if cuda:
+        torch.cuda.synchronize()
+    gc.collect()
+    before = mem()
+    harness.step()
+    assert router.restarts == 1 and router.replica_deaths == 1
+    if cuda:
+        torch.cuda.synchronize()
+    gc.collect()
+    after = mem()
+    harness.run()
+    add_counts(totals, ops.launch_counts())
+    crash_tokens = [list(r.generated) for r in reqs]
+    crash_rep = router.report()
+    assert crash_tokens == want, "crash run's tokens differ"
+    if cuda:
+        assert after - before < replica_bytes / 2, (before, after,
+                                                    replica_bytes)
+    del router, harness, reqs
+    gc.collect()
+    nan_router, nan_tokens, nan_wall, _ = fleet(
+        [Fault(kind="nan_logits", step=CRASH_STEP, replica=0)])
+    assert nan_router.replica_deaths == 1 and nan_tokens == want
+    nan_rep = nan_router.report()
+    del nan_router
+    paged_cfg = dataclasses.replace(ecfg, page_size=16)
+    # every free page of replica 0 taken for 4 router steps
+    squeeze = Fault(kind="pool_squeeze", step=2, duration=4)
+    sq_router, sq_tokens, sq_wall, _ = fleet([squeeze], cfg=paged_cfg)
+    sq_rep = sq_router.report()
+    assert sq_rep["pool_waits"] >= 1, sq_rep
+    for eng in sq_router.replicas:
+        pool = eng.pool
+        if pool.index is not None:        # the tree's pages are its own
+            assert pool.pages_in_use == pool.index.n_nodes
+            pool.index.clear(pool._release)
+        assert pool.n_active == 0 and int(pool.refs[1:].sum()) == 0 \
+            and len(pool._free_pages) == pool.n_usable_pages
+    del sq_router
+    res = dict(
+        replicas=ROUTER_REPLICAS, n_slots=n_slots, layers=QOS_LAYERS,
+        replica_bytes=replica_bytes, clean_wall_s=clean_wall,
+        clean_report={k: clean_rep[k] for k in (
+            "tokens_per_router_step", "router_steps", "spills",
+            "rebalanced", "tok_per_s")},
+        restart_ms=build_ms, memory_before_crash=before,
+        memory_after_restart=after,
+        crash_report={k: crash_rep[k] for k in (
+            "replica_deaths", "restarts", "failovers", "router_steps")},
+        nan_wall_s=nan_wall, nan_failovers=nan_rep["failovers"],
+        squeeze_wall_s=sq_wall, squeeze_pool_waits=sq_rep["pool_waits"],
+        squeeze_tokens_equal=sq_tokens == want,
+        seconds=time.perf_counter() - t_phase)
+    print(f"  [18b] router, {ROUTER_REPLICAS} replicas of {n_slots} slots, "
+          f"{QOS_LAYERS} layers [{card}]: fault-free {clean_wall:.2f} s, "
+          f"{clean_rep['tokens_per_router_step']:.2f} tok / router step, "
+          f"spills {clean_rep['spills']:.0f}, rebalanced "
+          f"{clean_rep['rebalanced']:.0f}", flush=True)
+    print(f"    crash of replica 1 at router step {CRASH_STEP}, auto_restart:"
+          f" tokens identical; deaths {crash_rep['replica_deaths']:.0f}, "
+          f"restarts {crash_rep['restarts']:.0f}, failovers "
+          f"{crash_rep['failovers']:.0f}; restart (engine build + graph "
+          f"capture) {[round(x, 1) for x in build_ms]} ms; memory_allocated "
+          f"{before / 1e9:.3f} GB before the crash, {after / 1e9:.3f} GB "
+          f"after the restart (one replica {replica_bytes / 1e9:.3f} GB)",
+          flush=True)
+    print(f"    nan_logits on replica 0: tokens identical, failovers "
+          f"{nan_rep['failovers']:.0f}; pool squeeze (paged, every free page "
+          f"of replica 0 for 4 steps): pool waits {sq_rep['pool_waits']:.0f}, pools pristine, "
+          f"tokens {'equal to' if sq_tokens == want else 'differ from'} "
+          "the slab's", flush=True)
+    return totals, res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3898,6 +4247,11 @@ def main() -> int:
     print("[6] paged serving h2o-danube-1.8b, full width and depth",
           flush=True)
     paged_launches, paged = phase_paged_serving(torch, card, params)
+    mark("18a")
+    print(f"[18a] tracing and telemetry: {DANUBE} full width and depth, "
+          f"phase 5's first {SERVE_REQUESTS} requests", flush=True)
+    trace_launches, tracing = phase_tracing(
+        torch, card, params, serving["dense"]["decode_micro_step_ms"])
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3925,6 +4279,11 @@ def main() -> int:
     qos_launches, resilience, probe_cases_ = phase_resilience(
         torch, card, danube8, Timer(torch))
     cases += probe_cases_
+    mark("18b")
+    print(f"[18b] the replica router and chaos: {DANUBE} full width, "
+          f"{QOS_LAYERS} layers (phase 9's tree), {ROUTER_REPLICAS} "
+          "replicas", flush=True)
+    router_launches, router = phase_router(torch, card, danube8)
     del danube8
     gc.collect()
     torch.cuda.empty_cache()
@@ -3983,7 +4342,7 @@ def main() -> int:
     for more in (paged_launches, reuse_launches, mamba_launches,
                  spec_launches, qos_launches, gemma_launches, mla_launches,
                  moe_launches, jamba_launches, llava_launches,
-                 whisper_launches):
+                 whisper_launches, trace_launches, router_launches):
         for name, c in more.items():
             launches[name] += c
 
@@ -4009,6 +4368,7 @@ def main() -> int:
          "mamba_serving": mamba, "speculative": spec, "gemma2": gemma,
          "minicpm3": mla, "moe": moe, "jamba": jamba, "llava": llava,
          "whisper": whisper, "resilience": resilience,
+         "tracing": tracing, "router": router,
          "phase_start_s": marks},
         indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,11 @@
 """Continuous-batching serving over packed Kratos weights (port of
 `repro.serve`, slab and native paged forms, speculative self-draft
-decode, deadlines and cancellation, the QoS tier ladder and the
-ineffectual-work ledger)."""
+decode, deadlines and cancellation, the QoS tier ladder, the
+ineffectual-work ledger, tracing and live telemetry, and the replica
+router with failover and its chaos harness)."""
 
 from repro_torch.serve.cache_pool import CachePool, PoolExhausted
+from repro_torch.serve.chaos import ChaosHarness, Fault, seeded_schedule
 from repro_torch.serve.engine import (EngineConfig, EngineSaturated,
                                       InferenceEngine, ReplicaFault)
 from repro_torch.serve.ledger import (NULL_LEDGER, LedgerConfig, LedgerSink,
@@ -16,13 +18,24 @@ from repro_torch.serve.qos import (QoSConfig, QoSController, check_tier_spec,
                                    parse_tiers)
 from repro_torch.serve.registry import (ModelRegistry, PackedModel,
                                         pack_model_params)
-from repro_torch.serve.scheduler import ContinuousScheduler, Request
+from repro_torch.serve.router import ReplicaRouter
+from repro_torch.serve.scheduler import (ContinuousScheduler, Request,
+                                         replica_load)
 from repro_torch.serve.speculative import DraftSpec
+from repro_torch.serve.telemetry import (TelemetryConfig, TelemetryExporter,
+                                         TelemetryRegistry, engine_sample,
+                                         router_sample)
+from repro_torch.serve.trace import (NULL_TRACER, TraceConfig, Tracer,
+                                     export_chrome, export_jsonl)
 
-__all__ = ["CachePool", "ContinuousScheduler", "DraftSpec", "EngineConfig",
-           "EngineSaturated", "InferenceEngine", "LedgerConfig", "LedgerSink",
-           "ModelRegistry", "NULL_LEDGER", "PackedModel", "PageLayout",
-           "PagedCachePool", "PoolExhausted", "PrefixIndex", "QoSConfig",
-           "QoSController", "ReplicaFault", "Request", "ServeMetrics",
-           "check_tier_spec", "hist_checksum", "pack_model_params",
-           "parse_tiers", "prefix_supported"]
+__all__ = ["CachePool", "ChaosHarness", "ContinuousScheduler", "DraftSpec",
+           "EngineConfig", "EngineSaturated", "Fault", "InferenceEngine",
+           "LedgerConfig", "LedgerSink", "ModelRegistry", "NULL_LEDGER",
+           "NULL_TRACER", "PackedModel", "PageLayout", "PagedCachePool",
+           "PoolExhausted", "PrefixIndex", "QoSConfig", "QoSController",
+           "ReplicaFault", "ReplicaRouter", "Request", "ServeMetrics",
+           "TelemetryConfig", "TelemetryExporter", "TelemetryRegistry",
+           "TraceConfig", "Tracer", "check_tier_spec", "engine_sample",
+           "export_chrome", "export_jsonl", "hist_checksum",
+           "pack_model_params", "parse_tiers", "prefix_supported",
+           "replica_load", "router_sample", "seeded_schedule"]

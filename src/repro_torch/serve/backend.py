@@ -71,7 +71,8 @@ Contract (what the engine calls):
                                  the ledger's drain and the quality probe
 and the paged admission surface (no-ops on the slab pool): `paged`,
 `prefix_match`, `alloc_slot_pages`, `prefix_insert`,
-`conversation_insert`, `page_stats`, `prefill_suffix`.
+`conversation_insert`, `page_stats`, `gather_bytes_per_dispatch`,
+`prefill_suffix`.
 """
 
 from __future__ import annotations
@@ -88,6 +89,20 @@ from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.serve.cache_pool import CachePool
 from repro_torch.serve.paging import PagedCachePool
+
+
+_warmup_streams: Dict[torch.device, Any] = {}
+
+
+def warmup_stream(device: torch.device):
+    """The one side stream of `device` that every capture's eager warm-up
+    runs on. cuBLAS keeps a workspace (32 MiB on this card) for each
+    stream it has run on until the process ends, so a fresh stream a
+    build would hold that much more for every engine ever built, a
+    replaced replica's included."""
+    if device not in _warmup_streams:
+        _warmup_streams[device] = torch.cuda.Stream(device)
+    return _warmup_streams[device]
 
 
 @contextlib.contextmanager
@@ -242,7 +257,7 @@ class LocalBackend:
         self._graphs = []
         for params in self._tier_params:
             self.params = params
-            side = torch.cuda.Stream(dev)
+            side = warmup_stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
                 self._run()
@@ -421,6 +436,11 @@ class LocalBackend:
         from the slot's own pages; a no-op without a prefix index."""
         return self.pool.conversation_insert(tokens, slot) if self.paged \
             else 0
+
+    def gather_bytes_per_dispatch(self) -> int:
+        """Bytes a gather/scatter paged decode would move per dispatch (0
+        on the slab pool)."""
+        return self.pool.gather_bytes_per_dispatch() if self.paged else 0
 
     def page_stats(self):
         """(pages_in_use, usable_pages), or None on the slab pool."""

@@ -16,6 +16,7 @@ from typing import Dict, List
 import torch
 
 from repro_torch.models import transformer as T
+from repro_torch.serve.trace import NULL_TRACER
 
 
 class PoolExhausted(RuntimeError):
@@ -24,6 +25,9 @@ class PoolExhausted(RuntimeError):
 
 class CachePool:
     """Fixed-slot KV pool; slots are reused LIFO (hot rows stay hot)."""
+
+    # the engine re-points this at its Tracer when tracing is on
+    tracer = NULL_TRACER
 
     def __init__(self, cfg: T.ModelConfig, n_slots: int, max_len: int,
                  dtype=torch.float32, device="cuda"):

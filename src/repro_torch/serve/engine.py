@@ -69,11 +69,33 @@ host copy and drains into `metrics` and `engine.ledger`. With
 shadow-run through tier 0 for top-1 agreement and mean |logit
 difference| per tier (`metrics.quality_by_tier()`, `quality_log`).
 
+Tracing (`EngineConfig.trace`, serve.trace): a `Tracer` records every
+lifecycle and dispatch edge at the JAX engine's call sites (submit,
+reject, admit, prefill, first token, finish, each dispatch with its
+wall duration, host syncs, page traffic, pool waits, tier changes, sheds,
+failovers, the ledger's fractions and the quality probe); without it the
+engine holds `NULL_TRACER`, whose hooks allocate nothing. The hooks sit
+outside `backend.decode_block` / `spec_decode_block`, so none runs inside
+a CUDA-graph capture or replay, and a traced engine launches exactly the
+kernels an untraced one does. A `host_sync` event's `bytes` are what the
+copy moves: the (K, B) int32 token block (the speculative (B, K+3) block,
+the host loop's (B, vocab) f32 logits pull plus the token and index
+uploads), as in the JAX package, plus, with the ledger on, the ledger's
+(n_layers, width) matrix that rides the same copy in the port (the JAX
+package drains its ledger inside the same sync but counts only the
+tokens).
+
+Failover (serve.router): `steal_waiting`, `evacuate` (every slot's pages
+and loop-state row released, a running request's generated tokens folded
+into its prompt so a survivor's greedy re-prefill resumes the stream) and
+`adopt`, which budgets what a resumed request still owes and counts the
+failover. A corrupted decode sync raises `ReplicaFault`, the router's
+signal.
+
 Greedy output is independent of K, of what else shares the slab, and of
 paging (on an MoE arch, as far as capacity routing lets it: ROADMAP.md
-queue 3). Tracing and the legacy gather/scatter paged decode are not
-ported yet; asking for them raises `NotImplementedError` naming the
-ROADMAP.md item.
+queue 3). The legacy gather/scatter paged decode is not ported yet;
+asking for it raises `NotImplementedError` naming the ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -94,6 +116,7 @@ from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.qos import QoSController
 from repro_torch.serve.registry import PackedModel, check_device
 from repro_torch.serve.scheduler import ContinuousScheduler, Request
+from repro_torch.serve.trace import NULL_TRACER, TraceConfig, Tracer
 
 
 class EngineSaturated(RuntimeError):
@@ -101,14 +124,16 @@ class EngineSaturated(RuntimeError):
 
 
 class ReplicaFault(RuntimeError):
-    """A decode sync held out-of-vocab tokens: a corrupted dispatch."""
+    """The replica produced provably corrupt output (an out-of-vocab decode
+    sync) or its dispatch crashed. The replica router catches it around
+    `engine.step()`, marks the replica dead and re-admits its evacuated
+    requests to survivors."""
 
 
 # field -> (value meaning "off", ROADMAP.md item that ports it)
 _NOT_PORTED = {
     "paged_native": (True, "the legacy gather/scatter paged decode (an A/B "
                      "baseline): queue 1, item 10"),
-    "trace": (None, "tracing: queue 1, item 8"),
 }
 
 
@@ -149,7 +174,10 @@ class EngineConfig:
     # the ineffectual-work ledger (a serve.ledger.LedgerConfig; None = off,
     # the allocation-free NULL_LEDGER); needs device_loop=True
     ledger: Optional[Any] = None
-    trace: Optional[Any] = None
+    # tracing (serve.trace): None = off, the shared allocation-free
+    # NULL_TRACER; a TraceConfig records every edge into the ring buffer,
+    # with optional export paths and a torch.profiler bracket
+    trace: Optional[TraceConfig] = None
 
     def __post_init__(self):
         # the JAX engine's checks, with its messages
@@ -227,6 +255,14 @@ class InferenceEngine:
         self.backend = LocalBackend()
         self.backend.build(model, cfg)
         self.pool = self.backend.pool
+        # bytes a gather/scatter paged decode would move per dispatch (0 on
+        # the slab)
+        self._gather_bytes = self.backend.gather_bytes_per_dispatch()
+        self.trace = NULL_TRACER if cfg.trace is None else Tracer(
+            cfg.trace, device=device.type)
+        self.pool.tracer = self.trace
+        if self.backend.draft_pool is not None:
+            self.backend.draft_pool.tracer = self.trace
         self._qos = None if cfg.qos is None else \
             QoSController(cfg.qos, self.backend.n_tiers)
         self._has_deadlines = False     # arms the per-step deadline sweep
@@ -234,12 +270,27 @@ class InferenceEngine:
         # float64 totals and the metrics; NULL_LEDGER keeps the disabled
         # path allocation-free
         self.ledger = NULL_LEDGER if cfg.ledger is None else LedgerSink(
-            cfg.ledger, mcfg.n_layers, metrics=self.metrics)
+            cfg.ledger, mcfg.n_layers, metrics=self.metrics,
+            tracer=self.trace)
         self._quality_every = 0 if cfg.ledger is None \
             else cfg.ledger.quality_every
         self._quality_count = 0         # full-prefill admissions since probe
         self.quality_log: List[Dict[str, Any]] = []
         self._vocab = mcfg.vocab
+        # the dispatch's host-copy payload, precomputed so that every hot
+        # call passes values that already exist: the token block (the
+        # speculative commit block, counts and accepts; the host loop's
+        # logits pull and token and index uploads), plus the ledger's
+        # matrix where it rides the copy
+        b = cfg.n_slots
+        if cfg.speculate:
+            self._sync_bytes = 4 * b * (cfg.speculate + 3)
+        elif cfg.device_loop:
+            self._sync_bytes = 4 * b * cfg.decode_chunk
+        else:
+            self._sync_bytes = 4 * b * (mcfg.vocab + 2)
+        if cfg.ledger is not None:
+            self._sync_bytes += 4 * mcfg.n_layers * cfg.ledger.width
         if not cfg.device_loop:
             # the host loop's token and index vectors, uploaded every step
             self._tokens = np.zeros((cfg.n_slots, 1), np.int32)
@@ -303,26 +354,38 @@ class InferenceEngine:
         return self.adopt(r)
 
     def adopt(self, r: Request) -> Request:
-        """Validate and enqueue a Request object. Raises EngineSaturated
-        when the bounded waiting deque is full; sheds (and returns) a
-        request whose deadline provably cannot be met."""
+        """Validate and enqueue a Request object: a fresh submit, a waiting
+        request the replica router moved here, or one evacuated off a dead
+        replica (`failover_from` set) resuming its generation here. Raises
+        EngineSaturated when the bounded waiting deque is full; sheds (and
+        returns) a request whose deadline provably cannot be met."""
         if r.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        need = self._n_img + len(r.prompt) + r.max_new_tokens
+        # an evacuated request folded its output into the prompt and keeps
+        # `generated`: the budget is what is still owed
+        budget = r.max_new_tokens - len(r.generated)
+        need = self._n_img + len(r.prompt) + budget
         if self._len_bounded and need > self.cfg.max_len:
             raise ValueError(f"request needs {need} cache positions (img "
                              f"{self._n_img} + prompt {len(r.prompt)} + gen "
-                             f"{r.max_new_tokens}) but "
-                             f"max_len={self.cfg.max_len}")
+                             f"{budget}) but max_len={self.cfg.max_len}")
         if self.cfg.max_waiting is not None \
                 and len(self._waiting) >= self.cfg.max_waiting:
             self.metrics.on_reject()
+            self.trace.reject(len(self._waiting))
             raise EngineSaturated(
                 f"waiting deque at max_waiting={self.cfg.max_waiting}")
         r.id = self._next_id
         self._next_id += 1
         self.requests[r.id] = r
         self.metrics.on_submit(r.id, r.arrival_step, len(r.prompt))
+        self.trace.submit(r.id, len(r.prompt), r.arrival_step)
+        if r.failover_from >= 0:
+            # counted on the destination replica (sums cleanly in the
+            # fleet aggregate)
+            self.metrics.on_failover()
+            self.trace.failover(r.id, r.failover_from)
+            r.failover_from = -1
         if r.deadline_steps is not None or r.deadline_ms is not None:
             self._has_deadlines = True
             if self._doomed(r):
@@ -333,7 +396,21 @@ class InferenceEngine:
         self._waiting.append(r)
         return r
 
-    def cancel(self, r: Request) -> None:
+    def steal_waiting(self, n: int) -> List[Request]:
+        """Pop up to `n` waiting (never started) requests off the tail of
+        the deque, the ones that would wait longest here, de-registering
+        them from this engine. The router re-`adopt`s them into an
+        underloaded replica; the Request objects survive the move."""
+        out: List[Request] = []
+        while self._waiting and len(out) < n:
+            r = self._waiting.pop()
+            del self.requests[r.id]
+            self.metrics.records.pop(r.id, None)
+            r.id = -1
+            out.append(r)
+        return out[::-1]                # keep their arrival order
+
+    def cancel(self, r: Request, reason: str = "cancel") -> None:
         """Cancel a request: the terminal "shed" state, its slot, pages
         (and the draft's slab row, which shares the slot) and prefix
         references released. A no-op on a finished request."""
@@ -344,7 +421,42 @@ class InferenceEngine:
                 self._waiting.remove(r)
             except ValueError:
                 pass
-        self._shed(r, "cancel")
+        self._shed(r, reason)
+
+    def evacuate(self) -> List[Request]:
+        """Strip every unfinished request off this engine for re-admission
+        elsewhere (router failover). A running request folds what it
+        generated into its prompt and returns to waiting: a survivor's
+        greedy re-prefill of the whole history rebuilds the causal cache
+        exactly, so the resumed stream equals an uninterrupted run. Each
+        slot's pages and loop-state row are released; requests and their
+        records are de-registered here (the router re-adopts them, so no
+        completion is counted twice)."""
+        out: List[Request] = []
+        for slot, r in enumerate(self._slots):
+            if r is None:
+                continue
+            try:
+                if self.cfg.device_loop:
+                    self.backend.release_slot(slot)
+                self.pool.free(slot)
+            except RuntimeError:
+                pass    # a faulted device may refuse the writes; this
+                #         replica is being torn down anyway
+            self._slots[slot] = None
+            if r.generated:
+                r.prompt = np.concatenate(
+                    [r.prompt, np.asarray(r.generated, np.int32)])
+            r.state = "waiting"
+            r.slot, r.index, r.prefix_matched = -1, 0, 0
+            out.append(r)
+        out.extend(self._waiting)
+        self._waiting.clear()
+        for r in out:
+            self.requests.pop(r.id, None)
+            self.metrics.records.pop(r.id, None)
+            r.id = -1
+        return out
 
     # -- QoS tiers (serve.qos) ----------------------------------------------
 
@@ -362,9 +474,11 @@ class InferenceEngine:
             return
         self.backend.set_tier(tier)
         self.metrics.on_tier_change(old, tier)
+        self.trace.tier_change(old, tier, len(self._waiting))
         for r in self._slots:
             if r is not None and tier > r.tier:
                 r.tier = tier
+                self.trace.req_tier(r.id, tier)
 
     @property
     def n_waiting(self) -> int:
@@ -373,6 +487,7 @@ class InferenceEngine:
     def step(self) -> None:
         """One engine step: the deadline sweep and the QoS tick, then
         admissions, then one slab decode dispatch."""
+        self.trace.step = self.step_count
         self._expire_deadlines()
         if self._qos is not None:
             self._qos_tick()
@@ -408,6 +523,7 @@ class InferenceEngine:
                     for rr in reversed(rest):
                         self._waiting.appendleft(rr)
                     self.metrics.on_pool_wait()
+                    self.trace.pool_wait()
                     break
         if self.pool.n_active:
             if self.cfg.speculate:
@@ -479,7 +595,8 @@ class InferenceEngine:
         return start - (-rem // per) - 1 > d        # ceil division
 
     def _shed(self, r: Request, reason: str) -> None:
-        """The terminal "shed" state ('deadline' | 'pool' | 'cancel'): the
+        """The terminal "shed" state ('deadline' | 'pool' | 'failover' |
+        'cancel'): the
         slot's loop-state row parked, the slot and its pages freed (prefix
         references drop with them); never a completion."""
         if r.state == "running":
@@ -490,6 +607,7 @@ class InferenceEngine:
         r.state = "shed"
         r.shed_reason = reason
         self.metrics.on_shed(reason)
+        self.trace.shed(r.id, r.slot, reason, len(r.generated))
 
     def _expire_deadlines(self) -> None:
         """The per-step sweep, armed once a deadline exists: shed waiting
@@ -523,11 +641,17 @@ class InferenceEngine:
     def _emit(self, r: Request, tok: int, step: int) -> None:
         r.generated.append(tok)
         self.metrics.on_token(r.id, step)
+        if len(r.generated) == 1:
+            # the emission micro-step (not tracer.step): within a K-block
+            # it runs ahead of the dispatch clock, and spans reconcile with
+            # ServeMetrics
+            self.trace.first_token(r.id, r.slot, step)
         if r.on_token is not None:
             r.on_token(r, tok)
         if len(r.generated) >= r.max_new_tokens \
                 or (r.eos_id is not None and tok == r.eos_id):
             r.state = "done"
+            self.trace.finish(r.id, r.slot, step, len(r.generated))
             if self.backend.paged and not r.extras:
                 # publish the whole conversation (prompt + generated)
                 # before the slot's pages are freed: the chat's next turn
@@ -545,6 +669,9 @@ class InferenceEngine:
         s0 = len(r.prompt)
         n_img = self._n_img
         dev = self.backend.device
+        # what is still owed: a failover-resumed request already generated
+        # part of its budget (now folded into the prompt)
+        budget = r.max_new_tokens - len(r.generated)
         # paged admission: the longest page-aligned cached prefix (none for
         # a request with extras: the index keys tokens only), then the
         # slot's page-table row (shared prefix pages by refcount, fresh
@@ -557,7 +684,7 @@ class InferenceEngine:
             self.backend.prefix_match(r.prompt)
         try:
             self.backend.alloc_slot_pages(
-                slot, n_img + s0 + r.max_new_tokens + self.cfg.speculate,
+                slot, n_img + s0 + budget + self.cfg.speculate,
                 shared)
         except PoolExhausted:
             self.pool.free(slot)
@@ -574,7 +701,8 @@ class InferenceEngine:
             # the same pow2 buckets as full prefills (`batch` still carries
             # the whole prompt for a speculating backend's draft)
             s_sfx = s0 - matched
-            sfx = np.zeros((1, self._suffix_len(s_sfx, matched)), np.int32)
+            sp_sfx = self._suffix_len(s_sfx, matched)
+            sfx = np.zeros((1, sp_sfx), np.int32)
             sfx[0, :s_sfx] = r.prompt[matched:]
             logits = self.backend.prefill_suffix(
                 {"tokens": torch.from_numpy(sfx).to(dev)}, batch, slot,
@@ -601,22 +729,31 @@ class InferenceEngine:
             self.metrics.on_prefix(matched, s0)
             if conv and matched:
                 self.metrics.on_conversation_hit(matched)
+                self.trace.conversation_hit(r.id, matched)
         r.prefix_matched = matched
         r.state, r.slot, r.index = "running", slot, n_img + s0
         r.tier = max(r.tier, self.backend.tier)
         self._slots[slot] = r
         self.metrics.on_start(r.id, self.step_count)
+        self.trace.admit(r.id, slot, matched, s0)
+        self.trace.req_tier(r.id, self.backend.tier)
+        if matched:
+            self.trace.prefill(r.id, slot, s_sfx, sp_sfx, True)
+        else:
+            self.trace.prefill(r.id, slot, s0, sp, False)
         if self.cfg.device_loop:
             tok = self.backend.first_token(row, r.temperature)
             self.metrics.on_host_sync("prefill")     # the one int32 pulled
+            self.trace.host_sync("prefill", 4)
             eos = -1 if r.eos_id is None else int(r.eos_id)
             rem = 0 if (r.eos_id is not None and tok == r.eos_id) \
-                else r.max_new_tokens - 1
+                else budget - 1
             self.backend.install(slot, tok, r.index, r.temperature, eos, rem,
                                  self._spec_limit(r))
         else:
             tok = self._sample_host(row[0].float().cpu().numpy(), r)
             self.metrics.on_host_sync("prefill")
+            self.trace.host_sync("prefill", 4)
             self._tokens[slot, 0] = tok
             self._indices[slot] = r.index
         self._emit(r, tok, self.step_count)   # may finish (max_new_tokens 1)
@@ -632,31 +769,44 @@ class InferenceEngine:
         ref = np.asarray(shadow[:, col][0], np.float64)
         mine = row[0].float().cpu().numpy().astype(np.float64)
         self.metrics.on_host_sync("quality", 2)
+        self.trace.host_sync("quality", 8 * mine.size)
         top1 = bool(int(np.argmax(mine)) == int(np.argmax(ref)))
         mad = float(np.mean(np.abs(mine - ref)))
         tier = self.backend.tier
         self.metrics.on_quality_probe(tier, top1, mad)
+        self.trace.quality_probe(r.id, tier, top1, mad)
         self.quality_log.append({"rid": r.id, "tier": tier,
                                  "top1": top1, "mad": mad})
 
-    def _drain_ledger(self) -> None:
-        """Fold the ledger matrix the dispatch's host copy brought back
-        into the sink (a no-op without the ledger), and rebase it when the
-        backend zeroed the device buffer."""
+    def _after_dispatch(self) -> None:
+        """The bookkeeping every device-loop dispatch shares after its
+        copy: the gather bytes a paged dispatch avoided, the one host sync,
+        the ledger matrix the copy brought back folded into the sink (a
+        no-op without the ledger; rebased when the backend zeroed the
+        device buffer), and the tracer's drop count mirrored into the
+        metrics (an int store: allocation-free untraced)."""
+        if self._gather_bytes:
+            self.metrics.on_gather_avoided(self._gather_bytes)
+            self.trace.gather_avoided(self._gather_bytes)
+        self.metrics.on_host_sync("decode")
+        self.trace.host_sync("decode", self._sync_bytes)
         self.ledger.on_drain(self.backend.last_ledger, self.step_count)
         if self.ledger.enabled and self.backend.maybe_rebase_ledger():
             self.ledger.rebase()
+        self.metrics.trace_dropped = self.trace.dropped
 
     def _decode_block(self) -> int:
         """ONE dispatch = K fused micro-steps; sync the (K, B) token block
         and catch host bookkeeping up to it."""
         k = self.cfg.decode_chunk
-        self.metrics.on_decode_step(self.pool.n_active, self.cfg.n_slots,
+        n_active = self.pool.n_active
+        self.metrics.on_decode_step(n_active, self.cfg.n_slots,
                                     micro_steps=k)
+        self.trace.dispatch_begin()
         block = self.backend.decode_block()
-        self.metrics.on_host_sync("decode")
+        self.trace.decode_dispatch(k, n_active, self.cfg.n_slots)
         # the ledger rode the dispatch's copy: no extra crossing
-        self._drain_ledger()
+        self._after_dispatch()
         live = [s for s in range(self.cfg.n_slots)
                 if self._slots[s] is not None]
         sub = block[:, live]
@@ -683,10 +833,15 @@ class InferenceEngine:
         """The host loop's step: one (B, 1) forward, its last column's
         full-vocab logits pulled, sampling on the host, the token and index
         vectors uploaded for the next step."""
-        self.metrics.on_decode_step(self.pool.n_active, self.cfg.n_slots)
+        n_active = self.pool.n_active
+        self.metrics.on_decode_step(n_active, self.cfg.n_slots)
+        self.trace.dispatch_begin()
         rows = self.backend.decode_host(self._tokens, self._indices)
+        self.trace.decode_dispatch(1, n_active, self.cfg.n_slots)
         # logits pull + token and index uploads: 3 crossings a step
         self.metrics.on_host_sync("decode", 3)
+        self.trace.host_sync("decode", self._sync_bytes)
+        self.metrics.trace_dropped = self.trace.dropped
         for slot, r in enumerate(self._slots):
             if r is None:
                 continue
@@ -715,11 +870,13 @@ class InferenceEngine:
         order, and the engine clock advances by the deepest commit."""
         k = self.cfg.speculate
         n = self.cfg.n_slots
-        self.metrics.on_decode_step(self.pool.n_active, n,
+        n_active = self.pool.n_active
+        self.metrics.on_decode_step(n_active, n,
                                     micro_steps=(k + 1) + self._verify_steps)
+        self.trace.dispatch_begin()
         block, n_commit, n_accept = self.backend.spec_decode_block()
-        self.metrics.on_host_sync("decode")
-        self._drain_ledger()
+        self.trace.spec_dispatch(k, n_active, n)
+        self._after_dispatch()
         # fault detection: every live slot's committed prefix is checked
         # BEFORE anything is emitted
         for slot in range(n):
@@ -756,5 +913,6 @@ class InferenceEngine:
             accepted += acc
             if lim:
                 self.metrics.on_slot_speculation(slot, acc, lim)
+                self.trace.spec_slot(slot, acc, m, lim)
         self.metrics.on_spec_dispatch(proposed=proposed, accepted=accepted)
         return advanced

@@ -27,8 +27,9 @@ float64 totals on the host.
 
 The models take `probe=None` (no probe work when absent); the engine wires
 `NULL_LEDGER` when `EngineConfig.ledger` is None, a no-op singleton whose
-hot-path calls allocate nothing. The sink's tracer hook waits for the
-port of tracing (ROADMAP.md queue 1, item 8).
+hot-path calls allocate nothing. With tracing on, the sink also hands
+each dispatch's fractions to the tracer (`ledger_dispatch` events, the
+Chrome counter tracks of serve.trace).
 """
 
 from __future__ import annotations
@@ -143,9 +144,9 @@ class LedgerSink(NullLedger):
     `on_drain(cum, step)` takes the CUMULATIVE matrix copied out in the
     dispatch's one host copy, forms the delta against the previous
     snapshot, folds it into float64 running totals and passes it to
-    `ServeMetrics.on_ledger`. `rebase()` resets the snapshot when the
-    backend zeroes the device buffer. `tracer` stays None until tracing is
-    ported."""
+    `ServeMetrics.on_ledger` and the tracer's `ledger_dispatch` hook.
+    `rebase()` resets the snapshot when the backend zeroes the device
+    buffer."""
 
     enabled = True
 
@@ -172,6 +173,14 @@ class LedgerSink(NullLedger):
                 dead_kblocks=t[C_DEAD_KB],
                 flops_dense=t[C_FLOPS_DENSE], flops_eff=t[C_FLOPS_EFF],
                 bytes_dense=t[C_BYTES_DENSE], bytes_eff=t[C_BYTES_EFF])
+        if self.tracer is not None:
+            elems = max(t[C_ELEMS], 1.0)
+            kb = max(t[C_KBLOCKS], 1.0)
+            fd = max(t[C_FLOPS_DENSE], 1.0)
+            self.tracer.ledger_dispatch(
+                step, t[C_ZEROS] / elems, t[C_NEAR] / elems,
+                t[C_DEAD_KB] / kb, t[C_FLOPS_EFF] / fd,
+                t[C_FLOPS_DENSE], t[C_FLOPS_EFF])
         return delta
 
     def rebase(self):

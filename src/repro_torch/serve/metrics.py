@@ -1,7 +1,8 @@
 """Serving metrics: throughput, latency percentiles, occupancy, host syncs,
 prefix reuse, page occupancy, speculative acceptance, QoS tier churn,
-shedding, the ineffectual-work ledger and the per-tier quality probe (the
-single engine's subset of `repro.serve.metrics`, same report keys).
+shedding, failover, the ineffectual-work ledger, the per-tier quality
+probe and trace ring-buffer losses (port of `repro.serve.metrics`, the
+same report keys; `aggregate` pools replicas for serve.router).
 
 Two clocks: wall seconds (time.perf_counter, monotonic) and engine steps
 (one slab decode micro-step per step). `decode_steps` counts DISPATCHES (K
@@ -66,6 +67,9 @@ class ServeMetrics:
         self.page_capacity = 0                # usable pages in the pool
         self.conversation_prefix_hits = 0     # admissions resuming a chat
         self.conversation_tokens_reused = 0   # ... tokens matched there
+        # bytes a gather/scatter paged decode would have moved per
+        # dispatch, summed (0 on the slab)
+        self.gather_bytes_avoided = 0
         # speculative decode (serve.speculative)
         self.spec_dispatches = 0              # propose-then-verify cycles
         self.draft_proposed = 0               # draft tokens offered
@@ -78,6 +82,8 @@ class ServeMetrics:
         self.shed = 0                         # requests ended "shed"
         self.deadline_missed = 0              # ... on a deadline
         self.shed_pool_pressure = 0           # ... past pool_wait_retries
+        self.failovers = 0                    # requests re-admitted HERE off
+        #                                       a dead replica (serve.router)
         # ineffectual-work ledger (serve.ledger): exact integer counts
         # drained from the device matrix, summed in float64
         self.ledger_dispatches = 0            # dispatches with a drain
@@ -94,6 +100,9 @@ class ServeMetrics:
         # per-tier quality probe: tier -> [n, top-1 matches, mad sum]
         self.quality_probes = 0
         self.quality: Dict[int, List[float]] = {}
+        # the tracer's cumulative ring-buffer drop count, mirrored by the
+        # engine after every dispatch
+        self.trace_dropped = 0
 
     def on_submit(self, request_id: int, arrival_step: int, n_prompt: int) -> None:
         self.records[request_id] = RequestRecord(
@@ -156,6 +165,12 @@ class ServeMetrics:
         self.prefill_tokens_skipped += matched
         self.prefill_tokens_computed += n_prompt - matched
 
+    def on_gather_avoided(self, n_bytes: int) -> None:
+        """One page-table-native decode dispatch: `n_bytes` is what a
+        gather/scatter decode would have moved (2x the slab view of the
+        paged leaves: gathered in, scattered back)."""
+        self.gather_bytes_avoided += n_bytes
+
     def on_conversation_hit(self, matched: int) -> None:
         """A paged admission whose match ran through pages a finished
         request published from its generated tokens (a chat resuming its
@@ -177,12 +192,18 @@ class ServeMetrics:
 
     def on_shed(self, reason: str) -> None:
         """A request ended "shed" instead of "done": 'deadline', 'pool'
-        (past the pool_wait_retries cap) or 'cancel'."""
+        (past the pool_wait_retries cap), 'failover' (no replica could
+        re-home it) or 'cancel'."""
         self.shed += 1
         if reason == "deadline":
             self.deadline_missed += 1
         elif reason == "pool":
             self.shed_pool_pressure += 1
+
+    def on_failover(self) -> None:
+        """A request evacuated off a dead replica was re-admitted here
+        (counted on the destination, so fleet sums stay exact)."""
+        self.failovers += 1
 
     def on_ledger(self, *, elems: float, zeros: float, near: float,
                   groups: float, kblocks: float, dead_kblocks: float,
@@ -266,6 +287,7 @@ class ServeMetrics:
             / max(1, self.prefill_tokens_skipped
                   + self.prefill_tokens_computed),
             "pool_waits": float(self.pool_waits),
+            "gather_bytes_avoided": float(self.gather_bytes_avoided),
             "conversation_prefix_hits": float(self.conversation_prefix_hits),
             "conversation_tokens_reused": float(
                 self.conversation_tokens_reused),
@@ -291,6 +313,7 @@ class ServeMetrics:
             "shed": float(self.shed),
             "deadline_missed": float(self.deadline_missed),
             "shed_pool_pressure": float(self.shed_pool_pressure),
+            "failovers": float(self.failovers),
             # ineffectual-work ledger: exact counters, derived fractions
             "ledger_dispatches": float(self.ledger_dispatches),
             "act_probe_elems": float(self.act_probe_elems),
@@ -317,4 +340,188 @@ class ServeMetrics:
             / max(1.0, float(self.quality_probes)),
             "quality_logit_mad": sum(q[2] for q in self.quality.values())
             / max(1.0, float(self.quality_probes)),
+            # trace ring-buffer losses
+            "trace_dropped": float(self.trace_dropped),
         }
+
+    @staticmethod
+    def aggregate(metrics_list: List["ServeMetrics"]) -> Dict[str, float]:
+        """Cross-replica aggregate (serve.router): counters SUM, latency
+        percentiles pool the union of per-request records (not a mean of
+        per-replica percentiles — p99 of a fleet is a fleet-level quantile),
+        occupancy is dispatch-weighted. Step-clock rates are left to the
+        router, which owns the shared clock (tokens_per_router_step).
+
+        The returned key set is exactly `report()`'s plus the fleet-only
+        `n_replicas`: a reader of one engine's report finds every key in
+        the fleet's."""
+        done = [r for m in metrics_list for r in m.records.values()
+                if r.finish_step >= 0]
+        lat_steps = [float(r.finish_step - r.arrival_step) for r in done]
+        ttft_steps = [float(r.first_token_step - r.arrival_step)
+                      for r in done if r.first_token_step >= 0]
+        lat_wall = [r.finish_time - r.submit_mono for r in done]
+        dispatches = sum(m.decode_steps for m in metrics_list)
+        occ_num = sum(sum(m.occupancy) for m in metrics_list)
+        occ_den = sum(len(m.occupancy) for m in metrics_list)
+        tokens = sum(m.tokens_generated for m in metrics_list)
+        decoded = max(0, tokens - sum(m.prefills for m in metrics_list))
+        syncs_d = sum(m.host_syncs.get("decode", 0) for m in metrics_list)
+        proposed = sum(m.draft_proposed for m in metrics_list)
+        accepted = sum(m.draft_accepted for m in metrics_list)
+        # fleet-pooled prefix/paging: hit rate over the union of paged
+        # admissions and page occupancy dispatch-weighted against each
+        # replica's own capacity — same pooling discipline as acceptance
+        # (never a mean of per-replica rates)
+        lookups = sum(m.prefix_lookups for m in metrics_list)
+        hits = sum(m.prefix_hits for m in metrics_list)
+        skipped = sum(m.prefill_tokens_skipped for m in metrics_list)
+        computed = sum(m.prefill_tokens_computed for m in metrics_list)
+        page_num = sum(sum(m.page_samples) for m in metrics_list)
+        page_den = sum(len(m.page_samples) for m in metrics_list)
+        page_cap = sum(len(m.page_samples) * m.page_capacity
+                       for m in metrics_list)
+        elapsed = max(max((time.perf_counter() - m.t0 for m in metrics_list),
+                          default=0.0), 1e-9)
+        tokens_per_dispatch = tokens / max(1, dispatches)
+        # fleet-pooled ledger: counters sum; fractions re-derive from the
+        # pooled numerators/denominators (never a mean of per-replica rates)
+        led_elems = sum(m.act_probe_elems for m in metrics_list)
+        led_zeros = sum(m.act_zeros for m in metrics_list)
+        led_near = sum(m.act_near_zeros for m in metrics_list)
+        led_kb = sum(m.act_kblocks for m in metrics_list)
+        led_dead = sum(m.act_dead_kblocks for m in metrics_list)
+        led_fd = sum(m.flops_dense for m in metrics_list)
+        led_fe = sum(m.flops_effective for m in metrics_list)
+        qn = sum(float(m.quality_probes) for m in metrics_list)
+        q_top1 = sum(q[1] for m in metrics_list
+                     for q in m.quality.values())
+        q_mad = sum(q[2] for m in metrics_list
+                    for q in m.quality.values())
+        return {
+            "n_replicas": float(len(metrics_list)),
+            "requests_completed": float(len(done)),
+            "tokens_generated": float(tokens),
+            "rejected": float(sum(m.rejected for m in metrics_list)),
+            "decode_steps": float(dispatches),
+            "micro_steps": float(sum(m.micro_steps for m in metrics_list)),
+            "idle_steps": float(sum(m.idle_steps for m in metrics_list)),
+            "host_syncs_decode": float(syncs_d),
+            "host_syncs_prefill": float(sum(
+                m.host_syncs.get("prefill", 0) for m in metrics_list)),
+            "host_syncs_quality": float(sum(
+                m.host_syncs.get("quality", 0) for m in metrics_list)),
+            "host_syncs_per_token": syncs_d / max(1, decoded),
+            "wall_seconds": elapsed,
+            "tok_per_s": tokens / elapsed,
+            # aliased as in report()
+            "tokens_per_step": tokens_per_dispatch,
+            "tokens_per_dispatch": tokens_per_dispatch,
+            # fleet-pooled speculation: acceptance is accepted/proposed over
+            # the union of cycles, not a mean of per-replica rates
+            "spec_dispatches": float(sum(m.spec_dispatches
+                                         for m in metrics_list)),
+            "draft_proposed": float(proposed),
+            "draft_accepted": float(accepted),
+            "draft_rolled_back": float(proposed - accepted),
+            "acceptance_rate": accepted / max(1, proposed),
+            # proposal-weighted across replicas (0.0 when no one speculates)
+            "draft_verify_flop_ratio": sum(
+                m.draft_flop_fraction * m.draft_proposed
+                for m in metrics_list) / max(1, proposed),
+            # fleet-pooled paged/prefix metrics
+            "prefix_hit_rate": hits / max(1, lookups),
+            "prefill_tokens_skipped": float(skipped),
+            "prefill_skip_fraction": skipped / max(1, skipped + computed),
+            "pool_waits": float(sum(m.pool_waits for m in metrics_list)),
+            "gather_bytes_avoided": float(sum(
+                m.gather_bytes_avoided for m in metrics_list)),
+            "conversation_prefix_hits": float(sum(
+                m.conversation_prefix_hits for m in metrics_list)),
+            "conversation_tokens_reused": float(sum(
+                m.conversation_tokens_reused for m in metrics_list)),
+            "pages_in_use": page_num / page_den if page_den else 0.0,
+            "page_occupancy": page_num / page_cap if page_cap else 0.0,
+            # resilience counters sum exactly (failovers are counted on the
+            # destination replica only, shed on the shedding replica only)
+            "tier_demotions": float(sum(m.tier_demotions
+                                        for m in metrics_list)),
+            "tier_promotions": float(sum(m.tier_promotions
+                                         for m in metrics_list)),
+            "shed": float(sum(m.shed for m in metrics_list)),
+            "deadline_missed": float(sum(m.deadline_missed
+                                         for m in metrics_list)),
+            "shed_pool_pressure": float(sum(m.shed_pool_pressure
+                                            for m in metrics_list)),
+            "failovers": float(sum(m.failovers for m in metrics_list)),
+            # fleet-pooled ineffectual-work ledger
+            "ledger_dispatches": float(sum(m.ledger_dispatches
+                                           for m in metrics_list)),
+            "act_probe_elems": float(led_elems),
+            "act_zeros": float(led_zeros),
+            "act_near_zeros": float(led_near),
+            "act_groups": float(sum(m.act_groups for m in metrics_list)),
+            "act_kblocks": float(led_kb),
+            "act_dead_kblocks": float(led_dead),
+            "act_zero_fraction": led_zeros / max(1.0, led_elems),
+            "act_near_zero_fraction": led_near / max(1.0, led_elems),
+            "dead_kblock_fraction": led_dead / max(1.0, led_kb),
+            "flops_dense": float(led_fd),
+            "flops_effective": float(led_fe),
+            "effective_flop_fraction": led_fe / max(1.0, led_fd),
+            "bytes_dense": float(sum(m.bytes_dense for m in metrics_list)),
+            "bytes_effective": float(sum(m.bytes_effective
+                                         for m in metrics_list)),
+            "quality_probes": float(qn),
+            "quality_top1_rate": q_top1 / max(1.0, qn),
+            "quality_logit_mad": q_mad / max(1.0, qn),
+            "trace_dropped": float(sum(m.trace_dropped
+                                       for m in metrics_list)),
+            "mean_occupancy": occ_num / occ_den if occ_den else 0.0,
+            "latency_steps_p50": percentile(lat_steps, 50),
+            "latency_steps_p99": percentile(lat_steps, 99),
+            "latency_s_p50": percentile(lat_wall, 50),
+            "latency_s_p99": percentile(lat_wall, 99),
+            "ttft_steps_p50": percentile(ttft_steps, 50),
+            "ttft_steps_p99": percentile(ttft_steps, 99),
+        }
+
+    def format_report(self) -> str:
+        r = self.report()
+        spec = ""
+        if self.spec_dispatches:
+            spec = (f" | accept {r['acceptance_rate']:.2f} "
+                    f"({int(r['draft_rolled_back'])} rolled back, "
+                    f"draft/verify flops {r['draft_verify_flop_ratio']:.2f})")
+        if self.prefix_lookups:
+            spec += (f" | prefix hit {r['prefix_hit_rate']:.2f} "
+                     f"({int(r['prefill_tokens_skipped'])} prefill toks "
+                     f"skipped, pages {r['page_occupancy']:.2f} full)")
+            if self.conversation_prefix_hits:
+                spec += (f" | conv hits {self.conversation_prefix_hits} "
+                         f"({self.conversation_tokens_reused} toks reused)")
+            if self.gather_bytes_avoided:
+                spec += (f" | gather avoided "
+                         f"{self.gather_bytes_avoided / 1e6:.1f} MB")
+        if self.ledger_dispatches:
+            spec += (f" | act zeros {r['act_zero_fraction']:.2f} "
+                     f"(dead k-blocks {r['dead_kblock_fraction']:.2f}, "
+                     f"eff flops {r['effective_flop_fraction']:.2f})")
+            if self.quality_probes:
+                spec += (f" | quality top1 {r['quality_top1_rate']:.2f} "
+                         f"over {self.quality_probes} probes")
+        if self.shed or self.tier_demotions or self.failovers:
+            spec += (f" | shed {self.shed} "
+                     f"(deadline {self.deadline_missed}, "
+                     f"pool {self.shed_pool_pressure})"
+                     f" | demotions {self.tier_demotions}"
+                     f" | failovers {self.failovers}")
+        return (f"{int(r['requests_completed'])} reqs, "
+                f"{int(r['tokens_generated'])} toks in {r['wall_seconds']:.2f}s"
+                f" | {r['tok_per_s']:.1f} tok/s wall, "
+                f"{r['tokens_per_step']:.2f} tok/step"
+                f" | {r['host_syncs_per_token']:.2f} syncs/tok"
+                f" | occupancy {r['mean_occupancy']:.2f}"
+                f" | latency p50/p99 {r['latency_steps_p50']:.0f}/"
+                f"{r['latency_steps_p99']:.0f} steps"
+                f" | ttft p50 {r['ttft_steps_p50']:.0f} steps" + spec)

@@ -55,6 +55,7 @@ from repro_torch.kernels.ref import last_write, paged_view
 from repro_torch.models import transformer as T
 from repro_torch.serve.cache_pool import PoolExhausted
 from repro_torch.serve.prefix import PrefixIndex
+from repro_torch.serve.trace import NULL_TRACER
 
 Store = List[Dict[str, torch.Tensor]]
 
@@ -97,6 +98,14 @@ class PageLayout:
                        for n, s in layer.items()}
                       for layer in self.slab_shapes]
         self.has_paged = any(any(layer.values()) for layer in self.paged)
+
+    def slab_view_bytes(self) -> int:
+        """Bytes of the slab view of the paged leaves: what a gather would
+        materialise, per direction."""
+        item = torch.empty((), dtype=self.dtype).element_size()
+        return sum(int(np.prod(s)) * item
+                   for shapes, paged in zip(self.slab_shapes, self.paged)
+                   for n, s in shapes.items() if paged[n])
 
     def store_shapes(self, n_pages: int) -> List[Dict[str, Tuple[int, ...]]]:
         out = []
@@ -159,6 +168,9 @@ class PagedCachePool:
     admission drives: `prefix_match` -> `alloc_pages` -> (suffix) prefill
     -> `prefix_insert`, and `conversation_insert` at finish."""
 
+    # the engine re-points this at its Tracer when tracing is on
+    tracer = NULL_TRACER
+
     def __init__(self, cfg: T.ModelConfig, n_slots: int, max_len: int,
                  dtype=torch.float32, device="cuda", *, page_size: int,
                  n_pages: Optional[int] = None, prefix_cache: bool = True):
@@ -217,6 +229,7 @@ class PagedCachePool:
             raise ValueError(f"slot {slot} out of range [0, {self.n_slots})")
         if slot in self._free_slots:
             raise ValueError(f"double-free of slot {slot}")
+        self.tracer.page_free(slot, len(self._slot_pages[slot]))
         for p in self._slot_pages[slot]:
             self._release(p)
         self._slot_pages[slot] = []
@@ -264,9 +277,13 @@ class PagedCachePool:
             self._retain(p)     # before eviction: a matched page is pinned
         n_new = need - len(shared)
         if n_new > len(self._free_pages) and self.index is not None:
+            free_before = len(self._free_pages)
             self.index.evict(n_new - len(self._free_pages),
                              can_free=lambda p: self.refs[p] == 1,
                              release=self._release)
+            freed = len(self._free_pages) - free_before
+            if freed:
+                self.tracer.page_evict(freed)
         if n_new > len(self._free_pages):
             for p in shared:
                 self._release(p)
@@ -276,6 +293,7 @@ class PagedCachePool:
         fresh = [self._free_pages.pop() for _ in range(n_new)]
         for p in fresh:
             self.refs[p] = 1
+        self.tracer.page_alloc(slot, len(shared), n_new)
         pages = shared + fresh
         self._slot_pages[slot] = pages
         row = np.zeros((self.pp,), np.int32)
@@ -325,3 +343,14 @@ class PagedCachePool:
         supplied — a value-level no-op."""
         self.layout.scatter_one(self.store, self.page_table[slot], slot,
                                 single)
+
+    # ------------------------------------------------------ introspection
+
+    def gather_bytes_per_dispatch(self) -> int:
+        """Bytes a gather/scatter decode dispatch would move (the slab view
+        of the paged leaves, gathered in and scattered back): what the
+        page-table-native decode avoids, per dispatch. Static in the
+        layout; 0 without a paged leaf."""
+        if not self.layout.has_paged:
+            return 0
+        return 2 * self.layout.slab_view_bytes()

@@ -46,7 +46,8 @@ class Request:
     index: int = 0                          # next cache write position
     prefix_matched: int = 0                 # prompt tokens reused (paged)
     generated: List[int] = dataclasses.field(default_factory=list)
-    # why a "shed" request ended: 'deadline' | 'pool' | 'cancel'
+    # why a "shed" request ended: 'deadline' | 'pool' | 'failover' |
+    # 'cancel'
     shed_reason: str = ""
     # the cheapest (highest) engine tier this request decoded on
     tier: int = 0
@@ -54,6 +55,9 @@ class Request:
     # far and the earliest step the admission may be tried again
     pool_retries: int = 0
     retry_at_step: int = 0
+    # the dead replica a request was evacuated from (serve.router); the
+    # adopting engine counts the failover once and resets it
+    failover_from: int = -1
 
     @property
     def done(self) -> bool:
@@ -69,6 +73,14 @@ class Request:
         if self.deadline_steps is None:
             return None
         return self.arrival_step + self.deadline_steps
+
+
+def replica_load(n_active: int, n_free: int, n_waiting: int) -> int:
+    """The admission-side load signal of the replica router (serve.router):
+    committed work minus immediately available capacity. A replica with
+    free slots and an empty queue scores negative (it can admit now); one
+    with a backed-up queue scores by its depth."""
+    return n_active + n_waiting - n_free
 
 
 class ContinuousScheduler:

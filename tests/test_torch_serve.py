@@ -30,7 +30,7 @@ from repro_torch.core import kratos as pkr
 from repro_torch.models import transformer as PT
 from repro_torch.serve import (DraftSpec, EngineConfig, EngineSaturated,
                                InferenceEngine, LedgerConfig, ModelRegistry,
-                               QoSConfig)
+                               QoSConfig, TraceConfig)
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "h2o-danube-1.8b"
@@ -144,7 +144,7 @@ def test_cuda_device_refused_without_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("paged_native", False, "item 10"), ("trace", object(), "item 8")])
+    ("paged_native", False, "item 10")])
 def test_unported_engine_features_raise(field, value, item):
     with pytest.raises(NotImplementedError, match=item):
         EngineConfig(device="cpu", **{field: value})
@@ -152,10 +152,10 @@ def test_unported_engine_features_raise(field, value, item):
 
 @pytest.mark.parametrize("field,value", [
     ("qos", QoSConfig()), ("pool_wait_retries", 2),
-    ("ledger", LedgerConfig())])
+    ("ledger", LedgerConfig()), ("trace", TraceConfig())])
 def test_resilience_and_ledger_fields_accepted(field, value):
-    """The fields the port refused until the resilience slice now build an
-    engine (qos over a model loaded with a tier ladder)."""
+    """The fields the port refused until the resilience and tracing slices
+    now build an engine (qos over a model loaded with a tier ladder)."""
     tiers = (DraftSpec.from_args(8, 0.5, 0),) if field == "qos" else ()
     model = ModelRegistry().load(ARCH, device="cpu", tier_specs=tiers)
     eng = InferenceEngine(model, EngineConfig(device="cpu", max_len=24,
