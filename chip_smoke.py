@@ -210,6 +210,23 @@ Phases, in order; any failure raises and exits non-zero:
      level before the crash); one nan_logits sync (tokens equal); every
      free page of a paged replica squeezed for 4 steps (admissions wait,
      the pools end pristine).
+ 19. the serving surface, on phase 5's first 8 requests. 19a, right after
+     phase 18a, on its dense h2o-danube (full width and depth): the legacy
+     gather/scatter paged decode (paged_native=False) against the native
+     one, page 16, K 4, in alternating turns (legacy, native, legacy,
+     native): tokens equal, the "gather" event stream (a gather and a
+     scatter in each engine's warm-up and capture, none per replay; none
+     native), paged_flash_attention launches (legacy 0, native 24 a
+     micro-step), gather_bytes_avoided, peak memory_allocated, and graph
+     wall ms a micro-step of both forms in alternating turns. 19c:
+     StaticScheduler against ContinuousScheduler on a 4-slot slab (two
+     waves), in alternating turns: tokens equal, dispatches, tokens a
+     dispatch, tok/s. 19d: `python -m repro_torch.launch.serve --full ...`
+     in a subprocess, as users start it: exit 0, `scheduler=static
+     backend=local`, a non-empty trace, its wall seconds. 19b, right after
+     phase 18b, on phase 9's 8-layer tree with its s0.5 x int8 draft, K 4,
+     page 16, 4 requests: legacy speculative tokens equal native ones, and
+     paged attention runs only in the native cycle.
 Phase 5 also holds the host-loop cell ([5h]): h2o-danube dense served by
 the host decode loop (device_loop=False, one graphed (B, 1) forward a step,
 logits to the host) and by the device loop, whole runs in alternating
@@ -4192,6 +4209,266 @@ def phase_router(torch, card, params):
     return totals, res
 
 
+# phase 19: the serving surface. 19a alternates the two paged forms this
+# many turns; 19b speculates on this many of phase 5's requests; 19c runs
+# two waves on 4 slots; 19d gives the CLI subprocess this long
+LEGACY_TURNS = 2
+LEGACY_SPEC_REQUESTS = 4
+STATIC_SLOTS = 4
+CLI_TIMEOUT_S = 300
+
+
+def timed_dispatches(torch, engines, per, turns=3, n=3):
+    """Graph wall ms per micro-step of each engine's decode dispatch (slots
+    parked), §5's method: `turns` alternating turns of `n` dispatches on
+    every engine in turn, in this one process."""
+    fns = {tag: eng.backend.decode_block for tag, eng in engines.items()}
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    ms = {tag: [] for tag in fns}
+    for _ in range(turns):
+        for tag, fn in fns.items():
+            t = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            ms[tag].append((time.perf_counter() - t) * 1e3 / (n * per))
+    return ms
+
+
+def phase_surface(torch, card, params):
+    """19a, 19c and 19d, right after phase 18a, on phase 6's dense
+    h2o-danube-1.8b (full width and depth) and phase 5's first 8 requests.
+    19a: the legacy gather/scatter paged decode (paged_native=False)
+    against the native one, page 16, K 4, n_slots 8, max_len 544, in
+    alternating turns (legacy, native, legacy, native): tokens equal, the
+    "gather" event stream (legacy: a gather and a scatter per capture,
+    none per replay; native: none), paged_flash_attention launches (legacy
+    0, native 24 a micro-step), gather_bytes_avoided, peak
+    memory_allocated of each run, and graph wall ms a micro-step of the
+    last turn's two engines in alternating turns. 19c: StaticScheduler
+    against ContinuousScheduler on the slab, 4 slots (two waves), in
+    alternating turns: tokens equal, dispatches, tokens a dispatch, tok/s.
+    19d: `python -m repro_torch.launch.serve --full ...` in a subprocess,
+    as a user starts it: exit 0, the `scheduler=static backend=local`
+    report and a non-empty trace."""
+    from repro_torch.core import kratos as kr
+    from repro_torch.instrument import REGISTRY
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (EngineConfig, InferenceEngine,
+                                   ModelRegistry, StaticScheduler)
+    t_phase = time.perf_counter()
+    model = ModelRegistry().load(DANUBE, kr.DENSE, smoke=False,
+                                 params=params, seed=SEED)
+    prompts = serving_traffic(model.cfg.vocab)[:SERVE_REQUESTS]
+    layers = model.cfg.n_layers
+    totals = {name: 0 for name in ops.KERNELS}
+    base = dict(n_slots=N_SLOTS, max_len=512 + GEN_LEN, decode_chunk=CHUNK,
+                seed=SEED, page_size=16)
+    # ---- 19a: legacy against native paged decode ----------------------
+    runs, engines = [], {}
+    for turn in range(LEGACY_TURNS):
+        for native in (False, True):
+            tag = "native" if native else "legacy"
+            engines.pop(tag, None)
+            gc.collect()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with REGISTRY.scoped("gather") as ev:
+                eng, reqs, wall, counts, _ = serve_traffic(
+                    torch, model, prompts,
+                    EngineConfig(paged_native=native, **base))
+                events = [e[0] for e in ev["gather"]]
+            peak = torch.cuda.max_memory_allocated()
+            add_counts(totals, counts)
+            rep = eng.metrics.report()
+            assert all(r.done and len(r.generated) == GEN_LEN for r in reqs)
+            view = eng.pool.layout.slab_view_bytes()
+            if native:
+                assert not events, events
+                assert counts["paged_flash_attention"] \
+                    == layers * rep["micro_steps"], counts
+                assert rep["gather_bytes_avoided"] \
+                    == 2 * view * rep["decode_steps"] > 0, rep
+            else:
+                # one gather and one scatter in the warm-up and the capture
+                assert events == ["gather", "scatter"] * 2, events
+                assert counts["paged_flash_attention"] == 0, counts
+                assert rep["gather_bytes_avoided"] == 0.0, rep
+            assert counts["dense_matmul"] > 0 and counts["flash_attention"] \
+                > 0, counts
+            engines[tag] = eng
+            runs.append(dict(
+                form=tag, turn=turn, wall_s=wall,
+                tok_per_s=rep["tokens_generated"] / wall,
+                decode_steps=rep["decode_steps"],
+                micro_steps=rep["micro_steps"],
+                gather_events=len(events),
+                gather_bytes_avoided=rep["gather_bytes_avoided"],
+                slab_view_bytes=view, memory_before=before,
+                peak_memory_allocated=peak, launches=counts,
+                tokens=[list(r.generated) for r in reqs]))
+    for run in runs[1:]:
+        assert run["tokens"] == runs[0]["tokens"], (run["form"],
+                                                    run["turn"])
+    with REGISTRY.scoped("gather") as ev:
+        step_ms = timed_dispatches(torch, engines, CHUNK)
+        assert not ev["gather"], "a graph replay appended a gather event"
+    del engines, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    legacy = dict(
+        runs=[{k: v for k, v in r.items() if k != "tokens"} for r in runs],
+        micro_step_ms=step_ms,
+        micro_step_ms_median={t: statistics.median(v)
+                              for t, v in step_ms.items()})
+    r = lambda xs, d=3: [round(x, d) for x in xs]
+    for run in runs:
+        print(f"  [19a] {run['form']:6s} paged, turn {run['turn']} [{card}]: "
+              f"tok/s {run['tok_per_s']:.1f}, dispatches "
+              f"{run['decode_steps']:.0f}, gather events "
+              f"{run['gather_events']}, paged_flash_attention launches "
+              f"{run['launches']['paged_flash_attention']}, "
+              f"gather_bytes_avoided {run['gather_bytes_avoided']:.0f} "
+              f"(slab view {run['slab_view_bytes']} B a direction), peak "
+              f"memory_allocated {run['peak_memory_allocated'] / 1e9:.3f} "
+              f"GB ({(run['peak_memory_allocated'] - run['memory_before']) / 1e9:.3f} "
+              f"GB over the {run['memory_before'] / 1e9:.3f} GB before the "
+              "build)", flush=True)
+    print(f"    legacy against native tokens over {len(prompts)} requests "
+          f"and {len(runs)} runs: identical; graph wall ms / micro-step in "
+          f"alternating turns: legacy {r(step_ms['legacy'])} (median "
+          f"{legacy['micro_step_ms_median']['legacy']:.3f}), native "
+          f"{r(step_ms['native'])} (median "
+          f"{legacy['micro_step_ms_median']['native']:.3f}); no gather "
+          "event in the replays", flush=True)
+    # ---- 19c: static against continuous admission ---------------------
+    admission = []
+    slab = dict(n_slots=STATIC_SLOTS, max_len=512 + GEN_LEN,
+                decode_chunk=CHUNK, seed=SEED)
+    for tag in ("continuous", "static", "static", "continuous"):
+        eng = InferenceEngine(model, EngineConfig(**slab),
+                              scheduler=StaticScheduler()
+                              if tag == "static" else None)
+        eng, reqs, wall, counts, _ = serve_traffic(torch, model, prompts,
+                                                   None, eng=eng)
+        add_counts(totals, counts)
+        rep = eng.metrics.report()
+        assert eng.scheduler.name == tag
+        admission.append(dict(
+            scheduler=tag, wall_s=wall,
+            tok_per_s=rep["tokens_generated"] / wall,
+            decode_steps=rep["decode_steps"],
+            tokens_per_dispatch=rep["tokens_per_step"],
+            mean_occupancy=rep["mean_occupancy"],
+            latency_s_p50=rep["latency_s_p50"],
+            latency_s_p99=rep["latency_s_p99"],
+            tokens=[list(r.generated) for r in reqs]))
+        del eng
+        gc.collect()
+    for run in admission[1:]:
+        assert run["tokens"] == admission[0]["tokens"], run["scheduler"]
+    for run in admission:
+        print(f"  [19c] {run['scheduler']:10s} [{card}] slab, "
+              f"{STATIC_SLOTS} slots: dispatches {run['decode_steps']:.0f}, "
+              f"tokens / dispatch {run['tokens_per_dispatch']:.3f}, "
+              f"occupancy {run['mean_occupancy']:.3f}, tok/s "
+              f"{run['tok_per_s']:.1f}, p50 / p99 "
+              f"{run['latency_s_p50']:.3f} / {run['latency_s_p99']:.3f} s",
+              flush=True)
+    print("    static against continuous tokens: identical", flush=True)
+    # ---- 19d: the CLI as users start it ---------------------------------
+    trace = ROOT / "chiprun_out" / "cli_trace.jsonl"
+    trace.parent.mkdir(exist_ok=True)
+    trace.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--full",
+           "--arch", DANUBE, "--requests", "8", "--prompt-len", "128",
+           "--gen", "32", "--slots", "4", "--decode-chunk", "4",
+           "--page-size", "16", "--static", "--trace-out", str(trace)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=CLI_TIMEOUT_S)
+    cli_s = time.perf_counter() - t0
+    print(f"  [19d] {' '.join(cmd[1:])}: exit {proc.returncode} in "
+          f"{cli_s:.1f} s", flush=True)
+    for line in proc.stdout.splitlines():
+        print(f"    | {line}", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    assert "scheduler=static backend=local" in proc.stdout, proc.stdout
+    assert trace.stat().st_size > 0, trace
+    res = dict(
+        legacy=legacy,
+        admission=[{k: v for k, v in a.items() if k != "tokens"}
+                   for a in admission],
+        cli=dict(cmd=cmd[1:], returncode=proc.returncode, seconds=cli_s,
+                 stdout=proc.stdout, trace_bytes=trace.stat().st_size),
+        seconds=time.perf_counter() - t_phase)
+    return totals, res
+
+
+def phase_legacy_spec(torch, card, params):
+    """19b, right after phase 18b, on phase 9's 8-layer h2o-danube-1.8b
+    tree: the dense target with its s0.5 x int8 draft, K 4, page 16,
+    phase 5's first 4 requests, native then legacy paged: the legacy
+    tokens equal the native ones, paged_flash_attention runs only in the
+    native cycle (one verify block a layer a cycle), and the legacy form
+    appends its gather and scatter per capture."""
+    from repro_torch.core import kratos as kr
+    from repro_torch.instrument import REGISTRY
+    from repro_torch.kernels import ops
+    from repro_torch.serve import DraftSpec, EngineConfig
+    t_phase = time.perf_counter()
+    model = load_cut(DANUBE, kr.DENSE, params, QOS_LAYERS,
+                     draft_spec=DraftSpec(bits=8, sparsity=0.5))
+    prompts = serving_traffic(model.cfg.vocab)[:LEGACY_SPEC_REQUESTS]
+    totals = {name: 0 for name in ops.KERNELS}
+    out = {}
+    for native in (True, False):
+        with REGISTRY.scoped("gather") as ev:
+            eng, reqs, wall, counts, _ = serve_traffic(
+                torch, model, prompts, EngineConfig(
+                    n_slots=N_SLOTS, max_len=512 + GEN_LEN, seed=SEED,
+                    speculate=4, page_size=16, paged_native=native))
+            events = [e[0] for e in ev["gather"]]
+        add_counts(totals, counts)
+        rep = eng.metrics.report()
+        assert all(r.done and len(r.generated) == GEN_LEN for r in reqs)
+        if native:
+            assert not events and counts["paged_flash_attention"] \
+                == QOS_LAYERS * rep["spec_dispatches"], (events, counts)
+        else:
+            assert events == ["gather", "scatter"] * 2, events
+            assert counts["paged_flash_attention"] == 0, counts
+        out["native" if native else "legacy"] = dict(
+            wall_s=wall, spec_dispatches=rep["spec_dispatches"],
+            acceptance_rate=rep["acceptance_rate"], gather_events=len(events),
+            launches=counts, tokens=[list(r.generated) for r in reqs])
+        del eng
+        gc.collect()
+    assert out["legacy"]["tokens"] == out["native"]["tokens"]
+    print(f"  [19b] speculative paged, {QOS_LAYERS} layers, draft s0.5-w8, "
+          f"K 4, {len(prompts)} requests [{card}]: legacy against native "
+          f"tokens identical; cycles legacy "
+          f"{out['legacy']['spec_dispatches']:.0f} native "
+          f"{out['native']['spec_dispatches']:.0f}; acceptance "
+          f"{out['legacy']['acceptance_rate']:.4f}; paged_flash_attention "
+          f"launches legacy {out['legacy']['launches']['paged_flash_attention']}"
+          f" native {out['native']['launches']['paged_flash_attention']}; "
+          f"gather events legacy {out['legacy']['gather_events']} native "
+          f"{out['native']['gather_events']}; wall legacy "
+          f"{out['legacy']['wall_s']:.2f} s native "
+          f"{out['native']['wall_s']:.2f} s", flush=True)
+    for v in out.values():
+        del v["tokens"]
+    out["seconds"] = time.perf_counter() - t_phase
+    return totals, out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4252,6 +4529,12 @@ def main() -> int:
           f"phase 5's first {SERVE_REQUESTS} requests", flush=True)
     trace_launches, tracing = phase_tracing(
         torch, card, params, serving["dense"]["decode_micro_step_ms"])
+    mark("19a")
+    print(f"[19a-19d] the serving surface: {DANUBE} full width and depth, "
+          f"phase 5's first {SERVE_REQUESTS} requests: legacy against native "
+          "paged decode, static against continuous admission, the CLI",
+          flush=True)
+    surface_launches, surface = phase_surface(torch, card, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4284,6 +4567,11 @@ def main() -> int:
           f"{QOS_LAYERS} layers (phase 9's tree), {ROUTER_REPLICAS} "
           "replicas", flush=True)
     router_launches, router = phase_router(torch, card, danube8)
+    mark("19b")
+    print(f"[19b] legacy speculative paged decode: {DANUBE} full width, "
+          f"{QOS_LAYERS} layers (phase 9's tree)", flush=True)
+    legacy_spec_launches, legacy_spec = phase_legacy_spec(torch, card,
+                                                          danube8)
     del danube8
     gc.collect()
     torch.cuda.empty_cache()
@@ -4342,7 +4630,8 @@ def main() -> int:
     for more in (paged_launches, reuse_launches, mamba_launches,
                  spec_launches, qos_launches, gemma_launches, mla_launches,
                  moe_launches, jamba_launches, llava_launches,
-                 whisper_launches, trace_launches, router_launches):
+                 whisper_launches, trace_launches, router_launches,
+                 surface_launches, legacy_spec_launches):
         for name, c in more.items():
             launches[name] += c
 
@@ -4368,8 +4657,8 @@ def main() -> int:
          "mamba_serving": mamba, "speculative": spec, "gemma2": gemma,
          "minicpm3": mla, "moe": moe, "jamba": jamba, "llava": llava,
          "whisper": whisper, "resilience": resilience,
-         "tracing": tracing, "router": router,
-         "phase_start_s": marks},
+         "tracing": tracing, "router": router, "surface": surface,
+         "legacy_spec": legacy_spec, "phase_start_s": marks},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -9,9 +9,10 @@ caller copies out per dispatch. The KV slab (or page store) and the loop
 state are updated in place on the device: every step ends by `copy_`-ing
 its results into the state's own tensors, so a CUDA graph of the step
 (serve.backend) reads and writes fixed addresses. `make_paged_decode_step`
-is the native paged form — the page table rides into every forward as
-device state — and `make_suffix_prefill_step` prefills only the unmatched
-suffix of a prefix-reuse admission.
+is the paged form — natively, the page table rides into every forward as
+device state; `native=False` wraps the slab step in a gather and a scatter
+— and `make_suffix_prefill_step` prefills only the unmatched suffix of a
+prefix-reuse admission.
 
 `make_speculative_decode_step` (and its paged form) is the fused
 propose-then-verify cycle of speculative decode (serve.speculative): the
@@ -126,25 +127,45 @@ def make_decode_step(cfg: T.ModelConfig, *, n_steps: int,
 
 
 def make_paged_decode_step(cfg: T.ModelConfig, *, n_steps: int, layout,
-                           ledger=None):
-    """Native paged form of the device-resident loop (serve.paging):
+                           native: bool = True, ledger=None):
+    """Paged form of the device-resident loop (serve.paging):
 
         decode(params, store, page_table, state)
             -> (tok_block, store, page_table, state)
 
-    The store's leaves pass straight into the forward as its cache list
-    and the attention layers read and write them through the table — one
-    indexed write per leaf for the new rows, the page-table kernel for the
-    read — so no per-dispatch slab view exists. ledger=LedgerConfig appends
-    the ledger buffer after `state` (see make_decode_step)."""
-    meta = {"size": layout.page_size, "len": layout.cache_len}
-    inner = make_decode_step(cfg, n_steps=n_steps, pages_meta=meta,
-                             ledger=ledger)
+    native=True: the store's leaves pass straight into the forward as its
+    cache list and the attention layers read and write them through the
+    table — one indexed write per leaf for the new rows, the page-table
+    kernel for the read — so no per-dispatch slab view exists.
 
-    def decode(params, store, page_table, state, *led):
-        return inner(params, layout.as_tree(store), page_table, state, *led)
+    native=False, the legacy form (the A/B baseline): gather every slot's
+    pages into the slab layout (`layout.gather`), run the unchanged slab
+    step, scatter the view back (`layout.scatter`), each appending one
+    `GATHER_EVENTS` entry; the table passes through. Both forms write the
+    store in place and give the slab's greedy tokens.
 
-    return decode
+    ledger=LedgerConfig appends the ledger buffer after `state` on either
+    form (see make_decode_step)."""
+    if native:
+        meta = {"size": layout.page_size, "len": layout.cache_len}
+        inner = make_decode_step(cfg, n_steps=n_steps, pages_meta=meta,
+                                 ledger=ledger)
+
+        def decode(params, store, page_table, state, *led):
+            return inner(params, layout.as_tree(store), page_table, state,
+                         *led)
+
+        return decode
+
+    inner = make_decode_step(cfg, n_steps=n_steps, ledger=ledger)
+
+    def legacy_decode(params, store, page_table, state, *led):
+        caches = layout.gather(store, page_table)
+        tok_block, caches, state, *led = inner(params, caches, state, *led)
+        layout.scatter(store, page_table, caches)
+        return (tok_block, store, page_table, state, *led)
+
+    return legacy_decode
 
 
 def make_host_decode_step(cfg: T.ModelConfig):
@@ -486,8 +507,9 @@ def make_speculative_decode_step(cfg: T.ModelConfig,
 
 def make_paged_speculative_decode_step(cfg: T.ModelConfig,
                                        draft_cfg: T.ModelConfig, *,
-                                       n_draft: int, layout, ledger=None):
-    """Native paged form of the propose-then-verify cycle:
+                                       n_draft: int, layout,
+                                       native: bool = True, ledger=None):
+    """Paged form of the propose-then-verify cycle:
 
         spec_decode(params, draft_params, store, page_table, draft_caches,
                     state) -> (commit, n_commit, n_accept, store,
@@ -497,14 +519,30 @@ def make_paged_speculative_decode_step(cfg: T.ModelConfig,
     suffix is an index rewind that frees no page, and the speculative
     headroom lands in the slot's private tail pages (prefix sharing only
     publishes pages of final KV), so a rolled-back write never touches a
-    shared page. ledger=LedgerConfig appends the ledger buffer last."""
-    meta = {"size": layout.page_size, "len": layout.cache_len}
+    shared page. native=False is the legacy gather / slab cycle / scatter
+    form (see make_paged_decode_step). ledger=LedgerConfig appends the
+    ledger buffer last on either form."""
+    if native:
+        meta = {"size": layout.page_size, "len": layout.cache_len}
+        inner = make_speculative_decode_step(cfg, draft_cfg, n_draft=n_draft,
+                                             pages_meta=meta, ledger=ledger)
+
+        def spec_decode(params, draft_params, store, page_table,
+                        draft_caches, state, *led):
+            return inner(params, draft_params, layout.as_tree(store),
+                         page_table, draft_caches, state, *led)
+
+        return spec_decode
+
     inner = make_speculative_decode_step(cfg, draft_cfg, n_draft=n_draft,
-                                         pages_meta=meta, ledger=ledger)
+                                         ledger=ledger)
 
-    def spec_decode(params, draft_params, store, page_table, draft_caches,
-                    state, *led):
-        return inner(params, draft_params, layout.as_tree(store), page_table,
-                     draft_caches, state, *led)
+    def legacy_spec_decode(params, draft_params, store, page_table,
+                           draft_caches, state, *led):
+        caches = layout.gather(store, page_table)
+        commit, m, acc, caches, draft_caches, state, *led = inner(
+            params, draft_params, caches, draft_caches, state, *led)
+        layout.scatter(store, page_table, caches)
+        return (commit, m, acc, store, page_table, draft_caches, state, *led)
 
-    return spec_decode
+    return legacy_spec_decode

@@ -1,9 +1,11 @@
 """Continuous-batching serving over packed Kratos weights (port of
 `repro.serve`, slab and native paged forms, speculative self-draft
 decode, deadlines and cancellation, the QoS tier ladder, the
-ineffectual-work ledger, tracing and live telemetry, and the replica
-router with failover and its chaos harness)."""
+ineffectual-work ledger, tracing and live telemetry, the replica router
+with failover and its chaos harness, the continuous and static admission
+policies, and the execution backend an engine is built on)."""
 
+from repro_torch.serve.backend import ExecutionBackend, LocalBackend
 from repro_torch.serve.cache_pool import CachePool, PoolExhausted
 from repro_torch.serve.chaos import ChaosHarness, Fault, seeded_schedule
 from repro_torch.serve.engine import (EngineConfig, EngineSaturated,
@@ -20,7 +22,7 @@ from repro_torch.serve.registry import (ModelRegistry, PackedModel,
                                         pack_model_params)
 from repro_torch.serve.router import ReplicaRouter
 from repro_torch.serve.scheduler import (ContinuousScheduler, Request,
-                                         replica_load)
+                                         StaticScheduler, replica_load)
 from repro_torch.serve.speculative import DraftSpec
 from repro_torch.serve.telemetry import (TelemetryConfig, TelemetryExporter,
                                          TelemetryRegistry, engine_sample,
@@ -29,13 +31,14 @@ from repro_torch.serve.trace import (NULL_TRACER, TraceConfig, Tracer,
                                      export_chrome, export_jsonl)
 
 __all__ = ["CachePool", "ChaosHarness", "ContinuousScheduler", "DraftSpec",
-           "EngineConfig", "EngineSaturated", "Fault", "InferenceEngine",
-           "LedgerConfig", "LedgerSink", "ModelRegistry", "NULL_LEDGER",
-           "NULL_TRACER", "PackedModel", "PageLayout", "PagedCachePool",
-           "PoolExhausted", "PrefixIndex", "QoSConfig", "QoSController",
-           "ReplicaFault", "ReplicaRouter", "Request", "ServeMetrics",
-           "TelemetryConfig", "TelemetryExporter", "TelemetryRegistry",
-           "TraceConfig", "Tracer", "check_tier_spec", "engine_sample",
-           "export_chrome", "export_jsonl", "hist_checksum",
-           "pack_model_params", "parse_tiers", "prefix_supported",
-           "replica_load", "router_sample", "seeded_schedule"]
+           "EngineConfig", "EngineSaturated", "ExecutionBackend", "Fault",
+           "InferenceEngine", "LedgerConfig", "LedgerSink", "LocalBackend",
+           "ModelRegistry", "NULL_LEDGER", "NULL_TRACER", "PackedModel",
+           "PageLayout", "PagedCachePool", "PoolExhausted", "PrefixIndex",
+           "QoSConfig", "QoSController", "ReplicaFault", "ReplicaRouter",
+           "Request", "ServeMetrics", "StaticScheduler", "TelemetryConfig",
+           "TelemetryExporter", "TelemetryRegistry", "TraceConfig", "Tracer",
+           "check_tier_spec", "engine_sample", "export_chrome", "export_jsonl",
+           "hist_checksum", "pack_model_params", "parse_tiers",
+           "prefix_supported", "replica_load", "router_sample",
+           "seeded_schedule"]

@@ -1,8 +1,14 @@
-"""Execution backend: where the serving steps run (the `LocalBackend` of
-`repro.serve.backend`, slab and native paged forms).
+"""Execution backend: where the serving steps run (`ExecutionBackend` and
+the `LocalBackend` of `repro.serve.backend`, slab and paged forms).
 
 The backend owns the KV slab or page pool, the device-resident loop state
-and the prefill / decode steps; the engine owns request lifecycle.
+and the prefill / decode steps; the engine owns request lifecycle. An
+engine takes any `ExecutionBackend` (`InferenceEngine(..., backend=)`);
+`LocalBackend` is the one-device placement. Under a page pool the decode
+reads the store through the page table, or, with
+`EngineConfig(paged_native=False)`, runs the legacy gather / slab step /
+scatter form (steps.make_paged_decode_step), whose gather and scatter are
+captured into the same graph.
 
 On a CUDA device `build` captures the decode dispatch (K micro-steps, or
 one speculative propose-then-verify cycle) as ONE CUDA graph, the port's
@@ -119,7 +125,21 @@ def no_host_sync(device: torch.device):
         torch.cuda.set_sync_debug_mode(prev)
 
 
-class LocalBackend:
+class ExecutionBackend:
+    """Placement and step owner behind an InferenceEngine: `build` places
+    the buffers and makes the steps; the contract above is what the engine
+    calls."""
+
+    name = "base"
+
+    def build(self, model, cfg) -> None:
+        raise NotImplementedError
+
+    def describe(self) -> Dict[str, Any]:
+        return {"backend": self.name, "mesh_shape": [1, 1]}
+
+
+class LocalBackend(ExecutionBackend):
     """Single-device placement: slab or page pool + the fused decode
     dispatch, replayed as a CUDA graph on the card."""
 
@@ -186,14 +206,14 @@ class LocalBackend:
             if cfg.page_size:
                 self._step = ST.make_paged_speculative_decode_step(
                     mcfg, dcfg, n_draft=k, layout=self.pool.layout,
-                    ledger=ledger)
+                    native=cfg.paged_native, ledger=ledger)
             else:
                 self._step = ST.make_speculative_decode_step(
                     mcfg, dcfg, n_draft=k, ledger=ledger)
         elif cfg.page_size:
             self._step = ST.make_paged_decode_step(
                 mcfg, n_steps=cfg.decode_chunk, layout=self.pool.layout,
-                ledger=ledger)
+                native=cfg.paged_native, ledger=ledger)
         else:
             self._step = ST.make_decode_step(mcfg, n_steps=cfg.decode_chunk,
                                              ledger=ledger)
@@ -438,9 +458,12 @@ class LocalBackend:
             else 0
 
     def gather_bytes_per_dispatch(self) -> int:
-        """Bytes a gather/scatter paged decode would move per dispatch (0
-        on the slab pool)."""
-        return self.pool.gather_bytes_per_dispatch() if self.paged else 0
+        """Bytes a gather/scatter paged decode would move per dispatch: what
+        the native form avoids (0 on the slab pool, and on the legacy form,
+        which moves them)."""
+        if self.paged and self.cfg.paged_native:
+            return self.pool.gather_bytes_per_dispatch()
+        return 0
 
     def page_stats(self):
         """(pages_in_use, usable_pages), or None on the slab pool."""

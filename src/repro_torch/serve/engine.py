@@ -92,10 +92,15 @@ into its prompt so a survivor's greedy re-prefill resumes the stream) and
 failover. A corrupted decode sync raises `ReplicaFault`, the router's
 signal.
 
-Greedy output is independent of K, of what else shares the slab, and of
-paging (on an MoE arch, as far as capacity routing lets it: ROADMAP.md
-queue 3). The legacy gather/scatter paged decode is not ported yet;
-asking for it raises `NotImplementedError` naming the ROADMAP.md item.
+Greedy output is independent of K, of what else shares the slab, of the
+admission policy, and of paging, native or the legacy gather/scatter form
+(`paged_native=False`); on an MoE arch, as far as capacity routing lets
+it (ROADMAP.md queue 3).
+
+The engine takes its admission policy, metrics sink and execution backend
+as arguments (`scheduler=`, `metrics=`, `backend=`; by default a
+`ContinuousScheduler`, a fresh `ServeMetrics` and a `LocalBackend`), as
+the JAX engine does.
 """
 
 from __future__ import annotations
@@ -109,13 +114,14 @@ import numpy as np
 import torch
 
 from repro_torch.serve import speculative as SP
-from repro_torch.serve.backend import LocalBackend
+from repro_torch.serve.backend import ExecutionBackend, LocalBackend
 from repro_torch.serve.cache_pool import PoolExhausted
 from repro_torch.serve.ledger import NULL_LEDGER, LedgerSink
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.qos import QoSController
 from repro_torch.serve.registry import PackedModel, check_device
-from repro_torch.serve.scheduler import ContinuousScheduler, Request
+from repro_torch.serve.scheduler import (ContinuousScheduler, Request,
+                                         SchedulerBase)
 from repro_torch.serve.trace import NULL_TRACER, TraceConfig, Tracer
 
 
@@ -128,13 +134,6 @@ class ReplicaFault(RuntimeError):
     sync) or its dispatch crashed. The replica router catches it around
     `engine.step()`, marks the replica dead and re-admits its evacuated
     requests to survivors."""
-
-
-# field -> (value meaning "off", ROADMAP.md item that ports it)
-_NOT_PORTED = {
-    "paged_native": (True, "the legacy gather/scatter paged decode (an A/B "
-                     "baseline): queue 1, item 10"),
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,7 +158,9 @@ class EngineConfig:
     # n_pages sizes the pool (None = slab capacity, n_slots *
     # pages_per_slot, + the sink page); prefix_cache shares page-aligned
     # prompt prefixes through the radix index (off by itself for archs
-    # whose cache is not purely positional)
+    # whose cache is not purely positional); paged_native=False decodes
+    # through the legacy gather / slab step / scatter form (the A/B
+    # baseline of the page-table-native decode)
     page_size: Optional[int] = None
     n_pages: Optional[int] = None
     prefix_cache: bool = True
@@ -198,11 +199,6 @@ class EngineConfig:
                 raise ValueError("speculate requires device_loop=True (the "
                                  "propose-then-verify cycle is one fused "
                                  "dispatch)")
-        for field, (off, item) in _NOT_PORTED.items():
-            if getattr(self, field) != off:
-                raise NotImplementedError(
-                    f"EngineConfig.{field}: {item} of ROADMAP.md is not "
-                    "ported yet")
         if self.decode_chunk < 1:
             raise ValueError(f"decode_chunk must be >= 1, got "
                              f"{self.decode_chunk}")
@@ -224,7 +220,10 @@ class EngineConfig:
 class InferenceEngine:
     """Request lifecycle + step loop over a packed model."""
 
-    def __init__(self, model: PackedModel, cfg: EngineConfig = EngineConfig()):
+    def __init__(self, model: PackedModel, cfg: EngineConfig = EngineConfig(),
+                 scheduler: Optional[SchedulerBase] = None,
+                 metrics: Optional[ServeMetrics] = None,
+                 backend: Optional[ExecutionBackend] = None):
         device = check_device(cfg.device)
         if device.type != model.device.type:
             raise ValueError(f"engine device {device} but model "
@@ -243,8 +242,9 @@ class InferenceEngine:
         self.model = model
         self.cfg = cfg
         mcfg = model.cfg
-        self.scheduler = ContinuousScheduler()
-        self.metrics = ServeMetrics()
+        self.scheduler = ContinuousScheduler() if scheduler is None \
+            else scheduler
+        self.metrics = ServeMetrics() if metrics is None else metrics
         if cfg.speculate:
             self.metrics.draft_flop_fraction = model.draft_cost_fraction()
             # target forwards a cycle: one (B, K+1) verify, or K+1
@@ -252,11 +252,11 @@ class InferenceEngine:
             # hybrid (the steps builder)
             self._verify_steps = cfg.speculate + 1 \
                 if (mcfg.is_ssm or mcfg.attn_period) else 1
-        self.backend = LocalBackend()
+        self.backend = LocalBackend() if backend is None else backend
         self.backend.build(model, cfg)
         self.pool = self.backend.pool
         # bytes a gather/scatter paged decode would move per dispatch (0 on
-        # the slab)
+        # the slab and on the legacy paged form)
         self._gather_bytes = self.backend.gather_bytes_per_dispatch()
         self.trace = NULL_TRACER if cfg.trace is None else Tracer(
             cfg.trace, device=device.type)
@@ -481,6 +481,10 @@ class InferenceEngine:
                 self.trace.req_tier(r.id, tier)
 
     @property
+    def n_active(self) -> int:
+        return sum(r is not None for r in self._slots)
+
+    @property
     def n_waiting(self) -> int:
         return len(self._waiting)
 
@@ -494,7 +498,8 @@ class InferenceEngine:
         arrived = [r for r in self._waiting
                    if r.arrival_step <= self.step_count
                    and r.retry_at_step <= self.step_count]
-        admitted = self.scheduler.admissible(arrived, self.pool.n_free)
+        admitted = self.scheduler.admissible(arrived, self.pool.n_active,
+                                             self.pool.n_free)
         if admitted:
             chosen = {r.id for r in admitted}
             self._waiting = collections.deque(

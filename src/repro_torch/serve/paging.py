@@ -1,5 +1,5 @@
 """Block-paged KV pool with radix-tree prefix reuse (port of
-`repro.serve.paging`, native form, one device).
+`repro.serve.paging`, one device).
 
 The slab (serve.cache_pool) reserves one `max_len` stride per slot. This
 pool carves the same memory into fixed-size PAGES:
@@ -14,9 +14,13 @@ pool carves the same memory into fixed-size PAGES:
   * page alloc/free is free-list bookkeeping with REFCOUNTS: a page shared
     by several slots and/or retained by the prefix index frees only when
     its last reference drops;
-  * decode reads and writes the store through the table
+  * native decode reads and writes the store through the table
     (models.attention's paged branch, kernels.ops.paged_attention), so no
-    slab view exists on the decode path.
+    slab view exists on its path. The legacy form
+    (`EngineConfig(paged_native=False)`, the A/B baseline) gathers every
+    slot's pages into the slab layout (`PageLayout.gather`), runs the
+    unchanged slab step and scatters the view back (`PageLayout.scatter`);
+    each call appends one event to `GATHER_EVENTS`.
 
 Leaves that are not positional stay RESIDENT in the slot-major slab
 layout inside the same store: a circular sliding-window leaf whose W is
@@ -46,11 +50,12 @@ allocation first evicts LRU tree pages nobody else references, then raises
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.instrument import REGISTRY
 from repro_torch.kernels.ref import last_write, paged_view
 from repro_torch.models import transformer as T
 from repro_torch.serve.cache_pool import PoolExhausted
@@ -58,6 +63,13 @@ from repro_torch.serve.prefix import PrefixIndex
 from repro_torch.serve.trace import NULL_TRACER
 
 Store = List[Dict[str, torch.Tensor]]
+
+# ("gather" | "scatter", n_paged_leaves, slab_view_bytes), appended by every
+# call of the legacy decode's full gather or scatter (the registry's
+# "gather" stream): one per eager dispatch or graph capture, none per
+# replay. Native paged decode appends none; the batch-1 admission copies
+# (gather_one / scatter_one) do not count.
+GATHER_EVENTS = REGISTRY.event_list("gather")
 
 
 RESIDENT_LEAVES = frozenset({"conv", "ssm", "cross_k", "cross_v"})
@@ -75,8 +87,9 @@ def prefix_supported(cfg: T.ModelConfig) -> bool:
 
 
 class PageLayout:
-    """Leaf classification plus the batch-1 gather/scatter between the
-    page store and the slab layout (suffix prefill and slot install).
+    """Leaf classification plus the gather/scatter between the page store
+    and the slab layout: batch-1 for suffix prefill and slot install, all
+    slots for the legacy paged decode.
 
     The store is the per-layer leaf list of `T.make_caches(cfg, n_slots,
     cache_len)` with every PAGED leaf re-laid out page-major. `as_tree`
@@ -98,10 +111,19 @@ class PageLayout:
                        for n, s in layer.items()}
                       for layer in self.slab_shapes]
         self.has_paged = any(any(layer.values()) for layer in self.paged)
+        # the reference's cache tree stacks a scan slot's layers into one
+        # leaf: its leaves are the prelude layers' and each slot's first
+        # layer's (describe() and the events count them so)
+        n0 = cfg.prelude_layers
+        tree = [*range(n0), *range(n0, min(n0 + cfg.scan_period,
+                                           cfg.n_layers))]
+        kinds = [v for i in tree for v in self.paged[i].values()]
+        self.n_paged_leaves = sum(kinds)
+        self.n_resident_leaves = len(kinds) - self.n_paged_leaves
 
     def slab_view_bytes(self) -> int:
-        """Bytes of the slab view of the paged leaves: what a gather would
-        materialise, per direction."""
+        """Bytes of the slab view of the paged leaves: what a gather
+        materialises, per direction."""
         item = torch.empty((), dtype=self.dtype).element_size()
         return sum(int(np.prod(s)) * item
                    for shapes, paged in zip(self.slab_shapes, self.paged)
@@ -128,16 +150,49 @@ class PageLayout:
         return paged_view(leaf, table)[..., :self.cache_len, :]
 
     def _scatter_leaf(self, store_leaf, table, slab_leaf) -> None:
+        """Write slab rows (B, ..., cache_len, d) into the pages of the
+        (B, pp) `table`. A page named more than once over the flattened
+        table (the sink page of parked slots and of rows past a slot's
+        pages, a shared prefix page) takes the value of its last write in
+        table order (`last_write`), on the card as on the CPU and in the
+        reference's scatter."""
+        ids = table.long().reshape(-1)
         pad = self.pp * self.page_size - self.cache_len
         x = slab_leaf
         if pad:   # the final partial page is private by construction
             x = torch.cat([x, x.new_zeros((*x.shape[:-2], pad, x.shape[-1]))],
                           dim=-2)
         x = x.unflatten(-2, (self.pp, self.page_size)).movedim(-3, 1)
-        # the table's rows past the slot's pages all name the sink page:
-        # the last of them writes it, on the card as on the CPU
-        ids = table.long()
-        store_leaf[ids] = x[:, last_write(ids[0])].to(store_leaf.dtype)
+        store_leaf[ids] = x.flatten(0, 1)[last_write(ids)].to(
+            store_leaf.dtype)
+
+    def gather(self, store: Store, page_table: torch.Tensor) -> Store:
+        """Page store + (n_slots, pp) table -> the full slab cache list of
+        the legacy paged decode: each paged leaf a new (n_slots, ...,
+        cache_len, d) tensor, each resident leaf the store's own tensor
+        (the slab step updates it in place). Appends a GATHER_EVENTS
+        entry."""
+        GATHER_EVENTS.append(("gather", self.n_paged_leaves,
+                              self.slab_view_bytes()))
+        return [{n: self._gather_leaf(t, page_table) if paged[n] else t
+                 for n, t in layer.items()}
+                for layer, paged in zip(store, self.paged)]
+
+    def scatter(self, store: Store, page_table: torch.Tensor,
+                caches: Store) -> None:
+        """Write the slab cache list back into the store, in place: paged
+        leaves into their pages (shared pages receive back the values they
+        supplied), resident leaves where they are not the store's own
+        tensor. Static shapes and no host sync, so it captures into the
+        dispatch's CUDA graph. Appends a GATHER_EVENTS entry."""
+        GATHER_EVENTS.append(("scatter", self.n_paged_leaves,
+                              self.slab_view_bytes()))
+        for layer, new, paged in zip(store, caches, self.paged):
+            for n, t in layer.items():
+                if paged[n]:
+                    self._scatter_leaf(t, page_table, new[n])
+                elif new[n] is not t:
+                    t.copy_(new[n])
 
     def gather_one(self, store: Store, table_row: torch.Tensor,
                    slot: int) -> Store:
@@ -354,3 +409,26 @@ class PagedCachePool:
         if not self.layout.has_paged:
             return 0
         return 2 * self.layout.slab_view_bytes()
+
+    def bytes(self) -> int:
+        """Bytes of the page store and the page table."""
+        return sum(t.numel() * t.element_size()
+                   for layer in self.store for t in layer.values()) \
+            + self.page_table.numel() * self.page_table.element_size()
+
+    def describe(self) -> Dict[str, Any]:
+        """The pool's geometry and occupancy, with the reference's keys;
+        leaves are counted as the reference's cache tree holds them (a
+        scan slot's layers stacked into one leaf)."""
+        return {
+            "page_size": self.page_size,
+            "pages_per_slot": self.pp,
+            "n_pages": self.n_pages,
+            "usable_pages": self.n_usable_pages,
+            "pages_in_use": self.pages_in_use,
+            "prefix_cache": self.index is not None,
+            "prefix_nodes": self.index.n_nodes if self.index else 0,
+            "bytes": self.bytes(),
+            "paged_leaves": self.layout.n_paged_leaves,
+            "resident_leaves": self.layout.n_resident_leaves,
+        }

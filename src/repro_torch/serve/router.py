@@ -82,14 +82,21 @@ class ReplicaRouter:
         self.requests: List[Request] = []
 
     @classmethod
-    def build(cls, model, cfg: EngineConfig, n_replicas: int,
+    def build(cls, model, cfg: EngineConfig, n_replicas: int, *,
+              backend_factory=None, scheduler_factory=None,
               **kwargs) -> "ReplicaRouter":
         """N identical replicas of (model, cfg), sharing the model's device
-        weights; each builds its own cache, backend and CUDA graphs. The
-        same closure becomes the router's `engine_factory`, so
-        `auto_restart` works out of the box."""
+        weights; each builds its own cache, backend and CUDA graphs.
+        backend_factory(i) returns the i-th replica's ExecutionBackend
+        (None = a LocalBackend each); scheduler_factory(i) likewise its
+        admission policy. The same closure becomes the router's
+        `engine_factory`, so `auto_restart` rebuilds a replica with its
+        factories' backend and scheduler."""
         def engine_factory(i: int) -> InferenceEngine:
-            return InferenceEngine(model, cfg)
+            return InferenceEngine(
+                model, cfg,
+                scheduler=scheduler_factory(i) if scheduler_factory else None,
+                backend=backend_factory(i) if backend_factory else None)
 
         replicas = [engine_factory(i) for i in range(n_replicas)]
         kwargs.setdefault("engine_factory", engine_factory)

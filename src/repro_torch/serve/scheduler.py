@@ -1,8 +1,14 @@
-"""Admission scheduling (port of `repro.serve.scheduler`, continuous
-policy): a waiting request gets a cache slot whenever one is free, at most
-one admission (each one a prefill) per engine step, so new arrivals do not
-starve in-flight decodes. With a K-step decode dispatch the admission clock
-ticks once per K-token block."""
+"""Admission scheduling (port of `repro.serve.scheduler`).
+
+`ContinuousScheduler`: a waiting request gets a cache slot whenever one is
+free, at most `max_prefills_per_step` admissions (each one a prefill) per
+engine step, so new arrivals do not starve in-flight decodes. With a
+K-step decode dispatch the admission clock ticks once per K-token block.
+`StaticScheduler` is the lock-step baseline: it admits a whole wave into
+the free slots only once every slot has drained. An engine takes any
+`SchedulerBase` (`InferenceEngine(..., scheduler=)`); `admissible` is
+called once per step with the arrived requests, the active slot count and
+the free slot count, and returns the prefix to admit."""
 
 from __future__ import annotations
 
@@ -83,11 +89,35 @@ def replica_load(n_active: int, n_free: int, n_waiting: int) -> int:
     return n_active + n_waiting - n_free
 
 
-class ContinuousScheduler:
+class SchedulerBase:
+    name = "base"
+
+    def admissible(self, arrived: List[Request], n_active: int,
+                   n_free: int) -> List[Request]:
+        raise NotImplementedError
+
+
+class ContinuousScheduler(SchedulerBase):
     """Admit in arrival order whenever a slot is free; returns a prefix of
     `arrived` and never mutates it."""
 
-    max_prefills_per_step = 1
+    name = "continuous"
 
-    def admissible(self, arrived: List[Request], n_free: int) -> List[Request]:
+    def __init__(self, max_prefills_per_step: int = 1):
+        self.max_prefills_per_step = max_prefills_per_step
+
+    def admissible(self, arrived: List[Request], n_active: int,
+                   n_free: int) -> List[Request]:
         return arrived[:min(len(arrived), n_free, self.max_prefills_per_step)]
+
+
+class StaticScheduler(SchedulerBase):
+    """Drain before refill: nothing is admitted while a slot is active."""
+
+    name = "static"
+
+    def admissible(self, arrived: List[Request], n_active: int,
+                   n_free: int) -> List[Request]:
+        if n_active > 0:
+            return []
+        return arrived[:n_free]

@@ -143,23 +143,19 @@ def test_cuda_device_refused_without_gpu(monkeypatch):
         InferenceEngine(model, EngineConfig())
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("paged_native", False, "item 10")])
-def test_unported_engine_features_raise(field, value, item):
-    with pytest.raises(NotImplementedError, match=item):
-        EngineConfig(device="cpu", **{field: value})
-
-
 @pytest.mark.parametrize("field,value", [
     ("qos", QoSConfig()), ("pool_wait_retries", 2),
-    ("ledger", LedgerConfig()), ("trace", TraceConfig())])
+    ("ledger", LedgerConfig()), ("trace", TraceConfig()),
+    ("paged_native", False)])
 def test_resilience_and_ledger_fields_accepted(field, value):
-    """The fields the port refused until the resilience and tracing slices
-    now build an engine (qos over a model loaded with a tier ladder)."""
+    """The fields the port refused until the resilience, tracing and
+    legacy-paged slices now build an engine (qos over a model loaded with
+    a tier ladder, paged_native=False over a page pool)."""
     tiers = (DraftSpec.from_args(8, 0.5, 0),) if field == "qos" else ()
+    pages = dict(page_size=8) if field == "paged_native" else {}
     model = ModelRegistry().load(ARCH, device="cpu", tier_specs=tiers)
     eng = InferenceEngine(model, EngineConfig(device="cpu", max_len=24,
-                                              **{field: value}))
+                                              **{field: value}, **pages))
     eng.submit(np.arange(5), 3)
     eng.run()
     assert getattr(eng.cfg, field) == value
