@@ -227,6 +227,21 @@ Phases, in order; any failure raises and exits non-zero:
      phase 18b, on phase 9's 8-layer tree with its s0.5 x int8 draft, K 4,
      page 16, 4 requests: legacy speculative tokens equal native ones, and
      paged attention runs only in the native cycle.
+ 20. the fleet, right after phase 19d, on phase 6's dense h2o-danube (full
+     width and depth), 2 processes. 20a, in process: a FleetRouter over 2
+     LocalProcess handles (a one-replica ReplicaRouter each, 4 slots, K 4)
+     on phase 5's first 8 requests: tokens equal one engine's, both
+     processes serve; then process 1 killed once a request of its own has
+     tokens: the heartbeat-timeout failover re-prefills its requests on
+     process 0 (fleet_failovers >= 1, processes_dead 1), tokens still
+     equal, a zombie status counted in resurrections_ignored; dense_matmul
+     and flash_attention launch in both runs; tokens a fleet step. 20b, as
+     users start it: `python -m repro_torch.launch.fleet --device cuda
+     --full --processes 2 --requests 12 --inject-death` in a subprocess (a
+     coordinator and 2 worker processes, each with its own copy of the
+     weights on the card, 3 x the model's bytes required free first): exit
+     0, its fleet's tokens equal its own engine's across the killed
+     worker; its wall s and the report's fleet keys.
 Phase 5 also holds the host-loop cell ([5h]): h2o-danube dense served by
 the host decode loop (device_loop=False, one graphed (B, 1) forward a step,
 logits to the host) and by the device loop, whole runs in alternating
@@ -4469,6 +4484,196 @@ def phase_legacy_spec(torch, card, params):
     return totals, out
 
 
+FLEET_PROCESSES = 2
+FLEET_SLOTS = 4
+# step-clock horizons of the in-process fleet (one coordinator step is one
+# pump of each process: an engine step, at most one K-step dispatch)
+FLEET_HEARTBEAT_TIMEOUT = 6.0
+FLEET_CLI_REQUESTS = 12
+FLEET_CLI_TIMEOUT_S = 240
+
+
+def report_parting(torch, model, prompt, got, want):
+    """Where a fleet's greedy stream parts from the engine's: the first
+    differing step and both candidates' logits there, recomputed on the
+    card over the common prefix."""
+    from repro_torch.models import transformer as T
+    j = next(j for j, (x, y) in enumerate(zip(got, want)) if x != y)
+    seq = np.concatenate([prompt, np.asarray(want[:j], np.int32)])
+    caches = T.make_caches(model.cfg, 1, len(seq), torch.float32, "cuda")
+    logits, _ = T.forward(model.params, torch.from_numpy(seq[None]).cuda(),
+                          model.cfg, caches=caches, last_only=True)
+    row = logits[0, -1].float()
+    return (f"step {j}: fleet token {got[j]} (logit {float(row[got[j]]):.6f})"
+            f" against the engine's {want[j]} (logit "
+            f"{float(row[want[j]]):.6f})")
+
+
+def phase_fleet(torch, card, params):
+    """20a and 20b, right after phase 19d, on phase 6's dense h2o-danube-1.8b
+    (full width and depth). 20a, in process: a FleetRouter over 2
+    LocalProcess handles, each a one-replica ReplicaRouter (4 slots, K 4,
+    max_len 544), phase 5's first 8 requests: the tokens equal one engine's
+    on the same requests and both processes serve; then the same traffic
+    with process 1 killed once a request of its own has tokens: the
+    heartbeat-timeout failover re-prefills its requests on process 0
+    (fleet_failovers >= 1, processes_dead 1), the tokens still equal, and
+    a zombie status from the dead process is counted in
+    resurrections_ignored. dense_matmul and flash_attention launch in both
+    runs; tokens a fleet step and wall s each. 20b, as a user starts it:
+    `python -m repro_torch.launch.fleet --device cuda --full --processes 2
+    --requests 12 --inject-death` in a subprocess (a coordinator and 2
+    worker processes, each with its own copy of the weights on the card):
+    exit 0 means its fleet's tokens equal its own engine's across one
+    killed worker. Before it the phase frees what it holds and requires
+    3 x the model's bytes free on the card."""
+    from repro_torch.core import kratos as kr
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (EngineConfig, FleetConfig, FleetRouter,
+                                   LocalProcess, ModelRegistry, ProcessStatus,
+                                   ReplicaRouter)
+    from repro_torch.serve.registry import _leaves
+    t_phase = time.perf_counter()
+    model = ModelRegistry().load(DANUBE, kr.DENSE, smoke=False,
+                                 params=params, seed=SEED)
+    prompts = serving_traffic(model.cfg.vocab)[:SERVE_REQUESTS]
+    ecfg = EngineConfig(n_slots=FLEET_SLOTS, max_len=512 + GEN_LEN,
+                        decode_chunk=CHUNK, seed=SEED)
+    totals = {name: 0 for name in ops.KERNELS}
+    eng, reqs, one_wall, counts, _ = serve_traffic(torch, model, prompts,
+                                                   ecfg)
+    add_counts(totals, counts)
+    want = [list(r.generated) for r in reqs]
+    del eng, reqs
+    gc.collect()
+    # ---- 20a: the fleet in process -------------------------------------
+    fcfg = FleetConfig(heartbeat_every=1, staleness=4.0,
+                       heartbeat_timeout=FLEET_HEARTBEAT_TIMEOUT)
+    runs = {}
+    for tag in ("clean", "death"):
+        procs = [LocalProcess(ReplicaRouter.build(model, ecfg, 1),
+                              process_index=i, cfg=fcfg)
+                 for i in range(FLEET_PROCESSES)]
+        fleet = FleetRouter(procs, cfg=fcfg)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = [fleet.submit(p, GEN_LEN) for p in prompts]
+        killed_at = None
+        if tag == "death":
+            while not any(r.process == 1 and not r.finished and r.tokens
+                          for r in reqs):
+                assert fleet.step_count < 200, "process 1 never had tokens"
+                fleet.step()
+            killed_at = fleet.step_count
+            procs[1].kill()
+        fleet.run()
+        fleet.stop()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        add_counts(totals, counts)
+        got = [list(r.tokens) for r in reqs]
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g != w:
+                raise AssertionError(
+                    f"20a {tag}: request {i} parts from the engine at "
+                    + report_parting(torch, model, prompts[i], g, w))
+        rep = fleet.report()
+        assert {r.process for r in reqs} == set(range(FLEET_PROCESSES)) \
+            or tag == "death", [r.process for r in reqs]
+        assert counts["dense_matmul"] > 0 and counts["flash_attention"] > 0, \
+            counts
+        if tag == "death":
+            assert rep["fleet_failovers"] >= 1 and rep["processes_dead"] == 1
+            assert rep["failovers"] == rep["fleet_failovers"], rep
+            zombie = ProcessStatus(
+                process_index=1, seq=10_000, step=0, replica_loads=[0],
+                n_free_slots=FLEET_SLOTS, n_waiting=0, page_occupancy=0.0,
+                qos_tier=0, submits_seen=0,
+                progress={str(reqs[0].rid): [1, 2, 3]})
+            before = fleet.state.resurrections_ignored
+            fleet._handle(1, zombie.to_wire())
+            assert [list(r.tokens) for r in reqs] == got
+            assert fleet.state.resurrections_ignored == before + 1
+            rep = fleet.report()
+        else:
+            assert rep["fleet_failovers"] == 0 and rep["processes_dead"] == 0
+        runs[tag] = dict(
+            wall_s=wall, killed_at_step=killed_at, launches=counts,
+            served_by=[r.process for r in reqs],
+            **{k: rep[k] for k in (
+                "fleet_steps", "fleet_tokens", "tokens_per_fleet_step",
+                "fleet_failovers", "processes_dead", "resurrections_ignored",
+                "stale_skips", "failovers", "tokens_generated")})
+        print(f"  [20a] {tag:5s} [{card}] {FLEET_PROCESSES} LocalProcess x 1 "
+              f"replica, {FLEET_SLOTS} slots, K {CHUNK}, {len(prompts)} "
+              f"requests: tokens equal one engine's; served by "
+              f"{runs[tag]['served_by']}"
+              + (f"; process 1 killed at fleet step {killed_at}"
+                 if killed_at else "")
+              + f"; fleet steps {rep['fleet_steps']:.0f}, tokens / fleet "
+              f"step {rep['tokens_per_fleet_step']:.3f}, failovers "
+              f"{rep['fleet_failovers']:.0f}, dead "
+              f"{rep['processes_dead']:.0f}, resurrections ignored "
+              f"{rep['resurrections_ignored']:.0f}; wall {wall:.2f} s (one "
+              f"engine {one_wall:.2f} s); launches dense_matmul "
+              f"{counts['dense_matmul']}, flash_attention "
+              f"{counts['flash_attention']}", flush=True)
+        del fleet, procs, reqs
+        gc.collect()
+    # ---- 20b: the launcher, as users start it ---------------------------
+    n_bytes = nbytes(*_leaves(params, lambda n: isinstance(n, torch.Tensor)))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"  [20b] card memory before the fleet: {free / 1e9:.2f} GB free "
+          f"of {total / 1e9:.2f} GB; the model holds {n_bytes / 1e9:.2f} GB",
+          flush=True)
+    if free < 3 * n_bytes:
+        raise RuntimeError(
+            f"20b needs 3 x {n_bytes / 1e9:.2f} GB free on the card (a "
+            "coordinator and two workers, each with its own copy of the "
+            f"weights) and {free / 1e9:.2f} GB are free")
+    out = ROOT / "chiprun_out" / "fleet.json"
+    out.parent.mkdir(exist_ok=True)
+    out.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.fleet", "--device",
+           "cuda", "--full", "--processes", str(FLEET_PROCESSES),
+           "--requests", str(FLEET_CLI_REQUESTS), "--inject-death", "--out",
+           str(out)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=FLEET_CLI_TIMEOUT_S)
+    cli_s = time.perf_counter() - t0
+    print(f"  [20b] {' '.join(cmd[1:])}: exit {proc.returncode} in "
+          f"{cli_s:.1f} s", flush=True)
+    for line in proc.stdout.splitlines():
+        print(f"    | {line}", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"the fleet launcher exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    res = json.loads(out.read_text())
+    rep = res["report"]
+    fleet_keys = {k: rep[k] for k in (
+        "n_processes", "processes_dead", "fleet_steps", "fleet_tokens",
+        "fleet_requests_completed", "tokens_per_fleet_step",
+        "fleet_failovers", "fleet_overflowed", "resurrections_ignored",
+        "stale_skips")}
+    print(f"  [20b] report: {json.dumps(fleet_keys)}", flush=True)
+    assert res["identical"] and rep["processes_dead"] == 1 \
+        and rep["fleet_failovers"] >= 1, fleet_keys
+    assert rep["fleet_requests_completed"] == FLEET_CLI_REQUESTS, fleet_keys
+    return totals, dict(
+        one_engine_wall_s=one_wall, runs=runs,
+        cli=dict(cmd=cmd[1:], returncode=proc.returncode, seconds=cli_s,
+                 stdout=proc.stdout, free_bytes_before=free,
+                 model_bytes=n_bytes, report=fleet_keys),
+        seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4535,6 +4740,13 @@ def main() -> int:
           "paged decode, static against continuous admission, the CLI",
           flush=True)
     surface_launches, surface = phase_surface(torch, card, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark(20)
+    print(f"[20] the fleet: {DANUBE} full width and depth, "
+          f"{FLEET_PROCESSES} processes: in process (20a), then the "
+          "launcher's worker processes (20b)", flush=True)
+    fleet_launches, fleet = phase_fleet(torch, card, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4631,7 +4843,7 @@ def main() -> int:
                  spec_launches, qos_launches, gemma_launches, mla_launches,
                  moe_launches, jamba_launches, llava_launches,
                  whisper_launches, trace_launches, router_launches,
-                 surface_launches, legacy_spec_launches):
+                 surface_launches, legacy_spec_launches, fleet_launches):
         for name, c in more.items():
             launches[name] += c
 
@@ -4658,7 +4870,8 @@ def main() -> int:
          "minicpm3": mla, "moe": moe, "jamba": jamba, "llava": llava,
          "whisper": whisper, "resilience": resilience,
          "tracing": tracing, "router": router, "surface": surface,
-         "legacy_spec": legacy_spec, "phase_start_s": marks},
+         "legacy_spec": legacy_spec, "fleet": fleet,
+         "phase_start_s": marks},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -13,7 +13,7 @@ weights (port of `repro.launch.serve`, one device).
       [--telemetry-port P] [--telemetry-jsonl S.jsonl] \
       [--ledger [--ledger-threshold T] [--quality-every N]] \
       [--tiers 8:0.5,8:0.75 [--qos-*]] [--deadline-steps D] \
-      [--pool-wait-retries R] [--auto-restart]
+      [--pool-wait-retries R] [--auto-restart] [--processes N]
 
 Loads the arch through the serve registry (weights initialised from
 `--seed` and packed once), submits `--requests` generation requests with a
@@ -44,10 +44,15 @@ brackets the first N traced dispatches with torch.profiler;
 `--telemetry-jsonl` appends one metrics snapshot per interval
 (serve.telemetry).
 
+Fleet serving: `--processes N` (N > 1) serves through a local fleet: N
+worker processes spawned by launch.fleet, each loading the weights from
+`--seed` and serving its own engines (`--replicas` each), fronted by the
+FleetRouter over the control plane (serve.control). The coordinator loads
+no weights; its prompts are drawn from the arch's vocab.
+
 Not ported: mesh serving (`--mesh`, `--dry-run`) and the multi-host launch
 (`--coordinator`, `--num-processes`, `--process-id`) raise
-NotImplementedError naming ROADMAP.md item 11; the local fleet
-(`--processes N > 1`) names item 8's fleet.
+NotImplementedError naming ROADMAP.md item 11.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from repro_torch import configs as C
 from repro_torch.core.kratos import KratosSpec
 from repro_torch.serve import (DraftSpec, EngineConfig, EngineSaturated,
                                InferenceEngine, LedgerConfig, ModelRegistry,
@@ -66,8 +72,6 @@ from repro_torch.serve import (DraftSpec, EngineConfig, EngineSaturated,
                                export_jsonl, parse_tiers, router_sample)
 
 MULTI_DEVICE = "ROADMAP.md queue 1, item 11 (multi-device)"
-FLEET = "ROADMAP.md queue 1, item 8 (the fleet: FleetRouter, serve.control, " \
-    "launch.fleet)"
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -193,7 +197,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="router: rebuild a replica marked dead by a "
                          "ReplicaFault instead of serving degraded")
     ap.add_argument("--processes", type=int, default=1,
-                    help=f"serve through a local fleet (not ported: {FLEET})")
+                    help="serve through a local fleet of N worker "
+                         "processes (launch.fleet + serve.FleetRouter)")
     ap.add_argument("--coordinator", default="",
                     help=f"multi-host coordinator (not ported: {MULTI_DEVICE})")
     ap.add_argument("--num-processes", type=int, default=1,
@@ -211,17 +216,51 @@ def refuse_unported(args: argparse.Namespace) -> None:
             "--mesh / --coordinator / --num-processes / --process-id: "
             f"sharded and multi-host serving are {MULTI_DEVICE} of the port, "
             "not ported yet")
-    if args.processes > 1:
-        raise NotImplementedError(
-            f"--processes {args.processes}: the local fleet is {FLEET}, not "
-            "ported yet")
     if args.dry_run:
         raise SystemExit("--dry-run needs --mesh data,model")
+
+
+def _serve_fleet(args: argparse.Namespace) -> None:
+    """Local-fleet serving: spawn N workers (launch.fleet), front them with
+    the FleetRouter, drive the same Poisson-ish trace. The prompts are drawn
+    from the arch's vocab (the coordinator reads its config, never its
+    weights)."""
+    from repro_torch.launch import fleet as F
+
+    cfg = (C.get_config if args.full else C.get_smoke)(args.arch)
+    rng = np.random.default_rng(args.seed)
+    with F.spawn_fleet(args.processes, arch=args.arch, n_slots=args.slots,
+                       max_len=args.max_len or 96,
+                       decode_chunk=args.decode_chunk,
+                       replicas_per_process=args.replicas,
+                       device=args.device, full=args.full,
+                       seed=args.seed) as fl:
+        reqs = []
+        for _ in range(args.requests):
+            s0 = max(1, args.prompt_len + int(rng.integers(-4, 5)))
+            prompt = rng.integers(0, cfg.vocab, s0)
+            reqs.append(fl.router.submit(
+                list(map(int, prompt)), args.gen,
+                temperature=args.temperature))
+        fl.drive()
+        fl.router.stop()
+        rep = fl.router.report()
+        print(f"[serve] fleet {args.processes} processes: "
+              f"{rep['fleet_tokens']:.0f} tokens, "
+              f"{rep['fleet_requests_completed']:.0f} done, "
+              f"{rep['tokens_per_fleet_step']:.2f} tok/fleet-step, "
+              f"failovers {rep['fleet_failovers']:.0f}")
+        for r in reqs[:2]:
+            print(f"  req{r.rid}: {np.asarray(r.tokens)[:16]} ...")
 
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     refuse_unported(args)
+    if args.processes > 1:
+        # workers pack their own weights; the coordinator never loads them
+        _serve_fleet(args)
+        return
 
     spec = KratosSpec(sparsity=args.sparsity,
                       bits=args.bits or None,

@@ -3,11 +3,17 @@
 decode, deadlines and cancellation, the QoS tier ladder, the
 ineffectual-work ledger, tracing and live telemetry, the replica router
 with failover and its chaos harness, the continuous and static admission
-policies, and the execution backend an engine is built on)."""
+policies, the execution backend an engine is built on, and the fleet:
+the cross-process control plane and the FleetRouter over it)."""
 
 from repro_torch.serve.backend import ExecutionBackend, LocalBackend
 from repro_torch.serve.cache_pool import CachePool, PoolExhausted
 from repro_torch.serve.chaos import ChaosHarness, Fault, seeded_schedule
+from repro_torch.serve.control import (ControlListener, Endpoint, FleetConfig,
+                                       FleetState, LocalProcess,
+                                       ProcessStatus, RemoteProcess,
+                                       WorkerServer, connect, decode_message,
+                                       encode_message)
 from repro_torch.serve.engine import (EngineConfig, EngineSaturated,
                                       InferenceEngine, ReplicaFault)
 from repro_torch.serve.ledger import (NULL_LEDGER, LedgerConfig, LedgerSink,
@@ -20,7 +26,7 @@ from repro_torch.serve.qos import (QoSConfig, QoSController, check_tier_spec,
                                    parse_tiers)
 from repro_torch.serve.registry import (ModelRegistry, PackedModel,
                                         pack_model_params)
-from repro_torch.serve.router import ReplicaRouter
+from repro_torch.serve.router import FleetRequest, FleetRouter, ReplicaRouter
 from repro_torch.serve.scheduler import (ContinuousScheduler, Request,
                                          StaticScheduler, replica_load)
 from repro_torch.serve.speculative import DraftSpec
@@ -30,15 +36,18 @@ from repro_torch.serve.telemetry import (TelemetryConfig, TelemetryExporter,
 from repro_torch.serve.trace import (NULL_TRACER, TraceConfig, Tracer,
                                      export_chrome, export_jsonl)
 
-__all__ = ["CachePool", "ChaosHarness", "ContinuousScheduler", "DraftSpec",
-           "EngineConfig", "EngineSaturated", "ExecutionBackend", "Fault",
-           "InferenceEngine", "LedgerConfig", "LedgerSink", "LocalBackend",
+__all__ = ["CachePool", "ChaosHarness", "ContinuousScheduler",
+           "ControlListener", "DraftSpec", "Endpoint", "EngineConfig",
+           "EngineSaturated", "ExecutionBackend", "Fault", "FleetConfig",
+           "FleetRequest", "FleetRouter", "FleetState", "InferenceEngine",
+           "LedgerConfig", "LedgerSink", "LocalBackend", "LocalProcess",
            "ModelRegistry", "NULL_LEDGER", "NULL_TRACER", "PackedModel",
            "PageLayout", "PagedCachePool", "PoolExhausted", "PrefixIndex",
-           "QoSConfig", "QoSController", "ReplicaFault", "ReplicaRouter",
-           "Request", "ServeMetrics", "StaticScheduler", "TelemetryConfig",
-           "TelemetryExporter", "TelemetryRegistry", "TraceConfig", "Tracer",
-           "check_tier_spec", "engine_sample", "export_chrome", "export_jsonl",
-           "hist_checksum", "pack_model_params", "parse_tiers",
-           "prefix_supported", "replica_load", "router_sample",
-           "seeded_schedule"]
+           "ProcessStatus", "QoSConfig", "QoSController", "RemoteProcess",
+           "ReplicaFault", "ReplicaRouter", "Request", "ServeMetrics",
+           "StaticScheduler", "TelemetryConfig", "TelemetryExporter",
+           "TelemetryRegistry", "TraceConfig", "Tracer", "WorkerServer",
+           "check_tier_spec", "connect", "decode_message", "encode_message",
+           "engine_sample", "export_chrome", "export_jsonl", "hist_checksum",
+           "pack_model_params", "parse_tiers", "prefix_supported",
+           "replica_load", "router_sample", "seeded_schedule"]

@@ -2,7 +2,9 @@
 prefix reuse, page occupancy, speculative acceptance, QoS tier churn,
 shedding, failover, the ineffectual-work ledger, the per-tier quality
 probe and trace ring-buffer losses (port of `repro.serve.metrics`, the
-same report keys; `aggregate` pools replicas for serve.router).
+same report keys; `aggregate` pools replicas for serve.router, and
+`to_payload` / `from_payload` carry one engine's counters across a fleet's
+process boundary for serve.control).
 
 Two clocks: wall seconds (time.perf_counter, monotonic) and engine steps
 (one slab decode micro-step per step). `decode_steps` counts DISPATCHES (K
@@ -18,6 +20,20 @@ from __future__ import annotations
 import dataclasses
 import time
 from typing import Dict, List
+
+import torch
+
+
+def _plain(v):
+    """`v` with every tensor turned into plain Python numbers (a 0-d one
+    into a scalar), containers recursively: what `json.dumps` takes."""
+    if isinstance(v, torch.Tensor):
+        return v.tolist()
+    if isinstance(v, dict):
+        return {k: _plain(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_plain(x) for x in v]
+    return v
 
 
 def percentile(values: List[float], q: float) -> float:
@@ -245,6 +261,51 @@ class ServeMetrics:
         retained by the prefix index, out of the usable pool)."""
         self.page_samples.append(in_use)
         self.page_capacity = capacity
+
+    # -- cross-process transport (serve.control) ----------------------------
+
+    def to_payload(self) -> Dict:
+        """JSON-safe snapshot of every counter and record, so a fleet
+        worker can ship its metrics through the control plane and the
+        coordinator can rebuild ServeMetrics objects and reuse `aggregate`
+        unchanged. Monotonic anchors don't cross processes: only the
+        elapsed interval travels; `from_payload` re-bases it on the
+        receiver's own perf_counter. A tensor anywhere becomes plain
+        Python numbers."""
+        d = {k: _plain(v) for k, v in self.__dict__.items() if k != "t0"}
+        d["elapsed"] = time.perf_counter() - self.t0
+        d["records"] = {str(rid): _plain(dataclasses.asdict(r))
+                        for rid, r in self.records.items()}
+        d["quality"] = {str(t): _plain(list(q))
+                        for t, q in self.quality.items()}
+        d["slot_acceptance"] = {str(s): _plain(list(a))
+                                for s, a in self.slot_acceptance.items()}
+        return d
+
+    @classmethod
+    def from_payload(cls, payload: Dict) -> "ServeMetrics":
+        """Rebuild a ServeMetrics from `to_payload` output. Per-request
+        monotonic timestamps are from the SENDER's clock, useless here, so
+        wall intervals are zeroed; the step-clock fields (everything the
+        deterministic gates read) survive exactly."""
+        m = cls()
+        m.t0 = time.perf_counter() - float(payload.get("elapsed", 0.0))
+        rec_fields = {f.name for f in dataclasses.fields(RequestRecord)}
+        for k, v in payload.items():
+            if k in ("elapsed", "records", "quality", "slot_acceptance"):
+                continue
+            if hasattr(m, k):
+                setattr(m, k, v)
+        for rid, rd in payload.get("records", {}).items():
+            rec = RequestRecord(**{k: v for k, v in rd.items()
+                                   if k in rec_fields})
+            rec.submit_mono = rec.first_token_time = rec.finish_time = 0.0
+            m.records[int(rid)] = rec
+        m.quality = {int(t): list(q)
+                     for t, q in payload.get("quality", {}).items()}
+        m.slot_acceptance = {int(s): list(a) for s, a in
+                             payload.get("slot_acceptance", {}).items()}
+        return m
 
     def report(self) -> Dict[str, float]:
         elapsed = max(time.perf_counter() - self.t0, 1e-9)

@@ -77,15 +77,17 @@ class NullTracer:
     """The disabled tracer: every hook is a fixed-arity no-op.
 
     The engine's hot path calls these unconditionally; positional,
-    fixed-arity signatures mean CPython allocates nothing per call. `step`
-    and `replica` exist so call sites and the router can assign them
-    without isinstance checks."""
+    fixed-arity signatures mean CPython allocates nothing per call. `step`,
+    `replica` and `process` exist so call sites and the routers can assign
+    them without isinstance checks."""
 
     enabled = False
 
     def __init__(self) -> None:
         self.step = 0
         self.replica = 0
+        self.process = None  # fleet process index; None = not in a fleet,
+        #                      and the exports stay byte-identical
         self.dropped = 0     # ring-buffer losses: always 0 when disabled
 
     # -- lifecycle edges ----------------------------------------------------
@@ -480,20 +482,26 @@ def _ensure_dir(path: str) -> None:
 
 def export_jsonl(tracers: Sequence[Tracer], path: str) -> int:
     """All tracers' ring buffers as JSONL: one meta line per tracer, then
-    its events, each stamped with the replica id. Returns events written."""
+    its events, each stamped with the replica id (and, in a fleet, the
+    process index). Returns events written."""
     _ensure_dir(path)
     n = 0
     with open(path, "w") as f:
         for tr in tracers:
+            # a fleet stamps the process index into the meta line and every
+            # event; outside one there is no key at all, so the output is
+            # byte-identical to a tracer without the attribute
+            ptag = {} if tr.process is None else {"process": tr.process}
             f.write(json.dumps({
-                "ev": "meta", "replica": tr.replica,
+                "ev": "meta", **ptag, "replica": tr.replica,
                 "epoch_wall": tr.epoch_wall, "dropped": tr.dropped,
                 "capacity": tr.cfg.capacity,
                 "clocks": {"step": "engine steps",
                            "t": "monotonic seconds since epoch_wall"},
             }) + "\n")
             for ev in tr.events:
-                f.write(json.dumps({"replica": tr.replica, **ev}) + "\n")
+                f.write(json.dumps({**ptag, "replica": tr.replica, **ev})
+                        + "\n")
                 n += 1
     return n
 
@@ -506,11 +514,17 @@ def chrome_events(tr: Tracer) -> List[Dict[str, Any]]:
     """One tracer's events in Chrome trace-event form: pid = replica,
     tid = slot + 1 for request spans (one track per slot), the admission
     queue on tid 0, dispatches on their own track, occupancy as a counter
-    series. ts/dur in microseconds on the monotonic clock."""
-    pid = tr.replica
+    series. ts/dur in microseconds on the monotonic clock. In a fleet each
+    process gets a disjoint pid block (process x 4096 + replica), so two
+    processes' replica 0 tracks never merge."""
+    if tr.process is None:
+        pid, pname = tr.replica, f"replica {tr.replica}"
+    else:
+        pid = tr.process * 4096 + tr.replica
+        pname = f"process {tr.process} replica {tr.replica}"
     evs: List[Dict[str, Any]] = [
         {"ph": "M", "pid": pid, "name": "process_name",
-         "args": {"name": f"replica {pid}"}},
+         "args": {"name": pname}},
         {"ph": "M", "pid": pid, "tid": _ADMIT_TID, "name": "thread_name",
          "args": {"name": "admission queue"}},
         {"ph": "M", "pid": pid, "tid": _DISPATCH_TID, "name": "thread_name",

@@ -6,7 +6,8 @@ the same arguments; its `[serve]` lines against the JAX CLI's
 (`repro.launch.serve.main` under a patched `sys.argv`) line for line, the
 numbers and the registry name aside (each framework seeds its own weights,
 so tokens are not compared); the refused flags naming their ROADMAP.md
-items; and a module that imports no JAX."""
+items, and `--processes 2` serving through the fleet; and a module that
+imports no JAX."""
 
 import json
 import os
@@ -131,11 +132,22 @@ def test_cli_lines_match_jax(capsys, monkeypatch, tmp_path, flags):
     (["--coordinator", "localhost:1234", "--num-processes", "2"],
      NotImplementedError, "item 11"),
     (["--process-id", "1"], NotImplementedError, "item 11"),
-    (["--processes", "2"], NotImplementedError, "item 8"),
+    (["--processes", "2", "--requests", "4", "--gen", "4"], None,
+     "[serve] fleet 2 processes:"),
     (["--dry-run"], SystemExit, "--dry-run needs --mesh data,model")])
-def test_cli_refusals_name_their_items(flags, exc, match):
-    with pytest.raises(exc, match=match):
-        cli.main(SMALL + flags)
+def test_cli_refusals_name_their_items(capsys, monkeypatch, flags, exc,
+                                       match):
+    """Each unported flag is refused naming its item; `--processes 2`
+    (item 8's fleet, ported) serves through two worker processes."""
+    if exc is not None:
+        with pytest.raises(exc, match=match):
+            cli.main(SMALL + flags)
+        return
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")   # each worker's threads
+    cli.main(SMALL + flags)
+    out = capsys.readouterr().out
+    assert match in out, out
+    assert "failovers 0" in out and len(_printed_tokens(out)) == 2
 
 
 def test_cli_card_by_default():

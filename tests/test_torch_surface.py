@@ -14,15 +14,8 @@ from torch_serve_parity import DANUBE, J, P, models, needs_jax
 from torch_serve_parity import one_torch_thread  # noqa: F401 (autouse)
 
 # names of `repro.serve` the port does not export yet -> ROADMAP.md item
-UNPORTED = {
-    **{name: "item 8 (the fleet)" for name in (
-        "FleetRouter", "FleetRequest", "ControlListener", "Endpoint",
-        "FleetConfig", "FleetState", "LocalProcess", "ProcessStatus",
-        "RemoteProcess", "WorkerServer", "connect", "decode_message",
-        "encode_message")},
-    **{name: "item 11 (multi-device)" for name in (
-        "ShardedBackend", "DistributedBackend", "ensure_distributed")},
-}
+UNPORTED = {name: "item 11 (multi-device)" for name in (
+    "ShardedBackend", "DistributedBackend", "ensure_distributed")}
 
 
 def _reqs(n):
