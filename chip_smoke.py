@@ -88,7 +88,7 @@ Phases, in order; any failure raises and exits non-zero:
      paged tokens equal slab tokens (near-tie rule), and every run's equal
      the eager step's;
  11. minicpm3-4b (MLA): card-vs-CPU parity at 2 layers; then full width,
-     depth cut from 62 to 16 layers (4.8 GB): phase 5's traffic from the
+     depth cut from 62 to 4 layers (1.8 GB): phase 5's traffic from the
      slab, dense and s0.5-w8, with the naive expansion's share of decode
      device time;
      speculative decode (K 4, w8 draft) from the slab and the page pool
@@ -242,6 +242,29 @@ Phases, in order; any failure raises and exits non-zero:
      weights on the card, 3 x the model's bytes required free first): exit
      0, its fleet's tokens equal its own engine's across the killed
      worker; its wall s and the report's fleet keys.
+ 21. training, right after phase 20. 21a: phase 6's dense h2o-danube (full
+     width and depth, 1.831 B f32 parameters) trained in place through
+     `distributed.steps.make_train_step` (the reference path, remat as the
+     config has it, AdamW lr 1e-3 with 5 warmup steps): 5 steps of 4 x 256
+     markov tokens, each step's loss, grad_norm, wall ms, training tokens
+     a second, peak memory_allocated and the hand-written kernels' launch
+     counts, which must stay 0; the loss finite and step 5's below step
+     1's. 21b: a full-width 1-layer h2o-danube under phase 5's s0.5-w8
+     spec (128 x 128 blocks): grad_accum 2 against 1 on one batch (loss and
+     grad_norm within 1e-5 relative); every pruned block exactly zero after
+     4 steps; 4 uninterrupted steps against a run that crashes at step 3
+     (`fail_at_step`, after the async checkpoint at step 2, in a temporary
+     directory under build/ removed afterwards) and resumes to step 4, all
+     three runs under torch.use_deterministic_algorithms (the losses of
+     steps 3-4 bitwise equal), the checkpoint's bytes and the snapshot,
+     npz write and restore wall ms; the trained tree packed
+     (`serve.registry.pack_model_params`) and phase 5's first 4 prompts
+     prefilled through it on the kernels, against the training-time
+     forward (plain, fake-quant): max |logit difference| within
+     HANDOFF_LOGIT_TOL, the int8 codes on which packing's exact scale and
+     the fake-quant's FMA scale disagree, the last position's argmax equal
+     (near-tie rule), the launches of bsr_quant_matmul, flash_attention and
+     dense_matmul.
 Phase 5 also holds the host-loop cell ([5h]): h2o-danube dense served by
 the host decode loop (device_loop=False, one graphed (B, 1) forward a step,
 logits to the host) and by the device loop, whole runs in alternating
@@ -356,7 +379,7 @@ SOURCES = {
 }
 GEMMA, MINICPM = "gemma2-27b", "minicpm3-4b"
 GEMMA_LAYERS = 8                       # of 46 (phase 10's depth cut)
-MINICPM_LAYERS = 16                    # of 62 (phase 11's depth cut)
+MINICPM_LAYERS = 4                     # of 62 (phase 11's depth cut)
 DEEPSEEK, LITE = "deepseek-moe-16b", "deepseek-v2-lite-16b"
 DEEPSEEK_LAYERS = 8                    # of 28: 1 dense + 7 MoE (phase 12)
 LITE_LAYERS = 4                        # of 27: 1 dense + 3 MoE (phase 12)
@@ -2706,9 +2729,9 @@ def phase_resilience(torch, card, params, timer):
 # port's GEMM kernels the speculating path launches (target dense, draft
 # as named), the page size of its paged run (None: slab only) and the
 # requests it serves: the phase's first ones, one wave of at most 8 slots,
-# with SPEC_GEN_LEN new tokens each (cut from GEN_LEN for the time limit,
-# and llava's and whisper's requests from 8 to 4: their eager cycles and
-# image or audio admissions are the cells' costliest parts)
+# with SPEC_GEN_LEN new tokens each (cut from GEN_LEN to 16, for the time
+# limit, and llava's and whisper's requests from 8 to 4: their eager
+# cycles and image or audio admissions are the cells' costliest parts)
 SPEC_GEN_LEN = 16
 SPEC_FAMILIES = {
     "16a": dict(draft=dict(bits=8, sparsity=0.5), k=4, paged=16,
@@ -3211,9 +3234,10 @@ def phase_gemma2(torch, card):
 def phase_minicpm3(torch, card):
     """minicpm3-4b (MLA) at its published width (d_model 2560, 40 heads,
     q_lora 768, kv_lora 256, nope 64 / rope 32 / v 64, d_ff 6400, vocab
-    73448 tied), depth cut from 62 to 16 layers (62 layers took 397 s of
-    the script's 1200, most of it the host-bound eager partners; the
-    residual scale stays the published 1.4 / sqrt(62)), random f32 weights
+    73448 tied), depth cut from 62 to 4 layers (62 layers took 397 s of
+    the script's 1200, most of it the host-bound eager partners, 16 layers
+    107-117 s, 8 layers 62 s; 4 make room for phase 21; the residual scale
+    stays the published 1.4 / sqrt(62)), random f32 weights
     from the seed: phase 5's traffic from the slab,
     dense and s0.5-w8; phase 7's prefix traffic from the page pool;
     speculative decode (K 4, draft DraftSpec(bits=8)) from the slab and
@@ -4674,6 +4698,288 @@ def phase_fleet(torch, card, params):
         seconds=time.perf_counter() - t_phase)
 
 
+# phase 21: training. 21a trains phase 6's full h2o-danube in place, 5
+# steps of 4 x 256 markov tokens (lr 1e-3, warmup 5); 21b a full-width
+# 1-layer copy under phase 5's s0.5-w8 spec (bk = bn = 128)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 4, 256
+QAT_STEPS, QAT_CRASH_AT, QAT_CKPT_EVERY, QAT_PROMPTS = 4, 3, 2, 4
+# the hand-off's max |logit difference|, packed on the kernels against the
+# training-time forward: f32 kernels against plain products, and a few
+# int8 codes at a rounding tie that packing's exact scale and the
+# fake-quant's FMA scale round apart
+HANDOFF_LOGIT_TOL = 1e-3
+
+
+def train_batches(torch, cfg, steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    from repro_torch.data import DataConfig, make_pipeline
+    pipe = make_pipeline(DataConfig(vocab=cfg.vocab, batch=batch, seq=seq,
+                                    seed=SEED))
+    return [{k: torch.from_numpy(v).cuda() for k, v in pipe.batch(s).items()}
+            for s in steps]
+
+
+def pruned_blocks_zero(torch, params, spec):
+    """(projections checked, all pruned blocks exactly zero)."""
+    from repro_torch.core import kratos as kr
+    from repro_torch.core import sparsity as sp
+    n, ok = 0, True
+    for lp in params["layers"]:
+        for node in (lp["mixer"], lp["ffn"]):
+            for leaf in node.values():
+                plan = kr.plan_for(*leaf["w"].shape, spec)
+                mask = torch.as_tensor(sp.plan_mask(plan), device="cuda")
+                ok &= bool((leaf["w"][mask == 0] == 0).all())
+                n += 1
+    return n, ok
+
+
+def code_flips(torch, params, spec):
+    """(int8 codes on which packing's scale (exact division) and the
+    training forward's fake-quant scale (one FMA, as jax.jit computes it)
+    disagree, codes compared) over every projection of `params`."""
+    from repro_torch.core import quantize as qz
+    flips = total = 0
+    for lp in params["layers"]:
+        for node in (lp["mixer"], lp["ffn"]):
+            for leaf in node.values():
+                w = leaf["w"]
+                a = qz.quantize_values(w, qz.compute_scale(w, spec.bits),
+                                       spec.bits)
+                b = qz.quantize_values(
+                    w, qz.compute_scale(w, spec.bits, jitted=True), spec.bits)
+                flips += int((a != b).sum())
+                total += a.numel()
+    return flips, total
+
+
+def phase_train(torch, card, params):
+    """21a and 21b (see the docstring at the top). No hand-written kernel
+    runs in a train step: the launch counts stay 0 across 21a's steps."""
+    import shutil
+    import tempfile
+    from repro_torch import configs as C
+    from repro_torch import tree as tu
+    from repro_torch.checkpoint import manager as CM
+    from repro_torch.core import kratos as kr
+    from repro_torch.data import DataConfig
+    from repro_torch.distributed import steps as ST
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw as O
+    from repro_torch.serve.registry import pack_model_params
+    from repro_torch.train import (SimulatedFailure, TrainLoopConfig,
+                                   run_training)
+
+    t_phase = time.perf_counter()
+    out = {}
+    # ---- 21a: full width and depth, dense, in place ----------------------
+    cfg = C.get_config(DANUBE)
+    opt = O.OptimizerConfig(lr=1e-3, warmup_steps=TRAIN_STEPS,
+                            total_steps=TRAIN_STEPS)
+    n_params = sum(t.numel() for t in tu.leaves(params))
+    state = {"params": params, "opt": O.adamw_init(params, opt),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    step_fn = ST.make_train_step(cfg, opt)
+    batches = train_batches(torch, cfg, range(TRAIN_STEPS))
+    torch.cuda.synchronize()
+    print(f"  [21a] {DANUBE}: {n_params / 1e9:.3f} B params, remat "
+          f"{cfg.remat} ({cfg.remat_policy}), memory_allocated with AdamW "
+          f"state {torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    ops.reset_launch_counts()
+    steps = []
+    for i, b in enumerate(batches):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        rec = dict(step=i + 1, loss=float(m["loss"]),
+                   grad_norm=float(m["grad_norm"]), lr=float(m["lr"]),
+                   wall_ms=ms,
+                   tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   launches=counts)
+        steps.append(rec)
+        print(f"  [21a] step {i + 1}: loss {rec['loss']:.4f}, grad_norm "
+              f"{rec['grad_norm']:.4f}, {ms:.1f} ms, "
+              f"{rec['tokens_per_s']:.0f} training tokens/s, peak "
+              f"{rec['peak_gb']:.2f} GB, kernel launches {counts}",
+              flush=True)
+        assert not counts, f"a train step launched hand-written kernels: " \
+            f"{counts}"
+    losses = [r["loss"] for r in steps]
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    out["21a"] = dict(n_params=n_params, steps=steps)
+    del state, step_fn, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 21b: full width, 1 layer, s0.5-w8 -------------------------------
+    spec = kr.KratosSpec(sparsity=0.5, bits=8)
+    qcfg = dataclasses.replace(C.get_config(DANUBE), n_layers=1, kratos=spec)
+    qopt = O.OptimizerConfig(lr=1e-3, warmup_steps=QAT_STEPS,
+                             total_steps=QAT_STEPS)
+    b0 = train_batches(torch, qcfg, [0])[0]
+    # (i) grad_accum 2 against 1 on one batch (lr 0: the step leaves the
+    # parameters as they are)
+    st = ST.init_train_state(SEED, qcfg, qopt, device="cuda")
+    still = O.OptimizerConfig(lr=0.0, weight_decay=0.0, clip_norm=None)
+    acc = {}
+    for ga in (1, 2):
+        _, m = ST.make_train_step(qcfg, still, grad_accum=ga)(st, b0)
+        acc[ga] = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+    rel = {k: abs(acc[2][k] - acc[1][k]) / abs(acc[1][k]) for k in acc[1]}
+    print(f"  [21b] {DANUBE} 1 layer {kr.spec_tag(spec)}: grad_accum 2 "
+          f"against 1: loss {acc[2]['loss']:.6f} / {acc[1]['loss']:.6f}, "
+          f"grad_norm {acc[2]['grad_norm']:.6f} / {acc[1]['grad_norm']:.6f}"
+          f" (relative {rel['loss']:.2e}, {rel['grad_norm']:.2e})",
+          flush=True)
+    assert max(rel.values()) <= 1e-5, rel
+    # (ii) 4 steps: every pruned block stays exactly zero
+    st = ST.init_train_state(SEED, qcfg, qopt, device="cuda")
+    step_fn = ST.make_train_step(qcfg, qopt)
+    qat_losses = []
+    for b in train_batches(torch, qcfg, range(QAT_STEPS)):
+        st, m = step_fn(st, b)
+        qat_losses.append(float(m["loss"]))
+    n_proj, zero = pruned_blocks_zero(torch, st["params"], spec)
+    print(f"  [21b] {QAT_STEPS} QAT steps: losses "
+          f"{[round(v, 4) for v in qat_losses]}; pruned blocks of "
+          f"{n_proj} projections exactly zero: {zero}", flush=True)
+    assert zero and all(np.isfinite(qat_losses)), qat_losses
+    # (iii) crash at step 3 (after the async checkpoint at 2), resume to 4
+    data = DataConfig(vocab=qcfg.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                      seed=SEED)
+    tmp = Path(tempfile.mkdtemp(prefix="train-ckpt-", dir=ROOT / "build"))
+    loop = dict(steps=QAT_STEPS, ckpt_every=QAT_CKPT_EVERY, log_every=0,
+                async_checkpoint=True)
+
+    # the checkpoint's wall ms, read off the loop's own calls: the npz
+    # write (on the async writer's thread), the snapshot the save call
+    # blocks for, the restore
+    ckpt_ms = {"write": [], "snapshot": [], "restore": []}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                ckpt_ms[name].append((time.perf_counter() - t0) * 1e3)
+        return run
+
+    def crash_resume(tag):
+        ref = run_training(qcfg, qopt, data, TrainLoopConfig(**loop),
+                           device="cuda")["history"]
+        d = tmp / tag
+        try:
+            run_training(qcfg, qopt, data, TrainLoopConfig(
+                **loop, ckpt_dir=str(d), fail_at_step=QAT_CRASH_AT),
+                device="cuda")
+            raise AssertionError("the injected failure did not fire")
+        except SimulatedFailure:
+            pass
+        res = run_training(qcfg, qopt, data, TrainLoopConfig(
+            **loop, ckpt_dir=str(d)), device="cuda")
+        assert res["resumed_from"] == QAT_CKPT_EVERY, res["resumed_from"]
+        want = [h["loss"] for h in ref[QAT_CKPT_EVERY:]]
+        got = [h["loss"] for h in res["history"]]
+        n_bytes = (d / f"step-{QAT_STEPS}" / "arrays.npz").stat().st_size
+        return want, got, n_bytes
+
+    patched = {"save_pytree": CM.save_pytree,
+               "save_train_state": CM.save_train_state,
+               "restore_train_state": CM.restore_train_state}
+    CM.save_pytree = timed("write", CM.save_pytree)
+    CM.save_train_state = timed("snapshot", CM.save_train_state)
+    CM.restore_train_state = timed("restore", CM.restore_train_state)
+    # without it the embedding's and the block gather's backward add with
+    # atomics, and the resumed losses part from the uninterrupted ones in
+    # the last bits
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        want, got, n_bytes = crash_resume("run")
+        torch.use_deterministic_algorithms(False)
+        for name, fn in patched.items():
+            setattr(CM, name, fn)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        bitwise = got == want
+        print(f"  [21b] crash at step {QAT_CRASH_AT}, resumed from "
+              f"{QAT_CKPT_EVERY}, under use_deterministic_algorithms: "
+              f"losses of steps {QAT_CKPT_EVERY + 1}-{QAT_STEPS} {got} "
+              f"against uninterrupted {want} (relative {rel:.2e}; bitwise "
+              f"{bitwise})", flush=True)
+        assert bitwise and rel <= 1e-6, (got, want)
+        print(f"  [21b] checkpoint {n_bytes / 1e9:.3f} GB: async save's "
+              f"snapshot {[round(v) for v in ckpt_ms['snapshot']]} ms, its "
+              f"npz write {[round(v) for v in ckpt_ms['write']]} ms, "
+              f"restore {[round(v) for v in ckpt_ms['restore']]} ms",
+              flush=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        for name, fn in patched.items():
+            setattr(CM, name, fn)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["21b"] = dict(grad_accum=acc, qat_losses=qat_losses,
+                      pruned_zero_projections=n_proj,
+                      resume=dict(want=want, got=got, rel=rel,
+                                  bitwise=bitwise, deterministic=True),
+                      ckpt_bytes=n_bytes, ckpt_ms=ckpt_ms)
+    # (iv) the hand-off to serving: the trained tree packed, phase 5's first
+    # prompts prefilled on the kernels, against the training-time forward
+    trained = st["params"]
+    prompts = serving_traffic()[:QAT_PROMPTS]
+    packed, n_packed = pack_model_params(trained, spec)
+    prefill = ST.make_prefill_step(qcfg, last_only=False,
+                                   cache_len=max(map(len, prompts)),
+                                   device="cuda")
+    ops.reset_launch_counts()
+    served = []
+    with torch.no_grad():
+        for p in prompts:
+            logits, _ = prefill(packed, {"tokens": torch.from_numpy(
+                p[None]).cuda()})
+            served.append(logits[0])
+    counts = ops.launch_counts()
+    diffs, parts = [], []
+    with torch.no_grad(), ops.reference_path():
+        for i, (p, got) in enumerate(zip(prompts, served)):
+            want, _ = T.forward(trained, torch.from_numpy(p[None]).cuda(),
+                                qcfg)
+            want = want[0]
+            diffs.append(float((got - want).abs().max()))
+            a, b = int(got[-1].argmax()), int(want[-1].argmax())
+            if a != b:
+                top = torch.topk(want[-1], 2).values
+                gap = float(top[0] - top[1])
+                parts.append(dict(request=i, top2_gap=gap))
+                assert gap < TOP2_GAP, (i, a, b, gap)
+    shown = {k: counts[k] for k in ("bsr_quant_matmul", "flash_attention",
+                                    "dense_matmul")}
+    flips, n_codes = code_flips(torch, trained, spec)
+    print(f"  [21b] hand-off: {n_packed} packed projections, {QAT_PROMPTS} "
+          f"prompts of {[len(p) for p in prompts]} tokens prefilled on the "
+          f"kernels against the training-time forward: max |logit diff| "
+          f"{max(diffs):.3g} (limit {HANDOFF_LOGIT_TOL:g}; per prompt "
+          f"{[float(f'{d:.3g}') for d in diffs]}), int8 codes packing and "
+          f"the fake-quant round apart {flips} of {n_codes}, last-position "
+          "argmax " + ("equal" if not parts else f"parts at near-ties {parts}")
+          + f"; launches {shown}", flush=True)
+    assert counts["bsr_quant_matmul"] > 0 and counts["flash_attention"] > 0
+    assert max(diffs) <= HANDOFF_LOGIT_TOL, diffs
+    out["21b"]["handoff"] = dict(max_abs_logit_diff=max(diffs),
+                                 per_prompt=diffs, parts=parts,
+                                 code_flips=flips, codes=n_codes,
+                                 launches=shown, n_packed=n_packed)
+    del st, trained, packed, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return counts, out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4747,6 +5053,14 @@ def main() -> int:
           f"{FLEET_PROCESSES} processes: in process (20a), then the "
           "launcher's worker processes (20b)", flush=True)
     fleet_launches, fleet = phase_fleet(torch, card, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark(21)
+    print(f"[21] training: {DANUBE} full width and depth, "
+          f"{TRAIN_STEPS} steps in place (21a); full width, 1 layer, "
+          "s0.5-w8: grad_accum, pruned blocks, crash and resume, the "
+          "hand-off to serving (21b)", flush=True)
+    train_launches, train = phase_train(torch, card, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4843,7 +5157,8 @@ def main() -> int:
                  spec_launches, qos_launches, gemma_launches, mla_launches,
                  moe_launches, jamba_launches, llava_launches,
                  whisper_launches, trace_launches, router_launches,
-                 surface_launches, legacy_spec_launches, fleet_launches):
+                 surface_launches, legacy_spec_launches, fleet_launches,
+                 train_launches):
         for name, c in more.items():
             launches[name] += c
 
@@ -4870,7 +5185,7 @@ def main() -> int:
          "minicpm3": mla, "moe": moe, "jamba": jamba, "llava": llava,
          "whisper": whisper, "resilience": resilience,
          "tracing": tracing, "router": router, "surface": surface,
-         "legacy_spec": legacy_spec, "fleet": fleet,
+         "legacy_spec": legacy_spec, "fleet": fleet, "train": train,
          "phase_start_s": marks},
         indent=1))
     print(json.dumps({"kernels": kernels}))

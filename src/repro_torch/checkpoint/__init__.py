@@ -1,0 +1,1 @@
+from repro_torch.checkpoint.manager import CheckpointManager, save_pytree, load_pytree  # noqa: F401

@@ -17,6 +17,11 @@ A routed-expert stack `(E, n_in, n_out)` (models.moe) packs through
 expert, the experts' kept blocks stacked, run by `apply_experts` as one
 expert-batched `bsr_matmul` launch.
 
+`apply` on a dense `{"w"}` leaf is the training-time apply (fake-quant
+with a straight-through backward, the systolic mask or the tree path's
+gathered blocks) through plain products, on the training step's reference
+path only.
+
 Weights keep the JAX layout (n_in, n_out), so the buffers compare one to
 one with the JAX package's. The plan's index table becomes an int32 tensor
 on the weight's device once, at pack time (`PackedLinear.indices`), never
@@ -33,7 +38,7 @@ import torch
 
 from repro_torch.core import quantize as qz
 from repro_torch.core import sparsity as sp
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 UNROLL_FACTORS = ("pixelwise", "row", "full")
 
@@ -253,15 +258,64 @@ def apply_experts(p, x: torch.Tensor) -> torch.Tensor:
     return torch.bmm(x, p.to(x.dtype))
 
 
-def apply(params, x: torch.Tensor) -> torch.Tensor:
-    """y = x @ W for a PackedLinear leaf. A dense `{"w"}` training leaf
-    (the JAX package's fake-quant / masked training apply) has no port yet."""
-    if not isinstance(params, PackedLinear):
-        raise NotImplementedError(
-            "the training-time Kratos apply is not ported yet (ROADMAP.md "
-            "queue 1, item 9): pack the model first "
-            "(serve.registry.pack_model_params)")
-    return apply_packed(params, x)
+def _ste_quant(w: torch.Tensor, bits: int) -> torch.Tensor:
+    """Fake-quant forward, straight-through backward: w + (fq(w) - w) with
+    the difference a constant, as the JAX package's stop_gradient."""
+    with torch.no_grad():
+        d = qz.fake_quantize(w, bits) - w
+    return w + d
+
+
+@functools.lru_cache(maxsize=1024)
+def _train_indices(n_in: int, n_out: int, spec: KratosSpec,
+                   device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(plan_for(n_in, n_out, spec).indices,
+                           dtype=torch.long, device=device)
+
+
+@functools.lru_cache(maxsize=256)
+def _train_mask(n_in: int, n_out: int, spec: KratosSpec, dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(sp.plan_mask(plan_for(n_in, n_out, spec)),
+                           dtype=dtype, device=device)
+
+
+def apply(params, x: torch.Tensor, spec: KratosSpec = DENSE) -> torch.Tensor:
+    """y = x @ kratos(W): (..., n_in) -> (..., n_out).
+
+    A PackedLinear leaf runs `apply_packed` under its own pack-time spec
+    (`spec` is not read). A dense `{"w"}` leaf is the training-time apply
+    of the JAX package (`backend="ref"`), through plain products that
+    autograd differentiates, and only on the training step's reference
+    path (`kernels.ops.reference_path`): `spec.bits` fake-quantizes the
+    weight with a straight-through backward (`act_bits` is not read, as
+    there); a block plan either masks the weight and pays the dense
+    product (`impl='systolic'`) or gathers the kept blocks into the plain
+    block-sparse product (`'tree'`), so a pruned block's gradient is an
+    exact zero."""
+    if isinstance(params, PackedLinear):
+        return apply_packed(params, x)
+    if not ops.on_reference_path():
+        raise RuntimeError(
+            "a dense {'w'} leaf applies on the training step's reference "
+            "path only (kernels.ops.reference_path, which "
+            "distributed.steps.make_loss_fn enters); pack the model to "
+            "serve it (serve.registry.pack_model_params)")
+    w = params["w"]
+    n_in, n_out = (int(v) for v in w.shape)
+    lead = x.shape[:-1]
+    xm = x.reshape(-1, n_in)
+    if spec.bits is not None:
+        w = _ste_quant(w, spec.bits)
+    plan = plan_for(n_in, n_out, spec)
+    if plan is None or spec.impl == "systolic":
+        if plan is not None:
+            w = w * _train_mask(n_in, n_out, spec, w.dtype, w.device)
+        y = ref.dense_matmul_ref(xm, w.to(x.dtype))
+    else:
+        y = ref.bsr_matmul_ref(xm, sp.pack_blocks(w.to(x.dtype), plan),
+                               _train_indices(n_in, n_out, spec, w.device))
+    return y.reshape(*lead, n_out)
 
 
 def cost_report(n_in: int, n_out: int, spec: KratosSpec, m: int = 1,

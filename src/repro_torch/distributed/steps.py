@@ -26,21 +26,159 @@ decode, speculative and suffix-prefill steps: every probed forward adds
 its rows into it in place, so it accumulates across the K micro-steps and
 a captured graph writes the same tensor at every replay. A speculative
 step probes the target's verify forwards only.
-Training steps are not ported yet (ROADMAP.md queue 1, item 9).
+
+Training: `make_loss_fn` runs the forward on the reference path
+(`kernels.ops.reference_path`, the counterpart of the JAX package's
+`backend="ref"`, which its training steps use): plain products under
+autograd, no hand-written kernel (none has a backward). `make_train_step`
+takes the gradient with `torch.autograd.grad`, splits a `grad_accum`
+batch interleaved as the reference does (microbatch j takes rows j,
+j + ga, ...), runs the `compress_fn` hook and AdamW in place.
+`init_train_state` builds {"params", "opt", "step"} from the port's init.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import contextlib
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch import tree as tu
+from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
+from repro_torch.optim import adamw as O
 from repro_torch.serve.ledger import LedgerProbe
 
 # the loop-state entries a decode step advances (the rest are written only
 # at admission)
 LOOP_STATE = ("tokens", "index", "remaining", "active")
+
+
+def make_loss_fn(cfg: T.ModelConfig):
+    """loss_fn(params, batch) -> (loss + aux, loss), f32 0-d tensors: the
+    mean next-token cross-entropy (llava's logits past its image rows)
+    plus the MoE load-balancing term, from a forward on the reference
+    path. The choice is explicit, here and nowhere else, because it is a
+    property of the step and not of the tensors: it holds for the CPU and
+    the card alike, reaches the attention and Mamba branches and the dense
+    leaves' Kratos apply without a `backend` argument on every model
+    function, and makes any hand-written wrapper reached inside it raise
+    instead of cutting the graph. An encoder-decoder's position table is
+    not a parameter (the JAX package computes it in the forward): it is
+    made here once per device."""
+    tables: Dict[torch.device, torch.Tensor] = {}
+
+    def loss_fn(params, batch):
+        with ops.reference_path():
+            enc_out = None
+            if cfg.enc_dec:
+                if "pos_table" not in params:
+                    dev = batch["frames"].device
+                    if dev not in tables:
+                        tables[dev] = T.position_table(cfg.d_model, dev)
+                    params = dict(params, pos_table=tables[dev])
+                enc_out = T.encode(params, batch["frames"], cfg)
+            logits, aux, _ = T.forward(
+                params, batch["tokens"], cfg,
+                img_embeds=batch.get("img_embeds"), enc_out=enc_out,
+                with_aux=True)
+            if cfg.n_img_tokens:
+                logits = logits[:, cfg.n_img_tokens:]
+            loss = T.lm_loss(logits, batch["labels"])
+            return loss + aux.float(), loss
+
+    return loss_fn
+
+
+@contextlib.contextmanager
+def _grad_leaves(leaves):
+    """The parameters require grad for one step only, so the state stays
+    plain tensors between steps (what serving and checkpoints see)."""
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        yield
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+
+
+def make_train_step(cfg: T.ModelConfig, opt_cfg: O.OptimizerConfig, *,
+                    grad_accum: int = 1, compress_fn: Optional[Callable] = None,
+                    accum_dtype=torch.float32):
+    """train_step(state, batch) -> (state, metrics), the JAX package's:
+    state {"params", "opt", "step"} (+ "comp" with a compress_fn), batch
+    {"tokens", "labels", "frames"?, "img_embeds"?} tensors on the
+    parameters' device; metrics {"loss", "grad_norm", "lr"} as 0-d
+    tensors (read them when needed: nothing in the step syncs with the
+    host). The parameters and AdamW's m and v are updated in place.
+
+    grad_accum splits the batch into that many microbatches, interleaved
+    (microbatch j takes rows j, j + grad_accum, ...: the reference's
+    reshape(mb, ga).swapaxes(0, 1)), sums their gradients in accum_dtype
+    and divides by grad_accum. A contiguous split gives the same mean for
+    a dense model but other routing groups for an MoE one.
+    compress_fn(grads, comp) -> (grads, comp) runs on the accumulated
+    gradients (distributed.compression.ef_int8_compress)."""
+    loss_fn = make_loss_fn(cfg)
+
+    def train_step(state, batch):
+        params = state["params"]
+        leaves = tu.leaves(params)
+        with _grad_leaves(leaves):
+            if grad_accum == 1:
+                total, loss = loss_fn(params, batch)
+                flat = torch.autograd.grad(total, leaves)
+            else:
+                flat = [torch.zeros(p.shape, dtype=accum_dtype,
+                                    device=p.device) for p in leaves]
+                loss = torch.zeros((), dtype=torch.float32,
+                                   device=leaves[0].device)
+                for j in range(grad_accum):
+                    micro = {k: _microbatch(v, j, grad_accum)
+                             for k, v in batch.items()}
+                    total, lj = loss_fn(params, micro)
+                    for acc, g in zip(flat, torch.autograd.grad(total,
+                                                                leaves)):
+                        acc.add_(g.to(accum_dtype))
+                    loss = loss + lj.detach()
+                flat = [g / grad_accum for g in flat]
+                loss = loss / grad_accum
+        grads = tu.unflatten(params, flat)
+        new_comp = state.get("comp")
+        if compress_fn is not None:
+            grads, new_comp = compress_fn(grads, new_comp)
+        new_p, new_opt, gn = O.adamw_update(grads, state["opt"], params,
+                                            opt_cfg)
+        new_state = {"params": new_p, "opt": new_opt,
+                     "step": state["step"] + 1}
+        if new_comp is not None:
+            new_state["comp"] = new_comp
+        metrics = {"loss": loss.detach(), "grad_norm": gn,
+                   "lr": O.warmup_cosine(opt_cfg, new_opt["count"])}
+        return new_state, metrics
+
+    return train_step
+
+
+def _microbatch(x: torch.Tensor, j: int, ga: int) -> torch.Tensor:
+    if x.shape[0] % ga:
+        raise ValueError(f"batch of {x.shape[0]} rows does not split into "
+                         f"grad_accum={ga} microbatches")
+    return x[j::ga]
+
+
+def init_train_state(seed: int, cfg: T.ModelConfig,
+                     opt_cfg: O.OptimizerConfig, *, device="cuda"):
+    """{"params", "opt", "step"} from the port's seeded init (other numbers
+    than the JAX package's; parity tests carry JAX's state across with
+    `checkpoint.convert.convert_state`). An encoder-decoder's position
+    table is left out: it is no parameter."""
+    params = T.init(cfg, seed=seed, device=device)
+    params.pop("pos_table", None)
+    return {"params": params, "opt": O.adamw_init(params, opt_cfg),
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def make_prefill_step(cfg: T.ModelConfig, last_only: bool = True, *,

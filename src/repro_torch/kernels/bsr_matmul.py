@@ -49,6 +49,7 @@ def bsr_matmul(x: torch.Tensor, blocks: torch.Tensor,
                indices: torch.Tensor) -> torch.Tensor:
     """x: (m, n); blocks: (n_pb, nnz, bk, bn); indices: int32 (n_pb, nnz)
     -> (m, n_pb * bn) in x's dtype."""
+    build.check_autograd("bsr_matmul", x, blocks)
     m, n = x.shape
     n_pb, nnz, bk, bn = blocks.shape
     if n % bk:
@@ -84,6 +85,7 @@ def bsr_matmul_experts(x: torch.Tensor, blocks: torch.Tensor,
     """x: (E, m, n); blocks: (E, n_pb, nnz, bk, bn), one plan for every
     expert; indices: int32 (n_pb, nnz) -> (E, m, n_pb * bn) in x's dtype,
     in one launch."""
+    build.check_autograd("bsr_matmul_experts", x, blocks)
     e, m, n = x.shape
     e_w, n_pb, nnz, bk, bn = blocks.shape
     if e_w != e:

@@ -8,18 +8,23 @@ at the repository root, named by a hash of the source and of every
 unchanged one is reused. Nothing here runs at import
 time: a kernel is built the first time its wrapper launches it, or up front
 through `build_all` (which starts every `nvcc` at once).
+
+`check_autograd` is every wrapper's first check, and `reference_path` the
+training step's plain path that it reads (see `ops`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, Iterator, List, Tuple
 
 import torch
 
@@ -136,3 +141,41 @@ def check(rc: int, name: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch function."""
     if rc != 0:
         raise RuntimeError(f"{name} launch failed with cudaError {rc}")
+
+
+# The training step's reference path (`ops.reference_path`), per thread:
+# the depth of nested entries on this thread.
+_PATH = threading.local()
+
+
+def on_reference_path() -> bool:
+    return getattr(_PATH, "depth", 0) > 0
+
+
+@contextlib.contextmanager
+def reference_path() -> Iterator[None]:
+    """Run the enclosed forward on the plain path (entries nest)."""
+    _PATH.depth = getattr(_PATH, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _PATH.depth -= 1
+
+
+def check_autograd(name: str, *tensors) -> None:
+    """Every wrapper's first check, on every device. A hand-written kernel
+    has no backward: launched through ctypes on raw pointers it would cut
+    the autograd graph without a word. So a wrapper refuses to run on the
+    training step's reference path at all, and elsewhere refuses an
+    operand that requires grad while grad mode is on."""
+    if on_reference_path():
+        raise RuntimeError(
+            f"{name}: a hand-written kernel was called on the training "
+            "step's reference path (ops.reference_path), which runs the "
+            "plain versions only")
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an operand requires grad, and the kernel has no "
+            "backward; train through ops.reference_path (distributed."
+            "steps.make_loss_fn), or run under torch.no_grad()")

@@ -33,6 +33,7 @@ def _lib():
 
 def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (m, n), w: (n, p), same float dtype -> (m, p) in x's dtype."""
+    build.check_autograd("dense_matmul", x, w)
     m, n = x.shape
     n2, p = w.shape
     if n != n2:

@@ -194,6 +194,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None, q_offset: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
+    build.check_autograd("flash_attention", q, k, v)
     bh, sq, d = q.shape
     bh_kv, skv, d2 = k.shape
     if bh % bh_kv or d2 != d or tuple(v.shape) != tuple(k.shape):
@@ -241,6 +242,7 @@ def paged_flash_attention(q: torch.Tensor, k_pages: torch.Tensor,
     page ids (sink page 0); last: int32 (b,) position of each slot's final
     query row. Causal by construction. Returns (b, h, sq, d) in q's dtype;
     q and the pages may differ in dtype (f32 or bf16 each)."""
+    build.check_autograd("paged_flash_attention", q, k_pages, v_pages)
     b, h, sq, d = q.shape
     n_pages, h_kv, page, d2 = k_pages.shape
     if (h % h_kv or d2 != d or tuple(v_pages.shape) != tuple(k_pages.shape)

@@ -123,6 +123,7 @@ def ledger_probe(x: torch.Tensor, n_out: int, out_row: torch.Tensor, *,
     """Add the ledger row of activation `x` (..., d), feeding a GEMM of
     fan-out `n_out`, into `out_row` ((N_FIXED + group + 1,) f32, in
     place); returns `out_row`."""
+    build.check_autograd("ledger_probe", x, out_row)
     width = N_FIXED + group + 1
     if tuple(out_row.shape) != (width,) or out_row.dtype != torch.float32:
         raise ValueError(f"ledger_probe: out_row {tuple(out_row.shape)} "

@@ -14,6 +14,14 @@ launch counters, so a run can show which kernels it went through. A CUDA
 graph calls no wrapper when it replays: `captured_launches` takes the
 calls recorded at capture off the counters and `count_replay` adds them
 back at every replay, so the counts stay launches on the device.
+
+`reference_path()` is the training step's explicit choice of path, the
+counterpart of the JAX package's `backend="ref"`: inside it the model
+runs the plain versions only (attention's positional einsum, the plain
+selective scan, the training-time Kratos apply on dense leaves) and any
+wrapper raises; outside it every wrapper refuses an operand that
+requires grad while grad mode is on (`build.check_autograd`), since no
+kernel has a backward.
 """
 
 from __future__ import annotations
@@ -24,6 +32,8 @@ from typing import Dict, Iterator, Optional
 import torch
 
 from repro_torch.core import quantize as qz
+from repro_torch.kernels.build import on_reference_path  # noqa: F401
+from repro_torch.kernels.build import reference_path  # noqa: F401
 from repro_torch.kernels.bsr_matmul import bsr_matmul as _bsr
 from repro_torch.kernels.bsr_matmul import bsr_matmul_experts as _bsr_e
 from repro_torch.kernels.dense_matmul import dense_matmul as _dense

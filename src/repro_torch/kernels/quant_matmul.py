@@ -75,6 +75,7 @@ def _check_qt(name: str, x: torch.Tensor, qt: qz.QuantizedTensor) -> None:
 def quant_matmul(x: torch.Tensor, qt: qz.QuantizedTensor) -> torch.Tensor:
     """x: (m, n) float; qt: codes int8 (n // vpb, p) + scale f32 (p,) ->
     (m, p) in x's dtype."""
+    build.check_autograd("quant_matmul", x, qt.data, qt.scale)
     _check_qt("quant_matmul", x, qt)
     if x.device.type == "cpu":
         return quant_matmul_ref(x, qt)
@@ -126,6 +127,7 @@ def quant_matmul_w8a8(x: torch.Tensor, qt: qz.QuantizedTensor) -> torch.Tensor:
     (n, p) + scale (p,) -> (m, p) in x's dtype. On the card the
     quantization runs inside the launch (`gemm_plan.w8a8_plan`): one device
     kernel at decode rows, a row-quantize kernel and the GEMM above them."""
+    build.check_autograd("quant_matmul_w8a8", x, qt.data, qt.scale)
     _check_qt("quant_matmul_w8a8", x, qt)
     if qt.bits != 8:
         raise ValueError(f"quant_matmul_w8a8 needs 8-bit weights, got "
@@ -146,6 +148,7 @@ def bsr_quant_matmul(x: torch.Tensor, qblocks: torch.Tensor,
     """x: (m, n) float; qblocks: int8 (n_pb, nnz, bk // vpb, bn); scales:
     f32 (n_pb, bn); indices: int32 (n_pb, nnz) -> (m, n_pb * bn). On the
     card the launch form comes from `gemm_plan.bsr_plan`."""
+    build.check_autograd("bsr_quant_matmul", x, qblocks, scales)
     qz._check_bits(bits)
     m, n = x.shape
     n_pb, nnz, bkp, bn = qblocks.shape

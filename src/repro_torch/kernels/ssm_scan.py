@@ -89,6 +89,7 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
              c: torch.Tensor, a: torch.Tensor):
     """u, dt: (B, S, di); b, c: (B, S, st), one float dtype; a: (di, st)
     f32. Returns (y (B, S, di) in u's dtype, h_final (B, di, st) f32)."""
+    build.check_autograd("ssm_scan", u, dt, b, c, a)
     bsz, s, di = u.shape
     st = a.shape[1]
     if (tuple(dt.shape) != tuple(u.shape) or tuple(a.shape) != (di, st)

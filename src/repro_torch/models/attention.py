@@ -16,7 +16,9 @@ Caches, per layer, batch-major:
                   step (slot-major and resident in a page pool too)
 
 Prefill (contiguous positions) runs the flash kernel through
-`kernels.ops.flash_attention`. Decode writes the new K/V rows IN PLACE into
+`kernels.ops.flash_attention`; the training step's forward (on
+`kernels.ops.reference_path`) runs the positional einsum instead, as the
+JAX package's `backend="ref"` does. Decode writes the new K/V rows IN PLACE into
 the cache tensors (the JAX package returns updated arrays; here the slab or
 page store is mutated, which saves a cache copy per step). Slab decode
 attends with the plain `attention_positional`, as the JAX package does;
@@ -131,7 +133,16 @@ def attention_chunked(q, k, v, q_pos, kv_pos, *, causal=True, window=None,
 
 def _sdpa(q, k, v, cfg: AttnConfig):
     """Attention over a contiguous sequence from position 0: the flash
-    kernel (decode, over a cache, uses `attention_positional`)."""
+    kernel (decode, over a cache, uses `attention_positional`). On the
+    training step's reference path it is the JAX package's `ref` branch
+    instead: the positional einsum (over q-chunks past
+    CHUNKED_ATTN_THRESHOLD rows), which autograd differentiates."""
+    if ops.on_reference_path():
+        pos = torch.arange(q.shape[2], dtype=torch.int32, device=q.device)
+        attn = attention_chunked if q.shape[2] > CHUNKED_ATTN_THRESHOLD \
+            else attention_positional
+        return attn(q, k, v, pos, pos, causal=cfg.causal, window=cfg.window,
+                    softcap=cfg.softcap, scale=cfg.scale)
     return ops.flash_attention(q, k, v, causal=cfg.causal, window=cfg.window,
                                softcap=cfg.softcap, scale=cfg.scale)
 
@@ -238,7 +249,7 @@ def _paged_gqa_decode(q, k, v, cfg: AttnConfig, cache, index, pages,
 
 
 def _cross_apply(params, q, x, cfg: AttnConfig, kv_source, cache, index,
-                 probe=None):
+                 spec, probe=None):
     """Cross-attention over the encoder output: k/v are projected from
     `kv_source` (and written into `cache` at prefill), or read back from
     `cache` unchanged at decode; every query attends to every encoder
@@ -247,8 +258,8 @@ def _cross_apply(params, q, x, cfg: AttnConfig, kv_source, cache, index,
     if cache is not None and index is not None:
         k, v = cache["k"], cache["v"]
     else:
-        k = _split_heads(kr.apply(params["wk"], kv_source), kv, dh)
-        v = _split_heads(kr.apply(params["wv"], kv_source), kv, dh)
+        k = _split_heads(kr.apply(params["wk"], kv_source, spec), kv, dh)
+        v = _split_heads(kr.apply(params["wv"], kv_source, spec), kv, dh)
         if cache is not None:
             cache["k"].copy_(k)
             cache["v"].copy_(v)
@@ -258,19 +269,20 @@ def _cross_apply(params, q, x, cfg: AttnConfig, kv_source, cache, index,
         torch.arange(q.shape[2], dtype=torch.int32, device=dev),
         torch.arange(k.shape[2], dtype=torch.int32, device=dev),
         causal=False, softcap=cfg.softcap, scale=cfg.scale)
-    return _out_proj(params, o, cfg, probe), cache
+    return _out_proj(params, o, cfg, spec, probe), cache
 
 
-def _out_proj(params, o, cfg: AttnConfig, probe):
+def _out_proj(params, o, cfg: AttnConfig, spec, probe):
     """wo over the merged heads; a ledger probe taps its input."""
     mo = _merge_heads(o)
     if probe is not None:
         probe.tap(mo, cfg.d_model)
-    return kr.apply(params["wo"], mo)
+    return kr.apply(params["wo"], mo, spec)
 
 
 def gqa_apply(params, x, cfg: AttnConfig, *, positions=None, cache=None,
-              index=None, pages=None, kv_source=None, probe=None
+              index=None, pages=None, kv_source=None,
+              spec: kr.KratosSpec = kr.DENSE, probe=None
               ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Full-sequence (cache None, or prefill into `cache` with index None)
     or decode (cache and index) GQA attention. Returns (y, cache).
@@ -281,16 +293,17 @@ def gqa_apply(params, x, cfg: AttnConfig, *, positions=None, cache=None,
     slab leaf and ignores it.
     kv_source: the encoder output (B, S_enc, d) a `cfg.cross` layer
     projects its k/v from at prefill (decode reads them from `cache`).
-    probe: serve.ledger probe (or None): taps the merged heads feeding
-    `wo`."""
+    spec: the model's Kratos spec, for the training-time apply of dense
+    leaves. probe: serve.ledger probe (or None): taps the merged heads
+    feeding `wo`."""
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = _split_heads(kr.apply(params["wq"], x), h, dh)
+    q = _split_heads(kr.apply(params["wq"], x, spec), h, dh)
     if cfg.cross:
         return _cross_apply(params, q, x, cfg, kv_source, cache, index,
-                            probe)
-    k = _split_heads(kr.apply(params["wk"], x), kv, dh)
-    v = _split_heads(kr.apply(params["wv"], x), kv, dh)
+                            spec, probe)
+    k = _split_heads(kr.apply(params["wk"], x, spec), kv, dh)
+    v = _split_heads(kr.apply(params["wv"], x, spec), kv, dh)
     if cfg.qk_norm:
         q = L.rmsnorm(params["q_norm"], q)
         k = L.rmsnorm(params["k_norm"], k)
@@ -314,7 +327,7 @@ def gqa_apply(params, x, cfg: AttnConfig, *, positions=None, cache=None,
             q, cache["k"].to(x.dtype), cache["v"].to(x.dtype), positions,
             kv_pos, causal=cfg.causal, window=cfg.window,
             softcap=cfg.softcap, extra_mask=valid, scale=cfg.scale)
-    return _out_proj(params, o, cfg, probe), cache
+    return _out_proj(params, o, cfg, spec, probe), cache
 
 
 def make_gqa_cache(cfg: AttnConfig, batch: int, max_len: int, dtype,
@@ -394,45 +407,46 @@ def mla_init(cfg: AttnConfig, spec: kr.KratosSpec, *, generator, device,
     return p
 
 
-def _mla_q(params, x, cfg: AttnConfig):
+def _mla_q(params, x, cfg: AttnConfig, spec):
     """(q_nope (B,H,S,nope), q_rope (B,H,S,dr)), through the low-rank
     factors and q_norm when q_lora_rank is set, else one projection."""
     if cfg.q_lora_rank:
-        qa = kr.apply(params["wq_a"], x)
-        q = kr.apply(params["wq_b"], L.rmsnorm(params["q_norm"], qa))
+        qa = kr.apply(params["wq_a"], x, spec)
+        q = kr.apply(params["wq_b"], L.rmsnorm(params["q_norm"], qa), spec)
     else:
-        q = kr.apply(params["wq"], x)
+        q = kr.apply(params["wq"], x, spec)
     q = _split_heads(q, cfg.n_heads, cfg.q_head_dim)
     return q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
 
 
-def _mla_expand_kv(params, c_kv, cfg: AttnConfig):
+def _mla_expand_kv(params, c_kv, cfg: AttnConfig, spec):
     """(B, S, r) latent -> k_nope (B,H,S,nope), v (B,H,S,vd)."""
-    kvb = _split_heads(kr.apply(params["wkv_b"], c_kv), cfg.n_heads,
+    kvb = _split_heads(kr.apply(params["wkv_b"], c_kv, spec), cfg.n_heads,
                        cfg.qk_nope_dim + cfg.v_head_dim)
     return kvb[..., :cfg.qk_nope_dim], kvb[..., cfg.qk_nope_dim:]
 
 
 def mla_apply(params, x, cfg: AttnConfig, *, positions=None, cache=None,
-              index=None, pages=None, probe=None
-              ) -> Tuple[torch.Tensor, Optional[Dict]]:
+              index=None, pages=None, spec: kr.KratosSpec = kr.DENSE,
+              probe=None) -> Tuple[torch.Tensor, Optional[Dict]]:
     """MLA over a full sequence (cache None, or prefill into `cache` with
     index None) or decode (cache and index: the s new latents are written
     in place at index.., s > 1 being the speculative block or suffix
     write). With `pages` the cache leaves are page-major and the latents
     land in their pages; attention reads the sliced table view. Every call
-    expands the whole latent history through `wkv_b`. probe: serve.ledger
-    probe (or None): taps the merged heads feeding `wo`. Returns (y,
-    cache)."""
+    expands the whole latent history through `wkv_b`. spec: the model's
+    Kratos spec, for the training-time apply of dense leaves. probe:
+    serve.ledger probe (or None): taps the merged heads feeding `wo`.
+    Returns (y, cache)."""
     b, s, _ = x.shape
     h, r, dr = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_dim
     dev = x.device
     if positions is None:
         positions = _positions_for(index, s, dev)
-    q_nope, q_rope = _mla_q(params, x, cfg)
+    q_nope, q_rope = _mla_q(params, x, cfg, spec)
     q = torch.cat([q_nope, L.apply_rope(q_rope, positions, cfg.rope_theta)],
                   dim=-1)
-    kv_a = kr.apply(params["wkv_a"], x)
+    kv_a = kr.apply(params["wkv_a"], x, spec)
     c_kv = L.rmsnorm(params["kv_norm"], kv_a[..., :r])          # (B,S,r)
     k_rope = L.apply_rope(kv_a[..., r:][:, None], positions,
                           cfg.rope_theta)                      # (B,1,S,dr)
@@ -473,14 +487,14 @@ def mla_apply(params, x, cfg: AttnConfig, *, positions=None, cache=None,
             cache["k_rope"][:, :, :s] = k_rope.to(cache["k_rope"].dtype)
         c_all, kr_all = c_kv, k_rope
 
-    k_nope, v = _mla_expand_kv(params, c_all.to(x.dtype), cfg)
+    k_nope, v = _mla_expand_kv(params, c_all.to(x.dtype), cfg, spec)
     k = torch.cat([k_nope, kr_all.to(x.dtype).expand(b, h, k_nope.shape[2],
                                                       dr)], dim=-1)
     attn = attention_chunked if s > CHUNKED_ATTN_THRESHOLD \
         else attention_positional
     o = attn(q, k, v, positions, kv_pos, causal=cfg.causal, window=cfg.window,
              softcap=cfg.softcap, extra_mask=valid, scale=cfg.scale)
-    return _out_proj(params, o, cfg, probe), cache
+    return _out_proj(params, o, cfg, spec, probe), cache
 
 
 def make_mla_cache(cfg: AttnConfig, batch: int, max_len: int, dtype,

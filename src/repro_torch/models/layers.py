@@ -73,18 +73,20 @@ def mlp_init(d: int, d_ff: int, *, gated: bool, spec: kr.KratosSpec,
 
 
 def mlp_apply(params: Dict, x: torch.Tensor, *, activation: str = "silu",
-              probe=None) -> torch.Tensor:
-    """probe: serve.ledger probe (or None): taps the hidden activation
-    feeding w_down, where ReLU-family nonlinearities make real zeros."""
+              spec: kr.KratosSpec = kr.DENSE, probe=None) -> torch.Tensor:
+    """spec: the model's Kratos spec, read by the training-time apply of
+    dense leaves (packed leaves carry their own). probe: serve.ledger
+    probe (or None): taps the hidden activation feeding w_down, where
+    ReLU-family nonlinearities make real zeros."""
     act = ACTIVATIONS[activation]
-    up = kr.apply(params["w_up"], x)
+    up = kr.apply(params["w_up"], x, spec)
     if "w_gate" in params:
-        h = act(kr.apply(params["w_gate"], x)) * up
+        h = act(kr.apply(params["w_gate"], x, spec)) * up
     else:
         h = act(up)
     if probe is not None:
         probe.tap(h, x.shape[-1])
-    return kr.apply(params["w_down"], h)
+    return kr.apply(params["w_down"], h, spec)
 
 
 def embed(params: Dict, tokens: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:

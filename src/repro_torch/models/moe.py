@@ -22,7 +22,11 @@ packed once at load (`core.kratos.pack_experts`): under a block-sparse
 tree spec each projection is one expert-batched `bsr_matmul` launch, the
 counterpart of the reference's `jax.vmap` over its Pallas call; otherwise
 the float stack is a batched plain product, as the reference's einsum.
-The aux load-balancing loss is a training term and is not computed.
+In training (`kernels.ops.reference_path`) the stacks stay raw: under a
+tree spec each expert's projection is the training-time Kratos apply
+(fake-quant, the kept blocks' plain product), as the reference vmaps
+`kratos.apply` over experts, and `with_aux=True` adds the reference's
+load-balancing term, over the same routing groups.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ class MoEConfig:
     d_ff_expert: int
     n_shared: int = 0
     capacity_factor: float = 1.25
+    aux_loss_coef: float = 0.001
     activation: str = "silu"
 
 
@@ -86,10 +91,17 @@ def pack_moe(p: Dict, spec: kr.KratosSpec, *, consume: bool = False
     before the next one packs."""
     _, d, f = (int(v) for v in p["w_gate"].shape)
     take = p.pop if consume else p.__getitem__
-    if spec.is_identity or spec.impl != "tree" \
-            or kr.plan_for(d, f, spec) is None:
+    if not _tree(d, f, spec):
         return {name: take(name) for name in EXPERT_STACKS}
     return {name: kr.pack_experts(take(name), spec) for name in EXPERT_STACKS}
+
+
+def _tree(d: int, f: int, spec: kr.KratosSpec) -> bool:
+    """Whether the routed stacks take the block-sparse tree path: a tree
+    spec with a block plan for (d_model, d_ff_expert), the reference's
+    rule (`repro.models.moe._expert_ffn`)."""
+    return (not spec.is_identity and spec.impl == "tree"
+            and kr.plan_for(d, f, spec) is not None)
 
 
 def _route(xg: torch.Tensor, router_w: torch.Tensor, cfg: MoEConfig,
@@ -97,7 +109,8 @@ def _route(xg: torch.Tensor, router_w: torch.Tensor, cfg: MoEConfig,
     """Route G groups of T tokens at once. xg: (G, T, d). Returns
     slot_token (G, E*C) int64 (0 where the slot is empty), slot_valid
     (G, E*C), assign_slot (G, T*k) int64 (the slot each (token, k)
-    assignment landed in, E*C where it dropped) and its weight (G, T*k)."""
+    assignment landed in, E*C where it dropped), its weight (G, T*k), and
+    the gates (G, T, E) and top experts (G, T, k) the aux term reads."""
     g, t, _ = xg.shape
     e, k = cfg.n_experts, cfg.top_k
     dev = xg.device
@@ -124,32 +137,46 @@ def _route(xg: torch.Tensor, router_w: torch.Tensor, cfg: MoEConfig,
                      0)
     slot_assign = torch.gather(order, 1, at)
     slot_token = torch.where(slot_valid, slot_assign // k, 0)
-    return slot_token, slot_valid, assign_slot, flat_w
+    return slot_token, slot_valid, assign_slot, flat_w, gates, top_e
 
 
-def _expert_ffn(p: Dict, xe: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
-    """xe: (E, M, d) -> (E, M, d), every expert's gated FFN."""
+def _expert_ffn(p: Dict, xe: torch.Tensor, cfg: MoEConfig,
+                spec: kr.KratosSpec = kr.DENSE) -> torch.Tensor:
+    """xe: (E, M, d) -> (E, M, d), every expert's gated FFN. Raw stacks
+    under a tree spec (training) apply expert by expert."""
     act = L.ACTIVATIONS[cfg.activation]
-    g = kr.apply_experts(p["w_gate"], xe)
-    u = kr.apply_experts(p["w_up"], xe)
-    return kr.apply_experts(p["w_down"], act(g) * u)
+    if isinstance(p["w_gate"], torch.Tensor) \
+            and _tree(cfg.d_model, cfg.d_ff_expert, spec):
+        def proj(name, h):
+            return torch.stack([kr.apply({"w": p[name][i]}, h[i], spec)
+                                for i in range(h.shape[0])])
+    else:
+        def proj(name, h):
+            return kr.apply_experts(p[name], h)
+    return proj("w_down", act(proj("w_gate", xe)) * proj("w_up", xe))
 
 
-def moe_apply(params: Dict, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
-    """x: (B, S, d) -> y (B, S, d)."""
+def moe_apply(params: Dict, x: torch.Tensor, cfg: MoEConfig, *,
+              spec: kr.KratosSpec = kr.DENSE, with_aux: bool = False):
+    """x: (B, S, d) -> y (B, S, d), or (y, aux) with `with_aux`: the
+    reference's load-balancing term aux_loss_coef * E * the mean over
+    routing groups of sum_e (dispatch share_e * k) * (mean gate_e), a
+    scalar f32 whose gradient flows through the gates. spec: the model's
+    Kratos spec, for the training-time apply of raw stacks and dense
+    leaves."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     n_groups, g_tokens = (b, s) if s > 1 else (1, b * s)
     c = capacity(cfg, g_tokens)
     xg = x.reshape(n_groups, g_tokens, d)
-    slot_token, slot_valid, assign_slot, weight = _route(
+    slot_token, slot_valid, assign_slot, weight, gates, top_e = _route(
         xg, params["router"]["w"], cfg, c)
     # dispatch: (G, E*C, d), empty slots zero
     xe = torch.gather(xg, 1, slot_token[..., None].expand(-1, -1, d))
     xe = xe * slot_valid[..., None].to(xe.dtype)
     xe = xe.reshape(n_groups, e, c, d).transpose(0, 1) \
         .reshape(e, n_groups * c, d)
-    ye = _expert_ffn(params, xe, cfg)
+    ye = _expert_ffn(params, xe, cfg, spec)
     ye = ye.reshape(e, n_groups, c, d).transpose(0, 1) \
         .reshape(n_groups, e * c, d)
     # combine: each token's assignments in ascending slot order; a dropped
@@ -164,8 +191,15 @@ def moe_apply(params: Dict, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
         y = y + rows * w[..., j, None].to(x.dtype)
     y = y.reshape(b, s, d)
     if cfg.n_shared:
-        y = y + L.mlp_apply(params["shared"], x, activation=cfg.activation)
-    return y
+        y = y + L.mlp_apply(params["shared"], x, activation=cfg.activation,
+                            spec=spec)
+    if not with_aux:
+        return y
+    dispatch = torch.nn.functional.one_hot(top_e, e).float().mean(
+        dim=(1, 2)) * k                                            # (G, E)
+    aux = cfg.aux_loss_coef * e * torch.mean(
+        torch.sum(dispatch * gates.mean(dim=1), dim=-1))
+    return y, aux
 
 
 def moe_ref(params: Dict, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:

@@ -9,7 +9,9 @@ The recurrence  h_t = exp(dt_t * A) h_{t-1} + dt_t * B_t x_t ;  y_t = C_t h_t
     version on the CPU. The (B, S, d_inner, d_state) decay and update
     tensors are never built; the JAX package's chunked associative scan
     (`_scan_chunked`) only bounded XLA's copy of them and has no
-    counterpart here.
+    counterpart here. The training step's forward (on
+    `kernels.ops.reference_path`) runs the plain sequential scan
+    (`kernels.ref.ssm_scan_ref`) instead, which autograd differentiates.
   * decode (S == 1): the single-step recurrence in plain torch ops, as the
     JAX package has it outside any kernel, on a (B, d_inner, d_state) f32
     state and a (B, d_conv - 1, d_inner) conv tail. Nothing is read back
@@ -32,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import kratos as kr
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
 
 
@@ -96,10 +98,10 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, x.new_zeros(()))
 
 
-def _ssm_params(params, u, cfg: MambaConfig):
+def _ssm_params(params, u, cfg: MambaConfig, spec: kr.KratosSpec):
     """u: (B, S, di) -> dt (B, S, di), B_ (B, S, st), C_ (B, S, st)."""
     st, r = cfg.d_state, cfg.rank
-    xdbc = kr.apply(params["x_proj"], u)
+    xdbc = kr.apply(params["x_proj"], u, spec)
     dt_in, b_, c_ = torch.split(xdbc, [r, st, st], dim=-1)
     if cfg.bcdt_rms:
         dt_in = L.rmsnorm(params["dt_norm"], dt_in)
@@ -112,21 +114,23 @@ def _ssm_params(params, u, cfg: MambaConfig):
 
 def mamba_apply(params, x: torch.Tensor, cfg: MambaConfig, *,
                 cache: Optional[Dict] = None, index=None,
+                spec: kr.KratosSpec = kr.DENSE,
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x: (B, S, d). cache: {'conv': (B, K-1, di), 'ssm': (B, di, st)}.
     index None runs the sequence from a zero state (writing `cache` when
     given: prefill); otherwise one decode step (S == 1) from `cache`. The
-    cache is updated in place and returned."""
+    cache is updated in place and returned. spec: the model's Kratos spec,
+    for the training-time apply of dense leaves."""
     bsz, s, _ = x.shape
     k1 = cfg.d_conv - 1
-    ug = kr.apply(params["in_proj"], x)
+    ug = kr.apply(params["in_proj"], x, spec)
     u, gate = ug.chunk(2, dim=-1)                           # (B, S, di) each
     decode = cache is not None and index is not None
     u_conv = _depthwise_conv(u, params["conv_w"].to(u.dtype),
                              params["conv_b"].to(u.dtype),
                              cache["conv"] if decode else None)
     u_act = F.silu(u_conv)
-    dt, b_, c_ = _ssm_params(params, u_act, cfg)
+    dt, b_, c_ = _ssm_params(params, u_act, cfg, spec)
     a = -torch.exp(params["A_log"].float())                 # (di, st)
 
     if decode:
@@ -143,8 +147,8 @@ def mamba_apply(params, x: torch.Tensor, cfg: MambaConfig, *,
         cache["ssm"].copy_(h)
         y = torch.einsum("bds,bs->bd", h, c_[:, 0].float())[:, None]
     else:
-        y, h_last = ops.ssm_scan(u_act.float(), dt.float(), b_.float(),
-                                 c_.float(), a)
+        scan = ref.ssm_scan_ref if ops.on_reference_path() else ops.ssm_scan
+        y, h_last = scan(u_act.float(), dt.float(), b_.float(), c_.float(), a)
         if cache is not None:       # prefill: final state + conv tail
             if k1:
                 tail = u[:, -k1:]
@@ -155,7 +159,7 @@ def mamba_apply(params, x: torch.Tensor, cfg: MambaConfig, *,
             cache["ssm"].copy_(h_last)
     y = y.to(x.dtype) + u_act * params["D"].to(x.dtype)
     y = y * F.silu(gate)
-    return kr.apply(params["out_proj"], y), cache
+    return kr.apply(params["out_proj"], y, spec), cache
 
 
 def make_mamba_cache(cfg: MambaConfig, batch: int, dtype=torch.float32,

@@ -47,8 +47,10 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core import kratos as kr
+from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -102,7 +104,7 @@ class ModelConfig:
     moe_offset: int = 0
     prelude_layers: int = 0
     capacity_factor: float = 1.25
-    aux_loss_coef: float = 0.001          # a training term: unused here
+    aux_loss_coef: float = 0.001          # MoE load-balancing coefficient
     # Mamba: is_ssm makes every layer a Mamba-1 mixer without FFN
     # (falcon); attn_period > 0 is the hybrid (jamba): attention at
     # i % attn_period == attn_offset, a Mamba mixer elsewhere, each with
@@ -127,6 +129,11 @@ class ModelConfig:
     # the JAX package stacks layers of one pattern slot and runs the slots'
     # stacks in turn; `layer_order` reproduces the order that gives
     scan_period: int = 1
+    # training: recompute each layer's forward in the backward pass
+    # (torch.utils.checkpoint around every layer). 'dots' takes the same
+    # form as 'nothing' (every activation recomputed); 'none' is off
+    remat: bool = True
+    remat_policy: str = "nothing"         # 'nothing' | 'dots' | 'none'
     kratos: kr.KratosSpec = kr.DENSE
     param_dtype: str = "float32"
     dtype: str = "float32"                # activation dtype
@@ -260,7 +267,8 @@ def moe_cfg_for(cfg: ModelConfig) -> M.MoEConfig:
     return M.MoEConfig(
         d_model=cfg.d_model, n_experts=cfg.n_experts, top_k=cfg.top_k,
         d_ff_expert=cfg.d_ff_expert, n_shared=cfg.n_shared_experts,
-        capacity_factor=cfg.capacity_factor, activation=cfg.activation)
+        capacity_factor=cfg.capacity_factor,
+        aux_loss_coef=cfg.aux_loss_coef, activation=cfg.activation)
 
 
 def mamba_cfg_for(cfg: ModelConfig) -> S.MambaConfig:
@@ -358,6 +366,25 @@ def position_table(d: int, device, n: int = DEC_POSITIONS) -> torch.Tensor:
     return pe
 
 
+def _remat(cfg: ModelConfig, fn, *args):
+    """fn(*args), its activations recomputed in the backward pass when
+    the config asks for remat, grad mode is on and the forward is the
+    training step's (on `ops.reference_path`): the JAX package's
+    `_remat_wrap` around each scanned layer, which its serving steps turn
+    off. The recompute re-enters the reference path, whichever thread the
+    backward runs on."""
+    if not (cfg.remat and cfg.remat_policy != "none"
+            and torch.is_grad_enabled() and ops.on_reference_path()):
+        return fn(*args)
+
+    def run(*a):
+        with ops.reference_path():
+            return fn(*a)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
+
+
 def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Whisper's encoder: frames (B, S_enc, d) of the audio stub, plus
     sinusoidal positions, through the encoder layers (pre-norm,
@@ -365,12 +392,17 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     and `enc_norm`. Returns (B, S_enc, d)."""
     x = frames.to(cfg.adtype())
     x = x + params["pos_table"][:x.shape[1]].to(x.dtype)
-    acfg = enc_attn_cfg(cfg)
-    for lp in params["enc_layers"]:
-        h, _ = A.gqa_apply(lp["mixer"], _norm(cfg, lp["pre_norm"], x), acfg)
+    acfg, spec = enc_attn_cfg(cfg), cfg.kratos
+
+    def layer(lp, x):
+        h, _ = A.gqa_apply(lp["mixer"], _norm(cfg, lp["pre_norm"], x), acfg,
+                           spec=spec)
         x = x + h
-        x = x + L.mlp_apply(lp["ffn"], _norm(cfg, lp["ffn_norm"], x),
-                            activation=cfg.activation)
+        return x + L.mlp_apply(lp["ffn"], _norm(cfg, lp["ffn_norm"], x),
+                               activation=cfg.activation, spec=spec)
+
+    for lp in params["enc_layers"]:
+        x = _remat(cfg, layer, lp, x)
     return _norm(cfg, params["enc_norm"], x)
 
 
@@ -394,10 +426,13 @@ def _probe_fanout(cfg: ModelConfig, kind: Dict, site: str) -> int:
 
 
 def _layer_apply(p: Dict, x, cfg: ModelConfig, kind: Dict, *, positions,
-                 cache, index, pages, enc_out, probe=None):
-    """One residual block. probe (serve.ledger, or None) taps the normed
-    mixer and FFN inputs here, and the merged attention heads and the MLP
-    hidden activation inside."""
+                 cache, index, pages, enc_out, probe=None, with_aux=False):
+    """One residual block: (x, cache, aux), aux the MoE load-balancing term
+    (0 for another layer; None without `with_aux`). probe (serve.ledger,
+    or None) taps the normed mixer and FFN inputs here, and the merged
+    attention heads and the MLP hidden activation inside."""
+    spec = cfg.kratos
+    aux = x.new_zeros((), dtype=torch.float32) if with_aux else None
     h = _norm(cfg, p["pre_norm"], x)
     if probe is not None:
         probe.tap(h, _probe_fanout(cfg, kind, "mixer"))
@@ -405,11 +440,12 @@ def _layer_apply(p: Dict, x, cfg: ModelConfig, kind: Dict, *, positions,
         # recurrent state: O(1) per slot and resident, so pages and
         # positions do not reach it
         h, cache = S.mamba_apply(p["mixer"], h, mamba_cfg_for(cfg),
-                                 cache=cache, index=index)
+                                 cache=cache, index=index, spec=spec)
     else:
         h, cache = A.attn_apply(p["mixer"], h, attn_cfg_for(cfg, kind),
                                 positions=positions, cache=cache,
-                                index=index, pages=pages, probe=probe)
+                                index=index, pages=pages, spec=spec,
+                                probe=probe)
     if cfg.sandwich_norm:
         h = _norm(cfg, p["post_norm"], h)
     x = x + h * cfg.residual_scale
@@ -419,29 +455,36 @@ def _layer_apply(p: Dict, x, cfg: ModelConfig, kind: Dict, *, positions,
                                          "v": cache["cross_v"]}
         h, _ = A.gqa_apply(p["cross"], _norm(cfg, p["cross_norm"], x),
                            cross_cfg_for(cfg, kind), cache=cc, index=index,
-                           kv_source=enc_out, probe=probe)
+                           kv_source=enc_out, spec=spec, probe=probe)
         x = x + h * cfg.residual_scale
     if kind["ffn"] != "none":
         h = _norm(cfg, p["ffn_norm"], x)
         if probe is not None:
             probe.tap(h, _probe_fanout(cfg, kind, "ffn"))
     if kind["ffn"] == "moe":
-        x = x + M.moe_apply(p["ffn"], h, moe_cfg_for(cfg)) \
-            * cfg.residual_scale
+        h = M.moe_apply(p["ffn"], h, moe_cfg_for(cfg), spec=spec,
+                        with_aux=with_aux)
+        if with_aux:
+            h, aux = h
+        x = x + h * cfg.residual_scale
     elif kind["ffn"] == "mlp":
-        h = L.mlp_apply(p["ffn"], h, activation=cfg.activation, probe=probe)
+        h = L.mlp_apply(p["ffn"], h, activation=cfg.activation, spec=spec,
+                        probe=probe)
         if cfg.sandwich_norm:
             h = _norm(cfg, p["ffn_post_norm"], h)
         x = x + h * cfg.residual_scale
-    return x.to(cfg.adtype()), cache
+    return x.to(cfg.adtype()), cache, aux
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             caches: Optional[List[Dict]] = None, index=None,
             pages: Optional[Dict] = None, img_embeds=None, enc_out=None,
-            last_only: bool = False,
-            probe=None) -> Tuple[torch.Tensor, Optional[List]]:
-    """Decoder forward. tokens: (B, S) int. Returns (f32 logits, caches).
+            last_only: bool = False, probe=None, with_aux: bool = False,
+            ) -> Tuple[torch.Tensor, ...]:
+    """Decoder forward. tokens: (B, S) int. Returns (f32 logits, caches),
+    or (logits, aux, caches) with `with_aux`: aux the f32 sum of the MoE
+    layers' load-balancing terms, as the JAX package's forward returns it
+    (the training step's loss adds it).
 
     img_embeds: (B, n_img, d) vision-stub rows prepended to the token
     embeddings (llava); positions and cache writes count them.
@@ -461,7 +504,9 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     row `li` of the probe's (n_layers, width) buffer, li the layer's place
     in the model whatever order the layers run in: the JAX package's
     matrix, whose scanned slot s, period t is layer prelude + t *
-    scan_period + s."""
+    scan_period + s.
+    With `cfg.remat` and grad mode on, each layer's activations are
+    recomputed in the backward pass (`_remat`); the numbers do not change."""
     x = L.embed(params["embed"], tokens, scale=cfg.emb_scale).to(cfg.adtype())
     if img_embeds is not None:
         x = torch.cat([img_embeds.to(x.dtype), x], dim=1)
@@ -473,19 +518,27 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
         x = x + pe.to(x.dtype)
     if pages is not None:     # the paged layers' write plan goes in here
         pages = dict(pages)
+    aux = x.new_zeros((), dtype=torch.float32) if with_aux else None
     for li in layer_order(cfg):
         c = caches[li] if caches is not None else None
         if probe is not None:
             probe.layer = li
-        x, _ = _layer_apply(params["layers"][li], x, cfg, layer_kind(cfg, li),
-                            positions=positions, cache=c, index=index,
-                            pages=pages, enc_out=enc_out, probe=probe)
+
+        def layer(lp, x, _kind=layer_kind(cfg, li), _c=c):
+            return _layer_apply(lp, x, cfg, _kind, positions=positions,
+                                cache=_c, index=index, pages=pages,
+                                enc_out=enc_out, probe=probe,
+                                with_aux=with_aux)
+
+        x, _, a = _remat(cfg, layer, params["layers"][li], x)
+        if with_aux:
+            aux = aux + a
     if last_only:
         x = x[:, -1:]
     x = _norm(cfg, params["final_norm"], x)
     logits = L.unembed(params["embed"], x, params.get("head"),
                        softcap=cfg.logit_softcap)
-    return logits, caches
+    return (logits, aux, caches) if with_aux else (logits, caches)
 
 
 def make_caches(cfg: ModelConfig, batch: int, max_len: int,
@@ -526,3 +579,17 @@ def sample_tokens(logits: torch.Tensor, generator: torch.Generator,
     scores = torch.where((temperature > 0.0)[:, None], logits / safe_t + g,
                          logits)
     return torch.argmax(scores, dim=-1).to(torch.int32)
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross-entropy in f32; labels (B, S) int; mask (B, S) optional:
+    the masked mean over its nonzero positions (at least one)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

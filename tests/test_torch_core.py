@@ -102,7 +102,9 @@ def test_pack_buffers_byte_identical_and_apply_packed(spec):
 def test_unported_specs_raise():
     """The weight-only and w8a8 specs pack into the buffers JAX's pack()
     makes ('qt' dense, 'qblocks' on the tree path, where act_bits is not
-    used); what still raises is the training-time apply on a dense leaf."""
+    used); the training-time apply on a dense leaf raises outside the
+    training step's reference path (tests/test_torch_train.py holds it to
+    JAX's inside)."""
     w = {"w": torch.zeros(64, 32)}
     assert set(pkr.pack_linear(w, pkr.KratosSpec(bits=8)).buffers) == {"qt"}
     assert set(pkr.pack_linear(w, pkr.KratosSpec(bits=8, act_bits=8))
@@ -110,7 +112,7 @@ def test_unported_specs_raise():
     assert set(pkr.pack_linear(w, pkr.KratosSpec(
         sparsity=0.5, bits=8, act_bits=8, bk=8, bn=8)).buffers) \
         == {"qblocks", "qscale"}
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+    with pytest.raises(RuntimeError, match="reference path"):
         pkr.apply(w, torch.zeros(2, 64))
 
 

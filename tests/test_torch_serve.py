@@ -164,7 +164,8 @@ def test_resilience_and_ledger_fields_accepted(field, value):
 def test_unported_specs_and_archs_refused_up_front():
     """Every KratosSpec packs now (w, qt, blocks, qblocks), and every arch
     of the JAX package loads; an arch name that names none is refused, and
-    the training-time apply on a dense leaf still raises."""
+    the training-time apply on a dense leaf raises outside the training
+    step's reference path."""
     reg = ModelRegistry()
     for spec in (pkr.KratosSpec(bits=4), pkr.KratosSpec(bits=8, act_bits=8),
                  pkr.KratosSpec(sparsity=0.5, bits=8, act_bits=8, bk=8,
@@ -172,7 +173,7 @@ def test_unported_specs_and_archs_refused_up_front():
         assert reg.load(ARCH, spec, device="cpu").n_packed > 0
     with pytest.raises(ValueError, match="unknown arch 'whisper-tiny'"):
         reg.load("whisper-tiny", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(RuntimeError, match="reference path"):
         pkr.apply({"w": torch.zeros(4, 4)}, torch.zeros(1, 4))
 
 
