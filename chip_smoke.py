@@ -60,13 +60,13 @@ Phases, in order; any failure raises and exits non-zero:
      the paged engine with the prefix index, against a slab engine over
      the same model;
   8. Mamba serving: falcon-mamba-7b. Card-vs-CPU parity at full width cut
-     to 2 layers (one 64-token prefill, 4 greedy decode steps); then the
-     full model (64 layers, random f32 weights from seed 0, 29.1 GB),
-     packed dense and sparsity 0.5 x int8, serving phase 5's traffic. Every
-     prefill runs the selective-scan kernel once per layer (64 x 16 per
-     run), each spec launches only its own GEMMs, no attention kernel
-     runs, and a traced decode dispatch copies to the host once; 3 decode
-     dispatches and 3 512-token prefills are traced, and each prefill shows
+     to 2 layers (one 64-token prefill, 4 greedy decode steps); then full
+     width, depth cut from 64 to 32 layers (random f32 weights from seed 0,
+     ~15 GB), packed dense and sparsity 0.5 x int8, serving phase 5's
+     traffic. Every prefill runs the selective-scan kernel once per layer
+     (32 x 16 per run), each spec launches only its own GEMMs, no attention kernel
+     runs, and a traced decode dispatch copies to the host once; 2 decode
+     dispatches and 2 512-token prefills are traced, and each prefill shows
      the scan's device ms;
   9. speculative self-draft decode, phase 5's traffic, greedy:
      h2o-danube-1.8b at full width, depth cut to 8 layers (dense target,
@@ -78,7 +78,7 @@ Phases, in order; any failure raises and exits non-zero:
      per cycle and per committed token, idle share;
  10. gemma2-27b (local/global windows, softcaps 50 and 30, sandwich norms,
      head_dim 128, query scale 1/12). Card-vs-CPU parity at full width cut
-     to 2 layers; then full width, depth cut from 46 to 8 layers (22.8 GB
+     to 2 layers; then full width, depth cut from 46 to 4 layers (13.8 GB
      in f32), phase 5's traffic: dense and s0.5-w8 from the slab, dense
      from the page pool (every layer page-major: the page-table kernel
      once a layer a micro-step, with softcap 50, and window 4096 on local
@@ -131,7 +131,7 @@ Phases, in order; any failure raises and exits non-zero:
      requests that differ there are reported);
  14. the vision stub: llava-next-mistral-7b, card-vs-CPU parity at full
      width, 2 layers, with 64 of the 2880 image rows; then full width,
-     depth cut from 32 to 16 layers (15.0 GB): 8 requests, each with 2880
+     depth cut from 32 to 8 layers (~8 GB): 8 requests, each with 2880
      stub image rows (the port's llava_patches of a seeded image) and a
      32-512-token prompt, 32 new tokens, n_slots 8, max_len 3456 (a 3.6 GB
      slab):
@@ -161,7 +161,7 @@ Phases, in order; any failure raises and exits non-zero:
      bsr_quant_matmul and quant_matmul; K 4; slab and paged), 16b
      jamba-v0.1-52b (8 layers, w8 draft sharing the target's raw expert
      stacks; K 2; K+1 single-token verify steps), 16c llava-next-mistral-7b
-     (16 layers, 2880 image rows a request, s0.5 x int8 draft, K 4), 16d
+     (8 layers, 2880 image rows a request, s0.5 x int8 draft, K 4), 16d
      whisper-large-v3 (32 + 32 layers, 1500 frames through each model's
      encoder, s0.5 x int8 draft, K 4; slab and paged). Graph tokens equal
      the eager step's, paged tokens the slab's, speculative tokens plain
@@ -265,6 +265,20 @@ Phases, in order; any failure raises and exits non-zero:
      the fake-quant's FMA scale disagree, the last position's argmax equal
      (near-tie rule), the launches of bsr_quant_matmul, flash_attention and
      dense_matmul.
+ 22. the paper's grid, right after phase 21: `repro_torch.figures.run`
+     with --quick in process (Figs. 1, 5, 6, 7 and Table III: counts on
+     each point's plain path, device ms of its packed artifact on the
+     kernels, each timed point held to its plain version; the C1-C5
+     check lines at the H100's peaks), which must launch dense_matmul,
+     bsr_matmul, quant_matmul and bsr_quant_matmul; then every Table II
+     kernel (element-granular blocks, bk = bn = 1) packed at sparsity 0 /
+     0.5 / 0.9 x bits None / 8 / 4:
+     one launch of the wrapper its buffers select, held to the plain
+     version of the same buffers at TOL, conv points also to F.conv1d /
+     F.conv2d of the masked, fake-quantized filter at 2e-2; each point's
+     kernel form, packed format, device ms, bound ms and plain ms, each
+     kernel family's ms against its bound, and the phase's wall seconds.
+     The phase's launches are every launch of both parts, timed ones too.
 Phase 5 also holds the host-loop cell ([5h]): h2o-danube dense served by
 the host decode loop (device_loop=False, one graphed (B, 1) forward a step,
 logits to the host) and by the device loop, whole runs in alternating
@@ -285,6 +299,7 @@ chiprun_out/chip_smoke.json. Without a CUDA device it exits 2.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import gc
@@ -299,14 +314,37 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# the H100 data sheet's peaks (dense, no sparsity), the port's one copy;
+# every bound below is `analysis.cost.bound_ms` at these peaks
+from repro_torch.launch import mesh  # noqa: E402
+
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12                                # H100 SXM data sheet
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12,      # dense, no sparsity
-              "int8": 1979e12}
+# wall s and count of the run's recurring parts, summed over every phase
+# and printed at the end: profiler sessions with their parsing ("traces"),
+# graph-against-eager timed turns, eager identity serves, card-vs-CPU parity
+PART_S = collections.Counter()
+PART_N = collections.Counter()
+
+
+def timed_part(part):
+    """Add each call's wall s to PART_S[part]."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def run(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                PART_S[part] += time.perf_counter() - t
+                PART_N[part] += 1
+        return run
+    return deco
 # flash attention's second bound, at the rate of the units it runs on:
-# 3xTF32 spends three TF32 products (495 TFLOP/s) on each f32 one, bf16
-# runs at the bf16 tensor-core rate
-TC_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+# 3xTF32 spends three TF32 products on each f32 one, bf16 runs at the bf16
+# tensor-core rate
+TC_FLOPS = {"float32": mesh.PEAK_TF32_FLOPS / 3,
+            "bfloat16": mesh.PEAK_BF16_FLOPS}
 GEMM_SHAPES = [(2560, 2560), (2560, 640), (2560, 6912), (6912, 2560)]
 # falcon-mamba's x_proj: dense and weight-only only (its 288 columns are off
 # the 128-wide block grid of the block-sparse kernels)
@@ -378,7 +416,7 @@ SOURCES = {
                      "src/repro/serve/ledger.py:105"),
 }
 GEMMA, MINICPM = "gemma2-27b", "minicpm3-4b"
-GEMMA_LAYERS = 8                       # of 46 (phase 10's depth cut)
+GEMMA_LAYERS = 4                       # of 46 (phase 10's depth cut)
 MINICPM_LAYERS = 4                     # of 62 (phase 11's depth cut)
 DEEPSEEK, LITE = "deepseek-moe-16b", "deepseek-v2-lite-16b"
 DEEPSEEK_LAYERS = 8                    # of 28: 1 dense + 7 MoE (phase 12)
@@ -399,9 +437,9 @@ JAMBA_EXPERT_ROWS = (2, 80)
 # phase 14: 8 requests, each 2880 image rows + 32-512 prompt tokens + 32
 # new; max_len >= 2880 + 512 + 32, a multiple of 16. Parity on the CPU
 # keeps 64 of the 2880 image rows. Depth cut from 32 to 16 layers (phase
-# 15 took the time it saves)
+# 15 took the time it saves), then to 8 for the time limit
 LLAVA_REQUESTS, LLAVA_MAX_LEN, LLAVA_PARITY_IMG = 8, 3456, 64
-LLAVA_LAYERS = 16
+LLAVA_LAYERS = 8
 # phase 15: whisper-large-v3's 1500 encoder frames (30 s at 50 a second),
 # its published decoder context n_text_ctx (448; the config does not carry
 # it) as max_len and its prompt limit n_text_ctx // 2; each request's
@@ -505,14 +543,14 @@ def demangle(name):
 
 
 def bound_ms(n_bytes, flops, dtype):
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    from repro_torch.analysis import cost
+    return cost.bound_ms(flops, n_bytes, dtype)
 
 
 def nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts)
+    """Bytes of each tensor once: `analysis.cost.nbytes`."""
+    from repro_torch.analysis import cost
+    return cost.nbytes(*ts)
 
 
 # device-kernel name fragments of the port's projection GEMMs: the decode
@@ -581,6 +619,7 @@ def gemm_kernels_by_grid(prof):
 EMPTY_RETRIES = 2
 
 
+@timed_part("traces")
 def trace_call(torch, fn, grids=False):
     """Trace one call of `fn` (closed by a device sync) in its own
     torch.profiler session of device activity. Returns the device window
@@ -674,7 +713,7 @@ def run_eager(eng):
     return eng
 
 
-def graph_vs_eager(torch, eng, per, turns=3, n=3, traces=2, grids=False):
+def graph_vs_eager(torch, eng, per, turns=3, n=1, traces=1, grids=False):
     """Wall ms per micro-step (`per` micro-steps a dispatch; 1 for a
     speculative cycle) of the graphed dispatch against the eager step on
     the same state, in alternating turns of n dispatches each, in this one
@@ -693,6 +732,8 @@ def graph_vs_eager(torch, eng, per, turns=3, n=3, traces=2, grids=False):
                 fn(eager=mode == "eager")
             torch.cuda.synchronize()
             out.append((time.perf_counter() - t) * 1e3 / (n * per))
+            PART_S["A/B turns"] += out[-1] * n * per / 1e3
+    PART_N["A/B turns"] += 1
     graph_prof, retaken = profile_calls(torch, fn, traces, dtoh=1,
                                         grids=grids)
     eager_prof, eager_retaken = profile_calls(
@@ -735,6 +776,7 @@ def print_ab(card, ab, per, unit="micro-step"):
     return s
 
 
+@timed_part("eager identity")
 def eager_identity(torch, model, ecfg, prompts, gen_len, want, extras=None):
     """Serve the same traffic through a fresh engine whose every dispatch
     runs the eager step: its tokens must equal the graphed run's."""
@@ -752,21 +794,6 @@ def eager_identity(torch, model, ecfg, prompts, gen_len, want, extras=None):
     if bad:
         raise AssertionError(f"graphed and eager tokens differ: {bad}")
     return True
-
-
-def plain_packed(ref, lin, x):
-    """The plain version of the kernel `apply_packed` picks for `lin`."""
-    b = lin.buffers
-    if "w" in b:
-        return ref.dense_matmul_ref(x, b["w"])
-    if "qt" in b:
-        if lin.spec.act_bits == 8:
-            return ref.quant_matmul_w8a8_ref(x, b["qt"])
-        return ref.quant_matmul_ref(x, b["qt"])
-    if "blocks" in b:
-        return ref.bsr_matmul_ref(x, b["blocks"], lin.indices)
-    return ref.bsr_quant_matmul_ref(x, b["qblocks"], b["qscale"],
-                                    lin.indices, lin.spec.bits)
 
 
 def _expert_cases(torch, gen, record, experts, shapes, rows):
@@ -972,11 +999,11 @@ def phase_kernels(torch, timer):
                             library = lambda: sdpa(q, k, v, attn_mask=mask,
                                                    enable_gqa=True)
                         record("flash_attention", dtype,
-                               ops.flash_attention(q, k, v, **kw),
+                               (o := ops.flash_attention(q, k, v, **kw)),
                                flash_attention_plain(qf, kf, vf, **kw)[None],
                                FA_TOL[dtype],
                                ("flash_attention", dtype, sq, window, cap, d),
-                               nbytes(q, k, v, q),
+                               nbytes(q, k, v, o),
                                4 * d * int(live.sum()) * heads,
                                lambda: ops.flash_attention(q, k, v, **kw),
                                lambda: flash_attention_plain(qf, kf, vf, **kw),
@@ -1036,12 +1063,12 @@ def phase_kernels(torch, timer):
                                          enable_gqa=True))
                         args = (q, kp, vp, table, last)
                         record("paged_flash_attention", dtype,
-                               ops.paged_attention(*args, **kw),
+                               (o := ops.paged_attention(*args, **kw)),
                                ref.paged_attention_ref(*args, **kw),
                                FA_TOL[dtype],
                                ("paged_flash_attention", dtype, d, sq, window,
                                 cap),
-                               kv_bytes + nbytes(q, q, table, last),
+                               kv_bytes + nbytes(q, o, table, last),
                                4 * d * heads * int(live.sum()),
                                lambda: ops.paged_attention(*args, **kw),
                                lambda: ref.paged_attention_ref(*args, **kw),
@@ -1100,11 +1127,11 @@ def phase_kernels(torch, timer):
                 lambda: sdpa(q, k, v, attn_mask=live, scale=GEMMA_SCALE,
                              enable_gqa=True))
             record("flash_attention", "float32",
-                   ops.flash_attention(q, k, v, **kw),
+                   (o := ops.flash_attention(q, k, v, **kw)),
                    flash_attention_plain(qf, kf, vf, **kw)[None],
                    FA_TOL["float32"],
                    ("flash_attention", "float32", sq, window, 50.0, 128),
-                   nbytes(q, k, v, q), 4 * 128 * n_live * 32,
+                   nbytes(q, k, v, o), 4 * 128 * n_live * 32,
                    lambda: ops.flash_attention(q, k, v, **kw),
                    lambda: flash_attention_plain(qf, kf, vf, **kw),
                    library, tc_peak=TC_FLOPS["float32"], sq=sq, heads=32,
@@ -1136,10 +1163,10 @@ def phase_kernels(torch, timer):
         kw = dict(softcap=50.0, scale=GEMMA_SCALE)
         args = (q, kp, vp, table, last)
         record("paged_flash_attention", "float32",
-               ops.paged_attention(*args, **kw),
+               (o := ops.paged_attention(*args, **kw)),
                ref.paged_attention_ref(*args, **kw), FA_TOL["float32"],
                ("paged_flash_attention", "float32", 128, sq, None, 50.0),
-               kv_bytes + nbytes(q, q, table, last),
+               kv_bytes + nbytes(q, o, table, last),
                4 * 128 * 32 * int(live.sum()),
                lambda: ops.paged_attention(*args, **kw),
                lambda: ref.paged_attention_ref(*args, **kw),
@@ -1160,7 +1187,7 @@ def phase_kernels(torch, timer):
         for spec in (kr.DENSE, kr.KratosSpec(sparsity=0.5, bits=8),
                      kr.KratosSpec(bits=8)):
             lin = kr.pack_linear({"w": w32}, spec)
-            w_eff = plain_packed(ref, lin, torch.eye(n, device=dev))
+            w_eff = kr.plain_packed(lin, torch.eye(n, device=dev))
             plan = kr.plan_for(n, p, lin.spec)
             keep = n if plan is None or "qt" in lin.buffers \
                 else plan.nnz * plan.bk
@@ -1172,12 +1199,12 @@ def phase_kernels(torch, timer):
                 kernel = next(name for name, c in ops.launch_counts().items()
                               if c)
                 idx = () if lin.indices is None else (lin.indices,)
-                record(kernel, "float32", got, plain_packed(ref, lin, x),
+                record(kernel, "float32", got, kr.plain_packed(lin, x),
                        TOL["float32"], ("mla", leaf, kr.spec_tag(spec), m),
                        nbytes(x, y, *idx) + lin.packed_bytes,
                        2 * m * keep * p,
                        lambda: kr.apply_packed(lin, x),
-                       lambda: plain_packed(ref, lin, x),
+                       lambda: kr.plain_packed(lin, x),
                        lambda: torch.matmul(x, w_eff), m=m, n=n, p=p,
                        leaf=leaf, spec=kr.spec_tag(lin.spec))
             del w_eff
@@ -1203,10 +1230,10 @@ def phase_kernels(torch, timer):
                            device=dev) for _ in range(3))
     qf, kf, vf = q[0], k[0], v[0]
     record("flash_attention", "float32",
-           ops.flash_attention(q, k, v, causal=False),
+           (o := ops.flash_attention(q, k, v, causal=False)),
            flash_attention_plain(qf, kf, vf, causal=False)[None],
            FA_TOL["float32"], ("whisper", "flash_attention"),
-           nbytes(q, k, v, q), 4 * 64 * WHISPER_FRAMES ** 2 * 20,
+           nbytes(q, k, v, o), 4 * 64 * WHISPER_FRAMES ** 2 * 20,
            lambda: ops.flash_attention(q, k, v, causal=False),
            lambda: flash_attention_plain(qf, kf, vf, causal=False),
            lambda: sdpa(q, k, v, is_causal=False), tc_peak=TC_FLOPS["float32"],
@@ -1233,11 +1260,12 @@ def phase_kernels(torch, timer):
     kview, vview = ref.paged_view(kp, table), ref.paged_view(vp, table)
     q = torch.randn((b, heads, 1, 64), generator=gen, device=dev)
     args = (q, kp, vp, table, last)
-    record("paged_flash_attention", "float32", ops.paged_attention(*args),
+    record("paged_flash_attention", "float32",
+           (o := ops.paged_attention(*args)),
            ref.paged_attention_ref(*args), FA_TOL["float32"],
            ("whisper", "paged_flash_attention"),
            len(pages_read) * 2 * heads * page * 64 * 4
-           + nbytes(q, q, table, last), 4 * 64 * heads * int(live.sum()),
+           + nbytes(q, o, table, last), 4 * 64 * heads * int(live.sum()),
            lambda: ops.paged_attention(*args),
            lambda: ref.paged_attention_ref(*args),
            lambda: sdpa(q, kview, vview, attn_mask=mask),
@@ -1253,7 +1281,7 @@ def phase_kernels(torch, timer):
         w32 = torch.randn((n, p), generator=gen, device=dev) * n ** -0.5
         for spec in (kr.DENSE, kr.KratosSpec(sparsity=0.5, bits=8)):
             lin = kr.pack_linear({"w": w32}, spec)
-            w_eff = plain_packed(ref, lin, torch.eye(n, device=dev))
+            w_eff = kr.plain_packed(lin, torch.eye(n, device=dev))
             plan = kr.plan_for(n, p, lin.spec)
             keep = n if plan is None else plan.nnz * plan.bk
             for m in (8, WHISPER_FRAMES):
@@ -1264,13 +1292,13 @@ def phase_kernels(torch, timer):
                 kernel = next(name for name, c in ops.launch_counts().items()
                               if c)
                 idx = () if lin.indices is None else (lin.indices,)
-                record(kernel, "float32", got, plain_packed(ref, lin, x),
+                record(kernel, "float32", got, kr.plain_packed(lin, x),
                        TOL["float32"],
                        ("whisper", (n, p), kr.spec_tag(spec), m),
                        nbytes(x, y, *idx) + lin.packed_bytes,
                        2 * m * keep * p,
                        lambda: kr.apply_packed(lin, x),
-                       lambda: plain_packed(ref, lin, x),
+                       lambda: kr.plain_packed(lin, x),
                        lambda: torch.matmul(x, w_eff), m=m, n=n, p=p,
                        spec=kr.spec_tag(lin.spec), model="whisper")
             del w_eff
@@ -1360,6 +1388,7 @@ def phase_kernels(torch, timer):
     return cases
 
 
+@timed_part("parity")
 def phase_parity(torch, arch, s0, max_len, **overrides):
     """The port's forward on the card against the same forward on the CPU
     (plain versions): `arch` at full width cut to 2 layers (or the config
@@ -1517,7 +1546,7 @@ def phase_serving(torch, card, params):
         assert rep["host_syncs_decode"] == rep["decode_steps"], rep
         # decode dispatch time at full slab width (masks make the work the
         # same whether slots are live or parked), graph against eager
-        ab = graph_vs_eager(torch, eng, k, traces=3)
+        ab = graph_vs_eager(torch, eng, k, traces=2)
         step_ms = statistics.median(ab["graph_ms"])
         decode_prof, retaken = ab["graph_prof"], ab["retaken_graph_traces"]
         # one 512-token prefill (the largest bucket), wall and device time
@@ -1530,7 +1559,7 @@ def phase_serving(torch, card, params):
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t1) * 1e3
         prefill_prof, _ = profile_calls(
-            torch, lambda: eng.backend.prefill(batch, exact=True), 3)
+            torch, lambda: eng.backend.prefill(batch, exact=True), 2)
         gemm = [gemm_ms(c) / k for c in decode_prof]
         other = [non_gemm_ms(c) / k for c in decode_prof]
         n_ops = [c["device_ops"] / k for c in decode_prof]
@@ -1989,20 +2018,21 @@ def phase_prefix_reuse(torch, card, arch="nemotron-4-340b", n_layers=1):
 
 
 FALCON = "falcon-mamba-7b"
+FALCON_LAYERS = 32                     # of 64 (phase 8's depth cut)
 
 
 def phase_mamba_serving(torch, card):
-    """falcon-mamba-7b at full width and depth, random f32 weights from the
-    seed, packed dense and sparsity 0.5 x int8 (x_proj's 288 outputs do
+    """falcon-mamba-7b at full width, depth cut to FALCON_LAYERS (for the
+    time limit), random f32 weights from the seed, packed dense and sparsity 0.5 x int8 (x_proj's 288 outputs do
     not divide the 128-wide block grid, so it packs weight-only w8), over
     phase 5's traffic in this vocab. The prompts prefill at exact length."""
     from repro_torch import configs as C
     from repro_torch.core import kratos as kr
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
-    from repro_torch.serve import EngineConfig, InferenceEngine, ModelRegistry
+    from repro_torch.serve import EngineConfig, InferenceEngine
 
-    cfg = C.get_config(FALCON)
+    cfg = C.get_config(FALCON, n_layers=FALCON_LAYERS)
     n_slots, gen_len, k = N_SLOTS, GEN_LEN, CHUNK
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2019,8 +2049,7 @@ def phase_mamba_serving(torch, card):
     results = {}
     for tag, (spec, gemms) in specs.items():
         t0 = time.perf_counter()
-        model = ModelRegistry().load(FALCON, spec, smoke=False, params=params,
-                                     seed=SEED)
+        model = load_cut(FALCON, spec, params, cfg.n_layers)
         torch.cuda.synchronize()
         pack_s = time.perf_counter() - t0
         ecfg = EngineConfig(n_slots=n_slots, max_len=512 + gen_len,
@@ -2050,7 +2079,7 @@ def phase_mamba_serving(torch, card):
         assert counts["flash_attention"] == 0, counts
         assert counts["paged_flash_attention"] == 0, counts
         assert rep["host_syncs_decode"] == rep["decode_steps"], rep
-        ab = graph_vs_eager(torch, eng, k, traces=3)
+        ab = graph_vs_eager(torch, eng, k, traces=2)
         step_ms = statistics.median(ab["graph_ms"])
         decode_prof, retaken = ab["graph_prof"], ab["retaken_graph_traces"]
         batch = {"tokens": torch.from_numpy(
@@ -2062,7 +2091,7 @@ def phase_mamba_serving(torch, card):
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t1) * 1e3
         prefill_prof, _ = profile_calls(
-            torch, lambda: eng.backend.prefill(batch, exact=True), 3)
+            torch, lambda: eng.backend.prefill(batch, exact=True), 2)
         gemm = [gemm_ms(c) / k for c in decode_prof]
         other = [non_gemm_ms(c) / k for c in decode_prof]
         idle = [c["idle_share"] for c in decode_prof]
@@ -3067,7 +3096,7 @@ def serve_run(torch, card, model, prompts, ecfg, gemms, tag, grids=False,
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t1) * 1e3
     prefill_prof, _ = profile_calls(
-        torch, lambda: eng.backend.prefill(batch, exact=True), 2)
+        torch, lambda: eng.backend.prefill(batch, exact=True), 1)
     flash = [c["device_ms_by_kernel"].get("fa_tc_kernel", 0.0)
              for c in prefill_prof]
     if not cfg.mla:
@@ -3131,8 +3160,8 @@ def add_counts(totals, counts):
 def phase_gemma2(torch, card):
     """gemma2-27b at its published width (d_model 4608, 32/16 heads,
     head_dim 128, d_ff 36864 gelu_tanh, vocab 256000 tied), depth cut from
-    46 to 8 layers (4 local/global pairs; 46 layers are 108.9 GB in f32, and
-    16 would not leave the script its time limit),
+    46 to 4 layers (2 local/global pairs; 46 layers are 108.9 GB in f32, and
+    8 would not leave the script its time limit),
     random f32 weights from the seed, phase 5's traffic in its vocab:
     dense and s0.5-w8 from the slab, dense from the page pool (page 16:
     the local window 4096 exceeds max_len, so every layer is page-major
@@ -3685,7 +3714,7 @@ def phase_jamba(torch, card, mark):
 def phase_llava(torch, card, mark):
     """llava-next-mistral-7b at its published width (d_model 4096, 32/8
     heads of 128, d_ff 14336, window 4096, vocab 32000 untied), depth cut
-    from 32 to 16 layers (15.0 GB in f32), random f32 weights from the
+    from 32 to 8 layers (~8 GB in f32), random f32 weights from the
     seed: 8 requests, each with 2880 stub image rows (the port's
     llava_patches of a seeded image) and phase 5's first 8 prompts
     (32-512 tokens) with 32 new tokens, n_slots 8, max_len 3456: dense and
@@ -4980,13 +5009,127 @@ def phase_train(torch, card, params):
     return counts, out
 
 
+# phase 22: the paper's grid. figures.run --quick in process, then every
+# Table II kernel packed at these sparsities x weight widths and run on the
+# hand-written kernels, each point held to the plain version of its packed
+# buffers (f32 points at the f32 GEMM tolerance, TOL) and each conv point
+# to F.conv1d / F.conv2d of its masked, fake-quantized filter at the JAX
+# test's bound for the quantized conv
+GRID_SPARSITIES = (0.0, 0.5, 0.9)
+GRID_BITS = (None, 8, 4)
+GRID_KERNELS = ("dense_matmul", "bsr_matmul", "quant_matmul",
+                "bsr_quant_matmul")
+CONV_TOL = 2e-2
+
+
+def conv_oracle(torch, spec, params, lin, x):
+    """F.conv of the filter a packed conv point multiplies: the weight
+    masked by the block plan and fake-quantized at the pack-time spec's
+    bits (a 1-wide tree point below 8 bits keeps float blocks)."""
+    from repro_torch.core import conv as kconv
+    from repro_torch.core import kratos as kr
+    from repro_torch.core import quantize as qz
+    from repro_torch.core import sparsity as sp
+    d, w = spec.dims, params["w"]
+    plan = kr.plan_for(lin.n_in, lin.n_out, lin.spec)
+    if plan is not None:
+        w = w * torch.as_tensor(sp.plan_mask(plan), device=w.device)
+    if lin.spec.bits is not None:
+        w = qz.fake_quantize(w, lin.spec.bits)
+    if spec.kernel == "conv1d":
+        return kconv.conv1d_ref(x, w.reshape(d["fw"], d["ic"], d["oc"]))
+    return kconv.conv2d_ref(x, w.reshape(d["fw"], d["fh"], d["ic"],
+                                         d["oc"]))
+
+
+def phase_grid(torch):
+    """Phase 22: `repro_torch.figures.run.run(quick=True)` as users run it
+    (`python -m repro_torch.figures.run --quick`): every timed point held
+    to its plain version inside, the four GEMM wrappers each launched; then
+    the grid of every Table II kernel at GRID_SPARSITIES x GRID_BITS
+    (`figures.common.point`: one launch of the wrapper its buffers select,
+    held to the plain version, device and plain ms, the bound), conv points
+    also against F.conv. The phase's launches are every launch of both
+    parts, timed ones included. Prints each point, each kernel family's ms
+    against its bound, and the wall s."""
+    from repro_torch.core import bench_specs as BS
+    from repro_torch.figures import common
+    from repro_torch.figures import run as figures_run
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    figures = figures_run.run(quick=True, device="cuda")
+    torch.cuda.synchronize()
+    fig_counts = ops.launch_counts()
+    fig_s = time.perf_counter() - t0
+    print(f"  figures.run --quick: {fig_s:.1f} s, launches "
+          f"{ {k: fig_counts[k] for k in GRID_KERNELS} }", flush=True)
+    for k in GRID_KERNELS:
+        assert fig_counts[k] > 0, (k, fig_counts)
+    t1 = time.perf_counter()
+    points, families = [], {}
+    for base in BS.TABLE_II:
+        line = []
+        for s in GRID_SPARSITIES:
+            for b in GRID_BITS:
+                spec = dataclasses.replace(base, sparsity=s, bits=b)
+                pt = common.point(spec, "cuda", plain_ms=True)
+                rec = {k: pt[k] for k in ("macs", "bytes", "kernel",
+                                          "format", "device_ms", "bound_ms",
+                                          "bound_by", "plain_ms",
+                                          "max_abs_err")}
+                rec.update(name=base.name, sparsity=s, bits=b)
+                if spec.kernel.startswith("conv"):
+                    y = pt["fn"](pt["packed"], pt["x"])
+                    want = conv_oracle(torch, spec, pt["params"],
+                                       pt["packed"]["w"], pt["x"])
+                    err = (y - want).abs()
+                    assert bool((err <= CONV_TOL + CONV_TOL
+                                 * want.abs()).all()), (base.name, s, b)
+                    rec["conv_err"] = err.max().item()
+                points.append(rec)
+                families.setdefault(pt["kernel"], []).append(rec)
+                line.append(f"{'w' + str(b) if b else 'f32'} {pt['kernel']} "
+                            f"{pt['format']} {pt['device_ms']:.4f} ms "
+                            f"(bound {pt['bound_ms']:.2e}, plain "
+                            f"{pt['plain_ms']:.4f})")
+            print(f"  {base.name} s{s:g}: " + " | ".join(line[-3:]),
+                  flush=True)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t1
+    summary = {}
+    for fam, recs in sorted(families.items()):
+        ms = [r["device_ms"] for r in recs]
+        bound = [r["bound_ms"] for r in recs]
+        ratio = statistics.median(m / b for m, b in zip(ms, bound))
+        summary[fam] = dict(points=len(recs), ms_min=min(ms), ms_max=max(ms),
+                            ms_median=statistics.median(ms),
+                            bound_min=min(bound), bound_max=max(bound),
+                            median_ms_over_bound=ratio)
+        print(f"  {fam}: {len(recs)} points, device ms {min(ms):.4f}-"
+              f"{max(ms):.4f} (median {statistics.median(ms):.4f}), bound "
+              f"{min(bound):.2e}-{max(bound):.2e} ms, median ms / bound "
+              f"{ratio:.0f}", flush=True)
+    wall = time.perf_counter() - t0
+    print(f"  phase 22: {wall:.1f} s (figures {fig_s:.1f} s, grid "
+          f"{grid_s:.1f} s, {len(points)} points)", flush=True)
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    print(f"  phase 22 launches (figures and grid): {launches}", flush=True)
+    fig_rows = {k: v["csv"] for k, v in figures.items()}
+    return launches, dict(figures=fig_rows, points=points, families=summary,
+                          figures_launches={k: v for k, v in
+                                            fig_counts.items() if v},
+                          best_grain=figures["table3"]["best_grain"],
+                          device_TMACs=figures["fig7"]["device_TMACs"],
+                          figures_s=fig_s, grid_s=grid_s, seconds=wall)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
     t_main = time.perf_counter()
     marks = {}
@@ -5064,6 +5207,11 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    mark(22)
+    print("[22] the paper's grid: figures.run --quick in process; every "
+          "Table II kernel at s 0 / 0.5 / 0.9 x bits None / 8 / 4 on the "
+          "hand-written kernels", flush=True)
+    grid_launches, grid = phase_grid(torch)
     mark(7)
     print("[7] prefix and conversation reuse, nemotron-4-340b full width, "
           "1 layer", flush=True)
@@ -5074,7 +5222,7 @@ def main() -> int:
           "full width, 2 layers", flush=True)
     parity_launches = phase_parity(torch, FALCON, 64, 128)
     assert parity_launches["ssm_scan"] == 2 * 2, parity_launches
-    print(f"  {FALCON} full width and depth", flush=True)
+    print(f"  {FALCON} full width, {FALCON_LAYERS} layers", flush=True)
     mamba_launches, mamba = phase_mamba_serving(torch, card)
     mark(9)
     print("[9] speculative self-draft decode: h2o-danube-1.8b (slab, paged) "
@@ -5158,7 +5306,7 @@ def main() -> int:
                  moe_launches, jamba_launches, llava_launches,
                  whisper_launches, trace_launches, router_launches,
                  surface_launches, legacy_spec_launches, fleet_launches,
-                 train_launches):
+                 train_launches, grid_launches):
         for name, c in more.items():
             launches[name] += c
 
@@ -5174,6 +5322,11 @@ def main() -> int:
             max_abs_err=max(c["max_abs_err"] for c in mine),
             ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
             bound_by=h["bound_by"], library_ms=h["library_ms"]))
+    parts = {k: dict(seconds=PART_S[k], calls=PART_N[k])
+             for k in sorted(PART_S)}
+    print("time by part, summed over the phases: " + "; ".join(
+        f"{k} {v['seconds']:.1f} s in {v['calls']} calls"
+        for k, v in parts.items()), flush=True)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
@@ -5186,7 +5339,8 @@ def main() -> int:
          "whisper": whisper, "resilience": resilience,
          "tracing": tracing, "router": router, "surface": surface,
          "legacy_spec": legacy_spec, "fleet": fleet, "train": train,
-         "phase_start_s": marks},
+         "paper_grid": grid,
+         "phase_start_s": marks, "time_by_part": parts},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -190,25 +190,64 @@ def pack_linear(params: Dict[str, torch.Tensor],
                         indices=indices)
 
 
-def apply_packed(p: PackedLinear, x: torch.Tensor) -> torch.Tensor:
-    """Inference-time projection on packed buffers: (..., n_in) ->
-    (..., n_out); the kernel is keyed on which buffers `pack()` produced."""
-    lead = x.shape[:-1]
-    xm = x.reshape(-1, p.n_in)
+def packed_kernel(p: PackedLinear) -> str:
+    """The kernel `apply_packed` launches for p, keyed on which buffers
+    `pack()` produced (the table in the module docstring)."""
     b = p.buffers
     if "w" in b:
-        y = ops.matmul(xm, b["w"].to(x.dtype))
-    elif "qt" in b:
+        return "dense_matmul"
+    if "qt" in b:
         if p.spec.act_bits == 8 and b["qt"].bits == 8:
-            y = ops.quant_matmul_w8a8(xm, b["qt"])
-        else:
-            y = ops.quant_matmul(xm, b["qt"])
-    elif "blocks" in b:
-        y = ops.bsr_matmul(xm, b["blocks"].to(x.dtype), p.indices)
-    else:
-        y = ops.bsr_quant_matmul(xm, b["qblocks"], b["qscale"], p.indices,
-                                 p.spec.bits)
-    return y.reshape(*lead, p.n_out)
+            return "quant_matmul_w8a8"
+        return "quant_matmul"
+    return "bsr_matmul" if "blocks" in b else "bsr_quant_matmul"
+
+
+def _dense_args(p, x):
+    return x, p.buffers["w"].to(x.dtype)
+
+
+def _qt_args(p, x):
+    return x, p.buffers["qt"]
+
+
+def _bsr_args(p, x):
+    return x, p.buffers["blocks"].to(x.dtype), p.indices
+
+
+def _bsr_quant_args(p, x):
+    b = p.buffers
+    return x, b["qblocks"], b["qscale"], p.indices, p.spec.bits
+
+
+# each kernel `packed_kernel` names: its wrapper, the wrapper's plain
+# version and their common arguments for (p, x (m, n_in))
+PACKED_KERNELS = {
+    "dense_matmul": (ops.matmul, ref.dense_matmul_ref, _dense_args),
+    "quant_matmul": (ops.quant_matmul, ref.quant_matmul_ref, _qt_args),
+    "quant_matmul_w8a8": (ops.quant_matmul_w8a8, ref.quant_matmul_w8a8_ref,
+                          _qt_args),
+    "bsr_matmul": (ops.bsr_matmul, ref.bsr_matmul_ref, _bsr_args),
+    "bsr_quant_matmul": (ops.bsr_quant_matmul, ref.bsr_quant_matmul_ref,
+                         _bsr_quant_args)}
+
+
+def _run_packed(p: PackedLinear, x: torch.Tensor, plain: bool):
+    wrapper, plain_fn, args = PACKED_KERNELS[packed_kernel(p)]
+    y = (plain_fn if plain else wrapper)(*args(p, x.reshape(-1, p.n_in)))
+    return y.reshape(*x.shape[:-1], p.n_out)
+
+
+def apply_packed(p: PackedLinear, x: torch.Tensor) -> torch.Tensor:
+    """Inference-time projection on packed buffers: (..., n_in) ->
+    (..., n_out) through the kernel `packed_kernel` names."""
+    return _run_packed(p, x, plain=False)
+
+
+def plain_packed(p: PackedLinear, x: torch.Tensor) -> torch.Tensor:
+    """The plain version of the kernel `apply_packed` launches for p, on
+    the same buffers: the yardstick its kernel is held to."""
+    return _run_packed(p, x, plain=True)
 
 
 @dataclasses.dataclass

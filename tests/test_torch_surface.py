@@ -8,7 +8,10 @@ and traffic, and `repro_torch.serve.__all__` against `repro.serve.__all__`
 (every name the port lacks mapped to the ROADMAP.md item that ports it),
 as `repro.train.__all__` and the public names of `repro.optim`,
 `repro.data`, `repro.checkpoint`, their modules and
-`repro.distributed.compression` against the port's."""
+`repro.distributed.compression` against the port's, and the paper
+benchmarks' modules (`repro.core.conv`, `repro.core.bench_specs`,
+`repro.analysis.roofline`, `repro.launch.mesh`) the same way, every
+module or name the port lacks or refuses mapped to its item."""
 
 import importlib
 import inspect
@@ -225,3 +228,52 @@ def test_train_exports_cover_the_reference(name):
             importlib.import_module(name).__all__
     for n in _public(port):
         assert hasattr(importlib.import_module(port), n), n
+
+
+# the paper benchmarks' modules, covered name for name
+BENCH_MODULES = ("repro.core.conv", "repro.core.bench_specs", "repro.analysis",
+                 "repro.analysis.roofline", "repro.launch.mesh")
+# modules of the JAX package the port has no counterpart of -> ROADMAP.md
+# item (`repro_torch.analysis.cost` stands in for the HLO analysis in the
+# figures; the dry-run reads it)
+UNPORTED_BENCH_MODULES = {
+    "repro.analysis.hlo": "item 11 (multi-device): the dry-run's XLA HLO "
+                          "analysis",
+    "repro.launch.dryrun": "item 11 (multi-device)",
+    "repro.launch.dryrun_all": "item 11 (multi-device)",
+    "repro.launch.shapes": "item 11 (multi-device)"}
+# names the port has that refuse with NotImplementedError naming the item
+REFUSED_BENCH = {f"repro.launch.mesh.{n}": "item 11" for n in (
+    "make_production_mesh", "make_local_mesh", "parse_mesh_arg",
+    "replica_meshes", "process_meshes", "fleet_topology",
+    "plan_fleet_topology")}
+
+
+@needs_jax
+@pytest.mark.parametrize("name", BENCH_MODULES)
+def test_bench_exports_cover_the_reference(name):
+    """Every public name of the JAX package's benchmark modules exists in
+    the port's module of the same path; the listed ones refuse, naming
+    their ROADMAP.md item."""
+    port = "repro_torch" + name[len("repro"):]
+    assert _public(name) - _public(port) == set()
+    mod = importlib.import_module(port)
+    for full, item in REFUSED_BENCH.items():
+        if full.rsplit(".", 1)[0] != name:
+            continue
+        fn = getattr(mod, full.rsplit(".", 1)[1])
+        required = [p for p in inspect.signature(fn).parameters.values()
+                    if p.default is p.empty and p.kind in
+                    (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+        with pytest.raises(NotImplementedError, match=item):
+            fn(*[1] * len(required))
+
+
+@needs_jax
+@pytest.mark.parametrize("name", sorted(UNPORTED_BENCH_MODULES))
+def test_unported_bench_modules_name_their_item(name):
+    import importlib.util
+    assert importlib.util.find_spec(name) is not None
+    assert importlib.util.find_spec("repro_torch" + name[len("repro"):]) \
+        is None
+    assert UNPORTED_BENCH_MODULES[name].startswith("item ")
