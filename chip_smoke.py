@@ -98,10 +98,10 @@ Phases, in order; any failure raises and exits non-zero:
      package). Every run's tokens equal the eager step's;
  12. mixture-of-experts: deepseek-moe-16b, card-vs-CPU parity at 2 layers
      (the dense prelude layer and one MoE layer); then full width, depth
-     cut from 28 to 8 layers (1 dense + 7 MoE, 18.5 GB in f32): phase 5's
+     cut from 28 to 4 layers (1 dense + 3 MoE): phase 5's
      traffic from the slab, dense (the routed experts a batched plain
      product, as the JAX package's einsum) and s0.5-w8 (the routed experts
-     on bsr_matmul_experts over fake-quant float blocks: 21 launches a
+     on bsr_matmul_experts over fake-quant float blocks: 9 launches a
      micro-step), with decode device ms split, from each traced dispatch,
      into the routed experts' GEMM kernels (found by name and grid in a
      trace of one layer's expert FFN), the port's other GEMMs and the
@@ -141,13 +141,14 @@ Phases, in order; any failure raises and exits non-zero:
  15. the encoder-decoder: whisper-large-v3, card-vs-CPU parity at full
      width with 2 encoder and 2 decoder layers over the audio stub's 1500
      frames (encoder output and logits; each prefill launches flash 2
-     times non-causal and 2 times causal); then full width and depth (32 +
-     32 layers, 6.1 GB in f32): 16 requests, each with the frames of a
+     times non-causal and 2 times causal); then full width, the encoder's
+     32 layers and the decoder's cut from 32 to WHISPER_LAYERS (8): 16
+     requests, each with the frames of a
      seeded 30 s waveform at 16 kHz (whisper_frames) and a 4-224-token
      prompt, 32 new tokens, n_slots 8, max_len 448 (Whisper's n_text_ctx):
      dense and s0.5-w8 from the slab, dense from the page pool (the cross
-     k/v resident). Flash runs 64 times an admission (the encoder's 32
-     over 1500 frames, the decoder's 32); the cross-attention of one
+     k/v resident). Flash runs 40 times an admission (the encoder's 32
+     over 1500 frames, the decoder's 8); the cross-attention of one
      decode micro-step is traced alone (its projection GEMMs and the
      einsums over the 1500 keys), and an admission's wall ms is split
      into the encoder, the cross k/v projections and the decoder's
@@ -156,13 +157,13 @@ Phases, in order; any failure raises and exits non-zero:
      each cell on its phase's dense-slab artifact (loaded with the cell's
      draft; the load's peak is reported with the draft named) and the
      phase's first requests (one wave of 8), greedy, run right after that
-     phase's dense-slab run: 16a deepseek-moe-16b (8 layers, s0.5 x int8
+     phase's dense-slab run: 16a deepseek-moe-16b (4 layers, s0.5 x int8
      draft: its routed experts on bsr_matmul_experts, the rest on
      bsr_quant_matmul and quant_matmul; K 4; slab and paged), 16b
      jamba-v0.1-52b (8 layers, w8 draft sharing the target's raw expert
      stacks; K 2; K+1 single-token verify steps), 16c llava-next-mistral-7b
      (8 layers, 2880 image rows a request, s0.5 x int8 draft, K 4), 16d
-     whisper-large-v3 (32 + 32 layers, 1500 frames through each model's
+     whisper-large-v3 (32 + 8 layers, 1500 frames through each model's
      encoder, s0.5 x int8 draft, K 4; slab and paged). Graph tokens equal
      the eager step's, paged tokens the slab's, speculative tokens plain
      decode's (near-tie rule; for an MoE arch with the capacity widened to
@@ -279,6 +280,21 @@ Phases, in order; any failure raises and exits non-zero:
      kernel form, packed format, device ms, bound ms and plain ms, each
      kernel family's ms against its bound, and the phase's wall seconds.
      The phase's launches are every launch of both parts, timed ones too.
+ 23. the examples, right after phase 21 (before phase 22): each
+     `examples_torch/*.py` loaded by path and its `main` run in process
+     with `--device cuda`, so each example's own assertions run on the
+     card (the loss falls; the resumed loss equals the reference's bit for
+     bit, under torch.use_deterministic_algorithms; slab and paged, plain
+     and speculative tokens identical; every routed request completes; the
+     spans reconcile with ServeMetrics). serve_traced and serve_router run
+     with `--full` on phase 6's dense h2o-danube tree (full width and
+     depth, packed s0.5-w8 on 8 x 8 blocks), the other six at their own
+     smoke sizes, sparsity_sweep at SWEEP_STEPS of its 120 steps. Each
+     example's wall seconds, key outcome and launches by kernel: every
+     serving example launches the kernels EXAMPLES names for it, the
+     training examples none. Each example's output goes to
+     chiprun_out/examples/<name>.log, serve_traced's exports under
+     chiprun_out/traced_torch/.
 Phase 5 also holds the host-loop cell ([5h]): h2o-danube dense served by
 the host decode loop (device_loop=False, one graphed (B, 1) forward a step,
 logits to the host) and by the device loop, whole runs in alternating
@@ -300,9 +316,12 @@ chiprun_out/chip_smoke.json. Without a CUDA device it exits 2.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import gc
+import importlib.util
+import io
 import json
 import os
 import statistics
@@ -419,7 +438,8 @@ GEMMA, MINICPM = "gemma2-27b", "minicpm3-4b"
 GEMMA_LAYERS = 4                       # of 46 (phase 10's depth cut)
 MINICPM_LAYERS = 4                     # of 62 (phase 11's depth cut)
 DEEPSEEK, LITE = "deepseek-moe-16b", "deepseek-v2-lite-16b"
-DEEPSEEK_LAYERS = 8                    # of 28: 1 dense + 7 MoE (phase 12)
+DEEPSEEK_LAYERS = 4                    # of 28: 1 dense + 3 MoE (phase 12;
+#                                        8 until phase 23 took the time)
 LITE_LAYERS = 4                        # of 27: 1 dense + 3 MoE (phase 12)
 # deepseek's routed projections (n_in, n_out) and the expert rows C of a
 # decode micro-step at 8 slots and of a 512-token prefill
@@ -443,8 +463,11 @@ LLAVA_LAYERS = 8
 # phase 15: whisper-large-v3's 1500 encoder frames (30 s at 50 a second),
 # its published decoder context n_text_ctx (448; the config does not carry
 # it) as max_len and its prompt limit n_text_ctx // 2; each request's
-# frames come from a 30 s waveform at 16 kHz
+# frames come from a 30 s waveform at 16 kHz. The decoder's depth is cut
+# from 32 to 8 layers for the time limit (phase 23 took the time it
+# saves); the encoder keeps its 32 (every admission's 1500-frame encode)
 WHISPER = "whisper-large-v3"
+WHISPER_LAYERS = 8
 WHISPER_FRAMES, WHISPER_MAX_LEN, WHISPER_PROMPT = 1500, 448, 224
 WHISPER_SAMPLES = 30 * 16000
 GEMMA_SCALE = (4608 / 32) ** -0.5      # gemma2's query scale, 1/12
@@ -2019,6 +2042,7 @@ def phase_prefix_reuse(torch, card, arch="nemotron-4-340b", n_layers=1):
 
 FALCON = "falcon-mamba-7b"
 FALCON_LAYERS = 32                     # of 64 (phase 8's depth cut)
+SPEC_FALCON_LAYERS = 16                # of 64 (phase 9's depth cut)
 
 
 def phase_mamba_serving(torch, card):
@@ -2301,7 +2325,7 @@ def phase_speculative(torch, card):
 
     cells = ((DANUBE, 8, DraftSpec(bits=8, sparsity=0.5), 4, (None, 16),
               {"dense_matmul", "bsr_quant_matmul"}),
-             (FALCON, 16, DraftSpec(bits=8), 2, (None,),
+             (FALCON, SPEC_FALCON_LAYERS, DraftSpec(bits=8), 2, (None,),
               {"dense_matmul", "quant_matmul"}))
     totals = {name: 0 for name in ops.KERNELS}
     results, kept = {}, None
@@ -3425,12 +3449,12 @@ def split_moe_step(torch, model, res, n_moe, per_fwd, mamba):
 def phase_moe(torch, card, mark):
     """deepseek-moe-16b at its published width (d_model 2048, 16 heads of
     128, 64 routed experts of d_ff 1408, top 6, 2 shared, the dense prelude
-    layer of d_ff 10944, vocab 102400 untied), depth cut from 28 to 8
-    layers (28 layers are 65.5 GB in f32: no room for a second packed copy
-    or the KV pool, nor time in the script's limit), random f32 weights
-    from the seed, phase 5's traffic in its vocab: dense and s0.5-w8 from
-    the slab, dense from the page pool without prefix reuse, and phase 7's
-    prefix traffic. Prompts prefill at exact length (pad tokens would take
+    layer of d_ff 10944, vocab 102400 untied), depth cut from 28 to
+    DEEPSEEK_LAYERS (28 layers are 65.5 GB in f32: no room for a second
+    packed copy or the KV pool, nor time in the script's limit), random
+    f32 weights from the seed, phase 5's traffic in its vocab: dense and
+    s0.5-w8 from the slab, dense from the page pool without prefix reuse,
+    and phase 7's prefix traffic. Prompts prefill at exact length (pad tokens would take
     expert capacity). Then deepseek-v2-lite-16b (MLA + MoE), depth cut
     from 27 to 4 layers, dense from the slab."""
     from repro_torch import configs as C
@@ -3864,16 +3888,17 @@ def admission_split(torch, eng, batch):
 
 
 def phase_whisper(torch, card, mark):
-    """whisper-large-v3 at its published width and depth (32 encoder and
-    32 decoder layers, d_model 1280, 20/20 heads of 64, d_ff 5120 GELU
-    not gated, vocab 51866 tied, LayerNorm, sinusoidal positions; 6.1 GB
-    in f32), random f32 weights from the seed: 16 requests, each with the
+    """whisper-large-v3 at its published width (32 encoder layers, the
+    decoder's 32 cut to WHISPER_LAYERS; d_model 1280, 20/20 heads of 64,
+    d_ff 5120 GELU not gated, vocab 51866 tied, LayerNorm, sinusoidal
+    positions; 6.1 GB in f32 at full depth), random f32 weights from the
+    seed: 16 requests, each with the
     audio stub's 1500 frames of a 30 s waveform and a 4-224-token prompt,
     32 new tokens, n_slots 8, max_len 448 (Whisper's n_text_ctx): dense and
     s0.5-w8 from the slab, dense from the page pool (the decoder's k/v
     paged, the cross k/v resident). Every admission runs the encoder (32
     non-causal flash launches over 1500 frames) and prefills at exact
-    length (32 causal ones); decode reads the cross leaves through the
+    length (one causal launch a decoder layer); decode reads the cross leaves through the
     plain products, as the JAX package does."""
     from repro_torch import configs as C
     from repro_torch.core import kratos as kr
@@ -3881,11 +3906,12 @@ def phase_whisper(torch, card, mark):
     from repro_torch.models import transformer as T
     from repro_torch.serve import EngineConfig
 
-    cfg = C.get_config(WHISPER)
+    cfg = C.get_config(WHISPER, n_layers=WHISPER_LAYERS)
     t0 = time.perf_counter()
     params = T.init(cfg, seed=SEED, device="cuda")
     torch.cuda.synchronize()
-    print(f"  init {WHISPER} full width and depth (f32): "
+    print(f"  init {WHISPER} full width, {cfg.n_enc_layers} + {cfg.n_layers}"
+          " layers (f32): "
           f"{time.perf_counter() - t0:.1f} s, memory_allocated "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
     prompts, extras = whisper_traffic(cfg)
@@ -5009,6 +5035,118 @@ def phase_train(torch, card, params):
     return counts, out
 
 
+# phase 23: the examples. Each name, the arguments its main takes after
+# --device cuda (--full: h2o-danube-1.8b at its published width and depth,
+# on phase 6's dense tree), and the kernels its run must launch (training
+# runs on the reference path: none)
+SWEEP_STEPS = 5                        # of sparsity_sweep's 120, for time
+EXAMPLES = {
+    "quickstart": ((), ()),
+    "sparsity_sweep": (("--steps", str(SWEEP_STEPS)), ()),
+    "train_resume": ((), ()),
+    "serve_batched": ((), ("bsr_quant_matmul", "bsr_matmul_experts",
+                           "ssm_scan", "flash_attention")),
+    "serve_prefix": ((), ("dense_matmul", "flash_attention",
+                          "paged_flash_attention")),
+    "serve_speculative": ((), ("dense_matmul", "quant_matmul",
+                               "flash_attention")),
+    "serve_router": (("--full",), ("bsr_quant_matmul", "flash_attention")),
+    "serve_traced": (("--full", "--out-dir",
+                      str(ROOT / "chiprun_out" / "traced_torch")),
+                     ("bsr_quant_matmul", "flash_attention")),
+}
+
+
+def load_example(name):
+    """A fresh module of examples_torch/<name>.py."""
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_outcome(name, out):
+    """The one line of an example's result phase 23 prints."""
+    if name == "quickstart":
+        return f"loss {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}"
+    if name == "sparsity_sweep":
+        return "; ".join(f"s{r['sparsity']} b{r['bits'] or 32} loss "
+                         f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}"
+                         for r in out["rows"])
+    if name == "train_resume":
+        return (f"resumed from {out['resumed_from']}, final loss "
+                f"{out['resumed_losses'][-1]!r} against the reference's "
+                f"{out['reference_losses'][-1]!r}")
+    if name == "serve_batched":
+        return "; ".join(f"{a}: {r['report']['tokens_per_step']:.2f} tok/step"
+                         f", {r['seconds']:.2f} s" for a, r in out.items())
+    if name == "serve_prefix":
+        rep = out["report"]
+        return (f"hit rate {rep['prefix_hit_rate']:.2f}, skip fraction "
+                f"{rep['prefill_skip_fraction']:.3f}, admitted tok/s paged "
+                f"{out['paged_tps']:.1f} against slab {out['slab_tps']:.1f}")
+    if name == "serve_speculative":
+        spec, plain = out["spec_report"], out["plain_report"]
+        return (f"acceptance {spec['acceptance_rate']:.3f}, tok/dispatch "
+                f"{spec['tokens_per_dispatch']:.2f} against plain "
+                f"{plain['tokens_per_dispatch']:.2f}")
+    if name == "serve_router":
+        rep = out["report"]
+        return (f"{rep['tokens_per_router_step']:.2f} tok/router-step, "
+                f"spills {rep['spills']:.0f}, rejected {rep['rejected']:.0f}, "
+                f"tokens per replica {out['per_replica']}")
+    rep = out["report"]
+    return (f"{rep['tokens_per_step']:.2f} tok/step, {rep['tok_per_s']:.1f} "
+            f"tok/s, {out['n_events']} trace events")
+
+
+def phase_examples(torch, params):
+    """23 (see the docstring at the top): every example's main in process
+    on the card, its printed output kept under chiprun_out/examples/."""
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    logs = ROOT / "chiprun_out" / "examples"
+    logs.mkdir(parents=True, exist_ok=True)
+    totals = {name: 0 for name in ops.KERNELS}
+    out = {}
+    for name, (argv, kernels) in EXAMPLES.items():
+        ex = load_example(name)
+        kw = {"params": params} if "--full" in argv else {}
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                res = ex.main(["--device", "cuda", *argv], **kw)
+        finally:
+            (logs / f"{name}.log").write_text(buf.getvalue())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        add_counts(totals, counts)
+        last = buf.getvalue().strip().splitlines()[-1]
+        outcome = example_outcome(name, res)
+        flags = " ".join(a for a in argv if "/" not in a)
+        print(f"  [23] {name} {flags}: {secs:.1f} s; "
+              f"{outcome}; launches {counts}; last line: {last}",
+              flush=True)
+        missing = [k for k in kernels if not counts.get(k)]
+        assert not missing, (name, missing, counts)
+        if not kernels:
+            assert not counts, (name, counts)
+        out[name] = dict(seconds=secs, launches=counts, outcome=outcome,
+                         argv=list(argv), last_line=last)
+        del res, ex
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 23: {out['seconds']:.1f} s", flush=True)
+    return totals, out
+
+
 # phase 22: the paper's grid. figures.run --quick in process, then every
 # Table II kernel packed at these sparsities x weight widths and run on the
 # hand-written kernels, each point held to the plain version of its packed
@@ -5204,6 +5342,13 @@ def main() -> int:
           "s0.5-w8: grad_accum, pruned blocks, crash and resume, the "
           "hand-off to serving (21b)", flush=True)
     train_launches, train = phase_train(torch, card, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark(23)
+    print(f"[23] the examples: examples_torch/*.py, main in process; "
+          f"serve_traced and serve_router on {DANUBE} full width and depth, "
+          "the other six at their own sizes", flush=True)
+    example_launches, examples = phase_examples(torch, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5296,7 +5441,8 @@ def main() -> int:
     llava_launches, llava = phase_llava(torch, card, mark)
     mark(15)
     print(f"[15] the encoder-decoder, {WHISPER}: card vs CPU at full width, 2 "
-          "encoder and 2 decoder layers; then full width and depth, 1500 "
+          f"encoder and 2 decoder layers; then full width, 32 encoder and "
+          f"{WHISPER_LAYERS} decoder layers, 1500 "
           "frames a request", flush=True)
     parity_launches = phase_parity(torch, WHISPER, 48, 128, n_enc_layers=2)
     assert parity_launches["flash_attention"] == 2 * (2 + 2), parity_launches
@@ -5306,7 +5452,7 @@ def main() -> int:
                  moe_launches, jamba_launches, llava_launches,
                  whisper_launches, trace_launches, router_launches,
                  surface_launches, legacy_spec_launches, fleet_launches,
-                 train_launches, grid_launches):
+                 train_launches, grid_launches, example_launches):
         for name, c in more.items():
             launches[name] += c
 
@@ -5339,7 +5485,7 @@ def main() -> int:
          "whisper": whisper, "resilience": resilience,
          "tracing": tracing, "router": router, "surface": surface,
          "legacy_spec": legacy_spec, "fleet": fleet, "train": train,
-         "paper_grid": grid,
+         "paper_grid": grid, "examples": examples,
          "phase_start_s": marks, "time_by_part": parts},
         indent=1))
     print(json.dumps({"kernels": kernels}))

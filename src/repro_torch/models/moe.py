@@ -3,7 +3,8 @@
 
 Routing is the reference's grouped sort: tokens route in groups (one per
 batch row for a sequence, one global group of all B rows for a decode step,
-S == 1), and within a group: softmax gates -> top-k -> renormalize ->
+S == 1), and within a group: softmax gates -> top-k -> renormalize
+(unless `router_norm_topk` is off) ->
 stable sort of the (token, k) assignments by expert -> each expert takes
 its contiguous run up to the capacity C = capacity(cfg, group tokens);
 overflow assignments drop (the residual passes through). Every row of a
@@ -50,6 +51,7 @@ class MoEConfig:
     d_ff_expert: int
     n_shared: int = 0
     capacity_factor: float = 1.25
+    router_norm_topk: bool = True       # normalize top-k weights (deepseek)
     aux_loss_coef: float = 0.001
     activation: str = "silu"
 
@@ -117,7 +119,8 @@ def _route(xg: torch.Tensor, router_w: torch.Tensor, cfg: MoEConfig,
     logits = torch.matmul(xg.float(), router_w.float())          # (G, T, E)
     gates = torch.softmax(logits, dim=-1)
     top_w, top_e = torch.topk(gates, k, dim=-1)                   # (G, T, k)
-    top_w = top_w / (torch.sum(top_w, dim=-1, keepdim=True) + 1e-9)
+    if cfg.router_norm_topk:
+        top_w = top_w / (torch.sum(top_w, dim=-1, keepdim=True) + 1e-9)
     flat_e = top_e.reshape(g, t * k)
     flat_w = top_w.reshape(g, t * k)
     sorted_e, order = torch.sort(flat_e, dim=-1, stable=True)
@@ -211,7 +214,8 @@ def moe_ref(params: Dict, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     gates = torch.softmax(torch.matmul(xf.float(),
                                        params["router"]["w"].float()), -1)
     top_w, top_e = torch.topk(gates, cfg.top_k, dim=-1)
-    top_w = top_w / (torch.sum(top_w, dim=-1, keepdim=True) + 1e-9)
+    if cfg.router_norm_topk:
+        top_w = top_w / (torch.sum(top_w, dim=-1, keepdim=True) + 1e-9)
     act = L.ACTIVATIONS[cfg.activation]
     outs = torch.stack([
         (act(xf @ params["w_gate"][i].to(x.dtype))

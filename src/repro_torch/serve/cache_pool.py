@@ -67,3 +67,8 @@ class CachePool:
         for row, one in zip(self.caches, single):
             for name, t in row.items():
                 t[slot].copy_(one[name][0])
+
+    def bytes(self) -> int:
+        """Bytes of the slab: every cache tensor of every layer."""
+        return sum(t.numel() * t.element_size()
+                   for row in self.caches for t in row.values())

@@ -7,12 +7,14 @@ same report keys; `aggregate` pools replicas for serve.router, and
 process boundary for serve.control).
 
 Two clocks: wall seconds (time.perf_counter, monotonic) and engine steps
-(one slab decode micro-step per step). `decode_steps` counts DISPATCHES (K
-micro-steps each); `host_syncs` counts host<->device crossings by kind —
-the fused decode loop costs exactly one per dispatch (the (K, B) token
-block), prefill one per admission (the first token), and the quality
-probe two per probed admission under its own kind, so `host_syncs_decode`
-stays the dispatch count.
+(one slab decode micro-step per step); a request's `submit_time`
+(time.time) is a log anchor only, which no interval subtracts.
+`decode_steps` counts DISPATCHES (K micro-steps each); `host_syncs`
+counts host<->device crossings by kind — the fused decode loop costs
+exactly one per dispatch (the (K, B) token block), prefill one per
+admission (the first token), and the quality probe two per probed
+admission under its own kind, so `host_syncs_decode` stays the dispatch
+count.
 """
 
 from __future__ import annotations
@@ -54,9 +56,11 @@ class RequestRecord:
     finish_step: int = -1
     n_prompt: int = 0
     n_generated: int = 0
-    submit_mono: float = 0.0        # perf_counter at submit
+    submit_time: float = 0.0        # wall clock (time.time), for logs
+    #                                 only: never subtracted
     first_token_time: float = 0.0
     finish_time: float = 0.0
+    submit_mono: float = 0.0        # perf_counter at submit
 
 
 class ServeMetrics:
@@ -123,7 +127,8 @@ class ServeMetrics:
     def on_submit(self, request_id: int, arrival_step: int, n_prompt: int) -> None:
         self.records[request_id] = RequestRecord(
             request_id=request_id, arrival_step=arrival_step,
-            n_prompt=n_prompt, submit_mono=time.perf_counter())
+            n_prompt=n_prompt, submit_time=time.time(),
+            submit_mono=time.perf_counter())
 
     def on_start(self, request_id: int, step: int) -> None:
         self.records[request_id].start_step = step

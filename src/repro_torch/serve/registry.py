@@ -263,3 +263,6 @@ class ModelRegistry:
         if name not in self._by_name:
             raise KeyError(f"no model '{name}'; loaded: {sorted(self._by_name)}")
         return self._by_name[name]
+
+    def names(self):
+        return sorted(self._by_name)

@@ -120,7 +120,9 @@ def test_greedy_tokens_match_jax_engine(name, k, tmp_path, monkeypatch):
 def test_port_imports_no_jax_and_nothing_of_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 20
+    examples = sorted((ROOT / "examples_torch").glob("*.py"))
+    assert len(files) > 20 and len(examples) == 8
+    files += examples
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
             if isinstance(node, ast.Import):
@@ -131,7 +133,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                 continue
             for n in names:
                 top = n.split(".")[0]
-                assert top not in ("jax", "jaxlib", "repro"), (f, n)
+                assert top not in ("jax", "jaxlib", "repro", "examples"), \
+                    (f, n)
 
 
 def test_cuda_device_refused_without_gpu(monkeypatch):
