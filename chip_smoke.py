@@ -295,6 +295,22 @@ Phases, in order; any failure raises and exits non-zero:
      training examples none. Each example's output goes to
      chiprun_out/examples/<name>.log, serve_traced's exports under
      chiprun_out/traced_torch/.
+ 24. multi-device at one rank, inside phase 5, right after its dense and
+     s0.5-w8 runs, on those packed models (no new model): the process
+     joins a one-rank NCCL process group (`ensure_distributed` at
+     127.0.0.1 on a free port; one world all-reduce shows NCCL runs);
+     phase 5's first 4 requests through `ShardedBackend(mesh_shape=(1,
+     1))` on the slab and on pages (16) and through `DistributedBackend`:
+     greedy tokens equal phase 5's LocalBackend tokens, `describe()`
+     gives mesh_shape [1, 1], each run launches the spec's GEMM and flash
+     attention (and paged attention on pages), counts reset before each;
+     the sharded and the local graph wall ms a micro-step in alternating
+     turns, slots parked, on the card's name and power limit. After the
+     dense run: `pipeline_apply` against `pipeline_reference` on CUDA
+     tensors (one stage, d 2560), `cross_pod_psum_int8` against its
+     quantization, and a re-mesh restore of layer 0's attention weights
+     onto the card (saved through `CheckpointManager` under build/,
+     restored with `shardings=` as DTensors, bitwise).
 Phase 5 also holds the host-loop cell ([5h]): h2o-danube dense served by
 the host decode loop (device_loop=False, one graphed (B, 1) forward a step,
 logits to the host) and by the device loop, whole runs in alternating
@@ -1632,6 +1648,16 @@ def phase_serving(torch, card, params):
               f"non-GEMM {[round(v, 3) for v in other]}, device ops / "
               f"micro-step {n_ops}", flush=True)
         results[tag]["graph_vs_eager"] = print_ab(card, ab, k)
+        if tag in SHARDED_SPECS:
+            sharded_counts, results[tag]["sharded"] = sharded_cell(
+                torch, card, tag, model, ecfg, eng, specs[tag][1],
+                prompts[:SHARDED_REQUESTS],
+                [list(r.generated) for r in reqs[:SHARDED_REQUESTS]])
+            for name, c in sharded_counts.items():
+                totals[name] += c
+            if tag == "dense":
+                results["sharded_extras"] = sharded_extras(torch, card,
+                                                           params)
         if tag == "dense":
             results[tag]["eager_tokens_identical"] = eager_identity(
                 torch, model, ecfg, prompts, gen_len,
@@ -1648,6 +1674,160 @@ def phase_serving(torch, card, params):
         del eng, model
         gc.collect()
     return totals, results
+
+
+SHARDED_SPECS = ("dense", "s0.5-w8")
+SHARDED_REQUESTS = 4
+
+
+def join_one_rank_group(torch):
+    """Phase 24's process group: one NCCL rank, joined through the port's
+    `ensure_distributed` (a TCP rendezvous on a free local port); one
+    world all-reduce on the card shows NCCL runs."""
+    import torch.distributed as dist
+    from repro_torch.serve import ensure_distributed
+    if not dist.is_initialized():
+        ensure_distributed(f"127.0.0.1:{mesh.free_port()}", 1, 0)
+    x = torch.ones(4, device="cuda")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    assert dist.get_backend() == "nccl" and torch.equal(
+        x.cpu(), torch.ones(4)), (dist.get_backend(), x)
+
+
+def sharded_cell(torch, card, tag, model, ecfg, local_eng, gemm, prompts,
+                 want):
+    """Phase 24 on phase 5's `tag` artifact: phase 5's first requests
+    through ShardedBackend (slab, pages) and DistributedBackend at one
+    rank; the tokens must be phase 5's (`want`). Then the sharded and the
+    local (phase 5's engine) graph wall ms a micro-step in turns."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (DistributedBackend, InferenceEngine,
+                                   ShardedBackend)
+    t_cell = time.perf_counter()
+    join_one_rank_group(torch)
+    runs = {"slab": (lambda: ShardedBackend(mesh_shape=(1, 1)), None),
+            "paged": (lambda: ShardedBackend(mesh_shape=(1, 1)), 16),
+            "distributed": (lambda: DistributedBackend(mesh_shape=(1, 1)),
+                            None)}
+    totals = {name: 0 for name in ops.KERNELS}
+    out, engines = {}, {}
+    for name, (backend, page) in runs.items():
+        cfg = dataclasses.replace(ecfg, page_size=page)
+        eng = InferenceEngine(model, cfg, backend=backend())
+        assert eng.backend._graphs, "the sharded dispatch was not captured"
+        eng, reqs, wall, counts, _ = serve_traffic(torch, model, prompts,
+                                                   cfg, eng=eng)
+        add_counts(totals, counts)
+        toks = [list(r.generated) for r in reqs]
+        assert toks == want, (tag, name, toks, want)
+        assert counts[gemm] > 0 and counts["flash_attention"] > 0, counts
+        if page:
+            assert counts["paged_flash_attention"] > 0, counts
+        desc = eng.backend.describe()
+        assert desc["mesh_shape"] == [1, 1], desc
+        out[name] = dict(wall_s=wall, launches=counts, describe=desc)
+        if name == "slab":
+            engines["sharded"] = eng
+        else:
+            del eng
+    engines["local"] = local_eng
+    ms = timed_dispatches(torch, engines, CHUNK)
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    out["micro_step_ms"] = ms
+    out["seconds"] = time.perf_counter() - t_cell
+    print(f"  [24] {tag}: ShardedBackend(1, 1) slab and pages, "
+          f"DistributedBackend, {len(prompts)} requests: tokens equal "
+          f"phase 5's LocalBackend tokens; dispatches captured as CUDA graphs "
+          f"(no collective at one rank); graph wall ms / micro-step sharded "
+          f"{med['sharded']:.3f} local {med['local']:.3f} "
+          f"(turns {[round(v, 3) for v in ms['sharded']]} / "
+          f"{[round(v, 3) for v in ms['local']]}) [{card}]; launches slab "
+          f"{ {k: v for k, v in out['slab']['launches'].items() if v} }; "
+          f"{out['seconds']:.1f} s", flush=True)
+    del engines
+    gc.collect()
+    return totals, out
+
+
+def sharded_extras(torch, card, params):
+    """Phase 24's other checks at one rank on the card: the pipeline, the
+    int8 psum and a re-mesh restore."""
+    import shutil
+
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.compression import (_quant_int8,
+                                                     cross_pod_psum_int8)
+    from repro_torch.distributed.pipeline import (pipeline_apply,
+                                                  pipeline_reference)
+    from repro_torch.launch import mesh as M
+    t0 = time.perf_counter()
+    pod = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("pod",),
+                     _init_backend=False)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    d = 2560
+    ws = torch.randn((1, d, d), generator=gen, device="cuda") * d ** -0.5
+    x = torch.randn((4, 8, d), generator=gen, device="cuda")
+
+    def stage(w, h):
+        return torch.tanh(h @ w)
+    got = pipeline_apply(ws, x, stage, pod)
+    want = pipeline_reference(ws, x, stage)
+    pipe_err = float((got - want).abs().max())
+    assert pipe_err <= 1e-5, pipe_err
+    v = torch.randn((2560, 2560), generator=gen, device="cuda")
+    q, scale = _quant_int8(v)
+    psum = cross_pod_psum_int8(v, pod)
+    assert torch.equal(psum, q.float() * scale)
+    psum_err = float((psum - v).abs().max() / v.abs().max())
+    assert psum_err < 0.05, psum_err
+    mesh11 = M.make_local_mesh(1, 1)
+    attn = {k: params["layers"][0]["mixer"][k]["w"]
+            for k in ("wq", "wk", "wv", "wo")}
+    ck = ROOT / "build" / "remesh_ck"
+    shutil.rmtree(ck, ignore_errors=True)
+    try:
+        mgr = CheckpointManager(str(ck))
+        t1 = time.perf_counter()
+        mgr.save(1, attn)
+        save_s = time.perf_counter() - t1
+        shardings = {k: SH.NamedSharding(mesh11, v) for k, v in
+                     SH.param_pspecs(
+                         {"mixer": {k: {"w": t} for k, t in attn.items()}},
+                         mesh11).items()}
+        shardings = {k.split("/")[1]: v for k, v in shardings.items()}
+        # the first restore also pays DTensor's one-time set-up; the
+        # second is the restore itself
+        restore_s = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            restored, step = mgr.restore(attn, shardings=shardings)
+            torch.cuda.synchronize()
+            restore_s.append(time.perf_counter() - t1)
+        assert step == 1
+        for k, t in attn.items():
+            r = restored[k]
+            assert r.to_local().device.type == "cuda"
+            assert torch.equal(r.to_local(), t), k
+            assert torch.equal(r.full_tensor(), t), k
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    out = dict(pipeline_max_abs_err=pipe_err, psum_rel_err=psum_err,
+               remesh_bytes=sum(t.numel() * 4 for t in attn.values()),
+               remesh_save_s=save_s, remesh_restore_s=restore_s,
+               seconds=time.perf_counter() - t0)
+    print(f"  [24] pipeline_apply against pipeline_reference (1 stage, "
+          f"d {d}, 4 x 8 rows) max |err| {pipe_err:.2e}; cross_pod_psum_int8 "
+          f"rel err {psum_err:.4f} and equal to its quantization; re-mesh "
+          f"restore of layer 0's attention ({out['remesh_bytes'] / 1e6:.1f} "
+          f"MB) onto the card bitwise, save {save_s:.2f} s, restore "
+          f"{restore_s[0]:.2f} s (the first, with DTensor's set-up) then "
+          f"{restore_s[1]:.2f} s [{card}]; {out['seconds']:.1f} s",
+          flush=True)
+    return out
 
 
 def host_loop_cell(torch, card, model, prompts, device_tokens, step_ms):

@@ -12,8 +12,10 @@ of per-replica p99s).
 
 The JAX example scales the same script out by giving each replica a
 disjoint data-submesh (ShardedBackend over `launch.mesh.replica_meshes`).
-The port's replicas share one card through LocalBackend; the sharded
-backend is ROADMAP.md item 11 (multi-device).
+The port's replicas share one card through LocalBackend; its sharded form
+(ShardedBackend on the same submeshes, one process a rank) runs from the
+serve launcher (`python -m repro_torch.launch.serve --mesh 2,2 --replicas
+2`).
 
   PYTHONPATH=src python examples_torch/serve_router.py [--device cuda|cpu] \
       [--full]

@@ -132,6 +132,14 @@ def _convert(flat: Dict[str, np.ndarray], n_layers: int, device
     return params
 
 
+def reference_layers(cfg) -> List[int]:
+    """The layers that head a leaf of the JAX package's layer-stacked
+    trees: each prelude layer, and the first layer of each scan slot (the
+    slot's later layers are rows of the same leaf)."""
+    n0 = cfg.prelude_layers
+    return [*range(n0), *range(n0, min(n0 + cfg.scan_period, cfg.n_layers))]
+
+
 def to_reference(params: Dict[str, Any], cfg) -> Dict[str, Any]:
     """The port's params (or a tree laid out like them: AdamW's m / v, the
     compression residuals) -> the JAX package's tree: layers stacked per

@@ -21,8 +21,16 @@
     background thread; `wait()` joins it (and runs before the next save).
   * Retention: the last `keep` checkpoints stay.
 
-Restoring onto another device layout (`shardings=`) is multi-device work
-(ROADMAP.md queue 1, item 11) and raises NotImplementedError.
+  * Re-mesh: `load_pytree(..., shardings=)` and `restore(...,
+    shardings=)` place every leaf on a device mesh: each rank slices its
+    block out of the npz (`distributed.sharding.NamedSharding`) and the
+    leaf comes back as a DTensor of the full shape, so a checkpoint
+    written on one mesh restores onto another. `shardings` is one
+    NamedSharding for every leaf, or a tree (or a dict keyed by leaf
+    path) of them. Saving a tree of DTensors gathers each leaf
+    (`full_tensor`, collective: every rank saves) and rank 0 writes,
+    blocking, the others waiting at a barrier; the file is the same
+    layout.
 """
 
 from __future__ import annotations
@@ -42,15 +50,31 @@ from repro_torch import tree as tu
 from repro_torch.checkpoint import convert as CV
 
 
-def _refuse_shardings(shardings) -> None:
-    if shardings is not None:
-        raise NotImplementedError(
-            "restoring with shardings= re-meshes across devices: "
-            "ROADMAP.md queue 1, item 11 (multi-device)")
+def _is_dtensor(x) -> bool:
+    return type(x).__name__ == "DTensor"
+
+
+def _gathered(tree) -> bool:
+    """Whether the tree holds DTensors: saving it gathers to rank 0."""
+    return any(_is_dtensor(v) for v in tu.leaves(tree))
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def _host(x, copy: bool) -> np.ndarray:
-    """A leaf as a host array; a copy of the leaf's memory with `copy`."""
+    """A leaf as a host array; a copy of the leaf's memory with `copy`. A
+    DTensor is gathered whole first (collective)."""
+    if _is_dtensor(x):
+        x, copy = x.full_tensor(), False
     if isinstance(x, torch.Tensor):
         x = x.detach()
         if x.dtype == torch.bfloat16:
@@ -60,8 +84,20 @@ def _host(x, copy: bool) -> np.ndarray:
 
 
 def save_pytree(path: str, tree, metadata: Optional[Dict] = None) -> None:
+    """Write `tree` as `arrays.npz` + `manifest.json` under `path`. A tree
+    of DTensors is gathered (every rank calls) and written by rank 0."""
     arrays = {k: _host(v, copy=False)
               for k, v in tu.flatten_with_paths(tree).items()}
+    if _gathered(tree):
+        if _rank() == 0:
+            _write(path, arrays, metadata)
+        _barrier()
+        return
+    _write(path, arrays, metadata)
+
+
+def _write(path: str, arrays: Dict[str, np.ndarray],
+           metadata: Optional[Dict]) -> None:
     os.makedirs(path, exist_ok=True)
     np.savez(os.path.join(path, "arrays.npz"), **arrays)
     with open(os.path.join(path, "manifest.json"), "w") as f:
@@ -78,18 +114,35 @@ def _like(arr: np.ndarray, leaf):
     return arr
 
 
+def _sharding_for(shardings, key: str):
+    from repro_torch.distributed.sharding import NamedSharding
+    if isinstance(shardings, NamedSharding):
+        return shardings
+    flat = tu.flatten_with_paths(shardings)
+    if key not in flat:
+        raise KeyError(f"shardings has no entry for leaf {key}")
+    return flat[key]
+
+
 def load_pytree(path: str, like, shardings=None):
     """Restore into the structure of `like`: each leaf in like's type,
     dtype and device (a tensor on the 'meta' device, which lends only its
-    shape and dtype, comes back on the CPU)."""
-    _refuse_shardings(shardings)
+    shape and dtype, comes back on the CPU). With `shardings`, each leaf
+    is this rank's block of it, read out of the file, as a DTensor of the
+    full shape on the sharding's mesh."""
     with np.load(os.path.join(path, "arrays.npz")) as z:
         arrays = {k: z[k] for k in z.files}
     out = []
     for key, leaf in tu.items(like):
         if key not in arrays:
             raise KeyError(f"checkpoint missing leaf {key}")
-        out.append(_like(arrays[key], leaf))
+        arr = arrays[key]
+        if shardings is None:
+            out.append(_like(arr, leaf))
+            continue
+        sh = _sharding_for(shardings, key)
+        local = _like(np.ascontiguousarray(sh.shard(arr)), leaf)
+        out.append(sh.distribute(local, arr.shape))
     return tu.unflatten(like, out)
 
 
@@ -125,6 +178,7 @@ class CheckpointManager:
         writer's thread (a train state's restacking into the JAX
         package's layout: no second device copy, no device pass)."""
         self.wait()
+        gathered = _gathered(tree)
         # the snapshot copies now, so training can update its tensors
         host = tu.tree_map(lambda x: _host(x, copy=True), tree)
 
@@ -141,7 +195,12 @@ class CheckpointManager:
             os.rename(tmp, final)
             self._gc()
 
-        if blocking:
+        if gathered:
+            # rank 0 writes the gathered tree; every rank leaves together
+            if _rank() == 0:
+                write()
+            _barrier()
+        elif blocking:
             write()
         else:
             self._thread = threading.Thread(target=write, daemon=True)
@@ -154,12 +213,11 @@ class CheckpointManager:
 
     def restore(self, like, step: Optional[int] = None, shardings=None):
         """(tree, step) of the given or latest checkpoint, or (None,
-        None) when there is none."""
-        _refuse_shardings(shardings)
+        None) when there is none; `shardings` as in `load_pytree`."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None, None
-        return load_pytree(self.path(step), like), step
+        return load_pytree(self.path(step), like, shardings), step
 
     def _gc(self) -> None:
         steps = sorted(
@@ -175,17 +233,28 @@ class CheckpointManager:
 
 
 def restore_train_state(mgr: CheckpointManager, state: Dict[str, Any], cfg,
-                        step: Optional[int] = None):
+                        step: Optional[int] = None, shardings=None):
     """(train state, step) restored from `mgr` into the structure of the
     port train state `state` (its "comp", if any, included), on its
     device; (None, None) without a checkpoint. Reads the JAX package's
-    checkpoints and the port's alike."""
+    checkpoints and the port's alike. `shardings` (one NamedSharding, or
+    a tree / path-keyed dict of them laid out like the port's state)
+    places each leaf on a mesh: this rank's block, as a DTensor (the file
+    stacks a scan slot's layers, so the blocks are cut after the
+    unstacking)."""
     meta = tu.tree_map(lambda t: t.to("meta"), state)
     tree, step = mgr.restore(CV.state_to_reference(meta, cfg), step)
     if tree is None:
         return None, None
     flat = {k: v.numpy() for k, v in tu.flatten_with_paths(tree).items()}
-    return CV.state_from_flat(flat, cfg, state["step"].device), step
+    out = CV.state_from_flat(flat, cfg, state["step"].device)
+    if shardings is not None:
+        keys = list(tu.flatten_with_paths(out))
+        out = tu.unflatten(out, [
+            _sharding_for(shardings, k).distribute(
+                _sharding_for(shardings, k).shard(v).contiguous(), v.shape)
+            for k, v in zip(keys, tu.leaves(out))])
+    return out, step
 
 
 def save_train_state(mgr: CheckpointManager, step: int,

@@ -8,9 +8,12 @@ It plugs into `distributed.steps.make_train_step(compress_fn=...)`. The
 codes equal the JAX package's under jax.jit bit for bit: XLA fuses the
 scale's `max|x| / 127 + 1e-12` into one FMA with the f32 reciprocal of
 127 (`core.quantize._fma`), divides x by the scale exactly, and fuses the
-residual's multiply-subtract into one FMA. The wire
-pattern, `cross_pod_psum_int8` (int8 codes summed across pods), is
-multi-device (ROADMAP.md queue 1, item 11).
+residual's multiply-subtract into one FMA.
+
+`cross_pod_psum_int8` is the wire pattern across pods: each rank of the
+mesh axis quantizes its partial sum, the ranks agree on the largest
+scale (an all-reduce MAX), sum the int32 codes (an all-reduce SUM) and
+dequantize with that scale.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 
 from repro_torch import tree as tu
 from repro_torch.core import quantize as qz
+from repro_torch.distributed import sharding as SH
 
 
 def _quant_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -58,3 +62,22 @@ def _pair(x) -> bool:
 def ef_init(params):
     return tu.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                              device=p.device), params)
+
+
+def cross_pod_psum_int8(x: torch.Tensor, mesh, axis: str = "pod"
+                        ) -> torch.Tensor:
+    """All-reduce `x` over `axis` of `mesh` with int8 codes on the wire
+    (int32 accumulate): each rank holds its own partial sum; the codes are
+    taken at the largest scale over the axis, so they are comparable, and
+    the sum of the codes is dequantized with it. Returns the f32 sum on
+    every rank."""
+    import torch.distributed as dist
+    group = SH.axis_group(mesh, axis)
+    _, scale = _quant_int8(x)
+    smax = scale.clone()
+    if group is not None:
+        dist.all_reduce(smax, op=dist.ReduceOp.MAX, group=group)
+    q = torch.clamp(torch.round(x / smax), -127, 127).to(torch.int32)
+    if group is not None:
+        dist.all_reduce(q, group=group)
+    return q.float() * smax

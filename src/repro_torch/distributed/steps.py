@@ -45,6 +45,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch import tree as tu
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw as O
@@ -106,7 +107,7 @@ def _grad_leaves(leaves):
 
 def make_train_step(cfg: T.ModelConfig, opt_cfg: O.OptimizerConfig, *,
                     grad_accum: int = 1, compress_fn: Optional[Callable] = None,
-                    accum_dtype=torch.float32):
+                    accum_dtype=torch.float32, mesh=None):
     """train_step(state, batch) -> (state, metrics), the JAX package's:
     state {"params", "opt", "step"} (+ "comp" with a compress_fn), batch
     {"tokens", "labels", "frames"?, "img_embeds"?} tensors on the
@@ -120,8 +121,18 @@ def make_train_step(cfg: T.ModelConfig, opt_cfg: O.OptimizerConfig, *,
     and divides by grad_accum. A contiguous split gives the same mean for
     a dense model but other routing groups for an MoE one.
     compress_fn(grads, comp) -> (grads, comp) runs on the accumulated
-    gradients (distributed.compression.ef_int8_compress)."""
+    gradients (distributed.compression.ef_int8_compress).
+
+    mesh: data parallelism over its 'data' axis. Each rank passes its own
+    equal share of the batch's rows; the gradients and the loss are
+    averaged over 'data' (an all-reduce) before the compression and the
+    update, so every rank takes the same step on a whole copy of the
+    state."""
     loss_fn = make_loss_fn(cfg)
+    group = None
+    if mesh is not None and "data" in SH.mesh_axes(mesh):
+        group = SH.axis_group(mesh, "data")
+    n_data = 1 if group is None else SH.mesh_axes(mesh)["data"]
 
     def train_step(state, batch):
         params = state["params"]
@@ -145,6 +156,15 @@ def make_train_step(cfg: T.ModelConfig, opt_cfg: O.OptimizerConfig, *,
                     loss = loss + lj.detach()
                 flat = [g / grad_accum for g in flat]
                 loss = loss / grad_accum
+        if group is not None:
+            import torch.distributed as dist
+            flat = [g.contiguous() for g in flat]
+            for g in flat:
+                dist.all_reduce(g, group=group)
+                g.div_(n_data)
+            loss = loss.detach().clone()
+            dist.all_reduce(loss, group=group)
+            loss = loss / n_data
         grads = tu.unflatten(params, flat)
         new_comp = state.get("comp")
         if compress_fn is not None:
@@ -237,7 +257,7 @@ def make_decode_step(cfg: T.ModelConfig, *, n_steps: int,
                                        caches=caches, index=st["index"],
                                        pages=pages, probe=probe)
             tok = T.sample_tokens(logits[:, -1], state["generator"],
-                                  state["temperature"])
+                                  state["temperature"], state.get("rows"))
             active = st["active"]
             tok = torch.where(active, tok, st["tokens"])
             remaining = torch.where(active, st["remaining"] - 1,
@@ -370,6 +390,18 @@ def make_decode_state(n_slots: int, seed: int = 0,
     }
 
 
+def decode_state_pspecs(mesh, n_slots: int) -> Dict[str, SH.PartitionSpec]:
+    """PartitionSpecs of `make_decode_state(n_slots)`, the JAX package's:
+    every per-slot vector shards like the slab's slot axis
+    (`sharding.batch_pspec`); the sampling generator (JAX's threaded rng
+    key, under its name) is replicated."""
+    slot_spec = SH.batch_pspec(mesh, n_slots)
+    spec = {k: slot_spec for k in ("tokens", "index", "temperature", "eos",
+                                   "remaining", "active", "spec_limit")}
+    spec["key"] = SH.P(None)
+    return spec
+
+
 def write_state(state: Dict[str, object], new: Dict[str, torch.Tensor]) -> None:
     """Copy a step's advanced loop state into the state's own tensors (the
     fixed addresses a captured graph reads at its next replay)."""
@@ -415,12 +447,13 @@ def recurrent_cache_paths(caches) -> List[Tuple[int, str]]:
 
 def accept_tokens(z: torch.Tensor, dlog: torch.Tensor, d_block: torch.Tensor,
                   temperature: torch.Tensor, spec_limit: torch.Tensor,
-                  generator: torch.Generator):
+                  generator: torch.Generator, slot_rows=None):
     """Per-slot accept/reject and bonus token, pure on tensors.
 
     z: (B, K+1, V) target logits on [t0, d_1..d_K]; dlog: (B, K, V) the
     draft logits d_i was drawn from; d_block: (B, K) int32 drafts;
-    temperature: (B,) f32 (<= 0 greedy); spec_limit: (B,) int32 cap.
+    temperature: (B,) f32 (<= 0 greedy); spec_limit: (B,) int32 cap;
+    slot_rows: a rank's rows of the batch (`transformer.noise`).
     Returns (l_acc (B,) int32 accepted drafts, l_run (B,) int32 the
     uncapped accepted run, bonus (B,) int32).
 
@@ -440,7 +473,7 @@ def accept_tokens(z: torch.Tensor, dlog: torch.Tensor, d_block: torch.Tensor,
     d_idx = d_block.long()[..., None]
     p_d = torch.gather(logp, 2, d_idx)[..., 0]
     q_d = torch.gather(logq, 2, d_idx)[..., 0]
-    u = torch.rand((b, k), generator=generator, device=dev).clamp_(min=1e-20)
+    u = T.noise((b, k), generator, dev, slot_rows).clamp(min=1e-20)
     accept = torch.where(greedy[:, None], match, torch.log(u) < p_d - q_d)
     l_run = torch.cumprod(accept.to(torch.int32), dim=1).sum(dim=1) \
         .to(torch.int32)
@@ -458,7 +491,7 @@ def accept_tokens(z: torch.Tensor, dlog: torch.Tensor, d_block: torch.Tensor,
     # from p (a capped or opted-out slot takes one plain target step)
     use_resid = (l_acc == l_run) & (l_run < k) & (l_run < spec_limit)
     t_logits = torch.where(use_resid[:, None], resid, logp_l)
-    g = torch.rand(z_l.shape, generator=generator, device=dev)
+    g = T.noise(z_l.shape, generator, dev, slot_rows)
     gum = -torch.log(-torch.log(g.clamp_(min=torch.finfo(torch.float32).tiny)))
     bonus_t = torch.argmax(t_logits + gum, dim=-1).to(torch.int32)
     return l_acc, l_run, torch.where(greedy, bonus_g, bonus_t)
@@ -560,8 +593,8 @@ def make_speculative_decode_step(cfg: T.ModelConfig,
             idx = torch.where(active, idx + 1, idx)
             if j == k:              # the trailing feed of d_K: cache only
                 break
-            nxt = torch.where(active, T.sample_tokens(logits[:, -1], gen,
-                                                      temp), tok)
+            nxt = torch.where(active, T.sample_tokens(
+                logits[:, -1], gen, temp, state.get("rows")), tok)
             props.append(nxt)
             dlogits.append(logits[:, -1])
             tok = nxt
@@ -589,7 +622,8 @@ def make_speculative_decode_step(cfg: T.ModelConfig,
 
         # ---- 3. per-slot accept/reject -----------------------------------
         l_acc, _, bonus = accept_tokens(z, dlog, d_block, temp,
-                                        state["spec_limit"], gen)
+                                        state["spec_limit"], gen,
+                                        state.get("rows"))
 
         # ---- 4. commit, on-device lifecycle, rollback --------------------
         ar = torch.arange(k + 1, dtype=torch.int32, device=tok0.device)[None]

@@ -25,9 +25,15 @@ every worker shares the one GPU, each holding its own copy of the
 weights) or, with `--device cpu`, through the kernels' plain versions;
 `--full` loads the published config (full width and depth).
 
-Not ported: `--jax-coordinator` (a multi-host launch) and
-`--devices-per-process > 1` raise NotImplementedError naming ROADMAP.md
-item 11.
+`--jax-coordinator HOST:PORT` (or `auto` to spawn_fleet, which picks a
+free local port) joins the workers into one torch.distributed process
+group (the flag keeps the JAX package's name): each worker is a rank and
+serves its replicas through `DistributedBackend` on its own rank's
+one-device mesh (`launch.mesh.process_meshes`), so the data plane never
+crosses a process; the control plane moves requests and results as
+without the flag. Not ported: `--devices-per-process > 1` (a worker that
+owns several devices) raises NotImplementedError naming ROADMAP.md item
+14.
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ PACE = 0.002
 WALL_STALENESS = 400.0          # ~0.8 s of snapshot age tolerated
 WALL_HEARTBEAT_TIMEOUT = 2500.0  # ~5 s of silence before death verdict
 
-MULTI_DEVICE = "ROADMAP.md queue 1, item 11 (multi-device)"
+MULTI_DEVICE = "ROADMAP.md queue 1, item 14 (multi-device fleet workers)"
 
 
 def worker_flags(ap: argparse.ArgumentParser) -> None:
@@ -62,8 +68,9 @@ def worker_flags(ap: argparse.ArgumentParser) -> None:
                     help="fleet size (how many workers the coordinator "
                          "spawns)")
     ap.add_argument("--jax-coordinator", default="",
-                    help="distributed coordinator address for multi-host "
-                         f"meshes (not ported: {MULTI_DEVICE})")
+                    help="HOST:PORT where the workers join one "
+                         "torch.distributed process group (the JAX "
+                         "package's flag name)")
     ap.add_argument("--arch", default="h2o-danube-1.8b")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the card, shared by every worker) or cpu "
@@ -85,13 +92,12 @@ def worker_flags(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--heartbeat-every", type=int, default=2)
 
 
-def refuse_unported(jax_coordinator: str, devices_per_process: int) -> None:
+def refuse_unported(devices_per_process: int) -> None:
     """Refuse, before any process starts, what the port does not run."""
-    if jax_coordinator or devices_per_process > 1:
+    if devices_per_process > 1:
         raise NotImplementedError(
-            "--jax-coordinator / --devices-per-process > 1: multi-host and "
-            f"multi-device fleets are {MULTI_DEVICE} of the port, not "
-            "ported yet")
+            "--devices-per-process > 1: fleet workers that own several "
+            f"devices are {MULTI_DEVICE} of the port, not ported yet")
 
 
 def _warm_replicas(router, model) -> None:
@@ -115,12 +121,22 @@ def worker_entry(args) -> None:
     from repro_torch.serve import (EngineConfig, FleetConfig, ModelRegistry,
                                    ReplicaRouter, WorkerServer, connect)
 
+    from repro_torch.serve import DistributedBackend, ensure_distributed
+    if args.jax_coordinator:
+        ensure_distributed(args.jax_coordinator, args.processes,
+                           args.process_index, device=args.device)
     model = ModelRegistry().load(args.arch, seed=args.seed,
                                  smoke=not args.full, device=args.device)
     cfg = EngineConfig(n_slots=args.slots, max_len=args.max_len,
                        decode_chunk=args.decode_chunk,
                        max_waiting=args.slots, device=args.device)
-    router = ReplicaRouter.build(model, cfg, args.replicas)
+    factory = None
+    if args.jax_coordinator:
+        # every replica on this worker's own rank (they share its device)
+        def factory(i: int):
+            return DistributedBackend(mesh_shape=(1, 1), device=args.device)
+    router = ReplicaRouter.build(model, cfg, args.replicas,
+                                 backend_factory=factory)
     for eng in router.replicas:
         eng.trace.process = args.process_index   # tag before any event
     _warm_replicas(router, model)
@@ -134,6 +150,7 @@ def worker_entry(args) -> None:
 
 
 # --------------------------------------------------------------- coordinator
+
 
 def _await_hello(endpoint, timeout: float = 120.0) -> Dict[str, Any]:
     t0 = time.monotonic()
@@ -229,7 +246,10 @@ def spawn_fleet(n_processes: int, *, arch: str = "h2o-danube-1.8b",
     from repro_torch.serve.control import ControlListener, RemoteProcess
     from repro_torch.serve.registry import check_device
 
-    refuse_unported(jax_coordinator, devices_per_process)
+    refuse_unported(devices_per_process)
+    if jax_coordinator == "auto":
+        from repro_torch.launch.mesh import free_port
+        jax_coordinator = f"127.0.0.1:{free_port()}"
     if check_device(device).type == "cuda":
         from repro_torch.kernels import build
         build.build_all()
@@ -254,6 +274,8 @@ def spawn_fleet(n_processes: int, *, arch: str = "h2o-danube-1.8b",
                    "--heartbeat-every", str(heartbeat_every)]
             if full:
                 cmd.append("--full")
+            if jax_coordinator:
+                cmd += ["--jax-coordinator", jax_coordinator]
             workers.append(subprocess.Popen(cmd, env=env))
         handles = []
         for _ in range(n_processes):
@@ -316,6 +338,7 @@ def run_smoke(args) -> int:
     with spawn_fleet(args.processes, arch=args.arch, n_slots=args.slots,
                      max_len=args.max_len, decode_chunk=args.decode_chunk,
                      replicas_per_process=args.replicas,
+                     jax_coordinator=args.jax_coordinator,
                      device=args.device, full=args.full,
                      seed=args.seed) as fleet:
         reqs = [fleet.router.submit(p, g, arrival_step=a)
@@ -381,7 +404,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "token-identical failover")
     ap.add_argument("--out", default="", help="write smoke result JSON")
     args = ap.parse_args(argv)
-    refuse_unported(args.jax_coordinator, args.devices_per_process)
+    refuse_unported(args.devices_per_process)
     if args.worker:
         if not args.connect:
             ap.error("--worker requires --connect host:port")

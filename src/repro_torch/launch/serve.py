@@ -1,5 +1,5 @@
 """Serving launcher: the continuous-batching engine over packed Kratos
-weights (port of `repro.launch.serve`, one device).
+weights (port of `repro.launch.serve`).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
       --requests 8 --prompt-len 32 --gen 32 [--device cuda|cpu] [--full] \
@@ -13,7 +13,9 @@ weights (port of `repro.launch.serve`, one device).
       [--telemetry-port P] [--telemetry-jsonl S.jsonl] \
       [--ledger [--ledger-threshold T] [--quality-every N]] \
       [--tiers 8:0.5,8:0.75 [--qos-*]] [--deadline-steps D] \
-      [--pool-wait-retries R] [--auto-restart] [--processes N]
+      [--pool-wait-retries R] [--auto-restart] [--processes N] \
+      [--mesh D,M [--dry-run]] \
+      [--coordinator HOST:PORT --num-processes N --process-id I]
 
 Loads the arch through the serve registry (weights initialised from
 `--seed` and packed once), submits `--requests` generation requests with a
@@ -50,14 +52,29 @@ worker processes spawned by launch.fleet, each loading the weights from
 FleetRouter over the control plane (serve.control). The coordinator loads
 no weights; its prompts are drawn from the arch's vocab.
 
-Not ported: mesh serving (`--mesh`, `--dry-run`) and the multi-host launch
-(`--coordinator`, `--num-processes`, `--process-id`) raise
-NotImplementedError naming ROADMAP.md item 11.
+Mesh serving: `--mesh d,m` serves through `serve.ShardedBackend` on a
+(data=d, model=m) mesh of d * m ranks, one process each (torch.distributed:
+gloo with `--device cpu`, NCCL on the card). Under torchrun (WORLD_SIZE
+set) the launcher joins that group, with `--coordinator HOST:PORT
+--num-processes N --process-id I` the group at that address; otherwise it
+spawns the d * m ranks itself (on the card, no more than the visible
+cards). Every rank runs the same engine; rank 0 prints. `--replicas N`
+splits 'data' into N disjoint submeshes, one ShardedBackend each, behind
+the ReplicaRouter (launch.mesh.replica_meshes). Greedy tokens equal the
+same command's without `--mesh`. `--dry-run` prints, for the mesh and
+without a process group, one PartitionSpec per cache, page and
+decode-state leaf (the JAX package's specs, distributed.sharding) and one
+decode dispatch's FLOPs and bytes per device under the port's placement,
+counted on the plain path (analysis.cost); with `--processes N` or
+`--coordinator` it prints the fleet topology instead
+(launch.mesh.plan_fleet_topology / fleet_topology) and loads no weights.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import math
 from typing import List, Optional
 
 import numpy as np
@@ -65,13 +82,12 @@ import numpy as np
 from repro_torch import configs as C
 from repro_torch.core.kratos import KratosSpec
 from repro_torch.serve import (DraftSpec, EngineConfig, EngineSaturated,
-                               InferenceEngine, LedgerConfig, ModelRegistry,
-                               QoSConfig, ReplicaRouter, StaticScheduler,
+                               InferenceEngine, LedgerConfig, LocalBackend,
+                               ModelRegistry, QoSConfig, ReplicaRouter,
+                               ShardedBackend, StaticScheduler,
                                TelemetryConfig, TelemetryExporter,
                                TraceConfig, engine_sample, export_chrome,
                                export_jsonl, parse_tiers, router_sample)
-
-MULTI_DEVICE = "ROADMAP.md queue 1, item 11 (multi-device)"
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -125,8 +141,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="paged pool without the radix prefix index "
                          "(paging only: no cross-request sharing)")
     ap.add_argument("--mesh", default="",
-                    help="'data,model' mesh serving (not ported: "
-                         f"{MULTI_DEVICE})")
+                    help="'data,model' sizes: serve through ShardedBackend "
+                         "on a mesh of that shape")
     ap.add_argument("--replicas", type=int, default=1,
                     help="front N engine replicas with the ReplicaRouter")
     ap.add_argument("--max-waiting", type=int, default=0,
@@ -200,7 +216,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="serve through a local fleet of N worker "
                          "processes (launch.fleet + serve.FleetRouter)")
     ap.add_argument("--coordinator", default="",
-                    help=f"multi-host coordinator (not ported: {MULTI_DEVICE})")
+                    help="HOST:PORT of the torch.distributed process group "
+                         "to join")
     ap.add_argument("--num-processes", type=int, default=1,
                     help="fleet size for --coordinator")
     ap.add_argument("--process-id", type=int, default=0,
@@ -208,16 +225,159 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def refuse_unported(args: argparse.Namespace) -> None:
-    """Refuse, before any weights load, what the port does not serve."""
-    if args.mesh or args.coordinator or args.num_processes != 1 \
-            or args.process_id != 0:
-        raise NotImplementedError(
-            "--mesh / --coordinator / --num-processes / --process-id: "
-            f"sharded and multi-host serving are {MULTI_DEVICE} of the port, "
-            "not ported yet")
-    if args.dry_run:
+def check_args(args: argparse.Namespace) -> None:
+    """Refuse, before any weights load, what cannot run."""
+    if not 0 <= args.process_id < args.num_processes:
+        raise SystemExit(f"--process-id {args.process_id} out of range for "
+                         f"--num-processes {args.num_processes}")
+    if args.num_processes > 1 and not args.coordinator:
+        raise SystemExit("--num-processes > 1 needs --coordinator HOST:PORT")
+    if args.dry_run and not (args.mesh or args.processes > 1
+                             or args.coordinator):
         raise SystemExit("--dry-run needs --mesh data,model")
+
+
+def _rank_main(rank: int, argv: List[str], world: int, port: int,
+               threads: int) -> None:
+    """One spawned rank of a `--mesh` run: joins the group as torchrun's
+    ranks do (from the environment) and runs the launcher."""
+    import os
+
+    import torch
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    torch.set_num_threads(threads)
+    main(argv)
+
+
+def _spawn_ranks(argv: List[str], world: int, device: str) -> None:
+    """Run the launcher on `world` ranks, one process each, and wait."""
+    import os
+
+    import torch
+    import torch.multiprocessing as mp
+    if device != "cpu" and world > torch.cuda.device_count():
+        raise ValueError(f"--mesh needs {world} cards, "
+                         f"{torch.cuda.device_count()} visible")
+    threads = max(1, (os.cpu_count() or 1) // world)
+    from repro_torch.launch.mesh import free_port
+    mp.spawn(_rank_main, args=(list(argv), world, free_port(), threads),
+             nprocs=world, join=True)
+
+
+def _join_group(args: argparse.Namespace) -> bool:
+    """Join the process group of torchrun or of --coordinator; False when
+    this process runs alone."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.serve import ensure_distributed
+    if M.join_torchrun(args.device):
+        return True
+    if args.coordinator:
+        ensure_distributed(args.coordinator, args.num_processes,
+                           args.process_id, device=args.device)
+        return True
+    return False
+
+
+def _dry_run(model, cfg: EngineConfig, mesh_shape) -> None:
+    """One PartitionSpec per cache / page / decode-state leaf on an
+    abstract (data, model) mesh, and one decode dispatch's FLOPs and bytes
+    per device under the port's placement (no process group)."""
+    from repro_torch.analysis import cost
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.paging import PageLayout
+
+    mesh = SH.AbstractMesh(mesh_shape, ("data", "model"))
+    print(f"[dry-run] mesh {SH.mesh_axes(mesh)} over {mesh.size} devices")
+    cache_len = cfg.max_len + cfg.speculate   # +K speculative write headroom
+    caches = T.make_caches(model.cfg, cfg.n_slots, cache_len, device="meta")
+    specs = SH.cache_pspecs(caches, mesh, cfg.n_slots, slab=True)
+    if not cfg.page_size:
+        print(f"[dry-run] KV slab leaves ({cfg.n_slots} slots x "
+              f"{cache_len} positions"
+              + (f" = max_len + K={cfg.speculate} headroom" if cfg.speculate
+                 else "") + "):")
+        for li, layer in enumerate(specs):
+            for name, spec in layer.items():
+                print(f"    {f'[{li}][{name!r}]':48s} {spec}")
+    print("[dry-run] decode state vectors:")
+    for k, spec in ST.decode_state_pspecs(mesh, cfg.n_slots).items():
+        print(f"    {k:48s} {spec}")
+    data, model_n = mesh_shape
+    # the port's placement: 'data' splits the slab's slots where it
+    # divides them (a page store keeps every slot on every data rank),
+    # 'model' the kv heads / channels where the specs shard them
+    split = not cfg.page_size and cfg.n_slots % data == 0
+    rows = cfg.n_slots // data if split else cfg.n_slots
+    if cfg.page_size:
+        layout = PageLayout(model.cfg, cfg.n_slots, cache_len,
+                            cfg.page_size, device="meta")
+        n_pages = cfg.n_pages or cfg.n_slots * layout.pp + 1
+        pspecs = SH.page_pspecs(caches, layout, mesh, n_pages)
+        print(f"[dry-run] page pool: {n_pages} pages x {cfg.page_size} "
+              f"positions ({layout.pp}/slot x {cfg.n_slots} slots); "
+              "page-store leaves (paged = page-major; resident = "
+              "slot-major slab layout):")
+        for li, layer in enumerate(pspecs):
+            for name, spec in layer.items():
+                kind = "paged   " if layout.paged[li][name] else "resident"
+                print(f"    {f'[{li}][{name!r}]':40s} {kind} {spec}")
+        print(f"    {'page_table':40s} table    "
+              f"{SH.P(*(tuple(SH.batch_pspec(mesh, cfg.n_slots)) + (None,)))}")
+    # one dispatch of a rank's rows on the plain path (the whole heads:
+    # 'model' splits only the attention and the recurrence)
+    bk = InferenceEngine(model, dataclasses.replace(
+        cfg, n_slots=rows, device="cpu", ledger=None, trace=None,
+        qos=None)).backend
+    flops = cost.count(bk._step_out)["flops"]
+    store = bk.pool.store if bk.paged else bk.pool.caches
+    placed = [{n: SH.P(None, *sp[1:]) for n, sp in layer.items()}
+              for layer in (pspecs if cfg.page_size else specs)]
+    cache_bytes = sum(
+        math.prod(SH.shard_shape(placed[li][n], t.shape, mesh))
+        * t.element_size() for li, layer in enumerate(store)
+        for n, t in layer.items())
+    label = (f"speculative step (K={cfg.speculate}, draft replicated)"
+             if cfg.speculate else f"decode step (K={cfg.decode_chunk})")
+    print(f"[dry-run] {label} per device: {rows} of {cfg.n_slots} slot "
+          f"rows, {flops:.3g} flops (plain path), "
+          f"{cost.nbytes(bk.params):.3g} B of replicated parameters + "
+          f"{cache_bytes:.3g} B of its cache shard")
+
+
+def _dry_run_fleet(args: argparse.Namespace) -> None:
+    """The fleet topology, no weights: planned for `--processes N`, live
+    (the joined group's) with `--coordinator`."""
+    from repro_torch.launch import mesh as M
+    data, model_ax = (M.parse_mesh_arg(args.mesh) if args.mesh
+                      else (args.replicas, 1))
+    if args.coordinator:
+        _join_group(args)
+        live = M.fleet_topology(data, model_ax, args.replicas,
+                                device=args.device)
+        print(f"[dry-run] fleet (live): process {live['process_index']} "
+              f"of {live['num_processes']}, "
+              f"{live['global_device_count']} global devices, "
+              f"mesh {data}x{model_ax}, {args.replicas} replicas/process")
+        procs = [live]
+    else:
+        plan = M.plan_fleet_topology(args.processes, data * model_ax,
+                                     data, model_ax, args.replicas)
+        print(f"[dry-run] fleet (planned): {plan['num_processes']} "
+              f"processes x {plan['devices_per_process']} devices = "
+              f"{plan['global_device_count']} global, "
+              f"mesh {data}x{model_ax}, {args.replicas} replicas/process")
+        procs = plan["processes"]
+    for p in procs:
+        print(f"[dry-run]   process {p['process_index']}: "
+              + " ".join(p["local_devices"]))
+        for rm in p["replica_meshes"]:
+            shape = "x".join(str(v) for v in rm["shape"].values())
+            print(f"[dry-run]     replica {rm['replica']} ({shape}): "
+                  + " ".join(rm["devices"]))
 
 
 def _serve_fleet(args: argparse.Namespace) -> None:
@@ -255,8 +415,24 @@ def _serve_fleet(args: argparse.Namespace) -> None:
 
 
 def main(argv: Optional[List[str]] = None) -> None:
+    import sys
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
-    refuse_unported(args)
+    check_args(args)
+    from repro_torch.launch import mesh as M
+    mesh_shape = M.parse_mesh_arg(args.mesh) if args.mesh else None
+    if args.dry_run and (args.processes > 1 or args.coordinator):
+        _dry_run_fleet(args)
+        return
+    if not args.dry_run:
+        if _join_group(args):
+            import os
+            import torch.distributed as dist
+            if dist.get_rank():          # every rank serves; rank 0 prints
+                sys.stdout = open(os.devnull, "w")
+        elif mesh_shape is not None and mesh_shape[0] * mesh_shape[1] > 1:
+            _spawn_ranks(argv, mesh_shape[0] * mesh_shape[1], args.device)
+            return
     if args.processes > 1:
         # workers pack their own weights; the coordinator never loads them
         _serve_fleet(args)
@@ -274,7 +450,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     registry = ModelRegistry()
     model = registry.load(args.arch, spec, seed=args.seed, draft_spec=draft,
                           tier_specs=tier_specs, smoke=not args.full,
-                          device=args.device)
+                          device="cpu" if args.dry_run else args.device)
     print(f"[serve] {model.name}: {model.n_packed} packed projections, "
           f"{model.packed_bytes / 1e6:.2f} MB packed vs "
           f"{model.dense_bytes / 1e6:.2f} MB dense "
@@ -321,6 +497,20 @@ def main(argv: Optional[List[str]] = None) -> None:
                        pool_wait_retries=args.pool_wait_retries
                        if args.pool_wait_retries >= 0 else None,
                        qos=qos, trace=trace_cfg, ledger=ledger_cfg)
+    if args.dry_run:
+        _dry_run(model, cfg, mesh_shape)
+        return
+
+    def backend_for(i: int):
+        if mesh_shape is None:
+            return LocalBackend()
+        if args.replicas > 1:
+            return ShardedBackend(mesh=backend_for.meshes[i])
+        return ShardedBackend(mesh_shape=mesh_shape)
+
+    if mesh_shape is not None and args.replicas > 1:
+        backend_for.meshes = M.replica_meshes(*mesh_shape, args.replicas,
+                                              device=args.device)
 
     rng = np.random.default_rng(args.seed)
 
@@ -344,6 +534,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.replicas > 1:
         router = ReplicaRouter.build(
             model, cfg, args.replicas,
+            backend_factory=backend_for,
             scheduler_factory=(lambda i: StaticScheduler()) if args.static
             else None,
             auto_restart=args.auto_restart)
@@ -359,7 +550,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         print(f"[serve] router {router.format_report()}")
     else:
         engine = InferenceEngine(
-            model, cfg, scheduler=StaticScheduler() if args.static else None)
+            model, cfg, scheduler=StaticScheduler() if args.static else None,
+            backend=backend_for(0))
         telemetry = telemetry_for(lambda: engine_sample(engine))
         reqs = []
         for p, g, at in trace():

@@ -13,22 +13,27 @@ Checkpoints are written in the JAX package's layout and a rerun with the
 same --ckpt-dir resumes from the latest one (the JAX package's too), so
 a directory that already holds the last step runs no step: empty it to
 start over.
-`--mesh local` on one device is `none`; a mesh over more devices is
-multi-device work (ROADMAP.md queue 1, item 11).
+`--mesh local` (the default) trains data-parallel over every rank of the
+process group when the launcher runs under torchrun (`torchrun
+--nproc-per-node N -m repro_torch.launch.train ...`: a (N, 1) mesh, each
+rank on its block of every batch's rows, gradients averaged over 'data',
+rank 0 writing the checkpoints); run alone it is one rank and the same as
+`none`.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 from typing import List, Optional
-
-import torch
 
 from repro_torch import configs as C
 from repro_torch.core import kratos as kr
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.distributed import compression as GC
+from repro_torch.distributed import sharding as SH
+from repro_torch.launch import mesh as M
 from repro_torch.optim import adamw as O
 from repro_torch.serve.registry import check_device
 from repro_torch.train import TrainLoopConfig, run_training
@@ -65,11 +70,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     device = check_device(args.device)
-    if args.mesh == "local" and device.type == "cuda" \
-            and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"--mesh local over {torch.cuda.device_count()} devices: "
-            "ROADMAP.md queue 1, item 11 (multi-device); pass --mesh none")
+    mesh = None
+    if args.mesh == "local" and M.join_torchrun(device):
+        import torch.distributed as dist
+        mesh = M.make_local_mesh(dist.get_world_size(), 1, device=device)
     cfg = (C.get_config if args.full else C.get_smoke)(args.arch)
     if args.sparsity or args.bits:
         spec = kr.KratosSpec(sparsity=args.sparsity,
@@ -91,8 +95,9 @@ def main(argv: Optional[List[str]] = None) -> None:
                            fail_at_step=args.fail_at,
                            grad_accum=args.grad_accum)
     compress = GC.ef_int8_compress if args.compress else None
-    out = run_training(cfg, opt_cfg, data_cfg, loop, compress_fn=compress,
-                       device=device)
+    with SH.use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        out = run_training(cfg, opt_cfg, data_cfg, loop,
+                           compress_fn=compress, device=device)
 
     losses = [h["loss"] for h in out["history"]]
     if losses:

@@ -26,6 +26,9 @@ native paged decode attends through `kernels.ops.paged_attention` (the
 page-table kernel) on the card and through the sliced slab-layout view on
 the CPU, the JAX package's `ref` path. Decode takes a scalar index (one
 shared clock) or a (B,) vector of per-slot clocks (continuous batching).
+Under a mesh (distributed.sharding.use_mesh) whose 'model' axis splits a
+decode cache's kv heads, a rank attends with its kv heads and their query
+heads and the heads' outputs are all-gathered before `wo`.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import kratos as kr
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
 
@@ -179,6 +183,23 @@ def _split_heads(x, n, dh):
     return x.reshape(b, s, n, dh).transpose(1, 2)
 
 
+def _local_heads(q, k, v, cache_heads: int, cfg: AttnConfig):
+    """(q, k, v, split): under a mesh whose 'model' axis splits a decode
+    cache's kv heads (the leaf holds `cache_heads` < n_kv_heads of them),
+    this rank's kv heads of k and v and the query heads of their groups,
+    and split True; the inputs unchanged and False otherwise. A split
+    attention's output heads are all-gathered over 'model' before `wo`
+    (`SH.all_gather_model`)."""
+    kv = cfg.n_kv_heads
+    if cache_heads == kv:
+        return q, k, v, False
+    r = SH.model_shard()[0]
+    g = cfg.n_heads // kv
+    lo, hi = r * cache_heads, (r + 1) * cache_heads
+    kv_part = (lambda t: t[:, lo:hi]) if k is not None else (lambda t: t)
+    return q[:, lo * g:hi * g], kv_part(k), kv_part(v), True
+
+
 def _merge_heads(x):
     b, h, s, dh = x.shape
     return x.transpose(1, 2).reshape(b, s, h * dh)
@@ -255,8 +276,10 @@ def _cross_apply(params, q, x, cfg: AttnConfig, kv_source, cache, index,
     `cache` unchanged at decode; every query attends to every encoder
     position through the plain product, as the JAX package does."""
     kv, dh = cfg.n_kv_heads, cfg.head_dim
+    split = False
     if cache is not None and index is not None:
         k, v = cache["k"], cache["v"]
+        q, _, _, split = _local_heads(q, None, None, k.shape[1], cfg)
     else:
         k = _split_heads(kr.apply(params["wk"], kv_source, spec), kv, dh)
         v = _split_heads(kr.apply(params["wv"], kv_source, spec), kv, dh)
@@ -269,6 +292,8 @@ def _cross_apply(params, q, x, cfg: AttnConfig, kv_source, cache, index,
         torch.arange(q.shape[2], dtype=torch.int32, device=dev),
         torch.arange(k.shape[2], dtype=torch.int32, device=dev),
         causal=False, softcap=cfg.softcap, scale=cfg.scale)
+    if split:
+        o = SH.all_gather_model(o, 1)
     return _out_proj(params, o, cfg, spec, probe), cache
 
 
@@ -317,8 +342,10 @@ def gqa_apply(params, x, cfg: AttnConfig, *, positions=None, cache=None,
         if cache is not None:
             _prefill_cache(cache, k, v, cfg)
         o = _sdpa(q, k, v, cfg)
-    elif pages is not None and (cfg.window is None
-                                or cfg.window >= pages["len"]):
+        return _out_proj(params, o, cfg, spec, probe), cache
+    q, k, v, split = _local_heads(q, k, v, cache["k"].shape[1], cfg)
+    if pages is not None and (cfg.window is None
+                              or cfg.window >= pages["len"]):
         o = _paged_gqa_decode(q, k, v, cfg, cache, index, pages, positions,
                               x.dtype)
     else:
@@ -327,6 +354,8 @@ def gqa_apply(params, x, cfg: AttnConfig, *, positions=None, cache=None,
             q, cache["k"].to(x.dtype), cache["v"].to(x.dtype), positions,
             kv_pos, causal=cfg.causal, window=cfg.window,
             softcap=cfg.softcap, extra_mask=valid, scale=cfg.scale)
+    if split:
+        o = SH.all_gather_model(o, 1)
     return _out_proj(params, o, cfg, spec, probe), cache
 
 

@@ -19,9 +19,13 @@ The recurrence  h_t = exp(dt_t * A) h_{t-1} + dt_t * B_t x_t ;  y_t = C_t h_t
 
 Caches are updated IN PLACE (the JAX package returns new arrays): decode
 advances every slot's tail and state, prefill writes the final state and
-the prompt's last d_conv - 1 inputs. falcon-mamba adds RMSNorm on the
-(B, C, dt) streams (`bcdt_rms`). The in/x/out projections go through
-`core.kratos`; `dt_proj` stays a plain matmul, as in the JAX package.
+the prompt's last d_conv - 1 inputs. Under a mesh whose 'model' axis
+splits a decode cache's d_inner channels (distributed.sharding.use_mesh),
+a rank runs the conv and the recurrence of its channels, all-gathering
+the activations for x_proj and the output before out_proj. falcon-mamba
+adds RMSNorm on the (B, C, dt) streams (`bcdt_rms`). The in/x/out
+projections go through `core.kratos`; `dt_proj` stays a plain matmul, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import kratos as kr
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
 
@@ -126,17 +131,27 @@ def mamba_apply(params, x: torch.Tensor, cfg: MambaConfig, *,
     ug = kr.apply(params["in_proj"], x, spec)
     u, gate = ug.chunk(2, dim=-1)                           # (B, S, di) each
     decode = cache is not None and index is not None
-    u_conv = _depthwise_conv(u, params["conv_w"].to(u.dtype),
-                             params["conv_b"].to(u.dtype),
+    # under a mesh whose 'model' axis splits the cache's channels, this
+    # rank runs its channels `ch`: their conv and recurrence, the
+    # activations all-gathered for x_proj and before out_proj
+    ch, group = slice(None), None
+    if decode and cache["ssm"].shape[1] != cfg.d_inner:
+        r, group = SH.model_shard()
+        dl = cache["ssm"].shape[1]
+        ch = slice(r * dl, (r + 1) * dl)
+        u, gate = u[..., ch], gate[..., ch]
+    u_conv = _depthwise_conv(u, params["conv_w"][:, ch].to(u.dtype),
+                             params["conv_b"][ch].to(u.dtype),
                              cache["conv"] if decode else None)
     u_act = F.silu(u_conv)
-    dt, b_, c_ = _ssm_params(params, u_act, cfg, spec)
-    a = -torch.exp(params["A_log"].float())                 # (di, st)
+    dt, b_, c_ = _ssm_params(params,
+                             SH.all_gather_axis(u_act, -1, group), cfg, spec)
+    a = -torch.exp(params["A_log"][ch].float())             # (di, st)
 
     if decode:
         if s != 1:
             raise ValueError(f"mamba decode takes one token, got S={s}")
-        dtf = dt[:, 0].float()
+        dtf = dt[:, 0, ch].float()
         da = torch.exp(dtf[..., None] * a)                  # (B, di, st)
         dbx = (dtf * u_act[:, 0].float())[..., None] \
             * b_[:, 0].float()[:, None, :]
@@ -157,8 +172,8 @@ def mamba_apply(params, x: torch.Tensor, cfg: MambaConfig, *,
                                       tail], dim=1)
                 cache["conv"].copy_(tail)
             cache["ssm"].copy_(h_last)
-    y = y.to(x.dtype) + u_act * params["D"].to(x.dtype)
-    y = y * F.silu(gate)
+    y = y.to(x.dtype) + u_act * params["D"][ch].to(x.dtype)
+    y = SH.all_gather_axis(y * F.silu(gate), -1, group)
     return kr.apply(params["out_proj"], y, spec), cache
 
 

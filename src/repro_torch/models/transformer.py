@@ -102,7 +102,6 @@ class ModelConfig:
     n_shared_experts: int = 0
     moe_period: int = 1
     moe_offset: int = 0
-    prelude_layers: int = 0
     capacity_factor: float = 1.25
     aux_loss_coef: float = 0.001          # MoE load-balancing coefficient
     # Mamba: is_ssm makes every layer a Mamba-1 mixer without FFN
@@ -129,6 +128,7 @@ class ModelConfig:
     # the JAX package stacks layers of one pattern slot and runs the slots'
     # stacks in turn; `layer_order` reproduces the order that gives
     scan_period: int = 1
+    prelude_layers: int = 0
     # training: recompute each layer's forward in the backward pass
     # (torch.utils.checkpoint around every layer). 'dots' takes the same
     # form as 'nothing' (every activation recomputed); 'none' is off
@@ -566,14 +566,27 @@ def make_caches(cfg: ModelConfig, batch: int, max_len: int,
     return out
 
 
+def noise(shape, generator: torch.Generator, device, rows=None
+          ) -> torch.Tensor:
+    """Uniform noise of `shape` from `generator`. rows=(first, total): the
+    caller holds rows first.. of a batch of `total` (a rank's slots on a
+    mesh); the noise of the whole batch is drawn and those rows kept, so
+    sampled tokens do not depend on how the slots are split."""
+    if rows is None:
+        return torch.rand(shape, generator=generator, device=device)
+    first, total = rows
+    u = torch.rand((total, *shape[1:]), generator=generator, device=device)
+    return u[first:first + shape[0]]
+
+
 def sample_tokens(logits: torch.Tensor, generator: torch.Generator,
-                  temperature: torch.Tensor) -> torch.Tensor:
+                  temperature: torch.Tensor, rows=None) -> torch.Tensor:
     """Per-row Gumbel-max sampling (argmax when temperature <= 0), on the
-    logits' device. logits (B, vocab); temperature (B,) f32. Returns (B,)
-    int32. The noise comes from `generator`, so sampled tokens differ from
-    the JAX package's; greedy rows match it."""
+    logits' device. logits (B, vocab); temperature (B,) f32; rows: see
+    `noise`. Returns (B,) int32. The noise comes from `generator`, so
+    sampled tokens differ from the JAX package's; greedy rows match it."""
     logits = logits.float()
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u = noise(logits.shape, generator, logits.device, rows)
     g = -torch.log(-torch.log(u.clamp_(min=torch.finfo(torch.float32).tiny)))
     safe_t = temperature.clamp(min=1e-6)[:, None]
     scores = torch.where((temperature > 0.0)[:, None], logits / safe_t + g,

@@ -4,9 +4,13 @@ decode, deadlines and cancellation, the QoS tier ladder, the
 ineffectual-work ledger, tracing and live telemetry, the replica router
 with failover and its chaos harness, the continuous and static admission
 policies, the execution backend an engine is built on, and the fleet:
-the cross-process control plane and the FleetRouter over it)."""
+the cross-process control plane and the FleetRouter over it, and the
+sharded and distributed backends over a torch.distributed device
+mesh)."""
 
-from repro_torch.serve.backend import ExecutionBackend, LocalBackend
+from repro_torch.serve.backend import (DistributedBackend, ExecutionBackend,
+                                       LocalBackend, ShardedBackend,
+                                       ensure_distributed)
 from repro_torch.serve.cache_pool import CachePool, PoolExhausted
 from repro_torch.serve.chaos import ChaosHarness, Fault, seeded_schedule
 from repro_torch.serve.control import (ControlListener, Endpoint, FleetConfig,
@@ -37,7 +41,8 @@ from repro_torch.serve.trace import (NULL_TRACER, TraceConfig, Tracer,
                                      export_chrome, export_jsonl)
 
 __all__ = ["CachePool", "ChaosHarness", "ContinuousScheduler",
-           "ControlListener", "DraftSpec", "Endpoint", "EngineConfig",
+           "ControlListener", "DistributedBackend", "DraftSpec", "Endpoint",
+           "EngineConfig",
            "EngineSaturated", "ExecutionBackend", "Fault", "FleetConfig",
            "FleetRequest", "FleetRouter", "FleetState", "InferenceEngine",
            "LedgerConfig", "LedgerSink", "LocalBackend", "LocalProcess",
@@ -45,9 +50,9 @@ __all__ = ["CachePool", "ChaosHarness", "ContinuousScheduler",
            "PageLayout", "PagedCachePool", "PoolExhausted", "PrefixIndex",
            "ProcessStatus", "QoSConfig", "QoSController", "RemoteProcess",
            "ReplicaFault", "ReplicaRouter", "Request", "ServeMetrics",
-           "StaticScheduler", "TelemetryConfig", "TelemetryExporter",
+           "ShardedBackend", "StaticScheduler", "TelemetryConfig", "TelemetryExporter",
            "TelemetryRegistry", "TraceConfig", "Tracer", "WorkerServer",
            "check_tier_spec", "connect", "decode_message", "encode_message",
-           "engine_sample", "export_chrome", "export_jsonl", "hist_checksum",
+           "engine_sample", "ensure_distributed", "export_chrome", "export_jsonl", "hist_checksum",
            "pack_model_params", "parse_tiers", "prefix_supported",
            "replica_load", "router_sample", "seeded_schedule"]

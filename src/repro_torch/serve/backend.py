@@ -27,8 +27,9 @@ never falls back to eager launches. The replay runs under
 inside the dispatch raises instead of silently stalling it; the result is
 copied out after the guard — the dispatch's one host sync. On the CPU the
 eager step runs (the plain versions of the kernels). Prefill is not
-graphed: its shape varies with the prompt. The sharded and multi-process
-backends are not ported yet (ROADMAP.md queue 1, item 11).
+graphed: its shape varies with the prompt. `ShardedBackend` and
+`DistributedBackend` (below) place the same steps on a torch.distributed
+device mesh, one process a rank.
 
 Speculative decode (EngineConfig.speculate=K, serve.speculative) adds the
 draft's slab (`draft_pool`: the target's slot assignment and per-slot
@@ -85,11 +86,13 @@ from __future__ import annotations
 
 import contextlib
 import gc
-from typing import Any, Dict, Tuple
+import os
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.distributed import steps as ST
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
@@ -170,14 +173,14 @@ class LocalBackend(ExecutionBackend):
             self.pool = PagedCachePool(
                 mcfg, cfg.n_slots, cache_len, cdtype, self.device,
                 page_size=cfg.page_size, n_pages=cfg.n_pages,
-                prefix_cache=cfg.prefix_cache)
+                prefix_cache=cfg.prefix_cache, **self._pool_kw())
             if self.pool.index is not None:
                 self._suffix_prefill = ST.make_suffix_prefill_step(
                     mcfg, layout=self.pool.layout, ledger=ledger)
         else:
             self.pool = CachePool(mcfg, cfg.n_slots, cache_len, cdtype,
-                                  self.device)
-        self.state = ST.make_decode_state(cfg.n_slots, cfg.seed, self.device)
+                                  self.device, **self._pool_kw())
+        self.state = self._make_state()
         self._first_gen = torch.Generator(device=self.device).manual_seed(
             cfg.seed)
         self.draft_pool = None
@@ -199,7 +202,7 @@ class LocalBackend(ExecutionBackend):
             self.draft_params = model.draft_params
             ddtype = getattr(torch, cfg.draft_cache_dtype or cfg.cache_dtype)
             self.draft_pool = CachePool(dcfg, cfg.n_slots, cache_len, ddtype,
-                                        self.device)
+                                        self.device, **self._pool_kw())
             self._draft_prefill = ST.make_prefill_step(
                 dcfg, True, cache_len=cache_len, cache_dtype=ddtype,
                 device=self.device)
@@ -220,6 +223,15 @@ class LocalBackend(ExecutionBackend):
         if self.device.type == "cuda":
             self._capture()
 
+    def _pool_kw(self) -> Dict[str, Any]:
+        """Keyword arguments of the pools beyond their geometry (the
+        sharded backend's mesh)."""
+        return {}
+
+    def _make_state(self):
+        return ST.make_decode_state(self.cfg.n_slots, self.cfg.seed,
+                                    self.device)
+
     # -- the dispatch: the eager step, and its CUDA graph -------------------
 
     def _run(self) -> torch.Tensor:
@@ -228,6 +240,19 @@ class LocalBackend(ExecutionBackend):
         the speculative (B, K+3) [commit | n_commit | n_accept], or the host
         loop's (B, vocab) last-column logits. With the ledger, the result
         flattened and the ledger matrix's bits after it (`_split`)."""
+        out = self._step_out()
+        if self.ledger_buf is not None:
+            # the ledger rides the dispatch's one host copy
+            out = torch.cat([out.reshape(-1), self._ledger_out().view(
+                torch.int32).reshape(-1)])
+        return out
+
+    def _ledger_out(self) -> torch.Tensor:
+        """The ledger matrix a dispatch copies out."""
+        return self.ledger_buf
+
+    def _step_out(self) -> torch.Tensor:
+        """The built step's result, without the ledger (see `_run`)."""
         if not self.cfg.device_loop:
             return self._host_step(self.params, self.pool.caches,
                                    self._host_tokens, self._host_index)
@@ -243,10 +268,6 @@ class LocalBackend(ExecutionBackend):
                                         self.draft_pool.caches, self.state,
                                         *led)[:3]
             out = torch.cat([commit, m[:, None], acc[:, None]], dim=1)
-        if led:
-            # the ledger rides the dispatch's one host copy
-            out = torch.cat([out.reshape(-1),
-                             self.ledger_buf.view(torch.int32).reshape(-1)])
         return out
 
     def _split(self, out: np.ndarray, shape) -> np.ndarray:
@@ -304,15 +325,18 @@ class LocalBackend(ExecutionBackend):
             self.ledger_buf.zero_()
         self.set_tier(0)
 
-    def _dispatch(self, eager: bool) -> np.ndarray:
+    def _device_out(self, eager: bool) -> torch.Tensor:
+        """The dispatch's result on the device: the graph's replay, or the
+        eager step."""
         with no_host_sync(self.device):
             if eager or self._graph is None:
-                out = self._run()
-            else:
-                self._graph.replay()
-                ops.count_replay(self._graph_launches)
-                out = self._graph_out
-        return out.cpu().numpy()                 # the ONLY decode sync
+                return self._run()
+            self._graph.replay()
+            ops.count_replay(self._graph_launches)
+            return self._graph_out
+
+    def _dispatch(self, eager: bool) -> np.ndarray:
+        return self._device_out(eager).cpu().numpy()   # the ONLY decode sync
 
     # -- QoS tiers (serve.qos) ----------------------------------------------
 
@@ -489,3 +513,261 @@ class LocalBackend(ExecutionBackend):
             _, draft = self._draft_prefill(self.draft_params, full_batch)
             self.draft_pool.write_slot(slot, draft)
         return logits
+
+
+class ShardedBackend(LocalBackend):
+    """Mesh placement: every rank of the mesh runs the same engine and
+    the same dispatch on its shard (multi-controller SPMD, one process a
+    device).
+
+    mesh: a `torch.distributed.device_mesh.DeviceMesh` with ('data',
+    'model') axes (a replica submesh from `launch.mesh.replica_meshes`, or
+    the whole group's); mesh_shape: build a (data, model) mesh over the
+    group's ranks instead (default: (world size, 1)). Greedy decode, and
+    sampled decode, are token-identical to LocalBackend.
+
+    What each rank keeps (the port's placement, against the JAX package's
+    specs in ROADMAP.md):
+      * parameters, packed buffers and the draft: replicated; each rank
+        runs the hand-written kernels on its own rows;
+      * the slab (and a speculating engine's draft slab): its block of
+        slot rows over 'data' and its share of the kv heads (a Mamba
+        layer's channels) over 'model', as `sharding.cache_pspecs(slab=
+        True)` places them; the per-slot loop state: its block of rows
+        (`steps.decode_state_pspecs`); a slot count that 'data' does not
+        divide replicates the rows;
+      * a page store: its kv heads over 'model'; pages, page table and
+        loop state replicated over 'data', whose ranks all decode every
+        slot (serve.paging.PagedCachePool);
+      * the ledger's counter matrix: each rank counts its rows, and a
+        dispatch copies out the sum over 'data'.
+    A dispatch all-gathers the token block over 'data', so every rank's
+    host sees every slot and its bookkeeping stays whole. Decode attention
+    and the Mamba recurrence run on the rank's heads / channels and are
+    all-gathered over 'model' before the packed output projection
+    (`distributed.sharding.use_mesh`, installed around every dispatch).
+    The prefill runs whole on every rank (a batch of one), and each rank
+    keeps its part of the prefilled row.
+
+    A rank outside the mesh (another replica's, under a router) holds
+    nothing and runs no step: it mirrors the replica's host bookkeeping,
+    and each dispatch's result reaches it by a broadcast from the mesh's
+    first rank, so every rank's router sees every replica. On the card the
+    dispatch is captured as a CUDA graph as LocalBackend's; a one-rank
+    axis issues no collective.
+    """
+
+    name = "sharded"
+
+    def __init__(self, mesh=None, *,
+                 mesh_shape: Optional[Tuple[int, int]] = None):
+        if mesh is not None and mesh_shape is not None:
+            raise ValueError("pass mesh OR mesh_shape, not both")
+        self._mesh = mesh
+        self._mesh_shape = mesh_shape
+
+    def build(self, model, cfg) -> None:
+        import torch.distributed as dist
+
+        from repro_torch.launch import mesh as M
+
+        if not cfg.device_loop:
+            raise ValueError("ShardedBackend requires device_loop=True: the "
+                             "host loop pulls full-vocab logits every step, "
+                             "which is exactly the cross-boundary traffic a "
+                             "mesh placement must avoid")
+        M.ensure_world(cfg.device)
+        if self._mesh is None:
+            shape = self._mesh_shape or (dist.get_world_size(), 1)
+            self._mesh = M.make_local_mesh(*shape, device=cfg.device)
+        mesh = self.mesh = self._mesh
+        self._member = SH.in_mesh(mesh)
+        ranks = mesh.mesh.reshape(-1).tolist()
+        # a replica submesh under a router: results reach the other ranks
+        # that run the same host bookkeeping (the peers)
+        self._src = ranks[0] if len(ranks) < self._n_peers() else None
+        self._data = SH.axis_group(mesh, "data") if self._member else None
+        super().build(model, cfg)
+
+    def _n_peers(self) -> int:
+        """How many ranks run this engine's host bookkeeping: every rank
+        of the group (the SPMD launch)."""
+        import torch.distributed as dist
+        return dist.get_world_size()
+
+    def _pool_kw(self) -> Dict[str, Any]:
+        return {"mesh": self.mesh}
+
+    def _ctx(self):
+        return SH.use_mesh(self.mesh)
+
+    def _make_state(self):
+        """This rank's rows of the loop state (`rows` the first slot and
+        the slot count, for the sampling noise), and the dispatch's
+        geometry."""
+        cfg = self.cfg
+        lo, n = (0, cfg.n_slots) if self.paged else self.pool.rows
+        if not self._member:
+            lo, n = 0, 0
+        self._rows = (lo, n)
+        # 'data' splits the slots of the slab only where it divides them
+        self._split_slots = self._data is not None and 0 < n < cfg.n_slots
+        k = cfg.speculate
+        self._out_shape = (cfg.n_slots, k + 3) if k else \
+            (cfg.decode_chunk, cfg.n_slots)
+        self._out_numel = int(np.prod(self._out_shape)) + (
+            0 if self.ledger_buf is None else self.ledger_buf.numel())
+        state = ST.make_decode_state(n, cfg.seed, self.device)
+        state["rows"] = (lo, cfg.n_slots)
+        return state
+
+    def _capture(self) -> None:
+        if self._member:
+            super()._capture()
+
+    def _step_out(self) -> torch.Tensor:
+        with self._ctx():
+            out = super()._step_out()
+        if self._split_slots:
+            # every rank's host sees every slot
+            out = SH.all_gather_axis(out, 0 if self.cfg.speculate else 1,
+                                     self._data)
+        return out
+
+    def _ledger_out(self) -> torch.Tensor:
+        if not self._split_slots:
+            return self.ledger_buf
+        import torch.distributed as dist
+        total = self.ledger_buf.clone()
+        dist.all_reduce(total, group=self._data)
+        return total
+
+    def _device_out(self, eager: bool) -> torch.Tensor:
+        if self._src is None:
+            return super()._device_out(eager)
+        import torch.distributed as dist
+        out = super()._device_out(eager).reshape(-1).contiguous() \
+            if self._member else torch.empty(
+                self._out_numel, dtype=torch.int32, device=self.device)
+        dist.broadcast(out, src=self._src)
+        return out if self.ledger_buf is not None else \
+            out.reshape(self._out_shape)
+
+    def install(self, slot: int, token: int, index: int, temperature: float,
+                eos: int, remaining: int, spec_limit: int = 0) -> None:
+        lo, n = self._rows
+        if lo <= slot < lo + n:
+            ST.install_slot(self.state, slot - lo, token, index, temperature,
+                            eos, remaining, spec_limit)
+
+    def prefill_suffix(self, batch: Dict[str, Any], full_batch: Dict[str, Any],
+                       slot: int, index: int) -> torch.Tensor:
+        if self._member:
+            with self._ctx():
+                logits = super().prefill_suffix(batch, full_batch, slot,
+                                                index)
+        else:
+            logits = torch.empty(
+                (1, batch["tokens"].shape[1], self.model.cfg.vocab),
+                dtype=torch.float32, device=self.device)
+        if self._src is not None:
+            import torch.distributed as dist
+            logits = logits.float().contiguous()
+            dist.broadcast(logits, src=self._src)
+        return logits
+
+    def describe(self) -> Dict[str, Any]:
+        axes = SH.mesh_axes(self.mesh)
+        return {"backend": self.name,
+                "mesh_shape": list(axes.values()),
+                "mesh_axes": list(axes),
+                "n_devices": int(np.prod(list(axes.values())))}
+
+
+def ensure_distributed(coordinator_address: str, num_processes: int,
+                       process_id: int, *, device="cuda") -> None:
+    """Idempotent `torch.distributed.init_process_group` of this process
+    as rank `process_id` of `num_processes`, rendezvousing at
+    `coordinator_address` ('HOST:PORT'): NCCL on the card, gloo with
+    device='cpu'. On the card the process takes device `LOCAL_RANK` (as
+    torchrun sets it), else process_id modulo the visible cards. A second
+    call with the same identity is a no-op; another identity, or a group
+    of the other backend, raises ValueError."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as M
+
+    backend = M.dist_backend(device)
+    if dist.is_initialized():
+        have = (dist.get_world_size(), dist.get_rank(), dist.get_backend())
+        if have != (num_processes, process_id, backend):
+            raise ValueError(f"process group already initialized as rank "
+                             f"{have[1]} of {have[0]} on {have[2]}; asked "
+                             f"for rank {process_id} of {num_processes} on "
+                             f"{backend}")
+        return
+    if backend == "nccl":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' but no CUDA device is "
+                               "available; pass device='cpu' for gloo")
+        local = int(os.environ.get("LOCAL_RANK",
+                                   process_id % torch.cuda.device_count()))
+        torch.cuda.set_device(local)
+    dist.init_process_group(backend,
+                            init_method=f"tcp://{coordinator_address}",
+                            world_size=num_processes, rank=process_id)
+
+
+class DistributedBackend(ShardedBackend):
+    """One fleet process's placement: `ensure_distributed` (when a
+    coordinator address is given), then ShardedBackend on replica
+    `replica` of `launch.mesh.process_meshes`, the meshes over this
+    process's ranks. In a group that is one block of ranks (torchrun)
+    that is ShardedBackend on `replica_meshes` exactly, token for token."""
+
+    name = "distributed"
+
+    def __init__(self, *, mesh_shape: Tuple[int, int], n_replicas: int = 1,
+                 replica: int = 0, coordinator_address: Optional[str] = None,
+                 num_processes: int = 1, process_id: int = 0,
+                 device="cuda"):
+        if coordinator_address:
+            ensure_distributed(coordinator_address, num_processes,
+                               process_id, device=device)
+        if not 0 <= replica < n_replicas:
+            raise ValueError(f"replica {replica} out of range "
+                             f"(n_replicas={n_replicas})")
+        self._fleet = dict(mesh_shape=tuple(mesh_shape),
+                           n_replicas=n_replicas, replica=replica)
+        super().__init__(mesh=None)
+
+    def build(self, model, cfg) -> None:
+        import torch.distributed as dist
+
+        from repro_torch.launch import mesh as M
+        f = self._fleet
+        d, m = f["mesh_shape"]
+        M.ensure_world(cfg.device)
+        if f["n_replicas"] > 1 and d * m < dist.get_world_size():
+            raise NotImplementedError(
+                "several replicas in a process block of a larger group "
+                "(a fleet worker owning several devices): ROADMAP.md queue "
+                "1, item 14 (multi-device fleet workers)")
+        if self._mesh is None:
+            self._mesh = M.process_meshes(
+                d, m, f["n_replicas"], device=cfg.device)[f["replica"]]
+        super().build(model, cfg)
+
+    def _n_peers(self) -> int:
+        """The ranks of this process's block (launch.mesh.process_meshes):
+        one fleet worker's replicas run on its own ranks alone."""
+        d, m = self._fleet["mesh_shape"]
+        return d * m
+
+    def describe(self) -> Dict[str, Any]:
+        import torch.distributed as dist
+        d = super().describe()
+        d.update({"process_index": int(dist.get_rank()),
+                  "num_processes": int(dist.get_world_size()),
+                  "replica": int(self._fleet["replica"])})
+        return d

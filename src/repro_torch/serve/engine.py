@@ -145,9 +145,9 @@ class EngineConfig:
     prefill_buckets: bool = True       # pow2 right-padding of prompts
     bucket_min: int = 16
     seed: int = 0                      # sampling generator
+    device_loop: bool = True
     decode_chunk: int = 1              # K micro-steps per dispatch
     max_waiting: Optional[int] = None  # waiting-deque bound (None = open)
-    device_loop: bool = True
     # speculative decode (serve.speculative): K draft tokens per propose-
     # then-verify dispatch (0 = off); needs a model loaded with
     # `draft_spec=` and replaces the decode_chunk loop
@@ -172,13 +172,13 @@ class EngineConfig:
     # needs a model loaded with tier_specs
     pool_wait_retries: Optional[int] = None
     qos: Optional[Any] = None
-    # the ineffectual-work ledger (a serve.ledger.LedgerConfig; None = off,
-    # the allocation-free NULL_LEDGER); needs device_loop=True
-    ledger: Optional[Any] = None
     # tracing (serve.trace): None = off, the shared allocation-free
     # NULL_TRACER; a TraceConfig records every edge into the ring buffer,
     # with optional export paths and a torch.profiler bracket
     trace: Optional[TraceConfig] = None
+    # the ineffectual-work ledger (a serve.ledger.LedgerConfig; None = off,
+    # the allocation-free NULL_LEDGER); needs device_loop=True
+    ledger: Optional[Any] = None
 
     def __post_init__(self):
         # the JAX engine's checks, with its messages

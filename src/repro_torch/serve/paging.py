@@ -55,6 +55,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import convert as CV
+from repro_torch.distributed import sharding as SH
 from repro_torch.instrument import REGISTRY
 from repro_torch.kernels.ref import last_write, paged_view
 from repro_torch.models import transformer as T
@@ -73,6 +75,15 @@ GATHER_EVENTS = REGISTRY.event_list("gather")
 
 
 RESIDENT_LEAVES = frozenset({"conv", "ssm", "cross_k", "cross_v"})
+
+
+def _slab_slices(sl, paged: bool):
+    """The part of a batch-1 slab row that a store leaf's local slices
+    `sl` keep: every axis but the slot / page axis, and for a paged leaf
+    not its page-interior and feature axes (which the slab lays out as
+    positions and which are never sharded)."""
+    return (slice(None),) + (sl[1:-2] + (slice(None),) * 2 if paged
+                             else sl[1:])
 
 
 def prefix_supported(cfg: T.ModelConfig) -> bool:
@@ -114,10 +125,8 @@ class PageLayout:
         # the reference's cache tree stacks a scan slot's layers into one
         # leaf: its leaves are the prelude layers' and each slot's first
         # layer's (describe() and the events count them so)
-        n0 = cfg.prelude_layers
-        tree = [*range(n0), *range(n0, min(n0 + cfg.scan_period,
-                                           cfg.n_layers))]
-        kinds = [v for i in tree for v in self.paged[i].values()]
+        kinds = [v for i in CV.reference_layers(cfg)
+                 for v in self.paged[i].values()]
         self.n_paged_leaves = sum(kinds)
         self.n_resident_leaves = len(kinds) - self.n_paged_leaves
 
@@ -228,7 +237,8 @@ class PagedCachePool:
 
     def __init__(self, cfg: T.ModelConfig, n_slots: int, max_len: int,
                  dtype=torch.float32, device="cuda", *, page_size: int,
-                 n_pages: Optional[int] = None, prefix_cache: bool = True):
+                 n_pages: Optional[int] = None, prefix_cache: bool = True,
+                 mesh=None):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         self.cfg, self.n_slots = cfg, n_slots
@@ -243,7 +253,11 @@ class PagedCachePool:
             raise ValueError(
                 f"n_pages={self.n_pages} cannot hold even one full slot "
                 f"({self.pp} pages) plus the reserved sink page")
-        self.store = self.layout.make_store(self.n_pages)
+        self.mesh, self.shardings, self._slices = mesh, None, None
+        if mesh is None:
+            self.store = self.layout.make_store(self.n_pages)
+        else:
+            self._shard_store(mesh, device)
         self.page_table = torch.zeros((n_slots, self.pp), dtype=torch.int32,
                                       device=device)
         self._table = np.zeros((n_slots, self.pp), np.int32)
@@ -255,6 +269,29 @@ class PagedCachePool:
         self.index = PrefixIndex(page_size) \
             if (prefix_cache and self.layout.has_paged
                 and prefix_supported(cfg)) else None
+
+    def _shard_store(self, mesh, device) -> None:
+        """This rank's part of the store on `mesh`: `page_pspecs`' kv-head
+        (and Mamba-channel) entries over 'model'; the page axis, and a
+        resident leaf's slot axis, replicated over 'data', so every rank
+        reads any page, a shared prefix page included, and the allocator
+        and the prefix index stay one (the JAX package shards the page
+        axis over 'data' and lets GSPMD gather)."""
+        template = T.make_caches(self.cfg, self.n_slots, self.max_len,
+                                 self.dtype, "meta")
+        specs = SH.page_pspecs(template, self.layout, mesh, self.n_pages)
+        self.shardings = [{n: SH.NamedSharding(mesh, SH.P(None, *s[1:]))
+                           for n, s in layer.items()} for layer in specs]
+        shapes = self.layout.store_shapes(self.n_pages)
+        self._slices = [{n: sh.local_slices(shapes[i][n])
+                         for n, sh in layer.items()}
+                        for i, layer in enumerate(self.shardings)]
+        self.store = [{n: torch.zeros(tuple(x.stop - x.start for x in sl),
+                                      dtype=self.dtype, device=device)
+                       for n, sl in layer.items()} for layer in self._slices]
+        self._bytes = sum(int(np.prod(s)) for layer in shapes
+                          for s in layer.values()) \
+            * torch.empty((), dtype=self.dtype).element_size()
 
     # -------------------------------------------------------------- slots
 
@@ -395,7 +432,15 @@ class PagedCachePool:
     def write_slot(self, slot: int, single: Store) -> None:
         """Scatter a prefilled batch-1 cache into the slot's pages (and its
         resident rows). Shared prefix pages receive back the values they
-        supplied — a value-level no-op."""
+        supplied — a value-level no-op. On a mesh each rank writes its
+        share of the heads (a rank outside the mesh holds nothing)."""
+        if self._slices is not None:
+            if not SH.in_mesh(self.mesh):
+                return
+            single = [{n: t[_slab_slices(self._slices[i][n],
+                                         self.layout.paged[i][n])]
+                       for n, t in layer.items()}
+                      for i, layer in enumerate(single)]
         self.layout.scatter_one(self.store, self.page_table[slot], slot,
                                 single)
 
@@ -411,9 +456,12 @@ class PagedCachePool:
         return 2 * self.layout.slab_view_bytes()
 
     def bytes(self) -> int:
-        """Bytes of the page store and the page table."""
-        return sum(t.numel() * t.element_size()
-                   for layer in self.store for t in layer.values()) \
+        """Bytes of the page store (on a mesh, of the whole store, as the
+        JAX package's sharded array counts) and the page table."""
+        store = self._bytes if self.mesh is not None else sum(
+            t.numel() * t.element_size()
+            for layer in self.store for t in layer.values())
+        return store \
             + self.page_table.numel() * self.page_table.element_size()
 
     def describe(self) -> Dict[str, Any]:

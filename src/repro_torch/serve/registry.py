@@ -30,6 +30,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch import configs as C
+from repro_torch.checkpoint import convert as CV
 from repro_torch.core import kratos as kr
 from repro_torch.core import quantize as qz
 from repro_torch.models import moe as M
@@ -94,6 +95,17 @@ def pack_model_params(params: Dict[str, Any], spec: kr.KratosSpec, *,
     return walk(params, ""), count[0]
 
 
+def reference_packed(packed: Dict[str, Any], cfg: T.ModelConfig) -> int:
+    """Packed projections counted as the JAX package's layer-stacked tree
+    holds them: one per projection of a prelude layer and of a scan slot
+    (the slot's layers are rows of one leaf), and one per projection of
+    the stacked encoder (`checkpoint.convert.reference_layers`)."""
+    heads = [packed["layers"][i] for i in CV.reference_layers(cfg)]
+    heads += packed.get("enc_layers", [])[:1]
+    return sum(1 for h in heads
+               for _ in _leaves(h, lambda n: isinstance(n, kr.PackedLinear)))
+
+
 def _leaves(node, pred):
     if pred(node):
         yield node
@@ -140,7 +152,7 @@ class PackedModel:
     cfg: T.ModelConfig
     params: Dict[str, Any]          # tree with PackedLinear leaves
     spec: kr.KratosSpec
-    n_packed: int
+    n_packed: int                   # as the JAX package counts (reference_packed)
     packed_bytes: int               # serving bytes of the packed projections
     dense_bytes: int                # bytes of the same dense projections
     device: torch.device
@@ -224,9 +236,10 @@ class ModelRegistry:
                 params["pos_table"] = T.position_table(cfg.d_model, device)
         draft = {}
         if draft_spec is not None:
-            dcfg, dparams, dn = SP.derive_draft(params, cfg, spec, draft_spec)
+            dcfg, dparams, _ = SP.derive_draft(params, cfg, spec, draft_spec)
             draft = dict(draft_spec=draft_spec, draft_cfg=dcfg,
-                         draft_params=dparams, draft_packed=dn)
+                         draft_params=dparams,
+                         draft_packed=reference_packed(dparams, dcfg))
         # every tier packs off the DENSE leaves, so the ladder packs before
         # the target's pack empties the tree
         tier_params = tuple(
@@ -234,7 +247,7 @@ class ModelRegistry:
             for ts in tier_specs)
         # `params` is this call's own tree (fresh, or tree_to's new
         # containers): packing may empty it leaf by leaf
-        packed, n_packed = pack_model_params(params, spec, consume=True)
+        packed, _ = pack_model_params(params, spec, consume=True)
         del params
         linears = list(_leaves(packed, lambda n: isinstance(n, kr.PackedLinear)))
         itemsize = torch.empty((), dtype=cfg.pdtype()).element_size()
@@ -250,7 +263,7 @@ class ModelRegistry:
                         + (f"-{n_layers}L" if n_layers is not None else "")
                         + (f"#s{seed}" if seed else ""))
         model = PackedModel(name=name or default_name, cfg=cfg, params=packed,
-                            spec=spec, n_packed=n_packed,
+                            spec=spec, n_packed=reference_packed(packed, cfg),
                             packed_bytes=packed_bytes,
                             dense_bytes=dense_bytes, device=device,
                             tier_specs=tier_specs, tier_params=tier_params,

@@ -28,15 +28,15 @@ class Request:
     arrival_step: int = 0                   # simulated-trace admission gate
     temperature: float = 0.0                # 0 => greedy
     eos_id: Optional[int] = None
-    # per-request speculation cap on a speculating engine: the most draft
-    # tokens a dispatch may accept for it (None = the engine's K, 0 = opt
-    # out: the slot takes one plain target step a dispatch)
-    speculate: Optional[int] = None
     # per-request model inputs besides the tokens, batch-1 leading: a
     # vision-stub arch's {"img_embeds": (1, n_img_tokens, d)}, or an
     # encoder-decoder's {"frames": (1, enc_positions, d)}
     extras: Optional[Dict[str, Any]] = None
     on_token: Optional[Callable[["Request", int], None]] = None  # streaming
+    # per-request speculation cap on a speculating engine: the most draft
+    # tokens a dispatch may accept for it (None = the engine's K, 0 = opt
+    # out: the slot takes one plain target step a dispatch)
+    speculate: Optional[int] = None
     # QoS and deadlines (serve.qos): `deadline_steps` counts engine steps
     # from arrival_step (the deterministic clock); `deadline_ms` is a wall
     # bound from submit (perf_counter). Either sheds the request once it
@@ -50,8 +50,8 @@ class Request:
     state: str = "waiting"                  # waiting | running | done | shed
     slot: int = -1
     index: int = 0                          # next cache write position
-    prefix_matched: int = 0                 # prompt tokens reused (paged)
     generated: List[int] = dataclasses.field(default_factory=list)
+    prefix_matched: int = 0                 # prompt tokens reused (paged)
     # why a "shed" request ended: 'deadline' | 'pool' | 'failover' |
     # 'cancel'
     shed_reason: str = ""

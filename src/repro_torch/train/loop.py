@@ -16,19 +16,29 @@ of `repro.train.loop`).
     its checkpoint: the worst crash window.
 
 On the CPU a crash and resume equals the uninterrupted run bit for bit.
-Restoring onto another device layout (`state_shardings`) is item 11.
+
+Under a mesh (`distributed.sharding.use_mesh`, as the JAX package's
+launcher runs it) the loop is data-parallel over 'data': each rank steps
+on its block of every batch's rows, the step averages the gradients over
+'data', and the state stays whole on every rank; rank 0 writes the
+checkpoints, blocking, the other ranks waiting at a barrier.
+`state_shardings` places the restored state on the mesh (each rank reads
+its block of every leaf, `checkpoint.manager.restore_train_state`); the
+data-parallel step gathers every leaf whole again.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch import tree as tu
 from repro_torch.checkpoint import manager as CM
 from repro_torch.data.pipeline import DataConfig, make_pipeline
+from repro_torch.distributed import sharding as SH
 from repro_torch.distributed import steps as ST
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw as O
@@ -60,28 +70,31 @@ def run_training(cfg: T.ModelConfig, opt_cfg: O.OptimizerConfig,
     """Train (or resume) to loop.steps on `device` (the card unless the
     caller asks for the CPU). Returns {'state', 'history',
     'resumed_from'}."""
-    if state_shardings is not None:
-        raise NotImplementedError(
-            "state_shardings restores onto a device mesh: ROADMAP.md queue "
-            "1, item 11 (multi-device)")
     device = check_device(device)
+    mesh = SH.current_mesh()
+    rows, writer = _data_rows(mesh, data_cfg.batch)
     pipe = make_pipeline(data_cfg)
     step_fn = ST.make_train_step(cfg, opt_cfg, grad_accum=loop.grad_accum,
-                                 compress_fn=compress_fn)
+                                 compress_fn=compress_fn, mesh=mesh)
     mgr = CM.CheckpointManager(loop.ckpt_dir, keep=loop.keep) \
         if loop.ckpt_dir else None
+    save = _saver(mgr, cfg, mesh, writer, loop.async_checkpoint)
 
     state = ST.init_train_state(loop.seed, cfg, opt_cfg, device=device)
     start = 0
     if mgr is not None and mgr.latest_step() is not None:
-        state, start = CM.restore_train_state(mgr, state, cfg)
+        state, start = CM.restore_train_state(mgr, state, cfg,
+                                              shardings=state_shardings)
+        if state_shardings is not None:
+            # the data-parallel step runs on whole leaves
+            state = tu.tree_map(lambda t: t.full_tensor(), state)
         print(f"[train] resumed from checkpoint step {start}")
 
     history: List[Dict[str, float]] = []
     t0 = time.time()
     try:
         for step in range(start, loop.steps):
-            batch = {k: torch.from_numpy(v).to(device)
+            batch = {k: torch.from_numpy(v[rows]).to(device)
                      for k, v in pipe.batch(step).items()}
             state, metrics = step_fn(state, batch)
             m = {k: float(v) for k, v in metrics.items()}
@@ -97,9 +110,7 @@ def run_training(cfg: T.ModelConfig, opt_cfg: O.OptimizerConfig,
             if loop.fail_at_step is not None and (step + 1) == loop.fail_at_step:
                 raise SimulatedFailure(f"injected failure at step {step+1}")
             if mgr is not None and (step + 1) % loop.ckpt_every == 0:
-                CM.save_train_state(mgr, step + 1, state, cfg,
-                                    metadata={"loss": m["loss"]},
-                                    blocking=not loop.async_checkpoint)
+                save(step + 1, state, {"loss": m["loss"]})
     finally:
         # a failure lets an async writer finish, as it would in a process
         # that lives on
@@ -107,5 +118,39 @@ def run_training(cfg: T.ModelConfig, opt_cfg: O.OptimizerConfig,
             mgr.wait()
     if mgr is not None and loop.steps % loop.ckpt_every != 0 \
             and loop.steps > start:
-        CM.save_train_state(mgr, loop.steps, state, cfg)
+        save(loop.steps, state, None, blocking=True)
     return {"state": state, "history": history, "resumed_from": start}
+
+
+def _data_rows(mesh, batch: int) -> Tuple[slice, bool]:
+    """(this rank's rows of every batch, whether it writes checkpoints):
+    all rows and True without a mesh; on a mesh, its block over 'data'
+    and True on rank 0 only."""
+    if mesh is None:
+        return slice(None), True
+    import torch.distributed as dist
+    axes = SH.mesh_axes(mesh)
+    n = axes.get("data", 1)
+    if batch % n:
+        raise ValueError(f"batch {batch} does not split over data={n}")
+    i = SH.coordinate(mesh).get("data", 0)
+    per = batch // n
+    return slice(i * per, (i + 1) * per), dist.get_rank() == 0
+
+
+def _saver(mgr, cfg, mesh, writer: bool, async_checkpoint: bool):
+    """save(step, state, metadata, blocking=None): the writer saves (off
+    the thread unless asked, or on a mesh, where every rank then waits at
+    a barrier so a restore on any rank sees the file)."""
+    def save(step, state, metadata, blocking=None):
+        if mgr is None:
+            return
+        if blocking is None:
+            blocking = mesh is not None or not async_checkpoint
+        if writer:
+            CM.save_train_state(mgr, step, state, cfg, metadata=metadata,
+                                blocking=blocking)
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.barrier()
+    return save

@@ -199,7 +199,9 @@ def test_checkpoint_retention_gc(tmp_path):
 def test_async_checkpoint_snapshots_by_copy(tmp_path):
     """An async save equals a blocking one, though the tensor is updated in
     place right after the save returns (the snapshot is a copy); a bf16
-    leaf round-trips; shardings= is refused (multi-device)."""
+    leaf round-trips; shardings= restores onto a mesh (here of one gloo
+    rank: every leaf whole, as a DTensor), and run_training takes
+    state_shardings."""
     x = torch.arange(10.0)
     tree = {"x": x, "h": torch.arange(4.0).to(torch.bfloat16)}
     a = PM.CheckpointManager(str(tmp_path / "a"))
@@ -214,11 +216,15 @@ def test_async_checkpoint_snapshots_by_copy(tmp_path):
     assert torch.equal(ra["x"], torch.arange(10.0))
     assert torch.equal(ra["x"], rb["x"]) and ra["h"].dtype == torch.bfloat16
     assert torch.equal(ra["h"], tree["h"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        a.restore(tree, shardings={"x": None})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run_training(*_setup(None, steps=1), device="cpu",
-                     state_shardings={})
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import mesh as M
+    placed = SH.NamedSharding(M.make_local_mesh(1, 1, device="cpu"), SH.P())
+    rs, _ = a.restore(tree, shardings=placed)
+    assert torch.equal(rs["x"].to_local(), torch.arange(10.0))
+    assert torch.equal(rs["h"].full_tensor(), tree["h"])
+    out = run_training(*_setup(None, steps=1), device="cpu",
+                       state_shardings=placed)
+    assert len(out["history"]) == 1
 
 
 @pytest.mark.parametrize("arch", [DANUBE, "deepseek_moe_16b",

@@ -86,9 +86,8 @@ def test_serve_speculative_matches_jax(capsys):
                         SPEC_FIELDS)
     assert out["slot_acceptance"] == {
         s: list(a) for s, a in spec_eng.metrics.slot_acceptance.items()}
-    # the JAX package counts a projection once for all the layers its scan
-    # stacks (smoke nemotron: one scan over every layer), the port once a
-    # layer
-    assert out["draft_packed"] == model.draft_packed * model.cfg.n_layers
+    # both count a projection once for all the layers a scan stacks (smoke
+    # nemotron: one scan over every layer)
+    assert out["draft_packed"] == model.draft_packed
     np.testing.assert_allclose(out["draft_cost_fraction"],
                                model.draft_cost_fraction(), rtol=1e-6)

@@ -268,9 +268,17 @@ def test_fleet_cli_with_death_on_cpu():
 
 @pytest.mark.parametrize("flags", [["--jax-coordinator", "auto"],
                                    ["--devices-per-process", "2"]])
-def test_fleet_refusals_name_item_11(flags):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        F.main(["--device", "cpu"] + flags)
+def test_fleet_refusals_name_item_11(flags, monkeypatch):
+    """A worker that owns several devices is refused, naming its ROADMAP.md
+    item (14, split off item 11); `--jax-coordinator` (ported) joins the
+    workers into one process group and the fleet still gives the single
+    engine's tokens."""
+    if flags[0] == "--devices-per-process":
+        with pytest.raises(NotImplementedError, match="item 14"):
+            F.main(["--device", "cpu"] + flags)
+        return
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    assert F.main(["--device", "cpu", "--requests", "4"] + flags) == 0
 
 
 def test_spawn_fleet_fails_fast_on_a_dead_worker(monkeypatch):

@@ -6,8 +6,9 @@ the same arguments; its `[serve]` lines against the JAX CLI's
 (`repro.launch.serve.main` under a patched `sys.argv`) line for line, the
 numbers and the registry name aside (each framework seeds its own weights,
 so tokens are not compared); the refused flags naming their ROADMAP.md
-items, and `--processes 2` serving through the fleet; and a module that
-imports no JAX."""
+items, and `--processes 2` serving through the fleet; `--mesh 2,2
+--dry-run`'s printed specs against the JAX package's spec functions on
+an abstract (2, 2) mesh; and a module that imports no JAX."""
 
 import json
 import os
@@ -128,26 +129,91 @@ def test_cli_lines_match_jax(capsys, monkeypatch, tmp_path, flags):
 
 
 @pytest.mark.parametrize("flags,exc,match", [
-    (["--mesh", "2,2"], NotImplementedError, "item 11"),
-    (["--coordinator", "localhost:1234", "--num-processes", "2"],
-     NotImplementedError, "item 11"),
-    (["--process-id", "1"], NotImplementedError, "item 11"),
+    (["--mesh", "2,2"], None, "backend=sharded"),
+    (["--coordinator", "127.0.0.1:{port}", "--num-processes", "1"], None,
+     "backend=local"),
+    (["--process-id", "1"], SystemExit,
+     "--process-id 1 out of range for --num-processes 1"),
     (["--processes", "2", "--requests", "4", "--gen", "4"], None,
      "[serve] fleet 2 processes:"),
     (["--dry-run"], SystemExit, "--dry-run needs --mesh data,model")])
-def test_cli_refusals_name_their_items(capsys, monkeypatch, flags, exc,
+def test_cli_refusals_name_their_items(capfd, monkeypatch, flags, exc,
                                        match):
-    """Each unported flag is refused naming its item; `--processes 2`
-    (item 8's fleet, ported) serves through two worker processes."""
+    """What cannot run is refused before any weights load; `--mesh 2,2`
+    serves through four gloo ranks (spawned by the launcher) with the
+    greedy tokens of the same command without it, `--coordinator` joins a
+    process group (of one rank here) and serves, and `--processes 2`
+    serves through two worker processes."""
     if exc is not None:
         with pytest.raises(exc, match=match):
             cli.main(SMALL + flags)
         return
     monkeypatch.setenv("OMP_NUM_THREADS", "1")   # each worker's threads
+    from repro_torch.launch.mesh import free_port
+    flags = [f.format(port=free_port()) for f in flags]
     cli.main(SMALL + flags)
-    out = capsys.readouterr().out
+    out = capfd.readouterr().out
     assert match in out, out
-    assert "failovers 0" in out and len(_printed_tokens(out)) == 2
+    assert len(_printed_tokens(out)) == 2
+    if flags[0] == "--processes":
+        assert "failovers 0" in out
+    elif flags[0] == "--mesh":
+        cli.main(SMALL)
+        assert _printed_tokens(capfd.readouterr().out) == \
+            _printed_tokens(out)
+    else:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+
+
+_SPEC_LINE = re.compile(r"^    \[(\d+)\]\['(\w+)'\]\s+(?:paged|resident)?\s*"
+                        r"PartitionSpec(\(.*\))$")
+
+
+@needs_jax
+@pytest.mark.parametrize("page", [[], ["--page-size", "8"]],
+                         ids=["slab", "paged"])
+def test_cli_dry_run_prints_jax_specs(capsys, page):
+    """`--mesh 2,2 --dry-run` prints, with no process group, every slab or
+    page-store leaf's spec and every decode-state vector's, each the JAX
+    package's for the same (2, 2) mesh; and a dispatch's FLOPs and bytes
+    per device."""
+    import ast
+
+    import jax
+    from jax.sharding import AbstractMesh
+    from repro import configs as JC
+    from repro.distributed import sharding as JSH, steps as JST
+    from repro.models import transformer as JT
+    from repro.serve.paging import PageLayout
+    cli.main(SMALL + ["--mesh", "2,2", "--dry-run"] + page)
+    out = capsys.readouterr().out
+    cfg = JC.get_smoke("h2o-danube-1.8b")
+    mesh = AbstractMesh((2, 2), ("data", "model"))
+    slots, max_len = 2, 8 + 5 + 8
+    caches = jax.eval_shape(lambda: JT.make_caches(cfg, slots, max_len))
+    if page:
+        layout = PageLayout(cfg, slots, max_len, 8)
+        specs = JSH.page_pspecs(caches, layout, mesh,
+                                slots * layout.pp + 1)
+        want = {s.name.rsplit(".", 1)[1]: tuple(p)[1:]
+                for s, p in zip(layout.specs, specs)}
+    else:
+        flat = jax.tree_util.tree_leaves_with_path(
+            JSH.cache_pspecs(caches, mesh, slots, slab=True),
+            is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+        want = {str(path[-1].key): tuple(p)[1:] for path, p in flat}
+    got = [_SPEC_LINE.match(line).groups() for line in out.splitlines()
+           if _SPEC_LINE.match(line)]
+    assert len(got) == cfg.n_layers * 2, out
+    for _, name, spec in got:
+        assert ast.literal_eval(spec) == want[name], (name, spec)
+    state = JST.decode_state_pspecs(mesh, slots)
+    for k, spec in state.items():
+        assert re.search(rf"^    {k} +PartitionSpec{re.escape(repr(tuple(spec)))}$",
+                         out, re.M), (k, out)
+    assert re.search(r"per device: 1 of 2 slot rows" if not page
+                     else r"per device: 2 of 2 slot rows", out), out
 
 
 def test_cli_card_by_default():

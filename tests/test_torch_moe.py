@@ -379,13 +379,16 @@ def test_paged_prefix_reuse_matches_jax(arch, capacity_factor):
 @pytest.mark.parametrize("name", list(SPECS))
 def test_registry_serves_every_spec(name):
     """Every spec loads and serves the smoke model on the CPU; routed
-    stacks are never counted as packed projections."""
+    stacks are never counted as packed projections, and the rest count as
+    the JAX package's layer-stacked tree holds them."""
     model = ModelRegistry().load(MOE, pkr.KratosSpec(**SPECS[name]),
                                  device="cpu")
     ffn = model.params["layers"][1]["ffn"]
     assert set(ffn) == {"router", "w_gate", "w_up", "w_down", "shared"}
     assert set(ffn["router"]) == {"w"}
-    n_linear = 4 * 3 + 3 + 2 * 3      # attention, prelude MLP, shared MLPs
+    # the prelude layer, then the one scan slot's stacked leaves:
+    # attention twice, the prelude MLP, the shared MLP
+    n_linear = 4 * 2 + 3 + 3
     assert model.n_packed == n_linear
     eng = InferenceEngine(model, EngineConfig(n_slots=2, max_len=24,
                                               device="cpu"))

@@ -213,10 +213,9 @@ def test_names_and_cost_fraction_match_jax(arch, dspec):
     assert pm.name == jm.name
     assert DraftSpec(**dspec).tag == JDraftSpec(**dspec).tag
     assert pm.draft_cfg.n_layers == jm.draft_cfg.n_layers
-    # the JAX package stacks a projection over a scan slot's layers (and
-    # over the encoder's), the port lists it once a layer
-    assert pm.draft_packed == _packed_per_layer(jm.draft_params,
-                                                jm.draft_cfg)
+    # counted as the JAX package's tree holds them: a projection once for
+    # the layers a scan slot (or the encoder) stacks
+    assert pm.draft_packed == jm.draft_packed
     assert pm.cfg.param_count() == jm.cfg.param_count()
     # an MoE token runs through top_k of n_experts routed experts
     assert pm.cfg.active_param_count() == jm.cfg.active_param_count()
@@ -226,25 +225,6 @@ def test_names_and_cost_fraction_match_jax(arch, dspec):
         == bool(pm.cfg.n_experts)
     assert pm.draft_cost_fraction() == pytest.approx(
         jm.draft_cost_fraction(), rel=1e-12)
-
-
-def _packed_per_layer(tree, cfg):
-    """JAX's packed projections counted once a layer: a leaf of a scan
-    slot's stack stands for each of its (n_layers - prelude) / period
-    layers, a leaf of the encoder's stack for each encoder layer."""
-    from repro.core import kratos as jkr
-
-    def count(node):
-        if isinstance(node, jkr.PackedLinear):
-            return 1
-        if isinstance(node, dict):
-            return sum(map(count, node.values()))
-        if isinstance(node, list):
-            return sum(map(count, node))
-        return 0
-    depth = {"blocks": (cfg.n_layers - cfg.prelude_layers) // cfg.scan_period,
-             "enc_blocks": cfg.n_enc_layers}
-    return sum(count(v) * depth.get(key, 1) for key, v in tree.items())
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,10 @@ as `repro.train.__all__` and the public names of `repro.optim`,
 `repro.distributed.compression` against the port's, and the paper
 benchmarks' modules (`repro.core.conv`, `repro.core.bench_specs`,
 `repro.analysis.roofline`, `repro.launch.mesh`) the same way, every
-module or name the port lacks or refuses mapped to its item."""
+module or name the port lacks or refuses mapped to its item; and the
+field order of the dataclasses both packages share."""
 
+import dataclasses
 import importlib
 import inspect
 
@@ -23,8 +25,7 @@ from torch_serve_parity import DANUBE, J, P, models, needs_jax
 from torch_serve_parity import one_torch_thread  # noqa: F401 (autouse)
 
 # names of `repro.serve` the port does not export yet -> ROADMAP.md item
-UNPORTED = {name: "item 11 (multi-device)" for name in (
-    "ShardedBackend", "DistributedBackend", "ensure_distributed")}
+UNPORTED = {}
 
 
 def _reqs(n):
@@ -194,12 +195,12 @@ def test_serve_exports_cover_the_reference():
 
 
 # public names of the training packages the port does not have yet
-UNPORTED_TRAIN = {"repro.distributed.compression.cross_pod_psum_int8":
-                  "item 11 (multi-device)"}
+UNPORTED_TRAIN = {}
 TRAIN_MODULES = ("repro.optim", "repro.data", "repro.checkpoint",
                  "repro.train", "repro.optim.adamw", "repro.data.pipeline",
                  "repro.checkpoint.manager", "repro.train.loop",
-                 "repro.distributed.compression")
+                 "repro.distributed.compression",
+                 "repro.distributed.sharding", "repro.distributed.pipeline")
 
 
 def _public(name):
@@ -237,16 +238,12 @@ BENCH_MODULES = ("repro.core.conv", "repro.core.bench_specs", "repro.analysis",
 # item (`repro_torch.analysis.cost` stands in for the HLO analysis in the
 # figures; the dry-run reads it)
 UNPORTED_BENCH_MODULES = {
-    "repro.analysis.hlo": "item 11 (multi-device): the dry-run's XLA HLO "
-                          "analysis",
-    "repro.launch.dryrun": "item 11 (multi-device)",
-    "repro.launch.dryrun_all": "item 11 (multi-device)",
-    "repro.launch.shapes": "item 11 (multi-device)"}
+    "repro.analysis.hlo": "item 14 (the dry-run): its XLA HLO analysis",
+    "repro.launch.dryrun": "item 14 (the dry-run)",
+    "repro.launch.dryrun_all": "item 14 (the dry-run)",
+    "repro.launch.shapes": "item 14 (the dry-run)"}
 # names the port has that refuse with NotImplementedError naming the item
-REFUSED_BENCH = {f"repro.launch.mesh.{n}": "item 11" for n in (
-    "make_production_mesh", "make_local_mesh", "parse_mesh_arg",
-    "replica_meshes", "process_meshes", "fleet_topology",
-    "plan_fleet_topology")}
+REFUSED_BENCH = {}
 
 
 @needs_jax
@@ -254,7 +251,8 @@ REFUSED_BENCH = {f"repro.launch.mesh.{n}": "item 11" for n in (
 def test_bench_exports_cover_the_reference(name):
     """Every public name of the JAX package's benchmark modules exists in
     the port's module of the same path; the listed ones refuse, naming
-    their ROADMAP.md item."""
+    their ROADMAP.md item. The mesh module's pure functions return the
+    JAX package's values."""
     port = "repro_torch" + name[len("repro"):]
     assert _public(name) - _public(port) == set()
     mod = importlib.import_module(port)
@@ -267,6 +265,12 @@ def test_bench_exports_cover_the_reference(name):
                     (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
         with pytest.raises(NotImplementedError, match=item):
             fn(*[1] * len(required))
+    if name == "repro.launch.mesh":
+        ref = importlib.import_module(name)
+        for arg in ("2,4", "data=2,model=4", "model=3,data=1"):
+            assert mod.parse_mesh_arg(arg) == ref.parse_mesh_arg(arg)
+        assert mod.plan_fleet_topology(2, 4, 2, 2, 2) == \
+            ref.plan_fleet_topology(2, 4, 2, 2, 2)
 
 
 @needs_jax
@@ -277,3 +281,24 @@ def test_unported_bench_modules_name_their_item(name):
     assert importlib.util.find_spec("repro_torch" + name[len("repro"):]) \
         is None
     assert UNPORTED_BENCH_MODULES[name].startswith("item ")
+
+
+# the dataclasses both packages define; the port's `device` stands in the
+# reference's `backend` slot
+SHARED_DATACLASSES = {
+    "serve.scheduler.Request": {},
+    "serve.engine.EngineConfig": {"backend": "device"},
+    "models.transformer.ModelConfig": {}}
+
+
+@needs_jax
+@pytest.mark.parametrize("name", sorted(SHARED_DATACLASSES))
+def test_shared_dataclasses_order_fields_as_the_reference(name):
+    """`dataclasses.fields` gives the JAX package's order, so positional
+    construction binds the same fields in both."""
+    mod, cls = name.rsplit(".", 1)
+    ref = getattr(importlib.import_module("repro." + mod), cls)
+    port = getattr(importlib.import_module("repro_torch." + mod), cls)
+    rename = SHARED_DATACLASSES[name]
+    assert [rename.get(f.name, f.name) for f in dataclasses.fields(ref)] \
+        == [f.name for f in dataclasses.fields(port)]

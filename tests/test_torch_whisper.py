@@ -225,14 +225,15 @@ def test_encode_and_forward_match_jax(backend, name):
 def test_packed_projections_follow_jax_registry(name):
     """The JAX registry packs each stacked leaf once (a (layers, n, p)
     stack of the decoder's self- and cross-attention and MLP, and the
-    encoder's attention and MLP); the port packs each layer's: the same
-    projections, bytes and dense bytes."""
+    encoder's attention and MLP); the port packs each layer's, and counts
+    them as the JAX package does: the same count, bytes and dense
+    bytes."""
     cfg, params, _, _ = _carried(name)
     jm = JRegistry().load(ARCH, jkr.KratosSpec(**SPECS[name]), params=params)
     model = _port_model(name)
     assert cfg.n_layers == cfg.n_enc_layers == 2
     assert jm.n_packed == (4 + 4 + 2) + (4 + 2)
-    assert model.n_packed == cfg.n_layers * jm.n_packed
+    assert model.n_packed == jm.n_packed
     assert (model.packed_bytes, model.dense_bytes) == \
         (jm.packed_bytes, jm.dense_bytes)
     kinds = {type(model.params["layers"][0]["cross"]["wq"]),
