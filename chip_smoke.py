@@ -311,6 +311,19 @@ Phases, in order; any failure raises and exits non-zero:
      quantization, and a re-mesh restore of layer 0's attention weights
      onto the card (saved through `CheckpointManager` under build/,
      restored with `shardings=` as DTensors, bitwise).
+ 25. the dry-run and the fleet's device ownership, last (after phase 15):
+     phase 24's one-rank group destroyed, `repro_torch.launch.dryrun.
+     run_cell` in process on full published configs (DRYRUN_CELLS: each
+     starts its own fake process group of 256 ranks, 512 multi-pod, and
+     counts rank 0's step on meta tensors), then one
+     `python -m repro_torch.launch.dryrun_all` subprocess on one cell (the
+     batch runner and its per-cell subprocess); each cell's status, FLOPs,
+     bytes and wire bytes per device, argument and temporary bytes
+     against the card's 80 GB, the dominant roofline term at the card's
+     data-sheet peaks and wall seconds; a cell not `ok` fails the run.
+     `spawn_fleet(1, devices_per_process=2, device="cuda")` must raise
+     ValueError (one card) before any worker starts. No kernel launches
+     in the phase (the dry-run counts the plain path).
 Phase 5 also holds the host-loop cell ([5h]): h2o-danube dense served by
 the host decode loop (device_loop=False, one graphed (B, 1) forward a step,
 logits to the host) and by the device loop, whole runs in alternating
@@ -4768,6 +4781,87 @@ def report_parting(torch, model, prompt, got, want):
             f"{float(row[want[j]]):.6f})")
 
 
+# phase 25: full published configs run in process, then dryrun_all on one
+DRYRUN_CELLS = (("h2o_danube_1_8b", "decode_32k", False),
+                ("h2o_danube_1_8b", "train_4k", False),
+                ("nemotron_4_340b", "decode_32k", False),
+                ("falcon_mamba_7b", "long_500k", False),
+                ("h2o_danube_1_8b", "decode_32k", True))
+DRYRUN_ALL_CELL = ("gemma2_27b", "decode_32k")
+
+
+def dryrun_line(rec, wall):
+    r, mem = rec["roofline"], rec["mem_argument_size_in_bytes"]
+    tmp = rec["mem_temp_size_in_bytes"]
+    return (f"  [25] {rec['arch']} {rec['shape']} "
+            f"{'multi-pod' if rec['multi_pod'] else 'one pod'} on "
+            f"{rec['n_chips']} ranks: {rec['status']}, per device "
+            f"{rec['hlo_flops_per_device']:.4g} FLOPs, "
+            f"{rec['hlo_bytes_per_device']:.4g} B, "
+            f"{rec['collectives']['wire_bytes_per_device']:.4g} B wire; "
+            f"arguments {mem / 1e9:.2f} GB + temporaries {tmp / 1e9:.2f} GB "
+            f"against {mesh.HBM_BYTES / 1e9:.0f} GB "
+            f"({'fits' if rec['fits_hbm'] else 'does not fit'}); dominant "
+            f"{r['dominant']} at data-sheet peaks (compute "
+            f"{r['t_compute_s']:.4g} s, memory {r['t_memory_s']:.4g} s, "
+            f"collective {r['t_collective_s']:.4g} s); {wall:.1f} s wall")
+
+
+def phase_dryrun(torch):
+    """25, last: the dry-run on full published configs and the one-card
+    refusal of a fleet worker that owns two devices (see the module
+    docstring). Returns the phase's results."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import fleet
+    t_phase = time.perf_counter()
+    if dist.is_initialized():       # phase 24's one NCCL rank is done
+        dist.destroy_process_group()
+    before = ops.launch_counts()
+    cells = []
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, multi_pod=multi_pod)
+        rec["roofline"] = dryrun.roofline_terms(rec)
+        wall = time.perf_counter() - t0
+        print(dryrun_line(rec, wall), flush=True)
+        assert rec["status"] == "ok", rec
+        cells.append(dict(rec, wall_s=wall))
+    arch, shape = DRYRUN_ALL_CELL
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        ledger = os.path.join(d, "dryrun.jsonl")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun_all",
+               "--single-pod-only", "--arch", arch, "--shape", shape,
+               "--out", ledger, "--timeout", "300"]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=400)
+        wall = time.perf_counter() - t0
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        with open(ledger) as f:
+            recs = [json.loads(line) for line in f]
+    assert len(recs) == 1 and recs[0]["status"] == "ok", recs
+    print(dryrun_line(recs[0], wall) + " (dryrun_all: the batch runner "
+          "and its cell's subprocess)", flush=True)
+    cells.append(dict(recs[0], wall_s=wall, dryrun_all=True))
+    try:
+        fleet.spawn_fleet(1, devices_per_process=2, device="cuda")
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("a one-card host served 2 devices per process")
+    print(f"  [25] spawn_fleet(1, devices_per_process=2) on one card: "
+          f"ValueError before any worker starts: {refusal}", flush=True)
+    assert ops.launch_counts() == before, "the dry-run launched a kernel"
+    secs = time.perf_counter() - t_phase
+    print(f"  phase 25: {secs:.1f} s", flush=True)
+    return {"cells": cells, "fleet_refusal": refusal, "phase_s": secs}
+
+
 def phase_fleet(torch, card, params):
     """20a and 20b, right after phase 19d, on phase 6's dense h2o-danube-1.8b
     (full width and depth). 20a, in process: a FleetRouter over 2
@@ -5627,6 +5721,13 @@ def main() -> int:
     parity_launches = phase_parity(torch, WHISPER, 48, 128, n_enc_layers=2)
     assert parity_launches["flash_attention"] == 2 * (2 + 2), parity_launches
     whisper_launches, whisper = phase_whisper(torch, card, mark)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark(25)
+    print("[25] the dry-run: full published configs on the fake process "
+          "group, counted on the plain path (no kernel launches); a fleet "
+          "worker that owns two devices on one card", flush=True)
+    dryrun_res = phase_dryrun(torch)
     for more in (paged_launches, reuse_launches, mamba_launches,
                  spec_launches, qos_launches, gemma_launches, mla_launches,
                  moe_launches, jamba_launches, llava_launches,
@@ -5665,7 +5766,7 @@ def main() -> int:
          "whisper": whisper, "resilience": resilience,
          "tracing": tracing, "router": router, "surface": surface,
          "legacy_spec": legacy_spec, "fleet": fleet, "train": train,
-         "paper_grid": grid, "examples": examples,
+         "paper_grid": grid, "examples": examples, "dryrun": dryrun_res,
          "phase_start_s": marks, "time_by_part": parts},
         indent=1))
     print(json.dumps({"kernels": kernels}))

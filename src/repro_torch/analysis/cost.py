@@ -3,8 +3,9 @@ stands in for `repro.analysis.hlo` and `benchmarks/common.py::hlo_cost`).
 
 The JAX package measures each figure point from XLA's compiled program: a
 loop-aware FLOP count and a per-instruction byte count (every
-instruction's operands and result). `hlo.py` parses XLA text and has no
-port. Here:
+instruction's operands and result). `hlo.py`'s counterpart, the dry-run's
+op-by-op count of a whole step with its collectives and peak memory, is
+`analysis.dispatch_cost`. Here, for the figures:
 
   * `count(fn, *args)` counts FLOPs with
     `torch.utils.flop_counter.FlopCounterMode` over one call of fn (MACs =

@@ -93,7 +93,7 @@ def conv2d_init(fw: int, fh: int, ic: int, oc: int,
     return p
 
 
-def conv_params(tree: Dict, *, device="cpu") -> Dict:
+def conv_params(tree: Dict, *, device) -> Dict:
     """Params carried from the JAX package (a `{"w"}` leaf as a numpy or
     array-like value, the int `fw` / `fh` where present) as the port's:
     the weight a float32 tensor on `device`, the filter sizes ints."""

@@ -120,24 +120,35 @@ def activation_rules(mesh, overrides: Optional[Dict] = None) -> Dict[str, Any]:
 
 
 _CURRENT: List[Any] = []
+_RULES: List[Dict[str, Any]] = []
 
 
 @contextlib.contextmanager
-def use_mesh(mesh):
+def use_mesh(mesh, overrides: Optional[Dict] = None):
     """Install `mesh` for the model code inside the block: a decode over a
     cache leaf that holds this rank's share of the heads reads the 'model'
     group from it (the port's model code has no other logical-axis
-    constraint to resolve)."""
+    constraint to resolve). overrides: logical-axis rules that replace
+    `activation_rules(mesh)`'s inside the block, as the JAX package's
+    `use_mesh` takes them (`current_rules`); the dry-run's placement
+    (`input_shardings`) reads 'batch' from them."""
     _CURRENT.append(mesh)
+    _RULES.append(activation_rules(mesh, overrides))
     try:
         yield mesh
     finally:
         _CURRENT.pop()
+        _RULES.pop()
 
 
 def current_mesh():
     """The innermost `use_mesh` mesh, or None."""
     return _CURRENT[-1] if _CURRENT else None
+
+
+def current_rules() -> Optional[Dict[str, Any]]:
+    """The innermost `use_mesh` block's logical-axis rules, or None."""
+    return _RULES[-1] if _RULES else None
 
 
 def coordinate(mesh) -> Optional[Dict[str, int]]:
@@ -491,3 +502,68 @@ class NamedSharding:
         return DTensor.from_local(local, self.mesh, self.placements(),
                                   run_check=False, shape=torch.Size(shape),
                                   stride=stride)
+
+
+# ---------------------------------------------------------------------------
+# The dry-run's step placement (the port's, not the JAX package's specs)
+# ---------------------------------------------------------------------------
+
+def _batch_entry(mesh, batch_size: int):
+    """The batch axis entry of a step input: `batch_pspec`'s, or None
+    where the installed rules replicate 'batch' (the dry-run's 2D-TP
+    serving override)."""
+    rules = current_rules()
+    if rules is not None and rules.get("batch") is None:
+        return None
+    spec = batch_pspec(mesh, batch_size)
+    return spec[0] if len(spec) else None
+
+
+def _rows(mesh, tree, entry):
+    """Per leaf: its leading (batch) axis on `entry`, the rest whole."""
+    return tu.tree_map(lambda x: NamedSharding(
+        mesh, P(entry, *([None] * (x.ndim - 1)))), tree)
+
+
+def _replicated(mesh, tree):
+    return tu.tree_map(lambda x: NamedSharding(mesh, P()), tree)
+
+
+def input_shardings(kind: str, args, mesh, cell):
+    """NamedSharding trees of a dry-run cell's step inputs (`launch.
+    shapes.cell_inputs`) under the port's placement (ROADMAP.md §3):
+    parameters and the train state whole on every rank; batches, prefill
+    caches, tokens and logits split by batch rows over ('pod', 'data')
+    (`batch_pspec`); decode caches as the slab places them
+    (`cache_pspecs(slab=True)`: kv heads, or Mamba channels, over 'model'
+    where they divide). Call inside `use_mesh` to apply rule overrides."""
+    b = _batch_entry(mesh, cell.batch)
+    if kind == "train":
+        state, batch = args
+        return (_replicated(mesh, state), _rows(mesh, batch, b))
+    params = _replicated(mesh, args[0])
+    if kind == "prefill":
+        _, batch, caches = args
+        return (params, _rows(mesh, batch, b), _rows(mesh, caches, b))
+    _, caches, token, index = args
+    specs = cache_pspecs(caches, mesh, cell.batch, slab=True)
+    if b is None:
+        specs = [{k: P(None, *s[1:]) for k, s in layer.items()}
+                 for layer in specs]
+    cs = [{k: NamedSharding(mesh, s) for k, s in layer.items()}
+          for layer in specs]
+    return (params, cs, NamedSharding(mesh, P(b, None)),
+            NamedSharding(mesh, P()))
+
+
+def output_shardings(kind: str, in_sh, mesh, cell):
+    """Outputs mirror inputs: the train state and the caches keep their
+    placement (the port's steps update them in place), metrics are whole,
+    logits split by batch rows as the inputs are."""
+    if kind == "train":
+        metrics = {k: NamedSharding(mesh, P())
+                   for k in ("loss", "grad_norm", "lr")}
+        return (in_sh[0], metrics)
+    b = _batch_entry(mesh, cell.batch)
+    logits = NamedSharding(mesh, P(b, None, None))
+    return (logits, in_sh[2] if kind == "prefill" else in_sh[1])

@@ -35,6 +35,13 @@ takes the gradient with `torch.autograd.grad`, splits a `grad_accum`
 batch interleaved as the reference does (microbatch j takes rows j,
 j + ga, ...), runs the `compress_fn` hook and AdamW in place.
 `init_train_state` builds {"params", "opt", "step"} from the port's init.
+
+Shape-only construction (the dry-run's, `launch.shapes`, where the JAX
+package takes `jax.eval_shape`): `init_train_state`, `make_decode_state`,
+`transformer.init` and `make_caches` build on `device="meta"`, which
+allocates nothing. These functions skip the seeded generator there
+(`transformer.seeded_generator`: meta has none) rather than run under
+FakeTensorMode; on a real device they draw the same numbers as before.
 """
 
 from __future__ import annotations
@@ -123,16 +130,18 @@ def make_train_step(cfg: T.ModelConfig, opt_cfg: O.OptimizerConfig, *,
     compress_fn(grads, comp) -> (grads, comp) runs on the accumulated
     gradients (distributed.compression.ef_int8_compress).
 
-    mesh: data parallelism over its 'data' axis. Each rank passes its own
-    equal share of the batch's rows; the gradients and the loss are
-    averaged over 'data' (an all-reduce) before the compression and the
+    mesh: data parallelism over its 'data' axis (and 'pod', where the
+    mesh has one). Each rank passes its own equal share of the batch's
+    rows; the gradients and the loss are averaged over those axes (an
+    all-reduce over each, 'data' first) before the compression and the
     update, so every rank takes the same step on a whole copy of the
     state."""
     loss_fn = make_loss_fn(cfg)
-    group = None
-    if mesh is not None and "data" in SH.mesh_axes(mesh):
-        group = SH.axis_group(mesh, "data")
-    n_data = 1 if group is None else SH.mesh_axes(mesh)["data"]
+    groups = []
+    if mesh is not None:
+        axes = SH.mesh_axes(mesh)
+        groups = [(SH.axis_group(mesh, a), axes[a]) for a in ("data", "pod")
+                  if a in axes and axes[a] > 1]
 
     def train_step(state, batch):
         params = state["params"]
@@ -156,15 +165,15 @@ def make_train_step(cfg: T.ModelConfig, opt_cfg: O.OptimizerConfig, *,
                     loss = loss + lj.detach()
                 flat = [g / grad_accum for g in flat]
                 loss = loss / grad_accum
-        if group is not None:
+        for group, n in groups:
             import torch.distributed as dist
             flat = [g.contiguous() for g in flat]
             for g in flat:
                 dist.all_reduce(g, group=group)
-                g.div_(n_data)
+                g.div_(n)
             loss = loss.detach().clone()
             dist.all_reduce(loss, group=group)
-            loss = loss / n_data
+            loss = loss / n
         grads = tu.unflatten(params, flat)
         new_comp = state.get("comp")
         if compress_fn is not None:
@@ -202,9 +211,13 @@ def init_train_state(seed: int, cfg: T.ModelConfig,
 
 
 def make_prefill_step(cfg: T.ModelConfig, last_only: bool = True, *,
-                      cache_len: int, cache_dtype=torch.float32,
-                      device="cuda"):
+                      cache_len: Optional[int] = None,
+                      cache_dtype=torch.float32, device="cuda"):
     """prefill(params, batch) -> (logits, batch-1 caches).
+
+    cache_len=None is the JAX package's other form, the dry-run's:
+    prefill(params, batch, caches) -> (logits, caches), into caches the
+    caller made (`transformer.make_caches`), written in place.
 
     The step allocates its own batch-1 cache list of `cache_len` positions
     on the device. last_only=False returns (1, S, vocab) logits: the engine
@@ -213,22 +226,33 @@ def make_prefill_step(cfg: T.ModelConfig, last_only: bool = True, *,
     enc_dec batch carries the audio stub's `frames` (1, enc_positions, d),
     which the encoder runs over first, the decoder's cross-attention
     writing its k/v into the returned caches."""
-    def prefill(params, batch):
-        caches = T.make_caches(cfg, 1, cache_len, cache_dtype, device)
+    def body(params, batch, caches):
         enc_out = T.encode(params, batch["frames"], cfg) if cfg.enc_dec \
             else None
         return T.forward(params, batch["tokens"], cfg, caches=caches,
                          img_embeds=batch.get("img_embeds"), enc_out=enc_out,
                          last_only=last_only)
+
+    if cache_len is None:
+        return body
+
+    def prefill(params, batch):
+        return body(params, batch,
+                    T.make_caches(cfg, 1, cache_len, cache_dtype, device))
     return prefill
 
 
-def make_decode_step(cfg: T.ModelConfig, *, n_steps: int,
+def make_decode_step(cfg: T.ModelConfig, *, n_steps: Optional[int] = None,
                      pages_meta: Optional[Dict[str, int]] = None,
                      ledger=None):
     """decode(params, caches, state) -> (tok_block (K, B) int32 on the
     device, caches, state). Slots that finish mid-block (EOS or budget)
     freeze their token and index; the host catches up from the block.
+
+    n_steps=None is the JAX package's legacy lock-step form (what its
+    dry-run lowers): decode(params, caches, token (B, 1) int32, index
+    0-d int32) -> (logits (B, 1, vocab) f32, caches), one forward at
+    position `index` writing the caches in place.
 
     pages_meta={'size': page_size, 'len': cache_len} builds the native
     paged form, which takes the (n_slots, pp) page table after `caches`:
@@ -242,6 +266,14 @@ def make_decode_step(cfg: T.ModelConfig, *, n_steps: int,
     return: decode(params, caches, state, ledger) -> (tok_block, caches,
     state, ledger) (paged: after `state`); every micro-step's forward
     adds its probe rows into it."""
+    if n_steps is None:
+        if pages_meta is not None or ledger is not None:
+            raise ValueError("pages_meta and ledger require the n_steps "
+                             "form")
+
+        def legacy_decode(params, caches, token, index):
+            return T.forward(params, token, cfg, caches=caches, index=index)
+        return legacy_decode
     if n_steps < 1:
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
 
@@ -376,12 +408,13 @@ def make_decode_state(n_slots: int, seed: int = 0,
     per-slot temperature / EOS / remaining budget / active flag and
     speculation cap `spec_limit` (written only at admission; 0 opts a slot
     out of drafting, and the plain step ignores it) and the sampling
-    generator. Every row starts parked (remaining 0, inactive)."""
+    generator (None on the meta device). Every row starts parked
+    (remaining 0, inactive)."""
     z = dict(device=device)
     return {
         "tokens": torch.zeros(n_slots, dtype=torch.int32, **z),
         "index": torch.zeros(n_slots, dtype=torch.int32, **z),
-        "generator": torch.Generator(device=device).manual_seed(seed),
+        "generator": T.seeded_generator(seed, device),
         "temperature": torch.zeros(n_slots, dtype=torch.float32, **z),
         "eos": torch.full((n_slots,), -1, dtype=torch.int32, **z),
         "remaining": torch.zeros(n_slots, dtype=torch.int32, **z),

@@ -1,6 +1,6 @@
 """Run the paper's figures on the port: one section per table or figure
-(port of `benchmarks/run.py`, without its serving section, ROADMAP.md item
-12, and its dry-run roofline table, item 14).
+(port of `benchmarks/run.py`, without its serving section and its dry-run
+roofline table, which belong to the port's benchmark, ROADMAP.md item 12).
 
   PYTHONPATH=src python -m repro_torch.figures.run [--quick] [--device cuda|cpu]
 

@@ -2,10 +2,12 @@
 
 Same signatures as `repro.kernels.ref`. On a CPU tensor the kernel
 wrappers run these; on the card `chip_smoke.py` holds each hand-written
-kernel against them. Every product is taken in f32 and cast to x's dtype
-once at the end — for the quantized kernels that means the scale is
-applied in f32 too (the JAX oracles dequantize or scale in x's dtype,
-which for bf16 differs from the f32-flush kernels by about one ulp).
+kernel against them. Every product is taken in f32 (the projection
+products in `_DOT_ACCUM`, which only the dry-run's --bf16-reduce
+changes) and cast to x's dtype once at the end — for the quantized
+kernels that means the scale is applied in f32 too (the JAX oracles
+dequantize or scale in x's dtype, which for bf16 differs from the
+f32-flush kernels by about one ulp).
 """
 
 from __future__ import annotations
@@ -17,9 +19,23 @@ import torch
 from repro_torch.core import quantize as qz
 
 
+# The projection products' accumulation dtype (`dense_matmul_ref`,
+# `bsr_matmul_ref`): float32 unless the dry-run's --bf16-reduce sets
+# bfloat16; nothing on the serving path sets it.
+_DOT_ACCUM = torch.float32
+
+
+def set_dot_accum(dtype) -> None:
+    """Accumulate the plain path's projection products in `dtype` (and
+    return them in the input's dtype), the JAX package's `set_dot_accum`."""
+    global _DOT_ACCUM
+    _DOT_ACCUM = dtype if isinstance(dtype, torch.dtype) \
+        else getattr(torch, str(dtype))
+
+
 def dense_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """y = x @ w, f32 accumulation, x's dtype out."""
-    return torch.matmul(x.float(), w.float()).to(x.dtype)
+    """y = x @ w, accumulated in `_DOT_ACCUM` (f32), x's dtype out."""
+    return torch.matmul(x.to(_DOT_ACCUM), w.to(_DOT_ACCUM)).to(x.dtype)
 
 
 def _gather_x(x: torch.Tensor, indices: torch.Tensor, bk: int) -> torch.Tensor:
@@ -34,8 +50,8 @@ def bsr_matmul_ref(x: torch.Tensor, blocks: torch.Tensor,
     """x: (m, n); blocks: (n_pb, nnz, bk, bn); indices: int (n_pb, nnz)."""
     m = x.shape[0]
     n_pb, nnz, bk, bn = blocks.shape
-    xg = _gather_x(x, indices, bk)
-    y = torch.einsum("mjtk,jtkn->mjn", xg, blocks.float())
+    xg = _gather_x(x, indices, bk).to(_DOT_ACCUM)
+    y = torch.einsum("mjtk,jtkn->mjn", xg, blocks.to(_DOT_ACCUM))
     return y.reshape(m, n_pb * bn).to(x.dtype)
 
 
@@ -173,6 +189,8 @@ def ssm_scan_ref(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     (B, S, di, st) decay and update tensors are never materialised."""
     uf, dtf, bf, cf = u.float(), dt.float(), b.float(), c.float()
     af = a.float()
+    if u.device.type == "meta":
+        return _ssm_scan_meta(uf, dtf, bf, cf, af, u.dtype)
     h = uf.new_zeros((u.shape[0], u.shape[2], a.shape[1]))
     ys = []
     for t in range(u.shape[1]):
@@ -181,3 +199,27 @@ def ssm_scan_ref(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         h = da * h + dbx
         ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]))
     return torch.stack(ys, dim=1).to(u.dtype), h
+
+
+# steps the meta-device form of the scan takes as one round of ops
+META_SCAN_CHUNK = 256
+
+
+def _ssm_scan_meta(uf, dtf, bf, cf, af, dtype):
+    """`ssm_scan_ref` on the meta device (the dry-run counts it on shapes
+    alone): the same elementwise ops and products as the recurrence,
+    step for step, taken META_SCAN_CHUNK steps at a time as whole
+    tensors, each chunk's carried state standing for every step's
+    previous one (meta tensors hold no numbers). A 32k-token prefill is
+    then 128 rounds of ops rather than 32768, with the same counts."""
+    bsz, s, _ = uf.shape
+    h = uf.new_zeros((bsz, uf.shape[2], af.shape[1]))
+    ys = []
+    for t0 in range(0, s, META_SCAN_CHUNK):
+        t = slice(t0, min(s, t0 + META_SCAN_CHUNK))
+        da = torch.exp(dtf[:, t, :, None] * af)
+        dbx = (dtf[:, t] * uf[:, t])[..., None] * bf[:, t, None, :]
+        hs = da * h[:, None] + dbx
+        ys.append(torch.einsum("bcdn,bcn->bcd", hs, cf[:, t]))
+        h = hs[:, -1]
+    return torch.cat(ys, dim=1).to(dtype), h

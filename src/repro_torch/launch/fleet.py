@@ -27,13 +27,32 @@ weights) or, with `--device cpu`, through the kernels' plain versions;
 
 `--jax-coordinator HOST:PORT` (or `auto` to spawn_fleet, which picks a
 free local port) joins the workers into one torch.distributed process
-group (the flag keeps the JAX package's name): each worker is a rank and
-serves its replicas through `DistributedBackend` on its own rank's
-one-device mesh (`launch.mesh.process_meshes`), so the data plane never
-crosses a process; the control plane moves requests and results as
-without the flag. Not ported: `--devices-per-process > 1` (a worker that
-owns several devices) raises NotImplementedError naming ROADMAP.md item
-14.
+group (the flag keeps the JAX package's name): each worker serves its
+replicas through `DistributedBackend` on its own ranks
+(`launch.mesh.process_meshes`), so the data plane never crosses a worker;
+the control plane moves requests and results as without the flag.
+
+`--devices-per-process D` is how many devices a worker owns. The default
+is 1 (the JAX package's default is the replica count): every replica of a
+worker shares its one device, and on the card every worker shares the
+one visible GPU. With D > 1:
+  * without --jax-coordinator, replica i of a worker serves on the
+    worker's local device i (D must be at least the replica count): on
+    the card spawn_fleet gives each worker its own D cards of
+    CUDA_VISIBLE_DEVICES and refuses, before any worker starts, a host
+    with fewer than processes x D cards; on the CPU every replica is on
+    `cpu`;
+  * with it, a worker is a block of D ranks in a world of processes x D:
+    a leader (`--block-rank 0`, the process with the control socket) and
+    D - 1 followers that spawn_fleet starts beside it. The replicas run
+    on `process_meshes(D, 1, replicas)` over the block and broadcast
+    their results over the block's own group. Only the leader talks to
+    the coordinator; it relays every poll's control messages to its
+    followers over that group (`BlockLeader` / `BlockFollower`), so every
+    rank of the block runs the same router steps. A `die` ends the whole
+    block; a leader killed otherwise leaves its followers blocked until
+    the coordinator's shutdown kills them, and the coordinator's
+    failover re-homes its requests as for any dead worker.
 """
 
 from __future__ import annotations
@@ -53,8 +72,6 @@ from typing import Any, Dict, List, Optional, Sequence
 PACE = 0.002
 WALL_STALENESS = 400.0          # ~0.8 s of snapshot age tolerated
 WALL_HEARTBEAT_TIMEOUT = 2500.0  # ~5 s of silence before death verdict
-
-MULTI_DEVICE = "ROADMAP.md queue 1, item 14 (multi-device fleet workers)"
 
 
 def worker_flags(ap: argparse.ArgumentParser) -> None:
@@ -87,20 +104,92 @@ def worker_flags(ap: argparse.ArgumentParser) -> None:
                     help="engine replicas PER PROCESS (sharing the "
                          "process's weights)")
     ap.add_argument("--devices-per-process", type=int, default=1,
-                    help=f"devices per worker (> 1 not ported: "
-                         f"{MULTI_DEVICE})")
+                    help="devices each worker owns (default 1: its "
+                         "replicas share one device; > 1: replica i on "
+                         "local device i, or with --jax-coordinator a "
+                         "block of that many ranks)")
+    ap.add_argument("--block-rank", type=int, default=0,
+                    help="this process's rank in its worker's block of "
+                         "ranks (0: the leader; spawned by the "
+                         "coordinator)")
     ap.add_argument("--heartbeat-every", type=int, default=2)
 
 
-def refuse_unported(devices_per_process: int) -> None:
-    """Refuse, before any process starts, what the port does not run."""
-    if devices_per_process > 1:
-        raise NotImplementedError(
-            "--devices-per-process > 1: fleet workers that own several "
-            f"devices are {MULTI_DEVICE} of the port, not ported yet")
+def check_devices_per_process(n_processes: int, devices_per_process: int,
+                              replicas_per_process: int, device: str,
+                              jax_coordinator: str = "") -> None:
+    """Refuse, before any process starts, a fleet whose workers cannot own
+    their devices: D < 1; replicas that a worker's D devices (without
+    --jax-coordinator) or its block of D ranks (with it) do not hold; on
+    the card, fewer visible cards than processes x D for D > 1. D = 1
+    shares one device, as the fleet always has."""
+    import torch
+
+    from repro_torch.launch import mesh as M
+    d, r = devices_per_process, replicas_per_process
+    if d < 1:
+        raise ValueError(f"--devices-per-process must be >= 1, got {d}")
+    if d > 1:
+        if jax_coordinator:
+            M.plan_fleet_topology(n_processes, d, d, 1, r)
+        elif d < r:
+            raise ValueError(f"{r} replicas per process need as many "
+                             f"devices; each worker owns {d}")
+    if d > 1 and torch.device(device).type == "cuda":
+        have = torch.cuda.device_count()
+        if have < n_processes * d:
+            raise ValueError(
+                f"{n_processes} processes x {d} devices per process need "
+                f"{n_processes * d} cards; this host has {have}")
 
 
-def _warm_replicas(router, model) -> None:
+class BlockLeader:
+    """A block leader's endpoint: the coordinator's, every poll's messages
+    (and whether the link is alive) relayed to the block's followers over
+    its group, so each rank of the block acts on the same messages at
+    the same step."""
+
+    def __init__(self, endpoint, group, src: int) -> None:
+        self.endpoint, self.group, self.src = endpoint, group, src
+        self.alive = True
+
+    def send(self, msg) -> bool:
+        return self.endpoint.send(msg)
+
+    def poll(self):
+        import torch.distributed as dist
+        box = [self.endpoint.poll(), self.endpoint.alive]
+        dist.broadcast_object_list(box, src=self.src, group=self.group)
+        self.alive = box[1]
+        return box[0]
+
+    def close(self) -> None:
+        self.endpoint.close()
+
+
+class BlockFollower:
+    """A follower's endpoint: its leader's relayed messages; what it would
+    send, the leader has sent."""
+
+    def __init__(self, group, src: int) -> None:
+        self.group, self.src = group, src
+        self.alive = True
+
+    def send(self, msg) -> bool:
+        return True
+
+    def poll(self):
+        import torch.distributed as dist
+        box = [None, None]
+        dist.broadcast_object_list(box, src=self.src, group=self.group)
+        self.alive = box[1]
+        return box[0]
+
+    def close(self) -> None:
+        pass
+
+
+def _warm_replicas(router) -> None:
     """Serve before hello: run one throwaway request through EVERY replica
     engine (its first admission, its first graph replay and the kernels'
     first loads). The worker's serve loop is single-threaded, so a slow
@@ -118,29 +207,58 @@ def _warm_replicas(router, model) -> None:
 def worker_entry(args) -> None:
     """One fleet serving process, start to finish: model load and engine
     build, the warm-up, the socket loop last."""
-    from repro_torch.serve import (EngineConfig, FleetConfig, ModelRegistry,
-                                   ReplicaRouter, WorkerServer, connect)
+    import dataclasses
 
-    from repro_torch.serve import DistributedBackend, ensure_distributed
+    from repro_torch.launch import mesh as M
+    from repro_torch.serve import (DistributedBackend, EngineConfig,
+                                   FleetConfig, InferenceEngine,
+                                   ModelRegistry, ReplicaRouter, WorkerServer,
+                                   connect, ensure_distributed)
+
+    d = args.devices_per_process
+    block = bool(args.jax_coordinator) and d > 1
     if args.jax_coordinator:
-        ensure_distributed(args.jax_coordinator, args.processes,
-                           args.process_index, device=args.device)
-    model = ModelRegistry().load(args.arch, seed=args.seed,
-                                 smoke=not args.full, device=args.device)
+        ensure_distributed(args.jax_coordinator, args.processes * d,
+                           args.process_index * d + args.block_rank,
+                           device=args.device)
+    # replica i's device: local device i of a worker that owns several
+    # cards (no group), else the worker's one device
+    devices = [f"cuda:{i}" if d > 1 and not args.jax_coordinator
+               and args.device == "cuda" else args.device
+               for i in range(args.replicas)]
+    models = {dev: ModelRegistry().load(args.arch, seed=args.seed,
+                                        smoke=not args.full, device=dev)
+              for dev in dict.fromkeys(devices)}
     cfg = EngineConfig(n_slots=args.slots, max_len=args.max_len,
                        decode_chunk=args.decode_chunk,
                        max_waiting=args.slots, device=args.device)
-    factory = None
-    if args.jax_coordinator:
+
+    def backend(i: int):
+        if not args.jax_coordinator:
+            return None
+        if block:       # the replicas on process_meshes over the block
+            return DistributedBackend(mesh_shape=(d, 1),
+                                      n_replicas=args.replicas, replica=i,
+                                      device=args.device)
         # every replica on this worker's own rank (they share its device)
-        def factory(i: int):
-            return DistributedBackend(mesh_shape=(1, 1), device=args.device)
-    router = ReplicaRouter.build(model, cfg, args.replicas,
-                                 backend_factory=factory)
+        return DistributedBackend(mesh_shape=(1, 1), device=args.device)
+
+    def engine(i: int):
+        return InferenceEngine(models[devices[i]], dataclasses.replace(
+            cfg, device=devices[i]), backend=backend(i))
+
+    router = ReplicaRouter([engine(i) for i in range(args.replicas)],
+                           engine_factory=engine)
     for eng in router.replicas:
         eng.trace.process = args.process_index   # tag before any event
-    _warm_replicas(router, model)
-    endpoint = connect(args.connect)
+    _warm_replicas(router)
+    if block:
+        group = M.block_group(d, 1, device=args.device)
+        leader = args.process_index * d
+        endpoint = BlockLeader(connect(args.connect), group, leader) \
+            if args.block_rank == 0 else BlockFollower(group, leader)
+    else:
+        endpoint = connect(args.connect)
     WorkerServer(router, endpoint, args.process_index,
                  cfg=FleetConfig(heartbeat_every=args.heartbeat_every,
                                  staleness=WALL_STALENESS,
@@ -246,7 +364,9 @@ def spawn_fleet(n_processes: int, *, arch: str = "h2o-danube-1.8b",
     from repro_torch.serve.control import ControlListener, RemoteProcess
     from repro_torch.serve.registry import check_device
 
-    refuse_unported(devices_per_process)
+    d = devices_per_process or 1
+    check_devices_per_process(n_processes, d, replicas_per_process, device,
+                              jax_coordinator)
     if jax_coordinator == "auto":
         from repro_torch.launch.mesh import free_port
         jax_coordinator = f"127.0.0.1:{free_port()}"
@@ -257,26 +377,39 @@ def spawn_fleet(n_processes: int, *, arch: str = "h2o-danube-1.8b",
     repo_src = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     workers: List[subprocess.Popen] = []
+    cuda = check_device(device).type == "cuda"
+    # a block's followers run beside its leader; the others' cards are theirs
+    ranks = d if jax_coordinator else 1
     try:
         for i in range(n_processes):
-            env = dict(os.environ)
-            env["PYTHONPATH"] = repo_src + (
-                os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH")
-                else "")
-            cmd = [sys.executable, "-m", "repro_torch.launch.fleet",
-                   "--worker", "--connect", listener.address,
-                   "--process-index", str(i),
-                   "--processes", str(n_processes),
-                   "--arch", arch, "--device", device, "--seed", str(seed),
-                   "--slots", str(n_slots), "--max-len", str(max_len),
-                   "--decode-chunk", str(decode_chunk),
-                   "--replicas", str(replicas_per_process),
-                   "--heartbeat-every", str(heartbeat_every)]
-            if full:
-                cmd.append("--full")
-            if jax_coordinator:
-                cmd += ["--jax-coordinator", jax_coordinator]
-            workers.append(subprocess.Popen(cmd, env=env))
+            for j in range(ranks):
+                env = dict(os.environ)
+                env["PYTHONPATH"] = repo_src + (
+                    os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH")
+                    else "")
+                if cuda and d > 1:
+                    visible = env.get("CUDA_VISIBLE_DEVICES")
+                    cards = visible.split(",") if visible else [
+                        str(c) for c in range(n_processes * d)]
+                    env["CUDA_VISIBLE_DEVICES"] = ",".join(
+                        cards[i * d:(i + 1) * d])
+                    env["LOCAL_RANK"] = str(j)
+                cmd = [sys.executable, "-m", "repro_torch.launch.fleet",
+                       "--worker", "--connect", listener.address,
+                       "--process-index", str(i), "--block-rank", str(j),
+                       "--processes", str(n_processes),
+                       "--devices-per-process", str(d),
+                       "--arch", arch, "--device", device,
+                       "--seed", str(seed),
+                       "--slots", str(n_slots), "--max-len", str(max_len),
+                       "--decode-chunk", str(decode_chunk),
+                       "--replicas", str(replicas_per_process),
+                       "--heartbeat-every", str(heartbeat_every)]
+                if full:
+                    cmd.append("--full")
+                if jax_coordinator:
+                    cmd += ["--jax-coordinator", jax_coordinator]
+                workers.append(subprocess.Popen(cmd, env=env))
         handles = []
         for _ in range(n_processes):
             ep = _accept(listener, workers, hello_timeout)
@@ -338,6 +471,7 @@ def run_smoke(args) -> int:
     with spawn_fleet(args.processes, arch=args.arch, n_slots=args.slots,
                      max_len=args.max_len, decode_chunk=args.decode_chunk,
                      replicas_per_process=args.replicas,
+                     devices_per_process=args.devices_per_process,
                      jax_coordinator=args.jax_coordinator,
                      device=args.device, full=args.full,
                      seed=args.seed) as fleet:
@@ -404,12 +538,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "token-identical failover")
     ap.add_argument("--out", default="", help="write smoke result JSON")
     args = ap.parse_args(argv)
-    refuse_unported(args.devices_per_process)
     if args.worker:
         if not args.connect:
             ap.error("--worker requires --connect host:port")
         worker_entry(args)
         return 0
+    check_devices_per_process(args.processes, args.devices_per_process,
+                              args.replicas, args.device,
+                              args.jax_coordinator)
     return run_smoke(args)
 
 

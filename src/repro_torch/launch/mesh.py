@@ -18,12 +18,22 @@ exist does.
 The constants are the data-sheet values of the card the port runs on, one
 NVIDIA H100 80GB HBM3 (SXM form, dense, no structured-sparsity doubling):
 the peaks every bound and roofline of the port is taken at
-(`analysis.cost`, the figures, `chip_smoke.py`).
+(`analysis.cost`, the figures, `chip_smoke.py`, the dry-run's roofline).
+
+`fake_world(n)` starts the dry-run's process group: n ranks in this one
+process (torch's `fake` backend on a `FakeStore`: a collective issues
+nothing and returns at once), on which `make_production_mesh(device=
+"meta")` builds the 16 x 16 or 2 x 16 x 16 mesh in place of the JAX
+package's 512 forced XLA devices. Only the dry-run (`launch.dryrun`,
+`launch.serve --dry-run`) starts one; a serving or training mesh never
+reaches it, since `ensure_world` refuses a group whose backend is not its
+device's (gloo on the CPU, NCCL on the card).
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+import contextlib
+from typing import Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +45,11 @@ PEAK_F32_FLOPS = 67e12          # FLOP/s, f32 FMA on the CUDA cores
 PEAK_TF32_FLOPS = 495e12        # FLOP/s, tf32 tensor cores
 HBM_BW = 3.35e12                # B/s
 HBM_BYTES = 80 * 10 ** 9        # 80 GB
+# NVLink 4 (H100 SXM data sheet): 900 GB/s per card over its 18 links in
+# total, 450 GB/s each way; the roofline's collective term moves a
+# device's wire bytes out at the one-way rate
+NVLINK_BW_TOTAL = 900e9         # B/s, both directions
+NVLINK_BW = 450e9               # B/s, one direction
 
 # the peak of each operand type the port's kernels run in
 PEAK_FLOPS = {"float32": PEAK_F32_FLOPS, "bfloat16": PEAK_BF16_FLOPS,
@@ -45,17 +60,42 @@ AXES = ("data", "model")
 
 def dist_backend(device) -> str:
     """The collective library for a device: NCCL on the card, gloo on the
-    CPU."""
-    return "nccl" if torch.device(device).type == "cuda" else "gloo"
+    CPU, and the dry-run's fake group for meta tensors."""
+    return {"cuda": "nccl", "meta": "fake"}.get(torch.device(device).type,
+                                                 "gloo")
+
+
+@contextlib.contextmanager
+def fake_world(n_ranks: int) -> Iterator[None]:
+    """The dry-run's process group of `n_ranks` ranks, this process rank 0,
+    for the block: torch's `fake` backend on a FakeStore, destroyed on
+    exit. Meshes over it take device="meta". Raises RuntimeError where a
+    process group exists already (the dry-run never shares one)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group exists in this process; the "
+                           "dry-run starts its own fake group (run it in a "
+                           "process of its own, or destroy the group first)")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=int(n_ranks))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def ensure_world(device="cuda"):
     """The default process group, started as a one-rank group in process
     when none exists. Raises ValueError when the group's backend is not
-    the device's (a gloo group never carries a CUDA mesh)."""
+    the device's (a gloo group never carries a CUDA mesh, and a serving
+    mesh never lies on the dry-run's fake group)."""
     import torch.distributed as dist
     want = dist_backend(device)
     if not dist.is_initialized():
+        if want == "fake":
+            raise RuntimeError("a meta mesh lies on the dry-run's fake "
+                               "group: start it with fake_world(n)")
         if want == "nccl" and not torch.cuda.is_available():
             raise RuntimeError("a CUDA mesh needs a CUDA device; pass "
                                "device='cpu' for a gloo mesh")
@@ -97,6 +137,7 @@ def _mesh(device, grid: np.ndarray, names):
     holds one rank (which needs no group)."""
     from torch.distributed.device_mesh import DeviceMesh
     dt = torch.device(device).type
+    dt = "cpu" if dt == "meta" else dt
     return DeviceMesh(dt, torch.as_tensor(grid, dtype=torch.int64),
                       mesh_dim_names=tuple(names),
                       _init_backend=grid.size > 1)
@@ -204,6 +245,21 @@ def process_meshes(data: int, model: int, n_replicas: int, *,
     out = [[_mesh(device, g, AXES) for g in b.reshape(shape)]
            for b in blocks]
     return out[mine]
+
+
+def block_group(data: int, model: int, *, device="cuda"):
+    """The process group of this rank's block (see `_process_block`), over
+    which a fleet worker's replicas broadcast their results; None where
+    the block is the whole group (the default group serves) or one rank
+    (nothing to send). Collective: every rank builds every block's group,
+    in block order (`dist.new_group`), so every rank of the group calls it
+    at the same point."""
+    import torch.distributed as dist
+    blocks = _process_block(data, model, device)
+    if blocks.shape[0] == 1 or blocks.shape[1] == 1:
+        return None
+    groups = [dist.new_group([int(r) for r in b]) for b in blocks]
+    return groups[dist.get_rank() // blocks.shape[1]]
 
 
 def _rank_names(ranks, device) -> List[str]:

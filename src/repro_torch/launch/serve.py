@@ -249,6 +249,12 @@ def _rank_main(rank: int, argv: List[str], world: int, port: int,
                       MASTER_PORT=str(port))
     torch.set_num_threads(threads)
     main(argv)
+    import torch.distributed as dist
+    if dist.is_initialized():
+        # leave together: rank 0 holds the group's store, and a rank whose
+        # peers exited first can abort in the gloo teardown
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 def _spawn_ranks(argv: List[str], world: int, device: str) -> None:
@@ -280,10 +286,45 @@ def _join_group(args: argparse.Namespace) -> bool:
     return False
 
 
+def _rank_dispatch_cost(model, cfg: EngineConfig, mesh_shape):
+    """One decode dispatch of rank 0 of a (data, model) mesh under the
+    port's placement (its slot rows over 'data', its kv heads or Mamba
+    channels over 'model'), counted by `analysis.dispatch_cost` on the
+    dry-run's fake process group of data x model ranks, in this process
+    on the CPU: its collectives issue nothing, so their outputs hold no
+    numbers, and only the counts are read."""
+    from repro_torch.analysis import dispatch_cost as DC
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import mesh as M
+    from repro_torch.serve.backend import LocalBackend, ShardedBackend
+
+    class RankBackend(ShardedBackend):
+        """ShardedBackend on the fake mesh, without `ensure_world` (which
+        refuses a fake group to every serving path)."""
+
+        def build(self, model, cfg) -> None:
+            self.mesh = self._mesh
+            self._member, self._src = True, None
+            self._data = SH.axis_group(self.mesh, "data")
+            LocalBackend.build(self, model, cfg)
+
+    data, model_n = mesh_shape
+    with M.fake_world(data * model_n):
+        mesh = M.make_local_mesh(data, model_n, device="meta")
+        bk = InferenceEngine(model, dataclasses.replace(
+            cfg, device="cpu", ledger=None, trace=None, qos=None),
+            backend=RankBackend(mesh)).backend
+        return DC.analyze(bk._step_out)
+
+
 def _dry_run(model, cfg: EngineConfig, mesh_shape) -> None:
     """One PartitionSpec per cache / page / decode-state leaf on an
-    abstract (data, model) mesh, and one decode dispatch's FLOPs and bytes
-    per device under the port's placement (no process group)."""
+    abstract (data, model) mesh, and one decode dispatch's FLOPs, bytes,
+    wire bytes and collectives per device under the port's placement,
+    counted on the dry-run's fake process group (the JAX package's
+    line)."""
+    import torch
+
     from repro_torch.analysis import cost
     from repro_torch.distributed import sharding as SH
     from repro_torch.distributed import steps as ST
@@ -327,24 +368,30 @@ def _dry_run(model, cfg: EngineConfig, mesh_shape) -> None:
                 print(f"    {f'[{li}][{name!r}]':40s} {kind} {spec}")
         print(f"    {'page_table':40s} table    "
               f"{SH.P(*(tuple(SH.batch_pspec(mesh, cfg.n_slots)) + (None,)))}")
-    # one dispatch of a rank's rows on the plain path (the whole heads:
-    # 'model' splits only the attention and the recurrence)
-    bk = InferenceEngine(model, dataclasses.replace(
-        cfg, n_slots=rows, device="cpu", ledger=None, trace=None,
-        qos=None)).backend
-    flops = cost.count(bk._step_out)["flops"]
-    store = bk.pool.store if bk.paged else bk.pool.caches
-    placed = [{n: SH.P(None, *sp[1:]) for n, sp in layer.items()}
-              for layer in (pspecs if cfg.page_size else specs)]
-    cache_bytes = sum(
-        math.prod(SH.shard_shape(placed[li][n], t.shape, mesh))
-        * t.element_size() for li, layer in enumerate(store)
-        for n, t in layer.items())
+    r = _rank_dispatch_cost(model, cfg, mesh_shape)
     label = (f"speculative step (K={cfg.speculate}, draft replicated)"
-             if cfg.speculate else f"decode step (K={cfg.decode_chunk})")
-    print(f"[dry-run] {label} per device: {rows} of {cfg.n_slots} slot "
-          f"rows, {flops:.3g} flops (plain path), "
-          f"{cost.nbytes(bk.params):.3g} B of replicated parameters + "
+             if cfg.speculate else
+             f"paged decode step (K={cfg.decode_chunk}, page="
+             f"{cfg.page_size})" if cfg.page_size else
+             f"decode step (K={cfg.decode_chunk})")
+    coll = {k: int(v["count"]) for k, v in r["collectives"].items()
+            if v["count"]}
+    print(f"[dry-run] {label}: "
+          f"{r['flops']:.3g} flops, {r['bytes']:.3g} B touched, "
+          f"{r['wire_bytes']:.3g} B wire, collectives {coll or 'none'}")
+    # the port keeps every page on every data rank (ROADMAP.md §3)
+    shapes, placed = ((layout.store_shapes(n_pages),
+                       [{n: SH.P(None, *sp[1:]) for n, sp in layer.items()}
+                        for layer in pspecs]) if cfg.page_size else
+                      ([{n: tuple(t.shape) for n, t in layer.items()}
+                        for layer in caches], specs))
+    itemsize = torch.empty((), dtype=getattr(torch, cfg.cache_dtype)
+                           ).element_size()
+    cache_bytes = itemsize * sum(
+        math.prod(SH.shard_shape(placed[li][n], s, mesh))
+        for li, layer in enumerate(shapes) for n, s in layer.items())
+    print(f"[dry-run] per device: {rows} of {cfg.n_slots} slot rows, "
+          f"{cost.nbytes(model.params):.3g} B of replicated parameters + "
           f"{cache_bytes:.3g} B of its cache shard")
 
 

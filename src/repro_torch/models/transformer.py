@@ -290,11 +290,24 @@ def _norm(cfg: ModelConfig, p, x):
     return L.rmsnorm(p, x, cfg.norm_eps, scale_plus_one=cfg.rmsnorm_plus_one)
 
 
+def seeded_generator(seed: int, device) -> Optional[torch.Generator]:
+    """A torch.Generator on `device` seeded with `seed`, or None on the
+    meta device, whose tensors hold no numbers to draw."""
+    if torch.device(device).type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict:
     """Random parameters from a seeded torch.Generator on `device`. The
     numbers differ from the JAX package's init; parity tests carry JAX
-    weights across with `checkpoint.convert` instead."""
-    g = torch.Generator(device=device).manual_seed(seed)
+    weights across with `checkpoint.convert` instead.
+
+    On the meta device (shapes and dtypes, nothing allocated: what the
+    dry-run builds, as the JAX package's `jax.eval_shape` of its init)
+    no generator is made, since meta has none; a real device draws the
+    same numbers whatever this branch does."""
+    g = seeded_generator(seed, device)
     kw = dict(generator=g, device=device, dtype=cfg.pdtype())
     layers = []
     for i in range(cfg.n_layers):

@@ -552,7 +552,9 @@ class ShardedBackend(LocalBackend):
     A rank outside the mesh (another replica's, under a router) holds
     nothing and runs no step: it mirrors the replica's host bookkeeping,
     and each dispatch's result reaches it by a broadcast from the mesh's
-    first rank, so every rank's router sees every replica. On the card the
+    first rank over the ranks that keep that bookkeeping (`_group`: the
+    whole group here, a fleet worker's block under DistributedBackend),
+    so every such rank's router sees every replica. On the card the
     dispatch is captured as a CUDA graph as LocalBackend's; a one-rank
     axis issues no collective.
     """
@@ -587,7 +589,12 @@ class ShardedBackend(LocalBackend):
         # that run the same host bookkeeping (the peers)
         self._src = ranks[0] if len(ranks) < self._n_peers() else None
         self._data = SH.axis_group(mesh, "data") if self._member else None
+        self._group = self._peer_group(cfg.device)
         super().build(model, cfg)
+
+    def _peer_group(self, device):
+        """The group the results broadcast over: None, the whole group."""
+        return None
 
     def _n_peers(self) -> int:
         """How many ranks run this engine's host bookkeeping: every rank
@@ -649,7 +656,7 @@ class ShardedBackend(LocalBackend):
         out = super()._device_out(eager).reshape(-1).contiguous() \
             if self._member else torch.empty(
                 self._out_numel, dtype=torch.int32, device=self.device)
-        dist.broadcast(out, src=self._src)
+        dist.broadcast(out, src=self._src, group=self._group)
         return out if self.ledger_buf is not None else \
             out.reshape(self._out_shape)
 
@@ -673,7 +680,7 @@ class ShardedBackend(LocalBackend):
         if self._src is not None:
             import torch.distributed as dist
             logits = logits.float().contiguous()
-            dist.broadcast(logits, src=self._src)
+            dist.broadcast(logits, src=self._src, group=self._group)
         return logits
 
     def describe(self) -> Dict[str, Any]:
@@ -723,7 +730,11 @@ class DistributedBackend(ShardedBackend):
     coordinator address is given), then ShardedBackend on replica
     `replica` of `launch.mesh.process_meshes`, the meshes over this
     process's ranks. In a group that is one block of ranks (torchrun)
-    that is ShardedBackend on `replica_meshes` exactly, token for token."""
+    that is ShardedBackend on `replica_meshes` exactly, token for token.
+    In a group of several blocks (a fleet whose workers own several
+    devices: a worker is a block of data x model ranks) each block's
+    replicas broadcast their results over the block's own group
+    (`launch.mesh.block_group`), which every rank builds collectively."""
 
     name = "distributed"
 
@@ -742,17 +753,10 @@ class DistributedBackend(ShardedBackend):
         super().__init__(mesh=None)
 
     def build(self, model, cfg) -> None:
-        import torch.distributed as dist
-
         from repro_torch.launch import mesh as M
         f = self._fleet
         d, m = f["mesh_shape"]
         M.ensure_world(cfg.device)
-        if f["n_replicas"] > 1 and d * m < dist.get_world_size():
-            raise NotImplementedError(
-                "several replicas in a process block of a larger group "
-                "(a fleet worker owning several devices): ROADMAP.md queue "
-                "1, item 14 (multi-device fleet workers)")
         if self._mesh is None:
             self._mesh = M.process_meshes(
                 d, m, f["n_replicas"], device=cfg.device)[f["replica"]]
@@ -763,6 +767,10 @@ class DistributedBackend(ShardedBackend):
         one fleet worker's replicas run on its own ranks alone."""
         d, m = self._fleet["mesh_shape"]
         return d * m
+
+    def _peer_group(self, device):
+        from repro_torch.launch import mesh as M
+        return M.block_group(*self._fleet["mesh_shape"], device=device)
 
     def describe(self) -> Dict[str, Any]:
         import torch.distributed as dist

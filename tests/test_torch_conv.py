@@ -91,7 +91,7 @@ def test_conv_matches_jax_on_the_reference_path(kind, tag):
     jp = _jparams(kind, jspec)
     x = _x(4, _xshape(kind))
     want = getattr(JC, kind)(jp, jnp.asarray(x), jspec, backend="ref")
-    pp = PC.conv_params(jp)
+    pp = PC.conv_params(jp, device="cpu")
     assert set(pp) == set(jp) and all(isinstance(pp[k], int)
                                       for k in pp if k != "w")
     with ops.reference_path():
@@ -131,7 +131,7 @@ def test_packed_conv_matches_jax_apply_packed(kind, tag):
                else JC.im2col_2d(jnp.asarray(x), jp["fw"], jp["fh"]))
     want = jkr.apply_packed(jlin.buffers, patches, jlin.spec, n, p,
                             backend="ref")
-    pp = PC.conv_params(jp)
+    pp = PC.conv_params(jp, device="cpu")
     pp["w"] = pkr.pack_linear({"w": pp["w"]}, pspec)
     assert sorted(pp["w"].buffers) == sorted(jlin.buffers)
     got = getattr(PC, kind)(pp, torch.from_numpy(x), pspec)

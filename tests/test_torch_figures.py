@@ -92,7 +92,7 @@ def test_instantiate_fn_matches_jax_fn(name):
     ps = dataclasses.replace(BS.BY_NAME[name], sparsity=0.5)
     params, x, fn = BS.instantiate(ps, generator=_gen(), device="cpu")
     assert params["w"].shape == jp["w"].shape and x.shape == jx.shape
-    got = fn(conv_params(jp), torch.from_numpy(np.array(jx)))
+    got = fn(conv_params(jp, device="cpu"), torch.from_numpy(np.array(jx)))
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
 
 
@@ -129,7 +129,7 @@ def test_counted_macs_against_jax_hlo(name, s):
     hlo = hlo_cost(jfn, jp, jx)["macs"]
     ps = dataclasses.replace(BS.BY_NAME[name], sparsity=s)
     _, _, fn = BS.instantiate(ps, generator=_gen(), device="cpu")
-    got = cost.count(fn, conv_params(jp),
+    got = cost.count(fn, conv_params(jp, device="cpu"),
                      torch.from_numpy(np.array(jx)))["macs"]
     assert abs(hlo / got - 1.0) <= HLO_MAC_TOL, (hlo, got)
     if ps.kernel != "gemms" or s == 0.0:

@@ -267,18 +267,68 @@ def test_fleet_cli_with_death_on_cpu():
 
 
 @pytest.mark.parametrize("flags", [["--jax-coordinator", "auto"],
-                                   ["--devices-per-process", "2"]])
-def test_fleet_refusals_name_item_11(flags, monkeypatch):
-    """A worker that owns several devices is refused, naming its ROADMAP.md
-    item (14, split off item 11); `--jax-coordinator` (ported) joins the
-    workers into one process group and the fleet still gives the single
-    engine's tokens."""
-    if flags[0] == "--devices-per-process":
-        with pytest.raises(NotImplementedError, match="item 14"):
-            F.main(["--device", "cpu"] + flags)
-        return
+                                   ["--devices-per-process", "2",
+                                    "--replicas", "2"]])
+def test_fleet_coordinator_and_devices_per_process(flags, monkeypatch):
+    """`--jax-coordinator` joins the workers into one process group, and
+    `--devices-per-process 2` gives each worker two devices (on the CPU
+    every replica is on `cpu`); either way the fleet gives the single
+    engine's tokens (main exits 0 only then)."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     assert F.main(["--device", "cpu", "--requests", "4"] + flags) == 0
+
+
+def test_fleet_cli_block_workers_with_death_on_cpu():
+    """Workers that own two devices each, joined into one group: 2 blocks
+    of 2 gloo ranks (a leader with the control socket and a follower it
+    relays to), 2 replicas a block; one block killed mid-trace. The
+    outputs stay the in-coordinator engine's."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.fleet", "--device",
+           "cpu", "--processes", "2", "--requests", "6", "--replicas", "2",
+           "--devices-per-process", "2", "--jax-coordinator", "auto",
+           "--inject-death"]
+    proc = subprocess.run(cmd, cwd=ROOT, env=_env(), capture_output=True,
+                          text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "# injected death: process" in proc.stdout
+    assert "fleet 2x2:" in proc.stdout and "dead 1" in proc.stdout
+    assert "token-identical vs single: True" in proc.stdout
+
+
+@pytest.mark.parametrize("case", ["zero", "fewer_than_replicas",
+                                  "block_split", "cards"])
+def test_devices_per_process_refusals(case, monkeypatch):
+    """What a worker cannot own is refused before any process starts: no
+    device, fewer devices than replicas, a block of ranks the replicas do
+    not split, and on the card a host with fewer cards than processes x
+    D (no fall-back to a shared device)."""
+    started = []
+    monkeypatch.setattr(F.subprocess, "Popen",
+                        lambda *a, **k: started.append(a))
+    kw = {"zero": dict(devices_per_process=-1, device="cpu"),
+          "fewer_than_replicas": dict(devices_per_process=2,
+                                      replicas_per_process=3, device="cpu"),
+          "block_split": dict(devices_per_process=2, replicas_per_process=3,
+                              jax_coordinator="auto", device="cpu"),
+          "cards": dict(devices_per_process=2, device="cuda")}[case]
+    if case == "cards":
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    match = {"zero": ">= 1", "fewer_than_replicas": "3 replicas",
+             "block_split": "does not divide",
+             "cards": "need 4 cards; this host has 1"}[case]
+    with pytest.raises(ValueError, match=match):
+        F.spawn_fleet(2, **kw)
+    assert not started
+
+
+@pytest.mark.cuda
+def test_one_card_refuses_two_devices_per_process():
+    """On a one-card host a worker that owns two cards is refused with
+    ValueError, naming both counts, before any worker starts."""
+    if torch.cuda.device_count() != 1:
+        pytest.skip("needs a host with exactly one card")
+    with pytest.raises(ValueError, match="need 2 cards; this host has 1"):
+        F.spawn_fleet(1, devices_per_process=2, device="cuda")
 
 
 def test_spawn_fleet_fails_fast_on_a_dead_worker(monkeypatch):

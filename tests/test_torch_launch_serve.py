@@ -174,10 +174,12 @@ _SPEC_LINE = re.compile(r"^    \[(\d+)\]\['(\w+)'\]\s+(?:paged|resident)?\s*"
 @pytest.mark.parametrize("page", [[], ["--page-size", "8"]],
                          ids=["slab", "paged"])
 def test_cli_dry_run_prints_jax_specs(capsys, page):
-    """`--mesh 2,2 --dry-run` prints, with no process group, every slab or
-    page-store leaf's spec and every decode-state vector's, each the JAX
-    package's for the same (2, 2) mesh; and a dispatch's FLOPs and bytes
-    per device."""
+    """`--mesh 2,2 --dry-run` prints, without joining a serving group,
+    every slab or page-store leaf's spec and every decode-state vector's,
+    each the JAX package's for the same (2, 2) mesh; and rank 0's dispatch
+    counted on the dry-run's fake group of 4 ranks, in the JAX launcher's
+    line: one all-gather of the heads a layer, and on the slab one of the
+    token block over 'data'."""
     import ast
 
     import jax
@@ -214,6 +216,10 @@ def test_cli_dry_run_prints_jax_specs(capsys, page):
                          out, re.M), (k, out)
     assert re.search(r"per device: 1 of 2 slot rows" if not page
                      else r"per device: 2 of 2 slot rows", out), out
+    gathers = cfg.n_layers + (0 if page else 1)
+    assert re.search(r"^\[dry-run\] (paged )?decode step \(K=1.*\): \S+ flops, "
+                     r"\S+ B touched, \S+ B wire, collectives "
+                     rf"\{{'all-gather': {gathers}\}}$", out, re.M), out
 
 
 def test_cli_card_by_default():

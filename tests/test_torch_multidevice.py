@@ -2,7 +2,8 @@
 router over replica submeshes, `pipeline_apply`, `cross_pod_psum_int8`,
 the re-mesh restore and the data-parallel train step, on one gloo process
 group of four CPU ranks (a (data=2, model=2) mesh, a (4, 1) one for the
-save, a 1-D 'pod' axis of four for the pipeline and the psum): the cases
+save, a 1-D 'pod' axis of four for the pipeline and the psum, two fleet
+blocks of (2, 1) for workers that own two devices): the cases
 of the forced-8-device JAX tests (`tests/test_multidevice.py`,
 `tests/test_serve_sharded.py`, `tests/test_serve_paged.py`,
 `tests/test_serve_speculative.py`), (2, 2) in place of their (4, 2).
@@ -164,6 +165,18 @@ def test_distributed_backend_identity_and_describe(results):
             "backend": "distributed", "mesh_shape": [2, 2],
             "mesh_axes": ["data", "model"], "n_devices": 4,
             "process_index": rank, "num_processes": 4, "replica": 0}
+
+
+def test_fleet_blocks_of_two_devices(results):
+    """2 workers x D = 2 in a group of 4: each block's replicas (one rank
+    each) give the tokens of ShardedBackend on `replica_meshes`, and
+    broadcast over the block's own group, not the world."""
+    want = _ok(results, "router")["sharded"]
+    for rank, r in enumerate(_ok(results, "blocks")):
+        block = [rank // 2 * 2, rank // 2 * 2 + 1]
+        assert r["tokens"] == want
+        assert r["groups"] == [block, block]
+        assert r["meshes"] == [[block[0]], [block[1]]]
 
 
 def test_pipeline_parallelism_matches_sequential(results):

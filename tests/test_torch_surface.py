@@ -235,13 +235,16 @@ def test_train_exports_cover_the_reference(name):
 BENCH_MODULES = ("repro.core.conv", "repro.core.bench_specs", "repro.analysis",
                  "repro.analysis.roofline", "repro.launch.mesh")
 # modules of the JAX package the port has no counterpart of -> ROADMAP.md
-# item (`repro_torch.analysis.cost` stands in for the HLO analysis in the
-# figures; the dry-run reads it)
-UNPORTED_BENCH_MODULES = {
-    "repro.analysis.hlo": "item 14 (the dry-run): its XLA HLO analysis",
-    "repro.launch.dryrun": "item 14 (the dry-run)",
-    "repro.launch.dryrun_all": "item 14 (the dry-run)",
-    "repro.launch.shapes": "item 14 (the dry-run)"}
+# item: none since the dry-run's (item 14); `DRYRUN_MODULES` covers them
+UNPORTED_BENCH_MODULES = {}
+# the dry-run's modules -> the port's counterpart; hlo's XLA-text parser
+# (`parse_module`, `Instr`, `Computation`) has none: the port has no HLO
+DRYRUN_MODULES = {
+    "repro.analysis.hlo": "repro_torch.analysis.dispatch_cost",
+    "repro.launch.dryrun": "repro_torch.launch.dryrun",
+    "repro.launch.dryrun_all": "repro_torch.launch.dryrun_all",
+    "repro.launch.shapes": "repro_torch.launch.shapes"}
+XLA_TEXT_ONLY = {"parse_module", "Instr", "Computation"}
 # names the port has that refuse with NotImplementedError naming the item
 REFUSED_BENCH = {}
 
@@ -274,13 +277,29 @@ def test_bench_exports_cover_the_reference(name):
 
 
 @needs_jax
-@pytest.mark.parametrize("name", sorted(UNPORTED_BENCH_MODULES))
-def test_unported_bench_modules_name_their_item(name):
-    import importlib.util
-    assert importlib.util.find_spec(name) is not None
-    assert importlib.util.find_spec("repro_torch" + name[len("repro"):]) \
-        is None
-    assert UNPORTED_BENCH_MODULES[name].startswith("item ")
+@pytest.mark.parametrize("name", sorted(DRYRUN_MODULES))
+def test_dryrun_modules_cover_the_reference(name):
+    """Every public name of the JAX dry-run modules exists in the port's
+    counterpart; hlo's `analyze` and `breakdown` are the analyzer's, and
+    only its XLA-text parser has no counterpart. No unported module is
+    left."""
+    import os
+    assert UNPORTED_BENCH_MODULES == {}
+    before = os.environ.get("XLA_FLAGS")
+    try:        # repro.launch.dryrun sets a 512-device flag on import
+        ref = _public(name)
+    finally:
+        if before is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = before
+    port = _public(DRYRUN_MODULES[name])
+    missing = ref - port
+    if name == "repro.analysis.hlo":
+        assert {"analyze", "breakdown"} <= port
+        assert missing == XLA_TEXT_ONLY
+    else:
+        assert missing == set(), sorted(missing)
 
 
 # the dataclasses both packages define; the port's `device` stands in the

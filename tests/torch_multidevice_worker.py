@@ -267,6 +267,32 @@ def distributed(ctx):
                     "describe": eng.backend.describe()})
 
 
+def blocks(ctx):
+    """Two fleet workers of two devices each: the 4 ranks as 2 blocks of
+    (2, 1), 2 replicas a block on `process_meshes` (one rank each), both
+    blocks serving the router scenario's trace; results broadcast over
+    the block's own group."""
+    from repro_torch.serve import (DistributedBackend, EngineConfig,
+                                   ReplicaRouter)
+    m = _model(ctx, DANUBE)
+    cfg = EngineConfig(n_slots=2, max_len=32, decode_chunk=2, max_waiting=2,
+                       device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, m.cfg.vocab, 6) for _ in range(6)]
+    r = ReplicaRouter.build(m, cfg, 2, backend_factory=lambda i:
+                            DistributedBackend(mesh_shape=(2, 1),
+                                               n_replicas=2, replica=i,
+                                               device="cpu"))
+    reqs = [r.submit(p, 5, arrival_step=0) for p in prompts]
+    r.run()
+    return _gather({
+        "tokens": [list(map(int, q.generated)) for q in reqs],
+        "groups": [dist.get_process_group_ranks(e.backend._group)
+                   for e in r.replicas],
+        "meshes": [e.backend.mesh.mesh.reshape(-1).tolist()
+                   for e in r.replicas]})
+
+
 def pipeline(ctx):
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -374,8 +400,8 @@ def training(ctx):
 
 
 SCENARIOS = (identity, sampled, placement, paged, speculative, tiers,
-             in_place, router, distributed, pipeline, psum_int8, remesh,
-             training)
+             in_place, router, distributed, blocks, pipeline, psum_int8,
+             remesh, training)
 
 
 def _gather(value):
